@@ -1,0 +1,26 @@
+"""is3d2_tpu_torch — the PyTorch/CUDA port of is3d2_tpu.
+
+A second package beside the JAX package ``is3d2_tpu``, which stays the
+reference.  The layout mirrors it so each module has a counterpart:
+
+  - io/        numpy readers and writers (parameters, quadrature tables, PDG
+               lists, mode-1 surfaces, delta-f tables, op-1 result files);
+  - physics/   per-cell physics on torch f64 tensors (spline, rest-frame
+               algebra, delta-f coefficients);
+  - core/      the Cooper-Frye engines: the torch f64 engine and the
+               compensated-f32 ("f32c") path;
+  - ops/       hand-written CUDA kernels for Hopper, their plain torch
+               versions and the nvcc build;
+  - tools/     delta-f table generator and the synthetic-workdir builder.
+
+The port covers operation 1 (continuous spectra), df 1/2, 2+1d, mode-1
+surfaces; ``Config.validate_slice`` rejects the rest.  Importing it never
+imports jax.
+"""
+
+from .constants import hbarC, two_pi, two_pi2_hbarC3, four_pi2_hbarC3  # noqa: F401
+from .config import Config  # noqa: F401
+
+__version__ = "0.1.0"
+
+__all__ = ["hbarC", "two_pi", "two_pi2_hbarC3", "four_pi2_hbarC3", "Config"]

@@ -1,0 +1,126 @@
+"""Top-level particlization driver, operation 1.
+
+Counterpart of is3d2_tpu/driver.py (the reference's IS3D class,
+iS3D.cpp:81-282): load parameters, surface, PDG list, delta-f coefficient
+tables and quadrature grids, compute the continuous spectra on ``device``
+and write the result files.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from .config import Config
+from .core.spectra import compute_spectra
+from .io import output
+from .io.deltaf_tables import DeltafTables
+from .io.pdg import read_pdg
+from .io.surface import SurfaceData, read_surface
+from .io.tables import GaussLaguerre, GaussLegendre, MomentumGrids, load_table
+from .physics.deltaf import DeltafData
+from .report import RunReport, check_invariants
+
+
+class IS3D:
+    """One particlization run rooted at a working directory laid out like the
+    reference repo (PDG/, tables/, deltaf_coefficients/, input/, results/).
+
+    ``device`` is where the engines run ("cuda" by default, or "cpu").
+    The CPU is taken only when asked for: without it, a machine where torch
+    sees no GPU raises rather than running the plain version for hours."""
+
+    def __init__(self, workdir: str | Path = ".",
+                 cfg: Config | None = None,
+                 data_dir: str | Path | None = None,
+                 device: str | torch.device | None = None):
+        self.workdir = Path(workdir)
+        self.data_dir = Path(data_dir) if data_dir else self.workdir
+        if cfg is None:
+            cfg = Config.from_file(self.workdir / "iS3D_parameters.dat")
+        cfg.validate_slice()
+        self.cfg = cfg
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("torch sees no CUDA device; pass "
+                               "device='cpu' (--device cpu) to run on the CPU")
+        self.surface: SurfaceData | None = None
+        self.spectra = None
+        self.report = RunReport()
+
+    def load_surface_from_file(self, path: str | Path | None = None) -> None:
+        path = Path(path) if path else self.workdir / "input/surface.dat"
+        self.surface = read_surface(path, self.cfg.mode, self.cfg.dimension,
+                                    bool(self.cfg.include_baryon))
+
+    def _setup(self):
+        cfg = self.cfg
+        data = self.data_dir
+        self.species = read_pdg(cfg.hrg_eos, data / "PDG")
+        chosen_mcids = load_table(data / "PDG/chosen_particles.dat")[:, 0].astype(int)
+        self.chosen_mcids = chosen_mcids
+        self.chosen_idx = self.species.chosen_indices(chosen_mcids)
+
+        self.laguerre = GaussLaguerre.from_file(data / "tables/gauss/gla_roots_weights.txt")
+        self.legendre = GaussLegendre.from_file(data / "tables/gauss/gauss_legendre.dat")
+        self.grids = MomentumGrids.from_dir(data / "tables")
+
+        # surface-averaged thermodynamics (cross-phase handoff file,
+        # readindata.cpp:363-366)
+        self.plasma = self.surface.thermo_averages()
+        self.plasma.write(self.workdir
+                          / "tables/thermodynamic/average_thermodynamic_quantities.dat")
+
+        tables = DeltafTables.load(cfg.hrg_eos, bool(cfg.include_baryon),
+                                   data / "deltaf_coefficients/vh")
+        self.df_data = DeltafData(tables, cfg.df_mode, bool(cfg.include_baryon))
+
+    def run_particlization(self, write: bool = True) -> None:
+        cfg = self.cfg
+        print(f"is3d2_tpu_torch particlization: operation={cfg.operation} "
+              f"df_mode={cfg.df_mode} hrg_eos={cfg.hrg_eos} "
+              f"dimension={cfg.dimension} device={self.device}", flush=True)
+        t_read = time.time()
+        self.load_surface_from_file()
+        t_read = time.time() - t_read
+        print(f"surface: {self.surface.n_cells} cells ({t_read:.1f}s)",
+              flush=True)
+        t0 = time.time()
+        self._setup()
+        t_setup = time.time() - t0
+        print(f"setup done ({t_setup:.1f}s): "
+              f"{len(self.species)} species, {len(self.chosen_idx)} chosen, "
+              f"T_avg = {self.plasma.temperature:.4f} GeV", flush=True)
+        self.stage_seconds = {"read": t_read, "setup": t_setup}
+
+        results = self.workdir / "results"
+        mcids = [int(self.species.mc_id[i]) for i in self.chosen_idx]
+        report = self.report
+        report.n_cells = self.surface.n_cells
+        report.invariants = check_invariants(
+            self.surface, include_baryondiff=bool(cfg.include_baryon
+                                                  and cfg.include_baryondiff_deltaf))
+
+        print("computing continuous momentum spectra ...", flush=True)
+        t_compute = time.time()
+        spectra = compute_spectra(self.surface, self.species, self.chosen_idx,
+                                  self.grids, self.df_data, cfg, self.device,
+                                  report=report)
+        self.spectra = spectra
+        dt = time.time() - t_compute
+        self.stage_seconds["compute"] = dt
+        print(f"spectra calculation took {dt:.3f} seconds", flush=True)
+        if write:
+            tw = time.time()
+            for writer in (output.write_spectra, output.write_vn,
+                           output.write_dN_2pipTdpTdy, output.write_dN_dphidy,
+                           output.write_dN_dy):
+                writer(results, mcids, spectra, self.grids, cfg.dimension)
+            self.stage_seconds["write"] = time.time() - tw
+
+        report.print()
+        print(f"Particlization took {time.time() - t0:.3f} seconds")
+        print("stage seconds: " + json.dumps(self.stage_seconds), flush=True)

@@ -1,0 +1,42 @@
+"""Build the port's engine state from dicts of numpy arrays.
+
+Lets a caller hand the port exactly the state another implementation holds
+(for instance the JAX package's CellArrays converted with ``np.asarray``),
+so each stage can be compared in isolation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.cells import CellArrays
+from .core.spectra import MomentumGridDevice, SpeciesArrays
+
+
+def _tensors(d: dict, names, device) -> dict:
+    return {n: torch.as_tensor(np.array(d[n], dtype=np.float64),
+                               device=device) for n in names}
+
+
+def cells_from_numpy(d: dict, device="cpu") -> CellArrays:
+    """CellArrays from a dict holding (at least) every CellArrays field."""
+    names = [f.name for f in dataclasses.fields(CellArrays)]
+    return CellArrays(**_tensors(d, names, device))
+
+
+def coeffs_from_numpy(d: dict, device="cpu") -> dict:
+    """The df12 coefficient-column dict."""
+    return _tensors(d, list(d), device)
+
+
+def species_from_numpy(d: dict, device="cpu") -> SpeciesArrays:
+    return SpeciesArrays(**_tensors(d, ("mass", "sign", "degeneracy",
+                                        "baryon"), device))
+
+
+def grid_from_numpy(d: dict, device="cpu") -> MomentumGridDevice:
+    names = [f.name for f in dataclasses.fields(MomentumGridDevice)]
+    return MomentumGridDevice(**_tensors(d, names, device))

@@ -1,0 +1,85 @@
+"""Local-rest-frame kinematics, batched over freezeout cells.
+
+Counterpart of is3d2_tpu/physics/lrf.py (src/cpp/LocalRestFrame.cpp and the
+per-cell shear completion of MomentumSpectra.cpp:149-161): the pieces the
+op-1 path and the invariant checks need, as functions of f64 tensors of
+shape (n_cells,).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def u_time_component(tau, ux, uy, un):
+    """u^tau from normalization u.u = 1."""
+    return torch.sqrt(1.0 + ux * ux + uy * uy + (tau * un) ** 2)
+
+
+def complete_shear(tau, ux, uy, un, pixx, pixy, pixn, piyy, piyn):
+    """Reconstruct (pitt, pitx, pity, pitn, pinn) from the 5 stored components
+    enforcing pi.u = 0 and Tr pi = 0 (MomentumSpectra.cpp:149-161)."""
+    tau2 = tau * tau
+    ut = u_time_component(tau, ux, uy, un)
+    ut2 = ut * ut
+    ux2 = ux * ux
+    uy2 = uy * uy
+    utperp2 = 1.0 + ux2 + uy2
+    tau2_un = tau2 * un
+    pinn = (pixx * (ux2 - ut2) + piyy * (uy2 - ut2)
+            + 2.0 * (pixy * ux * uy + tau2_un * (pixn * ux + piyn * uy))) \
+        / (tau2 * utperp2)
+    pitn = (pixn * ux + piyn * uy + tau2_un * pinn) / ut
+    pity = (pixy * ux + piyy * uy + tau2_un * piyn) / ut
+    pitx = (pixx * ux + pixy * uy + tau2_un * pixn) / ut
+    pitt = (pitx * ux + pity * uy + tau2_un * pitn) / ut
+    return pitt, pitx, pity, pitn, pinn
+
+
+def orthogonal_time_component(tau, ux, uy, un, Vx, Vy, Vn):
+    """V^tau from orthogonality V.u = 0 (MomentumSpectra.cpp:183)."""
+    tau2 = tau * tau
+    ut = u_time_component(tau, ux, uy, un)
+    return (Vx * ux + Vy * uy + Vn * tau2 * un) / ut
+
+
+@dataclasses.dataclass
+class MilneBasis:
+    """Orthonormal tetrad (U, X, Y, Z) in Milne coordinates
+    (LocalRestFrame.cpp:12-41).  Components not listed are zero."""
+
+    Xt: torch.Tensor
+    Xx: torch.Tensor
+    Xy: torch.Tensor
+    Xn: torch.Tensor
+    Yx: torch.Tensor
+    Yy: torch.Tensor
+    Zt: torch.Tensor
+    Zn: torch.Tensor
+
+
+def milne_basis(tau, ux, uy, un) -> MilneBasis:
+    ut = u_time_component(tau, ux, uy, un)
+    uperp = torch.sqrt(ux * ux + uy * uy)
+    utperp = torch.sqrt(1.0 + ux * ux + uy * uy)
+
+    sinhL = tau * un / utperp
+    coshL = ut / utperp
+
+    # uperp -> 0 guard (LocalRestFrame.cpp:33-40)
+    safe = uperp > 1.0e-5
+    inv_uperp = torch.where(safe, 1.0 / torch.where(safe, uperp, 1.0), 0.0)
+
+    Xt = uperp * coshL
+    Xx = torch.where(safe, utperp * ux * inv_uperp, 1.0)
+    Xy = torch.where(safe, utperp * uy * inv_uperp, 0.0)
+    Xn = uperp * sinhL / tau
+
+    Yx = torch.where(safe, -uy * inv_uperp, 0.0)
+    Yy = torch.where(safe, ux * inv_uperp, 1.0)
+
+    Zt = sinhL
+    Zn = coshL / tau
+    return MilneBasis(Xt=Xt, Xx=Xx, Xy=Xy, Xn=Xn, Yx=Yx, Yy=Yy, Zt=Zt, Zn=Zn)

@@ -1,0 +1,110 @@
+"""Run-time diagnostics the reference always prints, for operation 1.
+
+Counterpart of is3d2_tpu/report.py: the u.dsigma <= 0 skip count and the
+tetrad orthonormality / pi.u = 0 / Tr pi = 0 / V.u = 0 invariant warnings
+(LocalRestFrame.cpp:43-71, 115-131, 164-171).  The breakdown and sampler
+counters come with the engines that produce them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .physics import lrf
+
+
+@dataclasses.dataclass
+class RunReport:
+    """Aggregated per-run health metrics (None = not applicable this run)."""
+
+    n_cells: int = 0
+    skipped_cells: int | None = None          # u.dsigma <= 0 (masked out)
+    invariants: dict | None = None            # name -> (max violation, tol)
+
+    def lines(self) -> list[str]:
+        out = []
+        if self.skipped_cells:
+            out.append(f"skipped {self.skipped_cells} / {self.n_cells} cells "
+                       "with u.dsigma <= 0")
+        if self.invariants:
+            for name, (val, tol) in self.invariants.items():
+                if val > tol:
+                    out.append(f"WARNING: {name} violated: max |err| = "
+                               f"{val:.6g} (tol {tol:g})")
+        return out
+
+    def print(self) -> None:
+        for line in self.lines():
+            print(line, flush=True)
+
+
+def check_invariants(surf, include_baryondiff: bool = False) -> dict:
+    """Tensor-algebra self-checks on a freezeout surface, vectorized over
+    cells in f64 on the host (the reference's per-cell test_orthonormality /
+    test_pimunu_orthogonality_and_tracelessness / test_Vmu_orthogonality).
+
+    Returns {invariant: (max violation, tolerance)}.
+    """
+    def h(a):
+        return torch.as_tensor(a, dtype=torch.float64)
+
+    tau, ux, uy, un = h(surf.tau), h(surf.ux), h(surf.uy), h(surf.un)
+    tau2 = tau * tau
+    ut = lrf.u_time_component(tau, ux, uy, un)
+    b = lrf.milne_basis(tau, ux, uy, un)
+
+    def mx(a):
+        return float(a.abs().max()) if a.shape[0] else 0.0
+
+    eps_basis = 1.0e-14       # LocalRestFrame.cpp:62
+    eps_pi = 1.0e-15          # LocalRestFrame.cpp:124
+    eps_V = 1.0e-15           # LocalRestFrame.cpp:168
+
+    out = {
+        "U normalization (U.U - 1)":
+            (mx(ut * ut - ux * ux - uy * uy - tau2 * un * un - 1.0), eps_basis),
+        "X normalization (X.X + 1)":
+            (mx(b.Xt * b.Xt - b.Xx * b.Xx - b.Xy * b.Xy
+                - tau2 * b.Xn * b.Xn + 1.0), eps_basis),
+        "Y normalization (Y.Y + 1)":
+            (mx(-b.Yx * b.Yx - b.Yy * b.Yy + 1.0), eps_basis),
+        "Z normalization (Z.Z + 1)":
+            (mx(b.Zt * b.Zt - tau2 * b.Zn * b.Zn + 1.0), eps_basis),
+        "U orthogonality (max U.X, U.Y, U.Z)":
+            (max(mx(b.Xt * ut - b.Xx * ux - b.Xy * uy - tau2 * b.Xn * un),
+                 mx(-b.Yx * ux - b.Yy * uy),
+                 mx(b.Zt * ut - tau2 * b.Zn * un)), eps_basis),
+        "X orthogonality (max X.Y, X.Z)":
+            (max(mx(-b.Xx * b.Yx - b.Xy * b.Yy),
+                 mx(b.Xt * b.Zt - tau2 * b.Xn * b.Zn)), eps_basis),
+    }
+
+    # completed shear tensor: pi.u = 0 and Tr pi = 0 hold by construction;
+    # verify the completion the way the reference verifies its stored tensor
+    pixx, pixy, pixn = h(surf.pixx), h(surf.pixy), h(surf.pixn)
+    piyy, piyn = h(surf.piyy), h(surf.piyn)
+    pitt, pitx, pity, pitn, pinn = lrf.complete_shear(
+        tau, ux, uy, un, pixx, pixy, pixn, piyy, piyn)
+    pi_mag = torch.sqrt(
+        pitt**2 + pitx**2 + pity**2 + tau2**2 * pitn**2 + pixx**2 + pixy**2
+        + tau2**2 * pixn**2 + piyy**2 + tau2**2 * piyn**2 + tau2**2 * pinn**2)
+    scale = max(float(pi_mag.max()) if pi_mag.shape[0] else 0.0, 1e-300)
+    out["pi.u orthogonality"] = (max(
+        mx(pitt * ut - pitx * ux - pity * uy - tau2 * pitn * un),
+        mx(pitx * ut - pixx * ux - pixy * uy - tau2 * pixn * un),
+        mx(pity * ut - pixy * ux - piyy * uy - tau2 * piyn * un),
+        mx(pitn * ut - pixn * ux - piyn * uy - tau2 * pinn * un)) / scale, eps_pi)
+    out["pi tracelessness (Tr pi)"] = (
+        mx(pitt - pixx - piyy - tau2 * pinn) / scale, eps_pi)
+
+    if include_baryondiff:
+        Vx, Vy, Vn = h(surf.Vx), h(surf.Vy), h(surf.Vn)
+        Vt = lrf.orthogonal_time_component(tau, ux, uy, un, Vx, Vy, Vn)
+        V_mag = torch.sqrt(Vt**2 + Vx**2 + Vy**2 + tau2 * Vn**2)
+        vscale = max(float(V_mag.max()) if V_mag.shape[0] else 0.0, 1e-300)
+        out["V.u orthogonality"] = (
+            mx(Vt * ut - Vx * ux - Vy * uy - tau2 * Vn * un) / vscale, eps_V)
+
+    return out

@@ -1,0 +1,254 @@
+"""Synthetic working directories for op-1 runs, built from a seed.
+
+Writes everything ``python -m is3d2_tpu_torch <workdir>`` (and the JAX
+package's CLI) reads, with no data files from outside the repository:
+
+  PDG/pdg_box.dat, PDG/chosen_particles.dat   smash-box hadron list
+  tables/gauss/gla_roots_weights.txt          generalized Gauss-Laguerre
+  tables/gauss/gauss_legendre.dat
+  tables/momentum/{pT,phi,y}_table.dat
+  tables/spacetime_rapidity/eta_table.dat
+  deltaf_coefficients/vh/smash_box/*.dat      from generate_deltaf_tables
+  input/surface.dat                           mode-1 surface
+  iS3D_parameters.dat
+
+``make_surface`` and ``write_mode1`` are copies of tests/surfgen.py, so the
+same seed gives the same surface bit for bit.
+
+Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+from scipy.special import roots_genlaguerre
+
+from ..constants import hbarC
+from ..io.pdg import decode_mcid
+from ..io.surface import SurfaceData
+from .generate_deltaf_tables import compute_tables
+from .generate_deltaf_tables import write_tables as write_df_tables
+
+
+def make_surface(n_cells: int, seed: int = 0, dimension: int = 2,
+                 include_baryon: bool = False, vorticity: bool = False,
+                 shear_scale: float = 0.02, bulk_scale: float = 0.01,
+                 flow_scale: float = 1.0) -> SurfaceData:
+    rng = np.random.default_rng(seed)
+    s = SurfaceData.zeros(n_cells)
+    s.tau = rng.uniform(1.0, 10.0, n_cells)
+    s.x = rng.uniform(-10.0, 10.0, n_cells)
+    s.y = rng.uniform(-10.0, 10.0, n_cells)
+    s.eta = np.zeros(n_cells) if dimension == 2 else rng.uniform(-2.0, 2.0, n_cells)
+
+    # surface normal: mostly timelike with some spatial tilt
+    s.dat = rng.uniform(0.05, 0.4, n_cells)
+    s.dax = rng.uniform(-0.1, 0.1, n_cells)
+    s.day = rng.uniform(-0.1, 0.1, n_cells)
+    s.dan = np.zeros(n_cells) if dimension == 2 else rng.uniform(-0.02, 0.02, n_cells)
+
+    s.ux = rng.uniform(-1.0, 1.0, n_cells) * flow_scale
+    s.uy = rng.uniform(-1.0, 1.0, n_cells) * flow_scale
+    s.un = np.zeros(n_cells) if dimension == 2 else rng.uniform(-0.05, 0.05, n_cells)
+
+    s.T = rng.uniform(0.145, 0.165, n_cells)     # GeV, inside table range
+    s.E = rng.uniform(0.22, 0.36, n_cells)       # GeV/fm^3
+    s.P = rng.uniform(0.07, 0.11, n_cells)
+
+    scale = shear_scale * (s.E + s.P)
+    s.pixx = rng.uniform(-1.0, 1.0, n_cells) * scale
+    s.pixy = rng.uniform(-1.0, 1.0, n_cells) * scale
+    s.piyy = rng.uniform(-1.0, 1.0, n_cells) * scale
+    if dimension == 3:
+        s.pixn = rng.uniform(-1.0, 1.0, n_cells) * scale * 0.1
+        s.piyn = rng.uniform(-1.0, 1.0, n_cells) * scale * 0.1
+
+    s.bulkPi = rng.uniform(-1.0, 1.0, n_cells) * bulk_scale * (s.E + s.P)
+
+    if include_baryon:
+        s.muB = rng.uniform(0.0, 0.2, n_cells)
+        s.nB = rng.uniform(0.0, 0.1, n_cells)
+        s.Vx = rng.uniform(-0.01, 0.01, n_cells)
+        s.Vy = rng.uniform(-0.01, 0.01, n_cells)
+        s.Vn = np.zeros(n_cells) if dimension == 2 else rng.uniform(-0.002, 0.002, n_cells)
+
+    if vorticity:
+        for f in ("wtx", "wty", "wtn", "wxy", "wxn", "wyn"):
+            setattr(s, f, rng.uniform(-0.05, 0.05, n_cells))
+    return s
+
+
+def write_mode1(s: SurfaceData, path: str | Path, include_baryon: bool = False,
+                vorticity: bool = False) -> None:
+    """Write in mode-1/5 CPU-VH format (raw hbar=1 units, one row per cell)."""
+    cols = [s.tau, s.x, s.y, s.eta, s.dat, s.dax, s.day, s.dan,
+            s.ux, s.uy, s.un,
+            s.E / hbarC, s.T / hbarC, s.P / hbarC,
+            s.pixx / hbarC, s.pixy / hbarC, s.pixn / hbarC,
+            s.piyy / hbarC, s.piyn / hbarC, s.bulkPi / hbarC]
+    if include_baryon:
+        cols += [s.muB / hbarC, s.nB, s.Vx, s.Vy, s.Vn]
+    if vorticity:
+        cols += [s.wtx, s.wty, s.wtn, s.wxy, s.wxn, s.wyn]
+    arr = np.column_stack(cols)
+    np.savetxt(path, arr, fmt="%.16e")
+
+
+# ground states and low resonances: (name, mass [GeV], parity, MC IDs);
+# masses from the PDG tables
+_HADRONS = (
+    ("pi0", 0.1349768, "-", (111,)), ("pi", 0.13957039, "-", (211,)),
+    ("K", 0.493677, "-", (321,)), ("K0", 0.497611, "-", (311,)),
+    ("eta", 0.547862, "-", (221,)), ("rho", 0.77526, "-", (113, 213)),
+    ("omega", 0.78266, "-", (223,)), ("K*", 0.89166, "-", (323,)),
+    ("K*0", 0.89555, "-", (313,)), ("N", 0.938272, "+", (2212,)),
+    ("N0", 0.939565, "+", (2112,)), ("eta'", 0.95778, "-", (331,)),
+    ("phi", 1.019461, "-", (333,)), ("Lambda", 1.115683, "+", (3122,)),
+    ("h1", 1.166, "+", (10223,)), ("Sigma", 1.18937, "+", (3222,)),
+    ("Sigma0", 1.192642, "+", (3212,)), ("Sigma-", 1.197449, "+", (3112,)),
+    ("b1", 1.2295, "+", (10113, 10213)), ("a1", 1.230, "+", (20113, 20213)),
+    ("Delta", 1.232, "+", (2224, 2214, 2114, 1114)),
+    ("K1", 1.253, "+", (10323, 10313)), ("f2", 1.2755, "+", (225,)),
+    ("f1", 1.2819, "+", (20223,)), ("pi(1300)", 1.300, "-", (100111, 100211)),
+    ("Xi0", 1.31486, "+", (3322,)), ("a2", 1.3182, "+", (115, 215)),
+    ("Xi", 1.32171, "+", (3312,)), ("Sigma*", 1.3828, "+", (3224, 3214, 3114)),
+    ("Lambda(1405)", 1.4051, "-", (13122,)), ("N(1440)", 1.440, "+", (12212, 12112)),
+    ("rho(1450)", 1.465, "-", (100113, 100213)), ("f2'", 1.5174, "+", (335,)),
+    ("Lambda(1520)", 1.5195, "-", (3124,)), ("Xi*", 1.5318, "+", (3324, 3314)),
+    ("Omega", 1.67245, "+", (3334,)), ("rho3", 1.6888, "-", (117, 217)),
+    ("phi3", 1.854, "-", (337,)), ("a4", 1.995, "+", (119, 219)),
+    ("f4", 2.018, "+", (229,)),
+)
+
+
+def pdg_box_lines(n_species: int = 370, mass_max: float = 2.5) -> list[str]:
+    """Smash-box lines ``name mass width parity id...`` for a hadron list of
+    at least ``n_species`` species counting antiparticles: the table above,
+    then radial excitations of it (MC ID + k*10^6, mass + 0.2 k GeV, up to
+    ``mass_max``) until the count is reached."""
+    def count(ids):
+        return sum(2 if decode_mcid(i)["has_antiparticle"] else 1 for i in ids)
+
+    lines, total = [], 0
+    for name, mass, parity, ids in _HADRONS:
+        lines.append(f"{name} {mass:.6f} 0.0 {parity} " + " ".join(map(str, ids)))
+        total += count(ids)
+    for k in range(1, 10):
+        for name, mass, parity, ids in _HADRONS:
+            if total >= n_species:
+                return lines
+            m = mass + 0.2 * k
+            if m > mass_max:
+                continue
+            ids_k = [i + k * 10**6 for i in ids]
+            lines.append(f"{name}_x{k} {m:.6f} 0.1 {parity} "
+                         + " ".join(map(str, ids_k)))
+            total += count(ids_k)
+    return lines
+
+
+def _gauss_legendre(n: int, lo: float, hi: float):
+    # leggauss returns exactly antisymmetric nodes; mid + half * x keeps
+    # them so when mid == 0, which the eta fold gate needs
+    x, w = np.polynomial.legendre.leggauss(n)
+    half = 0.5 * (hi - lo)
+    return 0.5 * (lo + hi) + half * x, half * w
+
+
+def write_quadrature_tables(root: Path, n_pT: int, n_phi: int, n_eta: int,
+                            pT_max: float = 3.0, eta_max: float = 4.0) -> None:
+    """Quadrature and momentum tables.  The pT weights carry the pT of
+    pT dpT, so sum(w_pT w_phi spectra) is dN/dy."""
+    t = root / "tables"
+    for sub in ("gauss", "momentum", "spacetime_rapidity", "thermodynamic"):
+        (t / sub).mkdir(parents=True, exist_ok=True)
+
+    n_alpha, n_lag = 21, 32
+    with open(t / "gauss/gla_roots_weights.txt", "w") as fh:
+        fh.write(f"{n_alpha} {n_lag}\n")
+        for a in range(n_alpha):
+            r, w = roots_genlaguerre(n_lag, a)
+            for ri, wi in zip(r, w):
+                fh.write(f"{a} {ri:.16e} {wi:.16e}\n")
+    x, w = np.polynomial.legendre.leggauss(48)
+    with open(t / "gauss/gauss_legendre.dat", "w") as fh:
+        fh.write("48\n")
+        np.savetxt(fh, np.column_stack([x, w]), fmt="%.16e")
+
+    pT, wp = _gauss_legendre(n_pT, 0.0, pT_max)
+    np.savetxt(t / "momentum/pT_table.dat", np.column_stack([pT, wp * pT]),
+               fmt="%.16e")
+    phi, wphi = _gauss_legendre(n_phi, 0.0, 2.0 * np.pi)
+    np.savetxt(t / "momentum/phi_table.dat", np.column_stack([phi, wphi]),
+               fmt="%.16e")
+    np.savetxt(t / "momentum/y_table.dat", np.array([[0.0, 1.0]]), fmt="%.16e")
+    eta, weta = _gauss_legendre(n_eta, -eta_max, eta_max)
+    np.savetxt(t / "spacetime_rapidity/eta_table.dat",
+               np.column_stack([eta, weta]), fmt="%.16e")
+
+
+def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
+                  chosen_mcids=None, n_species: int = 370,
+                  n_pT: int = 51, n_phi: int = 48, n_eta: int = 24,
+                  params: dict | None = None, include_baryon: bool = False,
+                  shear_scale: float = 0.02, bulk_scale: float = 0.01,
+                  n_T: int = 101, n_muB: int | None = None) -> Path:
+    """Write a complete op-1 working directory; returns its path.
+
+    ``chosen_mcids`` defaults to every species of the list.  ``params``
+    overrides entries of iS3D_parameters.dat (op 1, df 1, f32c by default).
+    The delta-f tables span T = 0.1..0.2 GeV in ``n_T`` points and, with
+    baryons, muB = 0..0.8 GeV in ``n_muB`` points (one point without)."""
+    from ..io.pdg import SpeciesTable, read_pdg_smash_box
+
+    root = Path(root)
+    (root / "PDG").mkdir(parents=True, exist_ok=True)
+    (root / "input").mkdir(exist_ok=True)
+    (root / "PDG/pdg_box.dat").write_text("\n".join(pdg_box_lines(n_species)) + "\n")
+    species = SpeciesTable.from_species(read_pdg_smash_box(root / "PDG/pdg_box.dat"))
+    if chosen_mcids is None:
+        chosen_mcids = species.mc_id.tolist()
+    (root / "PDG/chosen_particles.dat").write_text(
+        "\n".join(str(int(m)) for m in chosen_mcids) + "\n")
+
+    write_quadrature_tables(root, n_pT, n_phi, n_eta)
+    if n_muB is None:
+        n_muB = 81 if include_baryon else 1
+    write_df_tables(compute_tables(species, n_T=n_T, n_muB=n_muB),
+                    root / "deltaf_coefficients/vh/smash_box")
+
+    surf = make_surface(n_cells, seed=seed, include_baryon=include_baryon,
+                        shear_scale=shear_scale, bulk_scale=bulk_scale)
+    write_mode1(surf, root / "input/surface.dat", include_baryon=include_baryon)
+
+    p = {"operation": 1, "mode": 1, "hrg_eos": 3, "dimension": 2,
+         "df_mode": 1, "include_baryon": int(include_baryon),
+         "include_bulk_deltaf": 1, "include_shear_deltaf": 1,
+         "include_baryondiff_deltaf": int(include_baryon),
+         "regulate_deltaf": 0, "outflow": 0, "compute_dtype": "f32c"}
+    p.update(params or {})
+    (root / "iS3D_parameters.dat").write_text(
+        "".join(f"{k} = {v}\n" for k, v in p.items()))
+    return root
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="write a synthetic op-1 workdir")
+    ap.add_argument("workdir")
+    ap.add_argument("--cells", type=int, default=100_000)
+    ap.add_argument("--seed", type=int, default=3)
+    ap.add_argument("--df-mode", type=int, default=1, choices=(1, 2))
+    ap.add_argument("--compute-dtype", default="f32c", choices=("f32c", "f64"))
+    args = ap.parse_args(argv)
+    write_workdir(args.workdir, n_cells=args.cells, seed=args.seed,
+                  params={"df_mode": args.df_mode,
+                          "compute_dtype": args.compute_dtype})
+    print(f"wrote {args.workdir}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

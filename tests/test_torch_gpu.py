@@ -1,0 +1,75 @@
+"""The CUDA kernel B1 on the card, against its plain torch version and the
+port's f64 engine, through the shared harness tools/kernel_check.py.
+
+Imports nothing of JAX, so it runs where only torch is installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(--noconftest: tests/conftest.py imports jax).  Without a CUDA device the
+`gpu` tests skip; the CPU test runs the same harness through the kernel's
+plain version.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from is3d2_tpu_torch.config import Config  # noqa: E402
+from is3d2_tpu_torch.ops import cooper_frye_comp as ck  # noqa: E402
+from is3d2_tpu_torch.ops.spectra_fast_common import comp_operands  # noqa: E402
+from is3d2_tpu_torch.tools import kernel_check as kc  # noqa: E402
+from is3d2_tpu_torch.tools.synthetic import make_surface, write_workdir  # noqa: E402
+
+CHOSEN = (211, -211, 111, 321, -321, 2212, -2212, 3122)
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    return write_workdir(tmp_path_factory.mktemp("torch_gpu"), n_cells=16,
+                         chosen_mcids=CHOSEN, n_pT=16, n_phi=8, n_eta=24,
+                         include_baryon=True, n_T=21, n_muB=9)
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(kc.CASES))
+def test_cuda_kernel_vs_plain_and_f64(workdir, case):
+    _needs_cuda()
+    r = kc.check_case(workdir, case, 512, 3, "cuda", cell_block=512)
+    assert r.launches == 1
+    assert np.isfinite(r.kernel).all()
+    assert r.vs_plain <= kc.TOL
+    assert r.vs_f64 <= kc.TOL
+    # deterministic: no atomics, the same bits on every launch
+    assert r.repeats
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_ragged_tiles(workdir):
+    """Cell and momentum counts that fill neither the last 64-cell tile nor
+    the last 256-thread block."""
+    _needs_cuda()
+    cfg = Config(compute_dtype="f32c", df_mode=1, cell_block=512)
+    state = kc.engine_state(workdir, cfg, make_surface(512, seed=5), "cuda")
+    ops = comp_operands(*state, cfg)
+    args = (ops.cell[:100].contiguous(), ops.qm[:100].contiguous(), ops.eta,
+            ops.eta_w, ops.mom[:, :1000].contiguous(), cfg)
+    out = ck.cooper_frye_comp(*args).cpu().numpy()[None]
+    plain = ck.cooper_frye_comp_plain(*args).cpu().numpy()[None]
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, plain) <= kc.TOL
+
+
+@pytest.mark.parametrize("case", list(kc.CASES))
+def test_kernel_check_plain_on_cpu(workdir, case):
+    """The harness on the CPU: the wrapper takes the plain version (no
+    launch) and it meets the f64 engine within TOL."""
+    r = kc.check_case(workdir, case, 512, 3, "cpu", cell_block=512)
+    assert r.launches == 0
+    assert r.vs_plain == 0.0
+    assert r.ok, (r.vs_f64, r.plain_vs_f64)

@@ -1,0 +1,111 @@
+"""Shared state for the parity tests of the PyTorch port (tests/test_torch_*).
+
+Builds one small synthetic working directory with the port's builder, reads
+it with both packages, and hands the same per-cell state to both engines:
+the JAX objects are converted with ``np.asarray`` and fed to the port through
+``is3d2_tpu_torch.interop``.  Small shape: 512 cells, 8 species, 16 pT x 8
+phi, 24 eta nodes (12 after the fold).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+
+from is3d2_tpu.config import Config as JConfig
+from is3d2_tpu.core.cells import prepare_cells as j_prepare_cells
+from is3d2_tpu.core.spectra import MomentumGridDevice as JGrid
+from is3d2_tpu.core.spectra import SpeciesArrays as JSpecies
+from is3d2_tpu.core.spectra import df12_cell_coefficients as j_coefficients
+from is3d2_tpu.io.deltaf_tables import DeltafTables as JTables
+from is3d2_tpu.io.pdg import read_pdg as j_read_pdg
+from is3d2_tpu.io.tables import MomentumGrids as JGrids
+from is3d2_tpu.io.tables import load_table as j_load_table
+from is3d2_tpu.physics.deltaf import DeltafData as JDeltafData
+
+from is3d2_tpu_torch import interop
+from is3d2_tpu_torch.tools.synthetic import make_surface, write_workdir
+
+CHOSEN = (211, -211, 111, 321, -321, 2212, -2212, 3122)
+N_CELLS = 512
+BLOCK = 128
+
+
+def build_workdir(root: Path, params: dict | None = None,
+                  include_baryon: bool = False) -> Path:
+    """The small workdir; delta-f tables on a coarse (T, muB) grid."""
+    return write_workdir(root, n_cells=N_CELLS, seed=3, chosen_mcids=CHOSEN,
+                         n_pT=16, n_phi=8, n_eta=24, params=params,
+                         include_baryon=include_baryon, n_T=21, n_muB=9)
+
+
+def jax_config(df_mode: int, include_baryon: bool = False, **kw) -> JConfig:
+    return JConfig(operation=1, df_mode=df_mode, hrg_eos=3,
+                   include_baryon=int(include_baryon),
+                   include_baryondiff_deltaf=int(include_baryon),
+                   include_shear_deltaf=1, include_bulk_deltaf=1,
+                   cell_block=BLOCK, **kw)
+
+
+@dataclasses.dataclass
+class CaseState:
+    """One case: JAX engine state and the same state as port tensors."""
+
+    cfg: JConfig
+    j_cells: object
+    j_coeffs: dict
+    j_species: object
+    j_grid: object
+    cells: object        # port CellArrays (cpu)
+    coeffs: dict
+    species: object
+    grid: object
+
+
+def numpy_fields(obj) -> dict:
+    return {f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def case_state(workdir: Path, df_mode: int, include_baryon: bool = False,
+               shear_scale: float = 0.02, **cfg_kw) -> CaseState:
+    cfg = jax_config(df_mode, include_baryon, **cfg_kw)
+    species_t = j_read_pdg(3, workdir / "PDG")
+    chosen = species_t.chosen_indices(
+        j_load_table(workdir / "PDG/chosen_particles.dat")[:, 0].astype(int))
+    grids = JGrids.from_dir(workdir / "tables")
+    tables = JTables.load(3, include_baryon, workdir / "deltaf_coefficients/vh")
+    df_data = JDeltafData(tables, df_mode, include_baryon)
+    surf = make_surface(N_CELLS, seed=3, include_baryon=include_baryon,
+                        shear_scale=shear_scale)
+    j_cells = j_prepare_cells(surf, cfg, block=BLOCK)
+    j_coeffs = j_coefficients(j_cells, df_data, cfg)
+    j_species = JSpecies.from_table(species_t, chosen)
+    j_grid = JGrid.from_grids(grids, 2)
+    return CaseState(
+        cfg=cfg, j_cells=j_cells, j_coeffs=j_coeffs, j_species=j_species,
+        j_grid=j_grid,
+        cells=interop.cells_from_numpy(numpy_fields(j_cells)),
+        coeffs=interop.coeffs_from_numpy(
+            {k: np.asarray(v) for k, v in j_coeffs.items()}),
+        species=interop.species_from_numpy(numpy_fields(j_species)),
+        grid=interop.grid_from_numpy(numpy_fields(j_grid)))
+
+
+def port_config(cfg: JConfig):
+    """The port's Config with the same field values."""
+    from is3d2_tpu_torch.config import Config
+    return Config(**{f.name: getattr(cfg, f.name)
+                     for f in dataclasses.fields(Config)})
+
+
+def max_rel_err(out: np.ndarray, ref: np.ndarray, floor: float = 1e-4) -> float:
+    """Max relative error over the bins that reach ``floor`` of their
+    species' peak (axis 0 is the species)."""
+    out = np.asarray(out).reshape(ref.shape[0], -1)
+    ref = np.asarray(ref).reshape(ref.shape[0], -1)
+    peak = np.abs(ref).max(axis=1, keepdims=True)
+    sig = np.abs(ref) >= floor * peak
+    return float((np.abs(out - ref)[sig] / np.abs(ref)[sig]).max())
