@@ -3,19 +3,33 @@
 Phases (any failure raises; nothing is caught):
   1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
      fails without a CUDA device;
-  2. build the compensated Cooper-Frye kernel with nvcc (sm_90a);
-  3. kernel vs its plain torch version and vs the port's f64 engine at a
-     reduced shape (2048 cells, 16 species, 51 pT x 48 phi, 24 eta) for df 1
-     and df 2 with the clip/outflow/diffusion variants: <= 1e-6 relative on
-     bins >= 1e-4 of each species' peak (is3d2_tpu_torch/tools/kernel_check);
-  4. the op-1 main path at full size through the CLI: a synthetic workdir of
-     1e5 cells, the full ~370-species list, 51 pT x 48 phi x 24 eta, df 1,
-     f32c.  The kernel's launch count must move, the spectra must be finite
-     and non-negative and dN/dy must order pi+ > K+ > p;
-  5. kernel vs plain version on the main path's own operands (102,400
-     padded cells x 12 eta x ~9.1e5 momenta, not a multiple of the block):
-     both times, and <= 1e-6 relative between them (the plain version takes
-     about five minutes there).
+  2. build both kernels with nvcc (sm_90a), one nvcc per source, started
+     together;
+  3. kernel B1 (compensated, df 1/2) vs its plain torch version and the
+     port's f64 engine at a reduced shape (2048 cells, 16 species, 51 pT x
+     48 phi, 24 eta) for df 1 and df 2 with the clip/outflow/diffusion
+     variants: <= 1e-6 relative on bins >= 1e-4 of each species' peak
+     (is3d2_tpu_torch/tools/kernel_check);
+  4. kernel B3 (feqmod, df 3/4) vs its plain version (<= 1e-5) and the f64
+     feqmod engine (<= 1e-4) at the same shape, on a surface with large
+     viscous corrections (shear 0.2, bulk 0.1 of E + P) so that cells break
+     down: df 3, df 4, df 3 with outflow + regulation, df 4 with
+     regulation; and the famod mode vs its plain version on operands packed
+     from the df 3 state;
+  5. the df-1 main path at full size through the CLI: 1e5 cells, the full
+     ~370-species list, 51 pT x 48 phi x 24 eta, f32c.  B1's launch count
+     must move, the spectra must be finite and non-negative and dN/dy must
+     order pi+ > K+ > p;
+  6. B1 on the main path's own operands (102,400 padded cells x 12 eta x
+     ~9.1e5 momenta, not a multiple of the block) timed at full size, and
+     held to its plain version (<= 1e-6) on the first 16,384 cells at the
+     full M, both timed there;
+  7. the df-4 main path at full size through the CLI: as phase 5 with df 4,
+     f32, shear 0.2 and bulk 0.1: B3's launch count must move and cells
+     must break down;
+  8. B3 on the df-4 main path's operands, timed at full size, and held to
+     its plain version (<= 1e-5) on the first 8,192 cells at the full S and
+     M, both timed there.
 
 The line before the last is a JSON object with each kernel's measurements;
 the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -23,6 +37,7 @@ the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -38,6 +53,11 @@ import numpy as np
 import torch
 
 MAIN_CELLS = 100_000
+KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod")
+B1_COMPARE_CELLS = 16_384
+B3_COMPARE_CELLS = 8_192
+PARITY_CHOSEN = (211, -211, 111, 321, -321, 311, 221, 2212, -2212, 2112,
+                 3122, -3122, 3222, 3312, 213, 333)
 
 
 def sh(*cmd: str) -> str:
@@ -56,6 +76,13 @@ def cuda_ms(fn, warmup=None):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
+
+
+def launch_counters():
+    from is3d2_tpu_torch.ops.cooper_frye_comp import cooper_frye_comp
+    from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod
+    return {"cooper_frye_comp": cooper_frye_comp,
+            "cooper_frye_feqmod": cooper_frye_feqmod}
 
 
 def phase_environment() -> str:
@@ -77,27 +104,29 @@ def phase_environment() -> str:
     return card
 
 
-def phase_build() -> float:
-    print("== 2. build")
+def phase_build() -> None:
+    print("== 2. build (one nvcc per source, in parallel)")
     from is3d2_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    path, compile_s = _build.build("cooper_frye_comp")
-    _build.load("cooper_frye_comp")
-    print(f"built {path.name}: nvcc {compile_s:.2f} s, "
-          f"build+load {time.perf_counter() - t0:.2f} s")
-    return compile_s
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for name, (path, compile_s) in built.items():
+        _build.load(name)
+        print(f"built {path.name}: nvcc {compile_s:.2f} s")
+    print(f"build+load {time.perf_counter() - t0:.2f} s")
 
 
-def phase_compare(tmp: Path) -> None:
-    print("== 3. kernel vs plain version vs f64 engine (2048 cells, "
-          "16 species, 51 x 48, 24 eta)")
-    from is3d2_tpu_torch.tools import kernel_check as kc
+def parity_workdir(tmp: Path) -> Path:
     from is3d2_tpu_torch.tools.synthetic import write_workdir
+    return write_workdir(tmp / "compare", n_cells=16,
+                         chosen_mcids=PARITY_CHOSEN, include_baryon=True,
+                         n_muB=9)
 
-    chosen = (211, -211, 111, 321, -321, 311, 221, 2212, -2212, 2112, 3122,
-              -3122, 3222, 3312, 213, 333)
-    wd = write_workdir(tmp / "compare", n_cells=16, chosen_mcids=chosen,
-                       include_baryon=True, n_muB=9)
+
+def phase_b1_compare(wd: Path) -> None:
+    print("== 3. B1 vs plain version vs f64 engine (2048 cells, 16 species, "
+          "51 x 48, 24 eta)")
+    from is3d2_tpu_torch.tools import kernel_check as kc
     for name in kc.CASES:
         r = kc.check_case(wd, name, 2048, 7, "cuda")
         print(f"{name:22s} kernel vs plain {r.vs_plain:.3e}  kernel vs f64 "
@@ -109,32 +138,53 @@ def phase_compare(tmp: Path) -> None:
                                  f"{r.vs_f64:.3e} vs f64)")
 
 
-def phase_main_path(tmp: Path) -> tuple[int, dict, Path]:
-    print(f"== 4. main path: {MAIN_CELLS} cells, all species, 51 x 48 x 24, "
-          "df 1, f32c")
+def phase_b3_compare(wd: Path) -> None:
+    print("== 4. B3 vs plain version vs f64 feqmod engine (2048 cells, "
+          "16 species, 51 x 48, 24 eta; shear 0.2, bulk 0.1)")
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    results = {name: kc.check_feqmod_case(wd, name, 2048, 7, "cuda")
+               for name in kc.FEQMOD_CASES}
+    results["famod (operands)"] = kc.check_famod_operands(wd, 2048, 7, "cuda")
+    for name, r in results.items():
+        print(f"{name:22s} breakdown cells {r.breakdown_cells:4d}  kernel vs "
+              f"plain {r.vs_plain:.3e}  kernel vs f64 {r.vs_f64:.3e}  plain vs"
+              f" f64 {r.plain_vs_f64:.3e}  max |kernel - plain| "
+              f"{np.abs(r.kernel - r.plain).max():.3e}")
+        if not (r.ok and r.launches == 1):
+            raise AssertionError(f"{name}: kernel disagrees, does not repeat "
+                                 f"or no cell breaks down ({r.vs_plain:.3e} vs"
+                                 f" plain, {r.vs_f64:.3e} vs f64, "
+                                 f"{r.breakdown_cells} breakdowns)")
+
+
+def run_main_path(tmp: Path, label: str, kernel: str, params: dict,
+                  **surface_kw) -> tuple[int, dict, Path, str]:
+    """Write the full-size workdir and run the CLI on it, with every launch
+    count set to 0 just before and read just after."""
     from is3d2_tpu_torch import cli
-    from is3d2_tpu_torch.ops.cooper_frye_comp import cooper_frye_comp
     from is3d2_tpu_torch.tools.synthetic import write_workdir
 
     t0 = time.perf_counter()
-    wd = write_workdir(tmp / "main", n_cells=MAIN_CELLS,
-                       params={"df_mode": 1, "compute_dtype": "f32c"})
+    wd = write_workdir(tmp / label, n_cells=MAIN_CELLS, params=params,
+                       **surface_kw)
     print(f"workdir written in {time.perf_counter() - t0:.1f} s")
-
+    counters = launch_counters()
     log = io.StringIO()
-    cooper_frye_comp.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         rc = cli.main([str(wd)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cooper_frye_comp.launches
-    print(log.getvalue(), end="")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    out = log.getvalue()
+    print(out, end="")
     print(f"cli.main returned {rc} after {wall:.2f} s; kernel launches "
           f"{launches}")
-    if rc != 0 or launches < 1:
-        raise AssertionError("the main path did not run through the kernel")
-    stages = json.loads(re.search(r"^stage seconds: (.*)$", log.getvalue(),
+    if rc != 0 or launches[kernel] < 1:
+        raise AssertionError(f"the main path did not run through {kernel}")
+    stages = json.loads(re.search(r"^stage seconds: (.*)$", out,
                                   re.M).group(1))
 
     res = wd / "results/continuous"
@@ -149,11 +199,43 @@ def phase_main_path(tmp: Path) -> tuple[int, dict, Path]:
           f"{dndy[321]:.6g}  p {dndy[2212]:.6g}")
     if not dndy[211] > dndy[321] > dndy[2212] > 0:
         raise AssertionError("dN/dy is not ordered pi+ > K+ > p")
+    return launches[kernel], stages, wd, out
+
+
+def phase_b1_main_path(tmp: Path) -> tuple[int, dict, Path]:
+    print(f"== 5. df-1 main path: {MAIN_CELLS} cells, all species, 51 x 48 "
+          "x 24, f32c")
+    launches, stages, wd, _ = run_main_path(
+        tmp, "main_df1", "cooper_frye_comp",
+        {"df_mode": 1, "compute_dtype": "f32c"})
     return launches, stages, wd
 
 
-def phase_full_compare(wd: Path, stages: dict) -> tuple[float, float, float]:
-    print("== 5. kernel vs plain version on the main path's operands")
+def compare_on_cut(kernel, plain, few_args, cut_args, spectra_units, tol,
+                   name):
+    """Kernel and plain version on the cut operands, both timed; the plain
+    version warms up on ``few_args``.  Returns (kernel ms, plain ms,
+    max |kernel - plain| in spectra units)."""
+    ms, out = cuda_ms(lambda: kernel(*cut_args))
+    plain_ms, ref = cuda_ms(lambda: plain(*cut_args),
+                            warmup=lambda: plain(*few_args))
+    print(f"cut: kernel {ms:.1f} ms, plain version {plain_ms:.1f} ms "
+          f"({plain_ms / ms:.1f}x the kernel)")
+    kern = spectra_units(out)
+    ref = spectra_units(ref)
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    rel = kc.max_rel_err(kern, ref)
+    max_abs = float(np.abs(kern - ref).max())
+    print(f"kernel vs plain: max relative {rel:.3e} on bins >= {kc.FLOOR:g} "
+          f"of peak, max |kernel - plain| {max_abs:.3e}")
+    if not (np.isfinite(kern).all() and rel <= tol):
+        raise AssertionError(f"{name} disagrees with its plain version on the "
+                             f"main path's operands ({rel:.3e})")
+    return ms, plain_ms, max_abs
+
+
+def phase_b1_full(wd: Path, stages: dict) -> dict:
+    print("== 6. B1 on the df-1 main path's operands")
     from is3d2_tpu_torch.config import Config
     from is3d2_tpu_torch.io.surface import read_surface
     from is3d2_tpu_torch.ops import cooper_frye_comp as ck
@@ -168,26 +250,78 @@ def phase_full_compare(wd: Path, stages: dict) -> tuple[float, float, float]:
     C, Ne, M = ops.cell.shape[0], ops.eta.shape[0], ops.mom.shape[1]
     print(f"{C} padded cells x {Ne} eta x {M} momenta (M mod 256 = "
           f"{M % 256}) = {ops.evaluations:.4g} evaluations")
-    ms, out = cuda_ms(lambda: ck.cooper_frye_comp(*args))
-    print(f"kernel {ms:.1f} ms, {ops.evaluations / ms * 1e3:.4g} "
-          "evaluations/s")
+    full_ms, _ = cuda_ms(lambda: ck.cooper_frye_comp(*args))
+    print(f"kernel at full size {full_ms:.1f} ms, "
+          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
     print(f"driver stage seconds: {json.dumps(stages)}")
-    # the plain version warms up on a few cells only: one call at full size
-    # takes minutes
-    few = (ops.cell[:64].contiguous(), ops.qm[:64].contiguous(), *args[2:])
-    plain_ms, plain = cuda_ms(lambda: ck.cooper_frye_comp_plain(*args),
-                              warmup=lambda: ck.cooper_frye_comp_plain(*few))
-    print(f"plain version {plain_ms:.1f} ms ({plain_ms / ms:.1f}x the kernel)")
-    kern = kc.spectra_units(state, out)
-    plain = kc.spectra_units(state, plain)
-    rel = kc.max_rel_err(kern, plain)
-    max_abs = float(np.abs(kern - plain).max())
-    print(f"kernel vs plain: max relative {rel:.3e} on bins >= {kc.FLOOR:g} "
-          f"of peak, max |kernel - plain| {max_abs:.3e}")
-    if not (np.isfinite(kern).all() and rel <= kc.TOL):
-        raise AssertionError(f"kernel disagrees with its plain version on the "
-                             f"main path's operands ({rel:.3e})")
-    return ms, plain_ms, max_abs
+
+    def cut(n):
+        return (ops.cell[:n].contiguous(), ops.qm[:n].contiguous(), *args[2:])
+
+    print(f"compared on the first {B1_COMPARE_CELLS} cells at the full M")
+    ms, plain_ms, max_abs = compare_on_cut(
+        ck.cooper_frye_comp, ck.cooper_frye_comp_plain, cut(64),
+        cut(B1_COMPARE_CELLS), lambda flat: kc.spectra_units(state, flat),
+        kc.TOL, "B1")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "cells_compared": B1_COMPARE_CELLS, "main_path_ms": full_ms,
+            "main_path_evaluations": ops.evaluations}
+
+
+def phase_b3_main_path(tmp: Path) -> tuple[int, dict, Path]:
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    print(f"== 7. df-4 main path: {MAIN_CELLS} cells, all species, 51 x 48 "
+          "x 24, f32, shear 0.2, bulk 0.1")
+    launches, stages, wd, out = run_main_path(
+        tmp, "main_df4", "cooper_frye_feqmod",
+        {"df_mode": 4, "compute_dtype": "f32"}, **kc.FEQMOD_SURFACE)
+    n_break = int(re.search(r"^feqmod breaks down for (\d+) /", out,
+                            re.M).group(1))
+    print(f"breakdown cells: {n_break}")
+    if n_break < 1:
+        raise AssertionError("no cell of the df-4 main path broke down")
+    print(f"stage seconds: {json.dumps(stages)}")
+    return launches, stages, wd
+
+
+def phase_b3_full(wd: Path) -> dict:
+    print("== 8. B3 on the df-4 main path's operands")
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.io.surface import read_surface
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    cfg = Config.from_file(wd / "iS3D_parameters.dat")
+    surf = read_surface(wd / "input/surface.dat", 1, 2, False)
+    state = kc.feqmod_engine_state(wd, cfg, surf, "cuda")
+    ops = fk.feqmod_operands(*state, cfg)
+    C, Ne, M = ops.cols.shape[0], ops.eta.shape[0], ops.mom.shape[1]
+    print(f"{C} padded cells x {Ne} eta x {M} momenta (M mod 256 = "
+          f"{M % 256}) = {ops.evaluations:.4g} evaluations; "
+          f"{kc.breakdown_cells(state)} breakdown cells")
+    full_ms, _ = cuda_ms(lambda: fk.cooper_frye_feqmod(*ops.args(), cfg,
+                                                       ops.kind))
+    print(f"kernel at full size {full_ms:.1f} ms, "
+          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
+
+    def cut(n):
+        return (ops.cols[:n].contiguous(), ops.mom, ops.renorm[:n].contiguous(),
+                ops.red[:n].contiguous(), ops.eta, ops.n_per_species, cfg,
+                ops.kind)
+
+    n_break = int((state[1].breaks_down[:B3_COMPARE_CELLS]
+                   & (state[0].mask[:B3_COMPARE_CELLS] > 0)).sum().item())
+    print(f"compared on the first {B3_COMPARE_CELLS} cells ({n_break} break "
+          "down) at the full S and M")
+    if n_break < 1:
+        raise AssertionError("no breakdown cell among the compared cells")
+    ms, plain_ms, max_abs = compare_on_cut(
+        fk.cooper_frye_feqmod, fk.cooper_frye_feqmod_plain, cut(64),
+        cut(B3_COMPARE_CELLS), lambda flat: kc.spectra_units(state, flat),
+        kc.FEQMOD_TOL_PLAIN, "B3")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "cells_compared": B3_COMPARE_CELLS, "main_path_ms": full_ms,
+            "main_path_evaluations": ops.evaluations}
 
 
 def main() -> int:
@@ -204,19 +338,26 @@ def main() -> int:
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         tmp = Path(tmp)
-        phase_compare(tmp)
-        launches, stages, wd = phase_main_path(tmp)
-        ms, plain_ms, max_abs = phase_full_compare(wd, stages)
+        wd = parity_workdir(tmp)
+        phase_b1_compare(wd)
+        phase_b3_compare(wd)
+        b1_launches, b1_stages, wd1 = phase_b1_main_path(tmp)
+        b1 = phase_b1_full(wd1, b1_stages)
+        b3_launches, _, wd4 = phase_b3_main_path(tmp)
+        b3 = phase_b3_full(wd4)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "cooper_frye_comp", "route": "cuda",
-        "source": "is3d2_tpu_torch/csrc/cooper_frye_comp.cu",
-        "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:241",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "cooper_frye_comp", "route": "cuda",
+         "source": "is3d2_tpu_torch/csrc/cooper_frye_comp.cu",
+         "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:241",
+         "launches": b1_launches, **b1},
+        {"name": "cooper_frye_feqmod", "route": "cuda",
+         "source": "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu",
+         "replaces": "is3d2_tpu/ops/cooper_frye_feqmod_pallas.py:68",
+         "launches": b3_launches, **b3}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

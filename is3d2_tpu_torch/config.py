@@ -86,13 +86,13 @@ class Config:
     # --- framework extensions (not in the reference), same names and
     # defaults as is3d2_tpu/config.py ---
     # compute dtype of the Cooper-Frye engines: "f64" (the torch f64
-    # engine), "f32" (plain f32, not ported yet) or "f32c" (compensated
-    # f32: the exp argument in split-exact arithmetic, <=1e-6 of f64;
-    # 2+1d df 1/2 runs the hand-written CUDA kernel on a GPU)
+    # engines), "f32" (plain f32: df 3/4 run kernel B3; not ported for
+    # df 1/2) or "f32c" (compensated f32: the exp argument in split-exact
+    # arithmetic, <=1e-6 of f64, kernel B1 for df 1/2; df 3/4 run kernel B3)
     compute_dtype: str = "f64"
-    # hand-written kernels: -1 = auto, 1 = on, 0 = off.  With f32c, -1 and
-    # 1 select the compensated kernel; 0 selects the JAX package's XLA
-    # f32c path, which is not ported yet
+    # hand-written kernels: -1 = auto, 1 = on, 0 = off.  With f32/f32c, -1
+    # and 1 select the kernel; 0 selects the JAX package's XLA fast paths,
+    # which are not ported yet.  With f64, 1 selects kernel B3 for df 3/4
     use_pallas: int = -1
     # number of freezeout cells per device block in the CF reduction
     cell_block: int = 4096
@@ -170,28 +170,35 @@ class Config:
 
     def validate_slice(self) -> None:
         """Reject what the port does not run yet, naming the ROADMAP item
-        that brings it (ROADMAP.md, queues A and B)."""
+        that brings it (ROADMAP.md, queues A and B), and df 4 with baryons,
+        which the JAX package rejects too."""
         self.validate()
+        if self.df_mode == 4 and self.include_baryon:
+            # as the JAX package's DeltafData.evaluate raises
+            raise ValueError("PTB (Jonah) df does not support nonzero muB")
+        feqmod = self.df_mode in (3, 4)
         todo = None
         if self.operation == 0:
             todo = "operation 0 (dN/dX): ROADMAP A8"
         elif self.operation == 2:
             todo = "operation 2 (sampler): ROADMAP A6"
-        elif self.df_mode in (3, 4):
-            todo = f"df_mode {self.df_mode} (feqmod): ROADMAP A9 and B3"
         elif self.df_mode == 5:
-            todo = "df_mode 5 (famod): ROADMAP A10 and B3"
+            todo = "df_mode 5 (famod: aniso.py and the famod prep): ROADMAP A10"
         elif self.dimension == 3:
-            todo = "dimension 3 (3+1d engines): ROADMAP A7"
+            todo = ("dimension 3 (3+1d feqmod engines): ROADMAP A7 and A9"
+                    if feqmod else "dimension 3 (3+1d engines): ROADMAP A7")
         elif self.mode == 5:
             todo = "mode 5 (polarization): ROADMAP A8"
         elif self.mode != 1:
             todo = f"surface mode {self.mode}: ROADMAP A2"
-        elif self.compute_dtype == "f32":
+        elif feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
+            todo = (f"use_pallas 0 with {self.compute_dtype} for df "
+                    f"{self.df_mode} (XLA feqmod fast path): ROADMAP A9")
+        elif not feqmod and self.compute_dtype == "f32":
             todo = "compute_dtype f32 (plain-f32 engines): ROADMAP A7 and B2"
-        elif self.compute_dtype == "f32c" and self.use_pallas == 0:
+        elif not feqmod and self.compute_dtype == "f32c" and self.use_pallas == 0:
             todo = "use_pallas 0 with f32c (XLA f32c path): ROADMAP A7"
-        elif self.compute_dtype == "f64" and self.use_pallas == 1:
+        elif not feqmod and self.compute_dtype == "f64" and self.use_pallas == 1:
             todo = "use_pallas 1 with f64 (plain-f32 kernel): ROADMAP B2"
         elif self.group_particles:
             todo = "group_particles: ROADMAP A11"

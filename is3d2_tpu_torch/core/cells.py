@@ -153,5 +153,8 @@ def prepare_cells(surf: SurfaceData, cfg: Config, device,
 
 def evaluate_cell_deltaf(cells: CellArrays, df_data: DeltafData,
                          cfg: Config) -> DeltafCoefficients:
-    """Per-cell delta-f coefficients (df 1/2; PTB clamping comes with df 4)."""
-    return df_data.evaluate(cells.T, cells.muB, cells.E, cells.P)
+    """Per-cell delta-f coefficients (with PTB bulk clamping where needed)."""
+    bulkPi = cells.bulkPi
+    if cfg.df_mode == 4:
+        bulkPi = df_data.regulate_bulkPi_ptb(bulkPi, cells.P)
+    return df_data.evaluate(cells.T, cells.muB, cells.E, cells.P, bulkPi)

@@ -1,7 +1,8 @@
 """Helpers of the compensated-f32 ("f32c") spectra path.
 
 Counterpart of the f32c pieces of is3d2_tpu/core/spectra_fast.py: the eta
-quadrature fold with its exactness gate, and the split-exact arithmetic.
+quadrature fold with its exactness gates (df 1/2, and the strict one of the
+feqmod kernel), and the split-exact arithmetic.
 
 The plain-f32 path is ~3e-6 relative: the exp amplifies the f32 rounding of
 its argument a = u.p/T - alphaB b.  The compensated path computes only that
@@ -45,7 +46,7 @@ def _split12(x64: torch.Tensor):
 
 
 def fold_eta_quadrature(cells: CellArrays, grid: MomentumGridDevice,
-                        cfg: Config):
+                        cfg: Config, strict: bool = False):
     """Fold the symmetric 2+1d eta quadrature onto half the nodes.
 
     At y = 0 the CF integrand splits into even and odd parts in eta.  The
@@ -67,6 +68,12 @@ def fold_eta_quadrature(cells: CellArrays, grid: MomentumGridDevice,
     The even part is selected by zeroing dan/pitn/pixn/piyn/Vn on the copy
     of ``cells`` used for this engine call; un is exactly zero by the gate.
 
+    ``strict=True`` is the gate for the nonlinear feqmod integrand
+    (feq(|A^-1 p_LRF|/T_mod) is not linear in the odd sources, so they
+    cannot be zeroed away): it folds only when every odd source is exactly
+    zero, as on every physical boost-invariant surface.  The integrand is
+    then pointwise even, and the outflow/regulation sub-gates do not matter.
+
     Returns (cells, grid, folded: bool).
     """
     if cfg.eta_fold == 0 or cfg.dimension != 2:
@@ -87,19 +94,23 @@ def fold_eta_quadrature(cells: CellArrays, grid: MomentumGridDevice,
                       (cells.un, cells.dan, cells.pitn, cells.pixn,
                        cells.piyn, cells.Vn)]).cpu().tolist()
     un_mx, dan_mx, pitn_mx, pixn_mx, piyn_mx, vn_mx = mx
-    if un_mx != 0.0:
-        return cells, grid, False
-    odd_df = 0.0
-    if cfg.include_shear_deltaf:
-        odd_df = max(pitn_mx, pixn_mx, piyn_mx)
-    if cfg.include_baryon and cfg.include_baryondiff_deltaf:
-        odd_df = max(odd_df, vn_mx)
-    if dan_mx != 0.0 and odd_df != 0.0:
-        return cells, grid, False
-    if cfg.outflow and dan_mx != 0.0:
-        return cells, grid, False
-    if cfg.regulate_deltaf and odd_df != 0.0:
-        return cells, grid, False
+    if strict:
+        if max(mx) != 0.0:
+            return cells, grid, False
+    else:
+        if un_mx != 0.0:
+            return cells, grid, False
+        odd_df = 0.0
+        if cfg.include_shear_deltaf:
+            odd_df = max(pitn_mx, pixn_mx, piyn_mx)
+        if cfg.include_baryon and cfg.include_baryondiff_deltaf:
+            odd_df = max(odd_df, vn_mx)
+        if dan_mx != 0.0 and odd_df != 0.0:
+            return cells, grid, False
+        if cfg.outflow and dan_mx != 0.0:
+            return cells, grid, False
+        if cfg.regulate_deltaf and odd_df != 0.0:
+            return cells, grid, False
 
     half = n // 2
     fold_eta = es[half + (n % 2):]
@@ -108,9 +119,10 @@ def fold_eta_quadrature(cells: CellArrays, grid: MomentumGridDevice,
         fold_eta = np.concatenate([[0.0], fold_eta])
         fold_w = np.concatenate([[ws[half]], fold_w])
 
-    zeros = torch.zeros_like(cells.dan)
-    cells = dataclasses.replace(cells, dan=zeros, pitn=zeros, pixn=zeros,
-                                piyn=zeros, Vn=zeros)
+    if not strict:  # strict mode checked that the odd sources are zero
+        zeros = torch.zeros_like(cells.dan)
+        cells = dataclasses.replace(cells, dan=zeros, pitn=zeros, pixn=zeros,
+                                    piyn=zeros, Vn=zeros)
     dev = grid.eta.device
     grid = dataclasses.replace(
         grid,

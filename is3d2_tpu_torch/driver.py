@@ -1,4 +1,4 @@
-"""Top-level particlization driver, operation 1.
+"""Top-level particlization driver, operation 1 (df 1-4).
 
 Counterpart of is3d2_tpu/driver.py (the reference's IS3D class,
 iS3D.cpp:81-282): load parameters, surface, PDG list, delta-f coefficient
@@ -77,6 +77,9 @@ class IS3D:
         tables = DeltafTables.load(cfg.hrg_eos, bool(cfg.include_baryon),
                                    data / "deltaf_coefficients/vh")
         self.df_data = DeltafData(tables, cfg.df_mode, bool(cfg.include_baryon))
+        if not cfg.include_baryon:
+            self.df_data.compute_jonah_coefficients(self.species, self.laguerre,
+                                                    self.plasma)
 
     def run_particlization(self, write: bool = True) -> None:
         cfg = self.cfg
@@ -108,7 +111,7 @@ class IS3D:
         t_compute = time.time()
         spectra = compute_spectra(self.surface, self.species, self.chosen_idx,
                                   self.grids, self.df_data, cfg, self.device,
-                                  report=report)
+                                  laguerre=self.laguerre, report=report)
         self.spectra = spectra
         dt = time.time() - t_compute
         self.stage_seconds["compute"] = dt

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .core.cells import CellArrays
+from .core.feqmod import FeqmodCellData
 from .core.spectra import MomentumGridDevice, SpeciesArrays
 
 
@@ -40,3 +41,13 @@ def species_from_numpy(d: dict, device="cpu") -> SpeciesArrays:
 def grid_from_numpy(d: dict, device="cpu") -> MomentumGridDevice:
     names = [f.name for f in dataclasses.fields(MomentumGridDevice)]
     return MomentumGridDevice(**_tensors(d, names, device))
+
+
+def feqmod_from_numpy(d: dict, device="cpu") -> FeqmodCellData:
+    """FeqmodCellData from a dict holding every field (``breaks_down`` as
+    bool, the rest f64)."""
+    names = [f.name for f in dataclasses.fields(FeqmodCellData)]
+    out = _tensors(d, [n for n in names if n != "breaks_down"], device)
+    out["breaks_down"] = torch.as_tensor(np.array(d["breaks_down"], dtype=bool),
+                                         device=device)
+    return FeqmodCellData(**out)

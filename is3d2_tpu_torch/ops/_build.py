@@ -24,7 +24,17 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "is3d2_tpu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+# flags of one source only.  B3 rounds every f32 operation on its own, as
+# its plain version and the TPU kernel do: its breakdown branch cancels
+# ~1e3-fold on cells with large PTB coefficients, where a contracted FMA
+# moved a bin by 4.5e-4 against the plain version
+SOURCE_FLAGS = {"cooper_frye_feqmod": ("-fmad=false",)}
+
 _loaded: dict[Path, ctypes.CDLL] = {}
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -38,7 +48,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -52,7 +62,7 @@ def build(name: str) -> tuple[Path, float]:
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")

@@ -2,8 +2,8 @@
 
 Counterpart of is3d2_tpu/physics/lrf.py (src/cpp/LocalRestFrame.cpp and the
 per-cell shear completion of MomentumSpectra.cpp:149-161): the pieces the
-op-1 path and the invariant checks need, as functions of f64 tensors of
-shape (n_cells,).
+op-1 paths (df 1-4) and the invariant checks need, as functions of f64
+tensors of shape (n_cells,).
 """
 
 from __future__ import annotations
@@ -83,3 +83,37 @@ def milne_basis(tau, ux, uy, un) -> MilneBasis:
     Zt = sinhL
     Zn = coshL / tau
     return MilneBasis(Xt=Xt, Xx=Xx, Xy=Xy, Xn=Xn, Yx=Yx, Yy=Yy, Zt=Zt, Zn=Zn)
+
+
+@dataclasses.dataclass
+class ShearLRF:
+    """pi^munu LRF components piij = Xi.pi.Xj (LocalRestFrame.cpp:133-154)."""
+
+    xx: torch.Tensor
+    xy: torch.Tensor
+    xz: torch.Tensor
+    yy: torch.Tensor
+    yz: torch.Tensor
+    zz: torch.Tensor
+
+
+def boost_shear(basis: MilneBasis, tau, pitt, pitx, pity, pitn,
+                pixx, pixy, pixn, piyy, piyn, pinn) -> ShearLRF:
+    tau2 = tau * tau
+    Xt, Xx, Xy, Xn = basis.Xt, basis.Xx, basis.Xy, basis.Xn
+    Yx, Yy = basis.Yx, basis.Yy
+    Zt, Zn = basis.Zt, basis.Zn
+
+    pixx_lrf = (pitt * Xt * Xt + pixx * Xx * Xx + piyy * Xy * Xy
+                + tau2 * tau2 * pinn * Xn * Xn
+                + 2.0 * (-Xt * (pitx * Xx + pity * Xy) + pixy * Xx * Xy
+                         + tau2 * Xn * (pixn * Xx + piyn * Xy - pitn * Xt)))
+    pixy_lrf = (Yx * (-pitx * Xt + pixx * Xx + pixy * Xy + tau2 * pixn * Xn)
+                + Yy * (-pity * Xt + pixy * Xx + piyy * Xy + tau2 * piyn * Xn))
+    pixz_lrf = (Zt * (pitt * Xt - pitx * Xx - pity * Xy - tau2 * pitn * Xn)
+                - tau2 * Zn * (pitn * Xt - pixn * Xx - piyn * Xy - tau2 * pinn * Xn))
+    piyy_lrf = pixx * Yx * Yx + 2.0 * pixy * Yx * Yy + piyy * Yy * Yy
+    piyz_lrf = -Zt * (pitx * Yx + pity * Yy) + tau2 * Zn * (pixn * Yx + piyn * Yy)
+    pizz_lrf = -(pixx_lrf + piyy_lrf)
+    return ShearLRF(xx=pixx_lrf, xy=pixy_lrf, xz=pixz_lrf,
+                    yy=piyy_lrf, yz=piyz_lrf, zz=pizz_lrf)

@@ -1,16 +1,25 @@
-"""Check the compensated kernel against its plain version and the f64 engine.
+"""Check the kernels against their plain versions and the f64 engines.
 
-One harness for ``chip_smoke.py`` and ``tests/test_torch_gpu.py``: the df 1/2
-engines' state for a surface, the cases every check covers (df 1/2 with the
-clip, outflow and diffusion branches) and the relative error on bins
->= FLOOR of each species' peak.  On a CPU device ``cooper_frye_comp`` is
-the plain version, so there only the comparison with the f64 engine says
-something.
+One harness for ``chip_smoke.py`` and ``tests/test_torch_gpu.py``:
+
+  * kernel B1 (compensated, df 1/2): the df 1/2 engines' state for a
+    surface, the cases every check covers (df 1/2 with the clip, outflow
+    and diffusion branches), bar TOL;
+  * kernel B3 (feqmod, df 3/4): the feqmod state on a surface with large
+    viscous corrections (FEQMOD_SURFACE, so that cells break down), the
+    cases FEQMOD_CASES, bars FEQMOD_TOL_PLAIN against the plain version and
+    FEQMOD_TOL_F64 against the f64 engine; and the famod mode on operands
+    packed from the same state (no famod prep is ported yet).
+
+Errors are relative, on bins >= FLOOR of each species' peak.  On a CPU
+device the wrappers run the plain versions, so there only the comparison
+with the f64 engine says something.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from pathlib import Path
 
 import numpy as np
@@ -18,13 +27,17 @@ import torch
 
 from ..config import Config
 from ..core.spectra import PREFACTOR, df12_state, spectra_df12
+from ..core.spectra_feqmod import feqmod_state, spectra_feqmod
 from ..driver import IS3D
 from ..ops import cooper_frye_comp as ck
+from ..ops import cooper_frye_feqmod as fk
 from ..ops.spectra_fast_common import CompOperands, comp_operands
 from .synthetic import make_surface
 
 TOL = 1e-6     # relative, on bins >= FLOOR of their species' peak
 FLOOR = 1e-4
+FEQMOD_TOL_PLAIN = 1e-5   # kernel B3 vs its plain version
+FEQMOD_TOL_F64 = 1e-4     # kernel B3 vs the f64 engine (the JAX kernel's bar)
 
 # name -> (config fields, make_surface options); the workdir needs
 # include_baryon=True for the diffusion cases
@@ -118,3 +131,101 @@ def check_case(workdir: str | Path, case: str, n_cells: int, seed: int,
     plain = spectra_units(state, ck.cooper_frye_comp_plain(*args))
     ref = spectra_df12(*state, cfg).reshape(kern.shape).cpu().numpy()
     return CaseResult(kern, plain, ref, launches, repeats)
+
+
+# ----------------------------------------------------------------------
+# kernel B3
+# ----------------------------------------------------------------------
+
+# make_surface options under which a few percent of the cells break down
+FEQMOD_SURFACE = {"shear_scale": 0.2, "bulk_scale": 0.1}
+
+# name -> config fields (compute_dtype f32; the workdir's chosen species)
+FEQMOD_CASES = {
+    "df3": {"df_mode": 3},
+    "df4": {"df_mode": 4},
+    "df3-outflow-regulate": {"df_mode": 3, "outflow": 1, "regulate_deltaf": 1},
+    "df4-regulate": {"df_mode": 4, "regulate_deltaf": 1},
+}
+
+
+def feqmod_engine_state(workdir: str | Path, cfg: Config, surf, device):
+    """The df 3/4 engines' inputs for ``surf`` with the workdir's tables:
+    (cells, feqmod prep, species, grid)."""
+    run = IS3D(workdir, cfg=cfg, device=device)
+    run.surface = surf
+    run._setup()
+    return feqmod_state(surf, run.species, run.chosen_idx, run.grids,
+                        run.df_data, cfg, device, run.laguerre)
+
+
+def breakdown_cells(state) -> int:
+    cells, fq = state[0], state[1]
+    return int((fq.breaks_down & (cells.mask > 0)).sum().item())
+
+
+@dataclasses.dataclass
+class FeqmodCaseResult(CaseResult):
+    breakdown_cells: int = 0
+
+    @property
+    def ok(self) -> bool:
+        return bool(np.isfinite(self.kernel).all() and self.repeats
+                    and self.breakdown_cells > 0
+                    and self.vs_plain <= FEQMOD_TOL_PLAIN
+                    and self.vs_f64 <= FEQMOD_TOL_F64)
+
+
+def _run_b3(ops: fk.FeqmodOperands, cfg: Config):
+    """Kernel (twice: launches, repeatability) and plain version."""
+    before = fk.cooper_frye_feqmod.launches
+    out = fk.cooper_frye_feqmod(*ops.args(), cfg, ops.kind)
+    launches = fk.cooper_frye_feqmod.launches - before
+    repeats = torch.equal(fk.cooper_frye_feqmod(*ops.args(), cfg, ops.kind),
+                          out)
+    plain = fk.cooper_frye_feqmod_plain(*ops.args(), cfg, ops.kind)
+    return out, plain, launches, repeats
+
+
+def check_feqmod_case(workdir: str | Path, case: str, n_cells: int, seed: int,
+                      device, **cfg_fields) -> FeqmodCaseResult:
+    """Run FEQMOD_CASES[case] on a make_surface(n_cells, seed,
+    **FEQMOD_SURFACE) surface through kernel B3 (its plain version on a
+    CPU device), the plain version and the f64 engine."""
+    cfg = Config(compute_dtype="f32", **FEQMOD_CASES[case], **cfg_fields)
+    surf = make_surface(n_cells, seed=seed, **FEQMOD_SURFACE)
+    state = feqmod_engine_state(workdir, cfg, surf, device)
+    out, plain, launches, repeats = _run_b3(fk.feqmod_operands(*state, cfg),
+                                            cfg)
+    ref = spectra_feqmod(*state, cfg).cpu().numpy()
+    kern = spectra_units(state, out)
+    return FeqmodCaseResult(kern, spectra_units(state, plain),
+                            ref.reshape(kern.shape), launches, repeats,
+                            breakdown_cells(state))
+
+
+def famod_operands(state) -> fk.FeqmodOperands:
+    """famod-mode operands from a feqmod state: B^-1 = A^-1, lambda =
+    T_mod, upsilonB = alphaB_mod, the per-cell renorm of the first species.
+    Holds the kernel's famod arithmetic until the famod prep is ported."""
+    cells, fq, species, grid = state
+    fm = types.SimpleNamespace(
+        Xt=fq.Xt, Xx=fq.Xx, Xy=fq.Xy, Xn=fq.Xn, Yx=fq.Yx, Yy=fq.Yy,
+        Zt=fq.Zt, Zn=fq.Zn, Binv=fq.Ainv, lam=fq.T_mod,
+        upsilonB=fq.alphaB_mod, eta_scale=fq.eta_scale,
+        breaks_down=fq.breaks_down, renorm=fq.renorm[:, 0])
+    return fk.pack_famod(cells, fm, species, grid)
+
+
+def check_famod_operands(workdir: str | Path, n_cells: int, seed: int,
+                         device) -> FeqmodCaseResult:
+    """Kernel B3's famod mode against its plain version, on operands packed
+    from the df 3 state of FEQMOD_SURFACE (f64 holds the plain version:
+    there is no famod f64 engine yet)."""
+    cfg = Config(compute_dtype="f32", df_mode=3)
+    surf = make_surface(n_cells, seed=seed, **FEQMOD_SURFACE)
+    state = feqmod_engine_state(workdir, cfg, surf, device)
+    out, plain, launches, repeats = _run_b3(famod_operands(state), cfg)
+    plain = spectra_units(state, plain)
+    return FeqmodCaseResult(spectra_units(state, out), plain, plain,
+                            launches, repeats, breakdown_cells(state))

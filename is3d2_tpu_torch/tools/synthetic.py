@@ -15,7 +15,11 @@ package's CLI) reads, with no data files from outside the repository:
 ``make_surface`` and ``write_mode1`` are copies of tests/surfgen.py, so the
 same seed gives the same surface bit for bit.
 
-Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]``.
+Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]
+[--df-mode 1-4] [--compute-dtype f32c|f32|f64] [--shear-scale X]
+[--bulk-scale X]``.  The feqmod breakdown branch (df 3/4) needs viscous
+corrections well above the defaults: ``--shear-scale 0.2 --bulk-scale 0.1``
+sends a few percent of the cells there.
 """
 
 from __future__ import annotations
@@ -240,12 +244,18 @@ def main(argv=None) -> int:
     ap.add_argument("workdir")
     ap.add_argument("--cells", type=int, default=100_000)
     ap.add_argument("--seed", type=int, default=3)
-    ap.add_argument("--df-mode", type=int, default=1, choices=(1, 2))
-    ap.add_argument("--compute-dtype", default="f32c", choices=("f32c", "f64"))
+    ap.add_argument("--df-mode", type=int, default=1, choices=(1, 2, 3, 4))
+    ap.add_argument("--compute-dtype", default="f32c",
+                    choices=("f32c", "f32", "f64"))
+    ap.add_argument("--shear-scale", type=float, default=0.02,
+                    help="shear stress in units of E + P (default 0.02)")
+    ap.add_argument("--bulk-scale", type=float, default=0.01,
+                    help="bulk pressure in units of E + P (default 0.01)")
     args = ap.parse_args(argv)
     write_workdir(args.workdir, n_cells=args.cells, seed=args.seed,
                   params={"df_mode": args.df_mode,
-                          "compute_dtype": args.compute_dtype})
+                          "compute_dtype": args.compute_dtype},
+                  shear_scale=args.shear_scale, bulk_scale=args.bulk_scale)
     print(f"wrote {args.workdir}")
     return 0
 

@@ -1,5 +1,6 @@
-"""The CUDA kernel B1 on the card, against its plain torch version and the
-port's f64 engine, through the shared harness tools/kernel_check.py.
+"""The CUDA kernels B1 and B3 on the card, against their plain torch
+versions and the port's f64 engines, through the shared harness
+tools/kernel_check.py.
 
 Imports nothing of JAX, so it runs where only torch is installed:
 
@@ -17,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from is3d2_tpu_torch.config import Config  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_comp as ck  # noqa: E402
+from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
 from is3d2_tpu_torch.ops.spectra_fast_common import comp_operands  # noqa: E402
 from is3d2_tpu_torch.tools import kernel_check as kc  # noqa: E402
 from is3d2_tpu_torch.tools.synthetic import make_surface, write_workdir  # noqa: E402
@@ -73,3 +75,57 @@ def test_kernel_check_plain_on_cpu(workdir, case):
     assert r.launches == 0
     assert r.vs_plain == 0.0
     assert r.ok, (r.vs_f64, r.plain_vs_f64)
+
+
+# ----------------------------------------------------------------------
+# kernel B3
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(kc.FEQMOD_CASES))
+def test_feqmod_kernel_vs_plain_and_f64(workdir, case):
+    _needs_cuda()
+    r = kc.check_feqmod_case(workdir, case, 512, 3, "cuda", cell_block=512)
+    assert r.launches == 1
+    assert r.breakdown_cells > 0
+    assert np.isfinite(r.kernel).all()
+    assert r.vs_plain <= kc.FEQMOD_TOL_PLAIN
+    assert r.vs_f64 <= kc.FEQMOD_TOL_F64
+    assert r.repeats
+
+
+@pytest.mark.gpu
+def test_feqmod_kernel_famod_mode(workdir):
+    _needs_cuda()
+    r = kc.check_famod_operands(workdir, 512, 3, "cuda")
+    assert r.launches == 1 and r.repeats and r.breakdown_cells > 0
+    assert r.vs_plain <= kc.FEQMOD_TOL_PLAIN
+
+
+@pytest.mark.gpu
+def test_feqmod_kernel_ragged_tiles(workdir):
+    """100 cells and 1,000 momenta: neither the last 16-cell tile nor the
+    last 256-thread block is full, and M stops inside the last species."""
+    _needs_cuda()
+    cfg = Config(compute_dtype="f32", df_mode=3, cell_block=512)
+    surf = make_surface(512, seed=5, **kc.FEQMOD_SURFACE)
+    state = kc.feqmod_engine_state(workdir, cfg, surf, "cuda")
+    ops = fk.feqmod_operands(*state, cfg)
+    args = (ops.cols[:100].contiguous(), ops.mom[:, :1000].contiguous(),
+            ops.renorm[:100].contiguous(), ops.red[:100].contiguous(),
+            ops.eta, ops.n_per_species, cfg, ops.kind)
+    assert bool(state[1].breaks_down[:100].any())
+    out = fk.cooper_frye_feqmod(*args).cpu().numpy()[None]
+    plain = fk.cooper_frye_feqmod_plain(*args).cpu().numpy()[None]
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, plain) <= kc.FEQMOD_TOL_PLAIN
+
+
+@pytest.mark.parametrize("case", list(kc.FEQMOD_CASES))
+def test_feqmod_kernel_check_plain_on_cpu(workdir, case):
+    """The B3 harness on the CPU: the wrapper takes the plain version (no
+    launch), it meets the f64 engine, and the surface breaks down."""
+    r = kc.check_feqmod_case(workdir, case, 512, 3, "cpu", cell_block=512)
+    assert r.launches == 0
+    assert r.vs_plain == 0.0
+    assert r.ok, (r.vs_f64, r.breakdown_cells)

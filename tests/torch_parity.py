@@ -5,6 +5,13 @@ it with both packages, and hands the same per-cell state to both engines:
 the JAX objects are converted with ``np.asarray`` and fed to the port through
 ``is3d2_tpu_torch.interop``.  Small shape: 512 cells, 8 species, 16 pT x 8
 phi, 24 eta nodes (12 after the fold).
+
+The feqmod cases (df 3/4) use a surface with large viscous corrections
+(FEQMOD_SHEAR, FEQMOD_BULK), so that some cells take the breakdown branch.
+Against the JAX kernel in interpret mode they use a milder surface
+(MILD_SHEAR) with breakdown forced on every FORCE_EVERY-th cell: on the
+large-viscosity surface the JAX kernel's own f32 error is ~1e-4 (ROADMAP
+C4), so it cannot hold the port to 1e-5 there.
 """
 
 from __future__ import annotations
@@ -19,8 +26,10 @@ from is3d2_tpu.core.cells import prepare_cells as j_prepare_cells
 from is3d2_tpu.core.spectra import MomentumGridDevice as JGrid
 from is3d2_tpu.core.spectra import SpeciesArrays as JSpecies
 from is3d2_tpu.core.spectra import df12_cell_coefficients as j_coefficients
+from is3d2_tpu.core.feqmod import prepare_feqmod as j_prepare_feqmod
 from is3d2_tpu.io.deltaf_tables import DeltafTables as JTables
 from is3d2_tpu.io.pdg import read_pdg as j_read_pdg
+from is3d2_tpu.io.tables import GaussLaguerre as JLaguerre
 from is3d2_tpu.io.tables import MomentumGrids as JGrids
 from is3d2_tpu.io.tables import load_table as j_load_table
 from is3d2_tpu.physics.deltaf import DeltafData as JDeltafData
@@ -31,14 +40,20 @@ from is3d2_tpu_torch.tools.synthetic import make_surface, write_workdir
 CHOSEN = (211, -211, 111, 321, -321, 2212, -2212, 3122)
 N_CELLS = 512
 BLOCK = 128
+FEQMOD_SHEAR = 0.2
+FEQMOD_BULK = 0.1
+MILD_SHEAR = 0.05
+FORCE_EVERY = 5
 
 
 def build_workdir(root: Path, params: dict | None = None,
-                  include_baryon: bool = False) -> Path:
-    """The small workdir; delta-f tables on a coarse (T, muB) grid."""
+                  include_baryon: bool = False, **surface_kw) -> Path:
+    """The small workdir; delta-f tables on a coarse (T, muB) grid.
+    ``surface_kw`` (shear_scale, bulk_scale) go to make_surface."""
     return write_workdir(root, n_cells=N_CELLS, seed=3, chosen_mcids=CHOSEN,
                          n_pT=16, n_phi=8, n_eta=24, params=params,
-                         include_baryon=include_baryon, n_T=21, n_muB=9)
+                         include_baryon=include_baryon, n_T=21, n_muB=9,
+                         **surface_kw)
 
 
 def jax_config(df_mode: int, include_baryon: bool = False, **kw) -> JConfig:
@@ -109,3 +124,60 @@ def max_rel_err(out: np.ndarray, ref: np.ndarray, floor: float = 1e-4) -> float:
     peak = np.abs(ref).max(axis=1, keepdims=True)
     sig = np.abs(ref) >= floor * peak
     return float((np.abs(out - ref)[sig] / np.abs(ref)[sig]).max())
+
+
+@dataclasses.dataclass
+class FeqmodState:
+    """One df 3/4 case: the JAX feqmod state and the same state as port
+    tensors (the port's prep is fed the JAX prep's output)."""
+
+    cfg: JConfig
+    plasma: object       # the surface's ThermoAverages (Jonah splines)
+    j_df_data: object
+    j_laguerre: object
+    j_cells: object
+    j_fq: object
+    j_species: object
+    j_grid: object
+    cells: object        # port CellArrays (cpu)
+    fq: object           # port FeqmodCellData (cpu)
+    species: object
+    grid: object
+
+
+def feqmod_state(workdir: Path, df_mode: int, include_baryon: bool = False,
+                 shear_scale: float = FEQMOD_SHEAR, force_breaks: bool = False,
+                 **cfg_kw) -> FeqmodState:
+    """The JAX package's df 3/4 prep on a make_surface(N_CELLS, seed=3)
+    surface (large viscosity by default), in f64, and the same state as
+    port tensors.  ``force_breaks`` sends every FORCE_EVERY-th cell to the
+    breakdown branch as well."""
+    cfg = jax_config(df_mode, include_baryon, **cfg_kw)
+    species_t = j_read_pdg(3, workdir / "PDG")
+    chosen = species_t.chosen_indices(
+        j_load_table(workdir / "PDG/chosen_particles.dat")[:, 0].astype(int))
+    grids = JGrids.from_dir(workdir / "tables")
+    laguerre = JLaguerre.from_file(workdir / "tables/gauss/gla_roots_weights.txt")
+    tables = JTables.load(3, include_baryon, workdir / "deltaf_coefficients/vh")
+    df_data = JDeltafData(tables, df_mode, include_baryon)
+    surf = make_surface(N_CELLS, seed=3, include_baryon=include_baryon,
+                        shear_scale=shear_scale, bulk_scale=FEQMOD_BULK)
+    plasma = surf.thermo_averages()
+    if not include_baryon:   # as the driver does
+        df_data.compute_jonah_coefficients(species_t, laguerre, plasma)
+    j_cells = j_prepare_cells(surf, cfg, block=BLOCK)
+    j_species = JSpecies.from_table(species_t, chosen)
+    j_grid = JGrid.from_grids(grids, 2)
+    j_fq = j_prepare_feqmod(j_cells, j_species, df_data, cfg, laguerre)
+    if force_breaks:
+        every = np.arange(j_cells.n_padded) % FORCE_EVERY == 0
+        j_fq = dataclasses.replace(
+            j_fq, breaks_down=np.asarray(j_fq.breaks_down) | every)
+    return FeqmodState(
+        cfg=cfg, plasma=plasma, j_df_data=df_data, j_laguerre=laguerre,
+        j_cells=j_cells,
+        j_fq=j_fq, j_species=j_species, j_grid=j_grid,
+        cells=interop.cells_from_numpy(numpy_fields(j_cells)),
+        fq=interop.feqmod_from_numpy(numpy_fields(j_fq)),
+        species=interop.species_from_numpy(numpy_fields(j_species)),
+        grid=interop.grid_from_numpy(numpy_fields(j_grid)))
