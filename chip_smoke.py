@@ -3,8 +3,8 @@
 Phases (any failure raises; nothing is caught):
   1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
      fails without a CUDA device;
-  2. build both kernels with nvcc (sm_90a), one nvcc per source, started
-     together;
+  2. build the three kernels with nvcc (sm_90a), one nvcc per source,
+     started together;
   3. kernel B1 (compensated, df 1/2) vs its plain torch version and the
      port's f64 engine at a reduced shape (2048 cells, 16 species, 51 pT x
      48 phi, 24 eta) for df 1 and df 2 with the clip/outflow/diffusion
@@ -29,10 +29,22 @@ Phases (any failure raises; nothing is caught):
      must break down;
   8. B3 on the df-4 main path's operands, timed at full size, and held to
      its plain version (<= 1e-5) on the first 8,192 cells at the full S and
-     M, both timed there.
+     M, both timed there;
+  9. kernel B2 (plain f32, df 1/2) vs its plain version (<= 1e-5) and the
+     f64 engine (<= 2e-5) at phase 3's shape, over the cases of
+     kernel_check.F32_CASES (compute_dtype f64, use_pallas 1);
+ 10. the use_pallas = 1 main path at full size through the CLI: as phase 5
+     with df 2 and compute_dtype f64.  B2's launch count must move and B1's
+     and B3's must stay at 0;
+ 11. B2 on phase 10's operands, timed at full size, and held to its plain
+     version (<= 1e-5) on the first 8,192 cells at the full M, both timed
+     there.
 
-The line before the last is a JSON object with each kernel's measurements;
-the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+The line before the last is a JSON object with each kernel's measurements,
+its bound (the least time the card could take for the same work, from
+OPS_PER_EVALUATION and the bytes of its operands) and library_ms null: no
+single PyTorch call computes a Cooper-Frye sum.  The last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -53,9 +65,30 @@ import numpy as np
 import torch
 
 MAIN_CELLS = 100_000
-KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod")
+KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod", "cooper_frye_f32")
 B1_COMPARE_CELLS = 16_384
+B2_COMPARE_CELLS = 8_192
 B3_COMPARE_CELLS = 8_192
+
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# Floating-point operations per (cell, eta, m) evaluation at the main paths'
+# settings (shear and bulk delta-f; no diffusion, regulation or outflow),
+# counted from the plain versions' arithmetic: each elementwise add,
+# multiply, divide, exp, sqrt, clamp or f32 -> f64 conversion on a
+# (cells, M) tensor counts one, and so does each term of the f64 sum; work
+# outside the eta loop counts once per 12 eta nodes; per-cell and
+# per-momentum work is left out.  f64 operations count at the FP32 rate, so
+# the bound stays a lower bound.  B3's kernel runs one branch per cell, so
+# its two branches count apart.
+OPS_PER_EVALUATION = {
+    "cooper_frye_comp": 70 + 26 / 12,     # df 1
+    "cooper_frye_f32": 34 + 12 / 12,      # df 2
+    "cooper_frye_feqmod": {"modified": 30 + 9 / 12,    # df 4
+                           "breakdown": 43 + 9 / 12},
+}
 PARITY_CHOSEN = (211, -211, 111, 321, -321, 311, 221, 2212, -2212, 2112,
                  3122, -3122, 3222, 3312, 213, 333)
 
@@ -80,9 +113,24 @@ def cuda_ms(fn, warmup=None):
 
 def launch_counters():
     from is3d2_tpu_torch.ops.cooper_frye_comp import cooper_frye_comp
+    from is3d2_tpu_torch.ops.cooper_frye_f32 import cooper_frye_f32
     from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod
     return {"cooper_frye_comp": cooper_frye_comp,
-            "cooper_frye_feqmod": cooper_frye_feqmod}
+            "cooper_frye_feqmod": cooper_frye_feqmod,
+            "cooper_frye_f32": cooper_frye_f32}
+
+
+def bound(ops: float, args: tuple, n_mom: int) -> dict:
+    """The least time the card could take for one kernel call on ``args``:
+    the larger of ``ops`` over the FP32 peak and the bytes (each operand
+    read once, the (n_mom,) f64 output written once) over the memory
+    rate."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor)) + 8 * n_mom
+    ops_ms = ops / PEAK_FP32_OPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def phase_environment() -> str:
@@ -160,7 +208,8 @@ def phase_b3_compare(wd: Path) -> None:
 def run_main_path(tmp: Path, label: str, kernel: str, params: dict,
                   **surface_kw) -> tuple[int, dict, Path, str]:
     """Write the full-size workdir and run the CLI on it, with every launch
-    count set to 0 just before and read just after."""
+    count set to 0 just before and read just after.  Only ``kernel`` may
+    launch."""
     from is3d2_tpu_torch import cli
     from is3d2_tpu_torch.tools.synthetic import write_workdir
 
@@ -184,6 +233,8 @@ def run_main_path(tmp: Path, label: str, kernel: str, params: dict,
           f"{launches}")
     if rc != 0 or launches[kernel] < 1:
         raise AssertionError(f"the main path did not run through {kernel}")
+    if any(n for name, n in launches.items() if name != kernel):
+        raise AssertionError(f"the {kernel} main path launched another kernel")
     stages = json.loads(re.search(r"^stage seconds: (.*)$", out,
                                   re.M).group(1))
 
@@ -234,38 +285,60 @@ def compare_on_cut(kernel, plain, few_args, cut_args, spectra_units, tol,
     return ms, plain_ms, max_abs
 
 
-def phase_b1_full(wd: Path, stages: dict) -> dict:
-    print("== 6. B1 on the df-1 main path's operands")
+def main_path_state(wd: Path, state_fn):
+    """(cfg, engine state) of a main path, read back from its workdir."""
     from is3d2_tpu_torch.config import Config
     from is3d2_tpu_torch.io.surface import read_surface
+
+    cfg = Config.from_file(wd / "iS3D_parameters.dat")
+    surf = read_surface(wd / "input/surface.dat", 1, 2, False)
+    return cfg, state_fn(wd, cfg, surf, "cuda")
+
+
+def time_on_main_path(name, kernel, plain, ops, args, cut, n_cut, state, tol,
+                      ops_of) -> dict:
+    """Time ``kernel`` on the main path's operands ``args`` (``ops``), then
+    hold it to its plain version on the first ``n_cut`` cells (``cut(n)``:
+    the operands cut to n cells), both timed there.  ``ops_of(n)``: the
+    operations on the first n cells, for the bounds."""
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    C, Ne, M = args[0].shape[0], ops.eta.shape[0], ops.mom.shape[1]
+    print(f"{C} padded cells x {Ne} eta x {M} momenta (M mod 256 = "
+          f"{M % 256}) = {ops.evaluations:.4g} evaluations")
+    full_ms, _ = cuda_ms(lambda: kernel(*args))
+    print(f"kernel at full size {full_ms:.1f} ms, "
+          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
+    print(f"compared on the first {n_cut} cells at the full M")
+    ms, plain_ms, max_abs = compare_on_cut(
+        kernel, plain, cut(64), cut(n_cut),
+        lambda flat: kc.spectra_units(state, flat), tol, name)
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            **bound(ops_of(n_cut), cut(n_cut), M),
+            "main_path_bound_ms": bound(ops_of(C), args, M)["bound_ms"],
+            # no single PyTorch call computes a Cooper-Frye sum
+            "library_ms": None,
+            "cells_compared": n_cut, "main_path_ms": full_ms,
+            "main_path_evaluations": ops.evaluations}
+
+
+def phase_b1_full(wd: Path, stages: dict) -> dict:
+    print("== 6. B1 on the df-1 main path's operands")
     from is3d2_tpu_torch.ops import cooper_frye_comp as ck
     from is3d2_tpu_torch.ops.spectra_fast_common import comp_operands
     from is3d2_tpu_torch.tools import kernel_check as kc
 
-    cfg = Config.from_file(wd / "iS3D_parameters.dat")
-    surf = read_surface(wd / "input/surface.dat", 1, 2, False)
-    state = kc.engine_state(wd, cfg, surf, "cuda")
-    ops = comp_operands(*state, cfg)
-    args = kc.kernel_args(ops, cfg)
-    C, Ne, M = ops.cell.shape[0], ops.eta.shape[0], ops.mom.shape[1]
-    print(f"{C} padded cells x {Ne} eta x {M} momenta (M mod 256 = "
-          f"{M % 256}) = {ops.evaluations:.4g} evaluations")
-    full_ms, _ = cuda_ms(lambda: ck.cooper_frye_comp(*args))
-    print(f"kernel at full size {full_ms:.1f} ms, "
-          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
     print(f"driver stage seconds: {json.dumps(stages)}")
-
-    def cut(n):
-        return (ops.cell[:n].contiguous(), ops.qm[:n].contiguous(), *args[2:])
-
-    print(f"compared on the first {B1_COMPARE_CELLS} cells at the full M")
-    ms, plain_ms, max_abs = compare_on_cut(
-        ck.cooper_frye_comp, ck.cooper_frye_comp_plain, cut(64),
-        cut(B1_COMPARE_CELLS), lambda flat: kc.spectra_units(state, flat),
-        kc.TOL, "B1")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "cells_compared": B1_COMPARE_CELLS, "main_path_ms": full_ms,
-            "main_path_evaluations": ops.evaluations}
+    cfg, state = main_path_state(wd, kc.engine_state)
+    ops = comp_operands(*state, cfg)
+    args = (*ops.args(), cfg)
+    per_cell = OPS_PER_EVALUATION["cooper_frye_comp"] * ops.evaluations \
+        / ops.cell.shape[0]
+    return time_on_main_path(
+        "B1", ck.cooper_frye_comp, ck.cooper_frye_comp_plain, ops, args,
+        lambda n: (ops.cell[:n].contiguous(), ops.qm[:n].contiguous(),
+                   *args[2:]),
+        B1_COMPARE_CELLS, state, kc.TOL, lambda n: per_cell * n)
 
 
 def phase_b3_main_path(tmp: Path) -> tuple[int, dict, Path]:
@@ -286,42 +359,76 @@ def phase_b3_main_path(tmp: Path) -> tuple[int, dict, Path]:
 
 def phase_b3_full(wd: Path) -> dict:
     print("== 8. B3 on the df-4 main path's operands")
-    from is3d2_tpu_torch.config import Config
-    from is3d2_tpu_torch.io.surface import read_surface
     from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
     from is3d2_tpu_torch.tools import kernel_check as kc
 
-    cfg = Config.from_file(wd / "iS3D_parameters.dat")
-    surf = read_surface(wd / "input/surface.dat", 1, 2, False)
-    state = kc.feqmod_engine_state(wd, cfg, surf, "cuda")
+    cfg, state = main_path_state(wd, kc.feqmod_engine_state)
     ops = fk.feqmod_operands(*state, cfg)
-    C, Ne, M = ops.cols.shape[0], ops.eta.shape[0], ops.mom.shape[1]
-    print(f"{C} padded cells x {Ne} eta x {M} momenta (M mod 256 = "
-          f"{M % 256}) = {ops.evaluations:.4g} evaluations; "
-          f"{kc.breakdown_cells(state)} breakdown cells")
-    full_ms, _ = cuda_ms(lambda: fk.cooper_frye_feqmod(*ops.args(), cfg,
-                                                       ops.kind))
-    print(f"kernel at full size {full_ms:.1f} ms, "
-          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
-
-    def cut(n):
-        return (ops.cols[:n].contiguous(), ops.mom, ops.renorm[:n].contiguous(),
-                ops.red[:n].contiguous(), ops.eta, ops.n_per_species, cfg,
-                ops.kind)
-
     n_break = int((state[1].breaks_down[:B3_COMPARE_CELLS]
                    & (state[0].mask[:B3_COMPARE_CELLS] > 0)).sum().item())
-    print(f"compared on the first {B3_COMPARE_CELLS} cells ({n_break} break "
-          "down) at the full S and M")
+    print(f"{kc.breakdown_cells(state)} breakdown cells, {n_break} of them "
+          f"among the first {B3_COMPARE_CELLS}")
     if n_break < 1:
         raise AssertionError("no breakdown cell among the compared cells")
-    ms, plain_ms, max_abs = compare_on_cut(
-        fk.cooper_frye_feqmod, fk.cooper_frye_feqmod_plain, cut(64),
-        cut(B3_COMPARE_CELLS), lambda flat: kc.spectra_units(state, flat),
-        kc.FEQMOD_TOL_PLAIN, "B3")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "cells_compared": B3_COMPARE_CELLS, "main_path_ms": full_ms,
-            "main_path_evaluations": ops.evaluations}
+    per_eval = OPS_PER_EVALUATION["cooper_frye_feqmod"]
+    per_cell = ops.evaluations / ops.cols.shape[0]
+
+    def b3_ops(n):
+        """Operations on the first n operand cells: the kernel runs the
+        breakdown branch on the cells whose BREAKS column is set."""
+        n_b = int((ops.cols[:n, fk.BREAKS] != 0).sum().item())
+        return per_cell * (n_b * per_eval["breakdown"]
+                           + (n - n_b) * per_eval["modified"])
+
+    return time_on_main_path(
+        "B3", fk.cooper_frye_feqmod, fk.cooper_frye_feqmod_plain, ops,
+        (*ops.args(), cfg, ops.kind),
+        lambda n: (ops.cols[:n].contiguous(), ops.mom,
+                   ops.renorm[:n].contiguous(), ops.red[:n].contiguous(),
+                   ops.eta, ops.n_per_species, cfg, ops.kind),
+        B3_COMPARE_CELLS, state, kc.FEQMOD_TOL_PLAIN, b3_ops)
+
+
+def phase_b2_compare(wd: Path) -> None:
+    print("== 9. B2 vs plain version vs f64 engine (2048 cells, 16 species, "
+          "51 x 48, 24 eta; f64, use_pallas 1)")
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    for name in kc.F32_CASES:
+        r = kc.check_f32_case(wd, name, 2048, 7, "cuda")
+        print(f"{name:22s} kernel vs plain {r.vs_plain:.3e}  kernel vs f64 "
+              f"{r.vs_f64:.3e}  plain vs f64 {r.plain_vs_f64:.3e}  max |kernel"
+              f" - plain| {np.abs(r.kernel - r.plain).max():.3e}")
+        if not (r.ok and r.launches == 1):
+            raise AssertionError(f"{name}: kernel disagrees or does not "
+                                 f"repeat ({r.vs_plain:.3e} vs plain, "
+                                 f"{r.vs_f64:.3e} vs f64)")
+
+
+def phase_b2_main_path(tmp: Path) -> tuple[int, dict, Path]:
+    print(f"== 10. use_pallas = 1 main path: {MAIN_CELLS} cells, all species, "
+          "51 x 48 x 24, df 2, f64")
+    launches, stages, wd, _ = run_main_path(
+        tmp, "main_df2_pallas", "cooper_frye_f32",
+        {"df_mode": 2, "compute_dtype": "f64", "use_pallas": 1})
+    print(f"stage seconds: {json.dumps(stages)}")
+    return launches, stages, wd
+
+
+def phase_b2_full(wd: Path) -> dict:
+    print("== 11. B2 on the use_pallas = 1 main path's operands")
+    from is3d2_tpu_torch.ops import cooper_frye_f32 as b2
+    from is3d2_tpu_torch.ops.spectra_fast_common import f32_operands
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    cfg, state = main_path_state(wd, kc.engine_state)
+    ops = f32_operands(*state, cfg)
+    args = (*ops.args(), cfg)
+    per_cell = OPS_PER_EVALUATION["cooper_frye_f32"] * ops.evaluations \
+        / ops.cell.shape[0]
+    return time_on_main_path(
+        "B2", b2.cooper_frye_f32, b2.cooper_frye_f32_plain, ops, args,
+        lambda n: (ops.cell[:n].contiguous(), *args[1:]),
+        B2_COMPARE_CELLS, state, kc.F32_TOL_PLAIN, lambda n: per_cell * n)
 
 
 def main() -> int:
@@ -345,6 +452,9 @@ def main() -> int:
         b1 = phase_b1_full(wd1, b1_stages)
         b3_launches, _, wd4 = phase_b3_main_path(tmp)
         b3 = phase_b3_full(wd4)
+        phase_b2_compare(wd)
+        b2_launches, _, wd2 = phase_b2_main_path(tmp)
+        b2 = phase_b2_full(wd2)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -357,7 +467,11 @@ def main() -> int:
         {"name": "cooper_frye_feqmod", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_feqmod_pallas.py:68",
-         "launches": b3_launches, **b3}]}))
+         "launches": b3_launches, **b3},
+        {"name": "cooper_frye_f32", "route": "cuda",
+         "source": "is3d2_tpu_torch/csrc/cooper_frye_f32.cu",
+         "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:83",
+         "launches": b2_launches, **b2}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

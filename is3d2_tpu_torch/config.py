@@ -86,13 +86,15 @@ class Config:
     # --- framework extensions (not in the reference), same names and
     # defaults as is3d2_tpu/config.py ---
     # compute dtype of the Cooper-Frye engines: "f64" (the torch f64
-    # engines), "f32" (plain f32: df 3/4 run kernel B3; not ported for
-    # df 1/2) or "f32c" (compensated f32: the exp argument in split-exact
-    # arithmetic, <=1e-6 of f64, kernel B1 for df 1/2; df 3/4 run kernel B3)
+    # engines), "f32" (plain f32) or "f32c" (compensated f32: the exp
+    # argument in split-exact arithmetic, <=1e-6 of f64).  With the kernels
+    # on, df 1/2 run kernel B1 for both f32 and f32c, as the JAX package
+    # does on an accelerator; df 3/4 run kernel B3
     compute_dtype: str = "f64"
     # hand-written kernels: -1 = auto, 1 = on, 0 = off.  With f32/f32c, -1
     # and 1 select the kernel; 0 selects the JAX package's XLA fast paths,
-    # which are not ported yet.  With f64, 1 selects kernel B3 for df 3/4
+    # which are not ported yet.  With f64, 1 selects kernel B2 (plain f32)
+    # for df 1/2 and kernel B3 for df 3/4
     use_pallas: int = -1
     # number of freezeout cells per device block in the CF reduction
     cell_block: int = 4096
@@ -185,8 +187,14 @@ class Config:
         elif self.df_mode == 5:
             todo = "df_mode 5 (famod: aniso.py and the famod prep): ROADMAP A10"
         elif self.dimension == 3:
-            todo = ("dimension 3 (3+1d feqmod engines): ROADMAP A7 and A9"
-                    if feqmod else "dimension 3 (3+1d engines): ROADMAP A7")
+            if feqmod:
+                todo = "dimension 3 (3+1d feqmod engines): ROADMAP A7 and A9"
+            elif self.compute_dtype == "f64" and self.use_pallas == 1:
+                # the JAX package runs the 3+1d f64 engine there
+                todo = ("dimension 3 (3+1d engines; use_pallas 1 reaches "
+                        "kernel B2 only in 2+1d): ROADMAP A7")
+            else:
+                todo = "dimension 3 (3+1d engines): ROADMAP A7"
         elif self.mode == 5:
             todo = "mode 5 (polarization): ROADMAP A8"
         elif self.mode != 1:
@@ -194,12 +202,9 @@ class Config:
         elif feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
             todo = (f"use_pallas 0 with {self.compute_dtype} for df "
                     f"{self.df_mode} (XLA feqmod fast path): ROADMAP A9")
-        elif not feqmod and self.compute_dtype == "f32":
-            todo = "compute_dtype f32 (plain-f32 engines): ROADMAP A7 and B2"
-        elif not feqmod and self.compute_dtype == "f32c" and self.use_pallas == 0:
-            todo = "use_pallas 0 with f32c (XLA f32c path): ROADMAP A7"
-        elif not feqmod and self.compute_dtype == "f64" and self.use_pallas == 1:
-            todo = "use_pallas 1 with f64 (plain-f32 kernel): ROADMAP B2"
+        elif not feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
+            todo = (f"use_pallas 0 with {self.compute_dtype} (XLA f32/f32c "
+                    "fast path): ROADMAP A7")
         elif self.group_particles:
             todo = "group_particles: ROADMAP A11"
         elif self.use_mesh == 1:

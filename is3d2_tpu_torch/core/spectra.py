@@ -7,9 +7,11 @@ MomentumSpectra.cpp:32-415) and its dispatcher over df modes.  For df 1/2:
     axes (cell, species, pT, phi, y, eta), summed block by block over the
     cells.  It is the port's own yardstick, the counterpart of
     ``_spectra_df12_jit``;
-  * the compensated-f32 path (``compute_dtype = "f32c"``): the
-    hand-written CUDA kernel ops/cooper_frye_comp.py on a GPU, its plain
-    torch version on the CPU (ops/spectra_fast_common.py).
+  * the compensated-f32 kernel B1 (``compute_dtype`` "f32c" or "f32"):
+    the hand-written CUDA kernel ops/cooper_frye_comp.py on a GPU, its
+    plain torch version on the CPU (ops/spectra_fast_common.py);
+  * the plain-f32 kernel B2 (``use_pallas = 1`` with "f64"):
+    ops/cooper_frye_f32.py, likewise.
 
 df 3/4 (feqmod) run the torch f64 engine of core/spectra_feqmod.py or
 kernel B3 (ops/cooper_frye_feqmod.py).
@@ -246,8 +248,11 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
                     device, laguerre=None, report=None) -> np.ndarray:
     """Continuous spectra dN/(pT dpT dphi dy), shape (S, NpT, Nphi, Ny).
 
-    df 1/2: compute_dtype "f64" runs the torch f64 engine; "f32c" runs the
-    compensated kernel B1.  df 3/4 (``laguerre`` needed): the feqmod prep,
+    df 1/2, routed as the JAX package routes one device
+    (is3d2_tpu/core/spectra.py:354-389): "f32" and "f32c" run the
+    compensated kernel B1; "f64" runs the plain-f32 kernel B2 with
+    use_pallas = 1 and the torch f64 engine otherwise.  df 3/4 (``laguerre``
+    needed): the feqmod prep,
     then kernel B3 (see uses_feqmod_kernel) or the torch f64 feqmod engine.
     A kernel runs as CUDA on a GPU device and as its plain version on the
     CPU.
@@ -265,9 +270,16 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
         return out.cpu().numpy()
     state = df12_state(surf, species_table, chosen_idx, grids, df_data, cfg,
                        device, report)
-    if cfg.compute_dtype == "f64":
-        out = spectra_df12(*state, cfg)
-    else:
+    # use_pallas = -1 means "the kernel" in the port on any device (on the
+    # CPU, its plain version), where the JAX package runs its XLA fast
+    # paths on the CPU backend; validate_slice rejects use_pallas = 0 with
+    # f32/f32c (those XLA paths are not ported)
+    if cfg.compute_dtype in ("f32", "f32c"):
         from ..ops.spectra_fast_common import compute_spectra_comp
         out = compute_spectra_comp(*state, cfg)
+    elif cfg.use_pallas == 1:
+        from ..ops.spectra_fast_common import compute_spectra_f32
+        out = compute_spectra_f32(*state, cfg)
+    else:
+        out = spectra_df12(*state, cfg)
     return out.cpu().numpy()

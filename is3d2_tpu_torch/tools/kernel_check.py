@@ -5,6 +5,9 @@ One harness for ``chip_smoke.py`` and ``tests/test_torch_gpu.py``:
   * kernel B1 (compensated, df 1/2): the df 1/2 engines' state for a
     surface, the cases every check covers (df 1/2 with the clip, outflow
     and diffusion branches), bar TOL;
+  * kernel B2 (plain f32, df 1/2): the same state, the cases F32_CASES
+    (those of tests/test_torch_f32_kernel.py), bars F32_TOL_PLAIN against
+    the plain version and F32_TOL_F64 against the f64 engine;
   * kernel B3 (feqmod, df 3/4): the feqmod state on a surface with large
     viscous corrections (FEQMOD_SURFACE, so that cells break down), the
     cases FEQMOD_CASES, bars FEQMOD_TOL_PLAIN against the plain version and
@@ -30,14 +33,17 @@ from ..core.spectra import PREFACTOR, df12_state, spectra_df12
 from ..core.spectra_feqmod import feqmod_state, spectra_feqmod
 from ..driver import IS3D
 from ..ops import cooper_frye_comp as ck
+from ..ops import cooper_frye_f32 as b2
 from ..ops import cooper_frye_feqmod as fk
-from ..ops.spectra_fast_common import CompOperands, comp_operands
+from ..ops.spectra_fast_common import comp_operands, f32_operands
 from .synthetic import make_surface
 
 TOL = 1e-6     # relative, on bins >= FLOOR of their species' peak
 FLOOR = 1e-4
 FEQMOD_TOL_PLAIN = 1e-5   # kernel B3 vs its plain version
 FEQMOD_TOL_F64 = 1e-4     # kernel B3 vs the f64 engine (the JAX kernel's bar)
+F32_TOL_PLAIN = 1e-5      # kernel B2 vs its plain version
+F32_TOL_F64 = 2e-5        # kernel B2 vs the f64 engine (JAX's f32 paths: ~5e-6)
 
 # name -> (config fields, make_surface options); the workdir needs
 # include_baryon=True for the diffusion cases
@@ -54,6 +60,22 @@ CASES = {
     "df2-baryon-diffusion": ({"df_mode": 2, "include_baryon": 1,
                               "include_baryondiff_deltaf": 1},
                              {"include_baryon": True}),
+}
+
+
+# name -> (config fields, make_surface options), the cases of
+# tests/test_torch_f32_kernel.py; compute_dtype f64 with use_pallas 1, the
+# route that runs kernel B2
+F32_CASES = {
+    "df1": ({"df_mode": 1}, {}),
+    "df2": ({"df_mode": 2}, {}),
+    "df1-regulate": ({"df_mode": 1, "regulate_deltaf": 1},
+                     {"shear_scale": 0.03}),
+    "df2-regulate-outflow": ({"df_mode": 2, "regulate_deltaf": 1,
+                              "outflow": 1}, {"shear_scale": 0.03}),
+    "df1-outflow": ({"df_mode": 1, "outflow": 1}, {}),
+    "df1-baryon-diffusion": CASES["df1-baryon-diffusion"],
+    "df2-baryon-diffusion": CASES["df2-baryon-diffusion"],
 }
 
 
@@ -74,10 +96,6 @@ def engine_state(workdir: str | Path, cfg: Config, surf, device):
     run._setup()
     return df12_state(surf, run.species, run.chosen_idx, run.grids,
                       run.df_data, cfg, device)
-
-
-def kernel_args(ops: CompOperands, cfg: Config) -> tuple:
-    return ops.cell, ops.qm, ops.eta, ops.eta_w, ops.mom, cfg
 
 
 def spectra_units(state, flat: torch.Tensor) -> np.ndarray:
@@ -113,24 +131,59 @@ class CaseResult:
                     and self.vs_plain <= TOL and self.vs_f64 <= TOL)
 
 
+def _run(kernel, plain, args: tuple):
+    """Kernel (twice: launches, repeatability) and plain version."""
+    before = kernel.launches
+    out = kernel(*args)
+    launches = kernel.launches - before
+    repeats = torch.equal(kernel(*args), out)
+    return out, plain(*args), launches, repeats
+
+
+def _check_df12(workdir, case: tuple, cfg: Config, n_cells: int, seed: int,
+                device, operands, kernel, plain, result=CaseResult):
+    """One df 1/2 case through a kernel, its plain version and the f64
+    engine."""
+    surf = make_surface(n_cells, seed=seed, **case[1])
+    state = engine_state(workdir, cfg, surf, device)
+    out, pl, launches, repeats = _run(kernel, plain,
+                                      (*operands(*state, cfg), cfg))
+    kern = spectra_units(state, out)
+    ref = spectra_df12(*state, cfg).reshape(kern.shape).cpu().numpy()
+    return result(kern, spectra_units(state, pl), ref, launches, repeats)
+
+
 def check_case(workdir: str | Path, case: str, n_cells: int, seed: int,
                device, **cfg_fields) -> CaseResult:
     """Run CASES[case] on a make_surface(n_cells, seed) surface through
-    the kernel (its plain version on a CPU device), the plain version and
+    kernel B1 (its plain version on a CPU device), the plain version and
     the f64 engine."""
-    fields, surf_kw = CASES[case]
-    cfg = Config(compute_dtype="f32c", **fields, **cfg_fields)
-    surf = make_surface(n_cells, seed=seed, **surf_kw)
-    state = engine_state(workdir, cfg, surf, device)
-    args = kernel_args(comp_operands(*state, cfg), cfg)
-    before = ck.cooper_frye_comp.launches
-    out = ck.cooper_frye_comp(*args)
-    launches = ck.cooper_frye_comp.launches - before
-    repeats = torch.equal(ck.cooper_frye_comp(*args), out)
-    kern = spectra_units(state, out)
-    plain = spectra_units(state, ck.cooper_frye_comp_plain(*args))
-    ref = spectra_df12(*state, cfg).reshape(kern.shape).cpu().numpy()
-    return CaseResult(kern, plain, ref, launches, repeats)
+    cfg = Config(compute_dtype="f32c", **CASES[case][0], **cfg_fields)
+    return _check_df12(workdir, CASES[case], cfg, n_cells, seed, device,
+                       lambda *st: comp_operands(*st).args(),
+                       ck.cooper_frye_comp, ck.cooper_frye_comp_plain)
+
+
+@dataclasses.dataclass
+class F32CaseResult(CaseResult):
+    @property
+    def ok(self) -> bool:
+        return bool(np.isfinite(self.kernel).all() and self.repeats
+                    and self.vs_plain <= F32_TOL_PLAIN
+                    and self.vs_f64 <= F32_TOL_F64)
+
+
+def check_f32_case(workdir: str | Path, case: str, n_cells: int, seed: int,
+                   device, **cfg_fields) -> F32CaseResult:
+    """Run F32_CASES[case] (compute_dtype f64, use_pallas 1) on a
+    make_surface(n_cells, seed) surface through kernel B2 (its plain version
+    on a CPU device), the plain version and the f64 engine."""
+    cfg = Config(compute_dtype="f64", use_pallas=1, **F32_CASES[case][0],
+                 **cfg_fields)
+    return _check_df12(workdir, F32_CASES[case], cfg, n_cells, seed, device,
+                       lambda *st: f32_operands(*st).args(),
+                       b2.cooper_frye_f32, b2.cooper_frye_f32_plain,
+                       F32CaseResult)
 
 
 # ----------------------------------------------------------------------
@@ -177,14 +230,8 @@ class FeqmodCaseResult(CaseResult):
 
 
 def _run_b3(ops: fk.FeqmodOperands, cfg: Config):
-    """Kernel (twice: launches, repeatability) and plain version."""
-    before = fk.cooper_frye_feqmod.launches
-    out = fk.cooper_frye_feqmod(*ops.args(), cfg, ops.kind)
-    launches = fk.cooper_frye_feqmod.launches - before
-    repeats = torch.equal(fk.cooper_frye_feqmod(*ops.args(), cfg, ops.kind),
-                          out)
-    plain = fk.cooper_frye_feqmod_plain(*ops.args(), cfg, ops.kind)
-    return out, plain, launches, repeats
+    return _run(fk.cooper_frye_feqmod, fk.cooper_frye_feqmod_plain,
+                (*ops.args(), cfg, ops.kind))
 
 
 def check_feqmod_case(workdir: str | Path, case: str, n_cells: int, seed: int,

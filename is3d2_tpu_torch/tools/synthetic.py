@@ -16,10 +16,11 @@ package's CLI) reads, with no data files from outside the repository:
 same seed gives the same surface bit for bit.
 
 Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]
-[--df-mode 1-4] [--compute-dtype f32c|f32|f64] [--shear-scale X]
-[--bulk-scale X]``.  The feqmod breakdown branch (df 3/4) needs viscous
-corrections well above the defaults: ``--shear-scale 0.2 --bulk-scale 0.1``
-sends a few percent of the cells there.
+[--df-mode 1-4] [--compute-dtype f32c|f32|f64] [--use-pallas -1|0|1]
+[--shear-scale X] [--bulk-scale X]``.  ``--compute-dtype f64 --use-pallas 1``
+selects kernel B2 for df 1/2.  The feqmod breakdown branch (df 3/4) needs
+viscous corrections well above the defaults: ``--shear-scale 0.2
+--bulk-scale 0.1`` sends a few percent of the cells there.
 """
 
 from __future__ import annotations
@@ -247,6 +248,8 @@ def main(argv=None) -> int:
     ap.add_argument("--df-mode", type=int, default=1, choices=(1, 2, 3, 4))
     ap.add_argument("--compute-dtype", default="f32c",
                     choices=("f32c", "f32", "f64"))
+    ap.add_argument("--use-pallas", type=int, default=-1, choices=(-1, 0, 1),
+                    help="the kernels: -1 auto, 1 on, 0 off (default -1)")
     ap.add_argument("--shear-scale", type=float, default=0.02,
                     help="shear stress in units of E + P (default 0.02)")
     ap.add_argument("--bulk-scale", type=float, default=0.01,
@@ -254,7 +257,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     write_workdir(args.workdir, n_cells=args.cells, seed=args.seed,
                   params={"df_mode": args.df_mode,
-                          "compute_dtype": args.compute_dtype},
+                          "compute_dtype": args.compute_dtype,
+                          "use_pallas": args.use_pallas},
                   shear_scale=args.shear_scale, bulk_scale=args.bulk_scale)
     print(f"wrote {args.workdir}")
     return 0

@@ -1,4 +1,4 @@
-"""The CUDA kernels B1 and B3 on the card, against their plain torch
+"""The CUDA kernels B1, B2 and B3 on the card, against their plain torch
 versions and the port's f64 engines, through the shared harness
 tools/kernel_check.py.
 
@@ -18,8 +18,10 @@ torch = pytest.importorskip("torch")
 
 from is3d2_tpu_torch.config import Config  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_comp as ck  # noqa: E402
+from is3d2_tpu_torch.ops import cooper_frye_f32 as b2  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
-from is3d2_tpu_torch.ops.spectra_fast_common import comp_operands  # noqa: E402
+from is3d2_tpu_torch.ops.spectra_fast_common import (  # noqa: E402
+    comp_operands, f32_operands)
 from is3d2_tpu_torch.tools import kernel_check as kc  # noqa: E402
 from is3d2_tpu_torch.tools.synthetic import make_surface, write_workdir  # noqa: E402
 
@@ -129,3 +131,47 @@ def test_feqmod_kernel_check_plain_on_cpu(workdir, case):
     assert r.launches == 0
     assert r.vs_plain == 0.0
     assert r.ok, (r.vs_f64, r.breakdown_cells)
+
+
+# ----------------------------------------------------------------------
+# kernel B2
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(kc.F32_CASES))
+def test_f32_kernel_vs_plain_and_f64(workdir, case):
+    _needs_cuda()
+    r = kc.check_f32_case(workdir, case, 512, 3, "cuda", cell_block=512)
+    assert r.launches == 1
+    assert np.isfinite(r.kernel).all()
+    assert r.vs_plain <= kc.F32_TOL_PLAIN
+    assert r.vs_f64 <= kc.F32_TOL_F64
+    assert r.repeats
+
+
+@pytest.mark.gpu
+def test_f32_kernel_ragged_tiles(workdir):
+    """100 cells and 1,000 momenta: neither the last 32-cell tile nor the
+    last 256-thread block is full."""
+    _needs_cuda()
+    cfg = Config(compute_dtype="f64", use_pallas=1, df_mode=2,
+                 include_baryon=1, include_baryondiff_deltaf=1,
+                 cell_block=512)
+    surf = make_surface(512, seed=5, include_baryon=True)
+    ops = f32_operands(*kc.engine_state(workdir, cfg, surf, "cuda"), cfg)
+    args = (ops.cell[:100].contiguous(), ops.eta, ops.eta_w,
+            ops.mom[:, :1000].contiguous(), cfg)
+    out = b2.cooper_frye_f32(*args).cpu().numpy()[None]
+    plain = b2.cooper_frye_f32_plain(*args).cpu().numpy()[None]
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, plain) <= kc.F32_TOL_PLAIN
+
+
+@pytest.mark.parametrize("case", list(kc.F32_CASES))
+def test_f32_kernel_check_plain_on_cpu(workdir, case):
+    """The B2 harness on the CPU: the wrapper takes the plain version (no
+    launch) and it meets the f64 engine within F32_TOL_F64."""
+    r = kc.check_f32_case(workdir, case, 512, 3, "cpu", cell_block=512)
+    assert r.launches == 0
+    assert r.vs_plain == 0.0
+    assert r.ok, r.vs_f64

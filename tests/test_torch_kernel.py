@@ -22,8 +22,8 @@ from is3d2_tpu.core.spectra_fast import compute_spectra_fast  # noqa: E402
 from is3d2_tpu.ops.spectra_fast_common import (  # noqa: E402
     pack_inputs_comp as j_pack_inputs_comp)
 
-from torch_parity import (BLOCK, build_workdir, case_state,  # noqa: E402
-                          max_rel_err, port_config)
+from torch_parity import (BLOCK, DF12_CASES, build_workdir,  # noqa: E402
+                          case_state, max_rel_err, port_config)
 
 from is3d2_tpu_torch.core.spectra import spectra_df12  # noqa: E402
 from is3d2_tpu_torch.core.spectra_fast import fold_eta_quadrature  # noqa: E402
@@ -33,16 +33,7 @@ from is3d2_tpu_torch.ops.spectra_fast_common import (  # noqa: E402
 
 torch.set_num_threads(1)
 
-# (df_mode, include_baryon, shear_scale, extra cfg)
-CASES = {
-    "df1": (1, False, 0.02, {}),
-    "df2": (2, False, 0.02, {}),
-    "df1-regulate": (1, False, 0.03, {"regulate_deltaf": 1}),
-    "df2-regulate-outflow": (2, False, 0.03, {"regulate_deltaf": 1, "outflow": 1}),
-    "df1-outflow": (1, False, 0.02, {"outflow": 1}),
-    "df1-baryon-diffusion": (1, True, 0.02, {}),
-    "df2-baryon-diffusion": (2, True, 0.02, {}),
-}
+CASES = DF12_CASES
 
 
 @pytest.fixture(scope="module")

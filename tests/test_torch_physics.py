@@ -176,9 +176,10 @@ def test_config_parser_and_slice(workdir):
     ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "dimension": 3}, "A9"),
     ({"df_mode": 5}, "A10"),
     ({"dimension": 3}, "A7"), ({"mode": 6}, "A2"), ({"mode": 5}, "A8"),
-    ({"compute_dtype": "f32"}, "A7"),
+    ({"compute_dtype": "f32", "use_pallas": 0}, "A7"),
     ({"compute_dtype": "f32c", "use_pallas": 0}, "A7"),
-    ({"compute_dtype": "f64", "use_pallas": 1}, "B2"),
+    # kernel B2 is 2+1d, as in the JAX package
+    ({"compute_dtype": "f64", "use_pallas": 1, "dimension": 3}, "B2"),
     ({"group_particles": 1}, "A11"), ({"use_mesh": 1}, "A12"),
 ])
 def test_validate_slice_rejects_the_rest(kw, item):

@@ -5,9 +5,12 @@ the port's CLI on the CPU, on copies of the same workdir.  All five op-1
 result files per species must agree: spectra-valued columns within the
 case's bar relative on bins >= 1e-4 of the file's peak, and v_n within the
 bar absolute (v_n is a ratio normalised to v_0 = 1, so its harmonics carry
-no scale of their own).  Bars: 1e-6 for df 1/2 in f32c; for df 3/4, 1e-4
-in f32 and, on the driver's in-memory spectra, 1e-10 in f64 (the files
-carry 9 significant digits).
+no scale of their own).  Bars: 1e-6 for df 1/2 in f32c; 3e-5 for df 1/2
+with use_pallas = 1 in f64 (the port's kernel B2 against the JAX
+``_kernel`` in interpret mode, whose bf16-split dots put it further from
+the f64 engine than plain f32); for df 3/4, 1e-4 in f32 and, on the
+driver's in-memory spectra, 1e-10 in f64 (the files carry 9 significant
+digits).
 """
 
 import os
@@ -73,6 +76,38 @@ def test_port_cli_matches_jax_driver(tmp_path, df_mode):
     _compare_result_files(wd, tmp_path / "port", 1e-6)
 
 
+@pytest.mark.parametrize("df_mode", [1, 2])
+def test_port_cli_matches_jax_driver_use_pallas(tmp_path, df_mode):
+    """use_pallas = 1 with the default compute_dtype f64: the JAX driver
+    runs ``_kernel`` (interpret mode on the CPU backend), the port kernel
+    B2's plain version."""
+    wd = build_workdir(tmp_path / "jax", params={"df_mode": df_mode,
+                                                 "compute_dtype": "f64",
+                                                 "use_pallas": 1})
+    shutil.copytree(wd, tmp_path / "port")
+    JIS3D(wd).run_particlization()
+    assert cli.main([str(tmp_path / "port"), "--device", "cpu"]) == 0
+    _compare_result_files(wd, tmp_path / "port", 3e-5)
+
+
+def test_port_f32_runs_kernel_b1_as_f32c(tmp_path):
+    """compute_dtype f32 with the kernels on (use_pallas = -1) runs the
+    compensated kernel B1, as the JAX package does on an accelerator: the
+    result files are the bytes f32c writes."""
+    runs = {}
+    for dtype in ("f32", "f32c"):
+        wd = build_workdir(tmp_path / dtype, params={"df_mode": 2,
+                                                     "compute_dtype": dtype,
+                                                     "use_pallas": -1})
+        assert cli.main([str(wd), "--device", "cpu"]) == 0
+        runs[dtype] = wd / "results/continuous"
+    names = sorted(p.name for p in runs["f32c"].iterdir())
+    assert len(names) == len(KINDS) * len(CHOSEN)
+    for name in names:
+        assert (runs["f32"] / name).read_bytes() == \
+            (runs["f32c"] / name).read_bytes(), name
+
+
 def _breakdown_line(out: str) -> str:
     lines = [ln for ln in out.splitlines() if "feqmod breaks down" in ln]
     assert len(lines) == 1, out
@@ -125,11 +160,14 @@ def test_port_takes_the_cpu_only_when_asked(tmp_path, monkeypatch):
 
 def test_port_runs_without_jax(tmp_path):
     """Full CPU runs of the slice in a fresh process -- df 2 through the
-    f64 engine, then df 4 through kernel B3's plain version -- never import
-    jax or the JAX package, and give dN/dy in the physical order
-    pi+ > K+ > p."""
+    f64 engine, df 1 with use_pallas = 1 through kernel B2's plain version,
+    then df 4 through kernel B3's plain version -- never import jax or the
+    JAX package, and give dN/dy in the physical order pi+ > K+ > p."""
     wd2 = build_workdir(tmp_path / "df2", params={"compute_dtype": "f64",
                                                   "df_mode": 2})
+    wd1 = build_workdir(tmp_path / "df1_b2", params={"compute_dtype": "f64",
+                                                     "df_mode": 1,
+                                                     "use_pallas": 1})
     wd4 = build_workdir(tmp_path / "df4", params={"compute_dtype": "f32",
                                                   "df_mode": 4},
                         shear_scale=FEQMOD_SHEAR, bulk_scale=FEQMOD_BULK)
@@ -138,7 +176,13 @@ def test_port_runs_without_jax(tmp_path):
         "import is3d2_tpu_torch\n"
         "assert 'jax' not in sys.modules\n"
         "from is3d2_tpu_torch import cli\n"
+        "from is3d2_tpu_torch.ops import cooper_frye_f32 as b2\n"
+        "calls = []\n"
+        "plain = b2.cooper_frye_f32_plain\n"
+        "b2.cooper_frye_f32_plain = lambda *a: calls.append(1) or plain(*a)\n"
         f"cli.main([{str(wd2)!r}, '--device', 'cpu'])\n"
+        f"cli.main([{str(wd1)!r}, '--device', 'cpu'])\n"
+        "assert calls == [1], calls\n"
         f"cli.main([{str(wd4)!r}, '--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'is3d2_tpu' or m.startswith('is3d2_tpu.')]\n"
@@ -150,7 +194,7 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert "feqmod breaks down for" in proc.stdout
-    for wd in (wd2, wd4):
+    for wd in (wd2, wd1, wd4):
         dndy = {m: float(np.loadtxt(wd / f"results/continuous/dN_dy_{m}.dat")[1])
                 for m in (211, 321, 2212)}
         assert dndy[211] > dndy[321] > dndy[2212] > 0, wd.name

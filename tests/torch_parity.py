@@ -45,6 +45,17 @@ FEQMOD_BULK = 0.1
 MILD_SHEAR = 0.05
 FORCE_EVERY = 5
 
+# the df 1/2 cases: name -> (df_mode, include_baryon, shear_scale, extra cfg)
+DF12_CASES = {
+    "df1": (1, False, 0.02, {}),
+    "df2": (2, False, 0.02, {}),
+    "df1-regulate": (1, False, 0.03, {"regulate_deltaf": 1}),
+    "df2-regulate-outflow": (2, False, 0.03, {"regulate_deltaf": 1, "outflow": 1}),
+    "df1-outflow": (1, False, 0.02, {"outflow": 1}),
+    "df1-baryon-diffusion": (1, True, 0.02, {}),
+    "df2-baryon-diffusion": (2, True, 0.02, {}),
+}
+
 
 def build_workdir(root: Path, params: dict | None = None,
                   include_baryon: bool = False, **surface_kw) -> Path:
