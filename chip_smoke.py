@@ -4,18 +4,22 @@ Phases (any failure raises; nothing is caught):
   1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
      fails without a CUDA device;
   2. build the three kernels with nvcc (sm_90a), one nvcc per source,
-     started together;
+     started together, and print ptxas' registers, static shared memory and
+     spills of each (the most over a source's instantiations, and the
+     instantiation its main path launches);
   3. kernel B1 (compensated, df 1/2) vs its plain torch version and the
      port's f64 engine at a reduced shape (2048 cells, 16 species, 51 pT x
      48 phi, 24 eta) for df 1 and df 2 with the clip/outflow/diffusion
      variants: <= 1e-6 relative on bins >= 1e-4 of each species' peak
-     (is3d2_tpu_torch/tools/kernel_check);
+     (is3d2_tpu_torch/tools/kernel_check); and a ragged case against the
+     plain version (kernel_check.RAGGED: rows of 7 phi under a register
+     tile of 4, 105 momenta, 1000 cells);
   4. kernel B3 (feqmod, df 3/4) vs its plain version (<= 1e-5) and the f64
      feqmod engine (<= 1e-4) at the same shape, on a surface with large
      viscous corrections (shear 0.2, bulk 0.1 of E + P) so that cells break
      down: df 3, df 4, df 3 with outflow + regulation, df 4 with
      regulation; and the famod mode vs its plain version on operands packed
-     from the df 3 state;
+     from the df 3 state; and the ragged case in df 4;
   5. the df-1 main path at full size through the CLI: 1e5 cells, the full
      ~370-species list, 51 pT x 48 phi x 24 eta, f32c.  B1's launch count
      must move, the spectra must be finite and non-negative and dN/dy must
@@ -23,13 +27,14 @@ Phases (any failure raises; nothing is caught):
   6. B1 on the main path's own operands (102,400 padded cells x 12 eta x
      ~9.1e5 momenta, not a multiple of the block) timed at full size, and
      held to its plain version (<= 1e-6) on the first 16,384 cells at the
-     full M, both timed there;
+     full M, both timed there; two launches at full size must give equal
+     bits;
   7. the df-4 main path at full size through the CLI: as phase 5 with df 4,
      f32, shear 0.2 and bulk 0.1: B3's launch count must move and cells
      must break down;
   8. B3 on the df-4 main path's operands, timed at full size, and held to
      its plain version (<= 1e-5) on the first 8,192 cells at the full S and
-     M, both timed there;
+     M, both timed there; two launches at full size must give equal bits;
   9. kernel B2 (plain f32, df 1/2) vs its plain version (<= 1e-5) and the
      f64 engine (<= 2e-5) at phase 3's shape, over the cases of
      kernel_check.F32_CASES (compute_dtype f64, use_pallas 1);
@@ -42,15 +47,19 @@ Phases (any failure raises; nothing is caught):
 
 The line before the last is a JSON object with each kernel's measurements,
 its bound (the least time the card could take for the same work, from
-OPS_PER_EVALUATION and the bytes of its operands) and library_ms null: no
-single PyTorch call computes a Cooper-Frye sum.  The last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+OPS_PER_EVALUATION and the bytes of its operands), library_ms null (no
+single PyTorch call computes a Cooper-Frye sum) and, for B1 and B3, the
+register tile and the cell split that the wrapper launched with at full
+size.  The bound counts the formula's work; what the redesigned kernels
+execute (EXECUTED_OPS_PER_EVALUATION) is printed on a line before it.  The
+last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import io
 import json
 import re
@@ -88,6 +97,16 @@ OPS_PER_EVALUATION = {
     "cooper_frye_f32": 34 + 12 / 12,      # df 2
     "cooper_frye_feqmod": {"modified": 30 + 9 / 12,    # df 4
                            "breakdown": 43 + 9 / 12},
+}
+# What the redesigned B1 and B3 execute per evaluation, counted the same
+# way from their sources (a multiply-add counts two; work shared by a
+# thread's 4 momenta counts a quarter, work outside the eta loop a twelfth).
+# The bounds above stay on OPS_PER_EVALUATION: the least time for the
+# formula's work, whatever implements it.
+EXECUTED_OPS_PER_EVALUATION = {
+    "cooper_frye_comp": 41 + 16 / 4 + 45 / 12,
+    "cooper_frye_feqmod": {"modified": 23 + 5 / 4 + 16 / 12,
+                           "breakdown": 31 + 4 / 4 + 14 / 12},
 }
 PARITY_CHOSEN = (211, -211, 111, 321, -321, 311, 221, 2212, -2212, 2112,
                  3122, -3122, 3222, 3312, 213, 333)
@@ -155,12 +174,23 @@ def phase_environment() -> str:
 def phase_build() -> None:
     print("== 2. build (one nvcc per source, in parallel)")
     from is3d2_tpu_torch.ops import _build
+    from is3d2_tpu_torch.tools.kernel_check import MAIN_PATH_KERNEL
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     for name, (path, compile_s) in built.items():
         _build.load(name)
         print(f"built {path.name}: nvcc {compile_s:.2f} s")
+        usage = _build.resource_usage(path)
+        kernels = {k: u for k, u in usage.items() if "add_partials" not in k}
+        worst = {key: max(u.get(key, 0) for u in kernels.values())
+                 for key in ("registers", "smem", "stack", "spill_stores",
+                             "spill_loads")}
+        print(f"  {len(kernels)} instantiation(s); the most over them: "
+              f"{json.dumps(worst)}")
+        for k, u in kernels.items():
+            if re.search(MAIN_PATH_KERNEL[name], k):
+                print(f"  main path's instantiation: {json.dumps(u)}")
     print(f"build+load {time.perf_counter() - t0:.2f} s")
 
 
@@ -184,6 +214,13 @@ def phase_b1_compare(wd: Path) -> None:
             raise AssertionError(f"{name}: kernel disagrees or does not "
                                  f"repeat ({r.vs_plain:.3e} vs plain, "
                                  f"{r.vs_f64:.3e} vs f64)")
+    r = kc.check_ragged_case(wd, 2048, 7, "cuda")
+    print(f"{'ragged ' + json.dumps(kc.RAGGED):22s} kernel vs plain "
+          f"{r.vs_plain:.3e}  max |kernel - plain| "
+          f"{np.abs(r.kernel - r.plain).max():.3e}")
+    if not (r.ok and r.launches == 1):
+        raise AssertionError(f"B1 ragged case: kernel disagrees or does not "
+                             f"repeat ({r.vs_plain:.3e} vs plain)")
 
 
 def phase_b3_compare(wd: Path) -> None:
@@ -193,6 +230,7 @@ def phase_b3_compare(wd: Path) -> None:
     results = {name: kc.check_feqmod_case(wd, name, 2048, 7, "cuda")
                for name in kc.FEQMOD_CASES}
     results["famod (operands)"] = kc.check_famod_operands(wd, 2048, 7, "cuda")
+    results["df4 ragged"] = kc.check_feqmod_ragged_case(wd, 2048, 7, "cuda")
     for name, r in results.items():
         print(f"{name:22s} breakdown cells {r.breakdown_cells:4d}  kernel vs "
               f"plain {r.vs_plain:.3e}  kernel vs f64 {r.vs_f64:.3e}  plain vs"
@@ -296,24 +334,36 @@ def main_path_state(wd: Path, state_fn):
 
 
 def time_on_main_path(name, kernel, plain, ops, args, cut, n_cut, state, tol,
-                      ops_of) -> dict:
+                      ops_of, launched=None) -> dict:
     """Time ``kernel`` on the main path's operands ``args`` (``ops``), then
     hold it to its plain version on the first ``n_cut`` cells (``cut(n)``:
     the operands cut to n cells), both timed there.  ``ops_of(n)``: the
-    operations on the first n cells, for the bounds."""
+    operations on the first n cells, for the bounds.  ``launched()``: the
+    grid geometry of the wrapper's latest launch, where it records one."""
     from is3d2_tpu_torch.tools import kernel_check as kc
 
     C, Ne, M = args[0].shape[0], ops.eta.shape[0], ops.mom.shape[1]
     print(f"{C} padded cells x {Ne} eta x {M} momenta (M mod 256 = "
           f"{M % 256}) = {ops.evaluations:.4g} evaluations")
-    full_ms, _ = cuda_ms(lambda: kernel(*args))
+    first = kernel(*args)
+    full_ms, second = cuda_ms(lambda: kernel(*args), warmup=lambda: None)
     print(f"kernel at full size {full_ms:.1f} ms, "
           f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
+    if not torch.equal(first, second):
+        raise AssertionError(f"two launches of {name} on the main path's "
+                             "operands gave different bits")
+    print("two launches at full size gave equal bits")
+    del first, second
+    shape = {}
+    if launched is not None:
+        g = launched()
+        print(f"launched with {g}")
+        shape = {"register_tile": g.r, "cell_split": g.n_split}
     print(f"compared on the first {n_cut} cells at the full M")
     ms, plain_ms, max_abs = compare_on_cut(
         kernel, plain, cut(64), cut(n_cut),
         lambda flat: kc.spectra_units(state, flat), tol, name)
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+    return {**shape, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             **bound(ops_of(n_cut), cut(n_cut), M),
             "main_path_bound_ms": bound(ops_of(C), args, M)["bound_ms"],
             # no single PyTorch call computes a Cooper-Frye sum
@@ -335,10 +385,12 @@ def phase_b1_full(wd: Path, stages: dict) -> dict:
     per_cell = OPS_PER_EVALUATION["cooper_frye_comp"] * ops.evaluations \
         / ops.cell.shape[0]
     return time_on_main_path(
-        "B1", ck.cooper_frye_comp, ck.cooper_frye_comp_plain, ops, args,
+        "B1", functools.partial(ck.cooper_frye_comp, row_len=ops.row_len),
+        ck.cooper_frye_comp_plain, ops, args,
         lambda n: (ops.cell[:n].contiguous(), ops.qm[:n].contiguous(),
                    *args[2:]),
-        B1_COMPARE_CELLS, state, kc.TOL, lambda n: per_cell * n)
+        B1_COMPARE_CELLS, state, kc.TOL, lambda n: per_cell * n,
+        lambda: ck.cooper_frye_comp.last_geometry)
 
 
 def phase_b3_main_path(tmp: Path) -> tuple[int, dict, Path]:
@@ -381,12 +433,13 @@ def phase_b3_full(wd: Path) -> dict:
                            + (n - n_b) * per_eval["modified"])
 
     return time_on_main_path(
-        "B3", fk.cooper_frye_feqmod, fk.cooper_frye_feqmod_plain, ops,
-        (*ops.args(), cfg, ops.kind),
+        "B3", functools.partial(fk.cooper_frye_feqmod, row_len=ops.row_len),
+        fk.cooper_frye_feqmod_plain, ops, (*ops.args(), cfg, ops.kind),
         lambda n: (ops.cols[:n].contiguous(), ops.mom,
                    ops.renorm[:n].contiguous(), ops.red[:n].contiguous(),
                    ops.eta, ops.n_per_species, cfg, ops.kind),
-        B3_COMPARE_CELLS, state, kc.FEQMOD_TOL_PLAIN, b3_ops)
+        B3_COMPARE_CELLS, state, kc.FEQMOD_TOL_PLAIN, b3_ops,
+        lambda: fk.cooper_frye_feqmod.last_geometry.grid)
 
 
 def phase_b2_compare(wd: Path) -> None:
@@ -458,6 +511,9 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
+    print("operations per evaluation: counted for the bounds "
+          f"{json.dumps(OPS_PER_EVALUATION)}; executed by the redesigned "
+          f"kernels {json.dumps(EXECUTED_OPS_PER_EVALUATION)}")
     print(card)
     print(json.dumps({"kernels": [
         {"name": "cooper_frye_comp", "route": "cuda",

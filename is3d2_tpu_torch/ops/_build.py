@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,12 +23,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "is3d2_tpu
 # no --use_fast_math: it swaps expf for __expf, flushes denormals and
 # approximates division, which the compensated kernel cannot afford
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# flags of one source only.  B3 rounds every f32 operation on its own, as
-# its plain version and the TPU kernel do: its breakdown branch cancels
-# ~1e3-fold on cells with large PTB coefficients, where a contracted FMA
-# moved a bin by 4.5e-4 against the plain version
+# flags of one source only.  B3 never contracts a multiply and an add by
+# itself: its breakdown branch cancels ~1e3-fold on cells with large PTB
+# coefficients, where a contracted FMA moved a bin by 4.5e-4 against the
+# plain version.  Where nothing cancels the source calls fmaf / fma itself,
+# which the flag leaves alone
 SOURCE_FLAGS = {"cooper_frye_feqmod": ("-fmad=false",)}
 
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -53,8 +55,10 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> tuple[Path, float]:
-    """Compile csrc/<name>.cu unless its library is already built.
-    Returns (library path, seconds spent compiling; 0.0 when cached)."""
+    """Compile csrc/<name>.cu unless its library is already built.  ptxas'
+    resource report goes to a .ptxas file beside the library.  Returns
+    (library path, seconds spent compiling; 0.0 when cached)."""
+    src = CSRC / f"{name}.cu"
     lib = library_path(name)
     if lib.exists():
         return lib, 0.0
@@ -62,12 +66,40 @@ def build(name: str) -> tuple[Path, float]:
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *_flags(name), "-o", str(tmp), str(src)],
         capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    lib.with_suffix(".ptxas").write_text(proc.stderr)
     os.replace(tmp, lib)   # atomic: concurrent builders never see a partial file
     return lib, time.perf_counter() - t0
+
+
+def resource_usage(lib: Path) -> dict[str, dict[str, int]]:
+    """ptxas' report of a built library: mangled kernel name -> registers,
+    static shared-memory bytes, stack frame and spill bytes."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in lib.with_suffix(".ptxas").read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,7 +6,9 @@ with ctypes), and its plain torch version with the same f32c arithmetic.
 
 ``cooper_frye_comp`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; ``cooper_frye_comp.launches`` counts kernel
-launches.
+launches and ``cooper_frye_comp.last_geometry`` holds the latest launch's
+geometry.  The launch geometry (register tile, cell split) comes from the
+operands' shapes alone (``geometry``, ops/launch_geometry.py).
 
 Operand layout (all contiguous; written by
 ops/spectra_fast_common.py::pack_inputs_comp):
@@ -28,6 +30,8 @@ import ctypes
 import torch
 
 from ..config import Config
+from .launch_geometry import (H100_SMS, Geometry, launch_geometry,
+                              row_length)
 
 CELL_COLS = ("qx1", "qx2", "qy1", "qy2", "abf", "abl", "Tf",
              "shear", "bulk0", "bulk1", "bulk2", "diff0", "diff1",
@@ -36,6 +40,9 @@ CELL_COLS = ("qx1", "qx2", "qy1", "qy2", "abf", "abl", "Tf",
 MOM_ROWS = ("mT1", "mT2", "mTf", "px1", "px2", "pxf", "py1", "py2", "pyf",
             "mass2", "b", "sgn")
 MAX_ETA = 32   # kMaxEta in the CUDA source
+TILE_CELLS = 64   # kTileCells
+MAX_DEN = 2.0 ** 126   # kMaxDen: exp overflows past it, 1 / x flushes to 0
+R = 4          # kR: momenta (consecutive phi) of one thread's register tile
 
 # flag bits of the CUDA launcher
 _SHEAR, _DIFFUSION, _REGULATE, _OUTFLOW, _DF2 = 1, 2, 4, 8, 16
@@ -63,71 +70,95 @@ def _two_sum(x, y):
 
 
 def cooper_frye_comp_plain(cell, qm, eta, eta_w, mom, cfg: Config):
-    """Plain torch version of the kernel: the same f32 arithmetic on
-    (cell block, M) tensors, summed in f64.  Runs on any device."""
+    """Plain torch version of the kernel: the same f32 arithmetic in the
+    same order on (cell block, M) tensors -- the pieces that depend on (cell,
+    eta, species, pT) or on (cell, phi) only formed apart, the pi
+    coefficients scaled by the shear coefficient, df 2 through one
+    reciprocal of E, the eta terms of a cell summed in f32 with f32 weights
+    -- and the cells summed in f64.  Runs on any device."""
     C = cell.shape[0]
     M = mom.shape[1]
     p = dict(zip(MOM_ROWS, mom))
     b, sgn, mass2, mTf, pxf, pyf = (p["b"], p["sgn"], p["mass2"], p["mTf"],
                                     p["pxf"], p["pyf"])
+    shear = bool(cfg.include_shear_deltaf)
     diffusion = _diffusion(cfg)
+    df2 = cfg.df_mode == 2
+    w32 = eta_w.to(torch.float32)
     out = torch.zeros(M, dtype=torch.float64, device=mom.device)
     blk = max(1, min(C, _PLAIN_BLOCK_ELEMENTS // M))
     for c0 in range(0, C, blk):
         q = {name: cell[c0:c0 + blk, i:i + 1]
              for i, name in enumerate(CELL_COLS)}
         qm_b = qm[c0:c0 + blk]
+        # once per (cell, row)
+        t4 = -(q["abf"] * b)
+        ablb = q["abl"] * b
+        # u.p/T = A - t4 + abl b (+ r): the low part of alphaB b must come
+        # back, or E is off by T abl ~ 1e-4 GeV for baryons
+        cE = ablb - t4
+        c1 = q["bulk1"] * b
+        c0b = 0.0 if df2 else q["bulk0"] * mass2
+        diffb = (q["diff1"] if df2 else q["diff0"]) * b
+        sk = [q["shear"] * q[f"qpi{k}"] for k in range(10)]
+        # once per (cell, phi)
         t2 = q["qx1"] * p["px1"]
         t3 = q["qy1"] * p["py1"]
-        t4 = -(q["abf"] * b)
         s_a, e_a = _two_sum(t2, t3)
         s_b, e_b = _two_sum(s_a, t4)
-        err0 = e_a + e_b
-        d0 = (q["qx1"] * p["px2"] + q["qx2"] * pxf + q["qy1"] * p["py2"]
-              + q["qy2"] * pyf - q["abl"] * b)
+        d0e = (q["qx1"] * p["px2"] + q["qx2"] * pxf + q["qy1"] * p["py2"]
+               + q["qy2"] * pyf - ablb) + (e_a + e_b)
+        pddxy = q["qd1"] * pxf + q["qd2"] * pyf
+        if shear:
+            sp0 = (sk[1] * (pxf * pxf) + sk[2] * (pyf * pyf)
+                   + sk[7] * (pxf * pyf) + c0b)
+            sp1 = sk[4] * pxf + sk[5] * pyf
+            sp4 = sk[8] * pxf + sk[9] * pyf
+        else:
+            sp0 = c0b
+        if diffusion:
+            vpxy = q["qv1"] * pxf + q["qv2"] * pyf
+        part = torch.zeros((qm_b.shape[0], M), dtype=torch.float32,
+                           device=mom.device)
         for e in range(eta.shape[0]):
+            # once per (cell, eta, row)
             qm1 = qm_b[:, e, 0:1]
             qm2 = qm_b[:, e, 1:2]
             t1 = qm1 * p["mT1"]
-            d = qm1 * p["mT2"] + qm2 * mTf + d0
-            s, e1 = _two_sum(t1, s_b)
-            A, r = _two_sum(s, d + (err0 + e1))
-            feq = 1.0 / (torch.exp(A) * (1.0 + r) + sgn)
-            feqbar = 1.0 - sgn * feq
-            # u.p/T = A - t4 + abl b (+ r): the low part of alphaB b must
-            # come back, or E is off by T abl ~ 1e-4 GeV for baryons
-            E = ((A - t4) + q["abl"] * b) * q["Tf"]
-
+            dm = qm1 * p["mT2"] + qm2 * mTf
             m1 = mTf * eta[e, 0]
             m4 = mTf * eta[e, 1]
-            pdd = q["qd0"] * m1 + q["qd1"] * pxf + q["qd2"] * pyf + q["qd3"] * m4
-            if cfg.include_shear_deltaf:
-                pp = (m1 * m1, pxf * pxf, pyf * pyf, m4 * m4, m1 * pxf,
-                      m1 * pyf, m1 * m4, pxf * pyf, pxf * m4, pyf * m4)
-                pim = q["qpi0"] * pp[0]
-                for k in range(1, 10):
-                    pim = pim + q[f"qpi{k}"] * pp[k]
+            pdd = (q["qd0"] * m1 + q["qd3"] * m4) + pddxy
+            # per evaluation
+            s, e1 = _two_sum(t1, s_b)
+            A, r = _two_sum(s, dm + (d0e + e1))
+            feq = 1.0 / torch.clamp(torch.exp(A) * (1.0 + r) + sgn, max=MAX_DEN)
+            feqbar = 1.0 - sgn * feq
+            E = (A + cE) * q["Tf"]
+            if shear:
+                sp = ((m1 * (sk[0] * m1 + sk[6] * m4) + sk[3] * (m4 * m4))
+                      + sp0) + m1 * sp1 + m4 * sp4
             else:
-                pim = 0.0
-            if cfg.df_mode == 1:
-                df = (q["shear"] * pim + q["bulk0"] * mass2
-                      + (q["bulk1"] * b + q["bulk2"] * E) * E)
-            else:
-                df = (q["shear"] * pim / E + q["bulk0"] * E + q["bulk1"] * b
-                      + q["bulk2"] * (E - mass2 / E))
+                sp = sp0
             if diffusion:
-                Vp = q["qv0"] * m1 + q["qv1"] * pxf + q["qv2"] * pyf + q["qv3"] * m4
-                if cfg.df_mode == 1:
-                    df = df + (q["diff0"] * b + q["diff1"] * E) * Vp
-                else:
-                    df = df + (q["diff0"] - q["diff1"] * b / E) * Vp
+                Vp = (q["qv0"] * m1 + q["qv3"] * m4) + vpxy
+            if not df2:
+                df = sp + (c1 + q["bulk2"] * E) * E
+                if diffusion:
+                    df = df + (diffb + q["diff1"] * E) * Vp
+            else:
+                rE = 1.0 / E
+                df = (sp * rE + (q["bulk0"] * E + c1)
+                      + q["bulk2"] * (E - mass2 * rE))
+                if diffusion:
+                    df = df + (q["diff0"] - diffb * rE) * Vp
             df = feqbar * df
             if cfg.regulate_deltaf:
                 df = torch.clamp(df, -1.0, 1.0)
             if cfg.outflow:
                 pdd = torch.where(pdd > 0.0, pdd, 0.0)
-            value = pdd * (feq * (1.0 + df))
-            out += eta_w[e] * value.to(torch.float64).sum(dim=0)
+            part = part + w32[e] * (pdd * (feq * (1.0 + df)))
+        out += part.to(torch.float64).sum(dim=0)
     return out
 
 
@@ -153,29 +184,59 @@ def _check(cell, qm, eta, eta_w, mom) -> None:
         raise ValueError("momentum and cell counts must fit in int32")
 
 
-def cooper_frye_comp(cell, qm, eta, eta_w, mom, cfg: Config) -> torch.Tensor:
+def geometry(mom: torch.Tensor, n_cells: int, r: int = R,
+             row_len: int | None = None) -> Geometry:
+    """The launch geometry for these operands.  ``row_len`` is the phi count
+    of the momentum grid; a caller that does not know it leaves it out, and
+    it is read off the momentum rows (mT, mass2, b and sign are constant
+    along a row), which costs a device-to-host copy."""
+    if row_len is None:
+        keys = mom[[MOM_ROWS.index(k) for k in ("mT1", "mT2", "mTf", "mass2",
+                                                "b", "sgn")]]
+        row_len = row_length(keys)
+    sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
+           if mom.device.type == "cuda" else H100_SMS)
+    return launch_geometry(mom.shape[1], row_len, n_cells, r, TILE_CELLS, sms)
+
+
+def launch(cell, qm, eta, eta_w, mom, cfg: Config, g: Geometry) -> torch.Tensor:
+    """Launch the kernel on checked CUDA operands with the geometry ``g``."""
+    from . import _build
+    fn = _build.load("cooper_frye_comp").is3d2_cooper_frye_comp
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    M = mom.shape[1]
+    out = torch.empty(M, dtype=torch.float64, device=cell.device)
+    partial = out if g.n_split == 1 else torch.empty(
+        (g.n_split, M), dtype=torch.float64, device=cell.device)
+    with torch.cuda.device(cell.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cell.data_ptr(), qm.data_ptr(), eta.data_ptr(),
+                 eta_w.data_ptr(), mom.data_ptr(), partial.data_ptr(),
+                 out.data_ptr(), cell.shape[0], eta.shape[0], M, g.row_len,
+                 g.n_split, g.cells_per_split, _flags(cfg), stream)
+    if err != 0:
+        raise RuntimeError(f"cooper_frye_comp launch failed: cudaError {err}")
+    cooper_frye_comp.launches += 1
+    cooper_frye_comp.last_geometry = g
+    return out
+
+
+def cooper_frye_comp(cell, qm, eta, eta_w, mom, cfg: Config,
+                     row_len: int | None = None) -> torch.Tensor:
     """Run the compensated kernel on CUDA tensors (its plain version on CPU
-    tensors).  Returns the (M,) f64 spectra partials."""
+    tensors).  Returns the (M,) f64 spectra partials.  ``row_len``: the phi
+    count of the momentum grid, see ``geometry``."""
     _check(cell, qm, eta, eta_w, mom)
     if cell.device.type == "cpu":
         return cooper_frye_comp_plain(cell, qm, eta, eta_w, mom, cfg)
     if cell.device.type != "cuda":
         raise ValueError(f"no kernel for device {cell.device}")
     from . import _build
-    fn = _build.load("cooper_frye_comp").is3d2_cooper_frye_comp
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    M = mom.shape[1]
-    out = torch.empty(M, dtype=torch.float64, device=cell.device)
-    with torch.cuda.device(cell.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(cell.data_ptr(), qm.data_ptr(), eta.data_ptr(),
-                 eta_w.data_ptr(), mom.data_ptr(), out.data_ptr(),
-                 cell.shape[0], eta.shape[0], M, _flags(cfg), stream)
-    if err != 0:
-        raise RuntimeError(f"cooper_frye_comp launch failed: cudaError {err}")
-    cooper_frye_comp.launches += 1
-    return out
+    r = _build.load("cooper_frye_comp").is3d2_cooper_frye_comp_tile()
+    return launch(cell, qm, eta, eta_w, mom, cfg,
+                  geometry(mom, cell.shape[0], r, row_len))
 
 
 cooper_frye_comp.launches = 0
+cooper_frye_comp.last_geometry = None   # of the latest launch

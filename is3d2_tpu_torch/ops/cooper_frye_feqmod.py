@@ -9,7 +9,9 @@ the same arithmetic, and the operand packs (counterparts of
 
 ``cooper_frye_feqmod`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors; ``cooper_frye_feqmod.launches`` counts
-kernel launches.
+kernel launches and ``cooper_frye_feqmod.last_geometry`` holds the latest
+launch's geometry.  The launch geometry (register tile, cell split) comes
+from the operands' shapes alone (``geometry``, ops/launch_geometry.py).
 
 Operand layout (all contiguous, nothing padded):
 
@@ -34,6 +36,8 @@ from ..config import Config
 from ..core.cells import CellArrays
 from ..core.spectra import PREFACTOR, MomentumGridDevice, SpeciesArrays
 from ..core.spectra_fast import fold_eta_quadrature
+from .launch_geometry import (H100_SMS, THREADS, Geometry, launch_geometry,
+                              row_length)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -54,8 +58,10 @@ N_COLS = 64
 MOM_ROWS = ("mT", "px", "py", "mT2", "px2", "py2", "mTpx", "mTpy", "pxpy",
             "mass2", "b", "sgn")
 MAX_ETA = 32      # kMaxEta in the CUDA source
-MAX_SPAN = 8      # kMaxSpan: species one block of 256 momentum points spans
-_THREADS = 256
+MAX_DEN = 2.0 ** 126   # kMaxDen: exp overflows past it, 1 / x flushes to 0
+R = 4             # kR: momenta (consecutive phi) of one thread's register tile
+TILE_CELLS = 16   # kTileCells
+MAX_SMEM = 100 * 1024   # bytes of shared memory per block: two fit an SM
 
 # mode and flag values of the CUDA launcher
 _MODES = {"famod": 0, 3: 3, 4: 4}
@@ -75,6 +81,7 @@ class FeqmodOperands:
     red: torch.Tensor
     eta: torch.Tensor
     n_per_species: int    # NpT * Nphi
+    row_len: int          # Nphi: momenta per (species, pT) row of mom
     kind: str             # "feqmod" or "famod"
 
     @property
@@ -103,16 +110,18 @@ def _flags(cfg: Config) -> int:
 
 def cooper_frye_feqmod_plain(cols, mom, renorm, red, eta, n_per_species: int,
                              cfg: Config, kind: str) -> torch.Tensor:
-    """Plain torch version of the kernel: the same arithmetic on (cell
-    block, M) tensors -- f32, except U = M^-1 L, p' = U p and E_mod^2 in
-    f64 as in the kernel -- both branches where-selected per cell, summed
-    in f64.  Runs on any device."""
+    """Plain torch version of the kernel: the same arithmetic in the same
+    order on (cell block, M) tensors -- f32, except U = M^-1 L, p' = U p and
+    E_mod^2 in f64 as in the kernel; the px/py parts formed apart from the
+    mT parts; the breakdown branch through one reciprocal of E; both
+    branches where-selected per cell; the eta terms of a cell summed in f32,
+    the renorm applied once per cell, the cells summed in f64.  Runs on any
+    device."""
     mode = _mode(cfg, kind)
     C = cols.shape[0]
     M = mom.shape[1]
     p = dict(zip(MOM_ROWS, mom))
     mT, px, py = p["mT"], p["px"], p["py"]
-    Pq = [p["mT2"], p["px2"], p["py2"], p["mTpx"], p["mTpy"], p["pxpy"]]
     mass2, bm, sgn = p["mass2"], p["b"], p["sgn"]
     mT64, px64, py64, mass2_64 = (t.to(f64) for t in (mT, px, py, mass2))
     species_of_m = torch.arange(M, device=mom.device) // n_per_species
@@ -139,6 +148,19 @@ def cooper_frye_feqmod_plain(cols, mom, renorm, red, eta, n_per_species: int,
               for i in range(3)]
         r = [Ux[i] * px64 + Uy[i] * py64 for i in range(3)]
 
+        # once per (cell, phi): the px/py parts
+        gd = col(DAX) * px + col(DAY) * py            # p.dsigma, unweighted
+        exy = (-col(UX)) * px + (-col(UY)) * py       # breakdown u.p
+        invT = col(INVT)
+        if mode != 0:
+            pimxy = (col(K + 1) * p["px2"] + col(K + 2) * p["py2"]
+                     + col(K + 7) * p["pxpy"])
+        if mode == 3:
+            vxy = col(VX) * px + col(VY) * py
+        nchem = -(bm * col(ALPHAB_EFF))
+        ab = bm * col(ALPHAB)
+
+        part = torch.zeros((q.shape[0], M), dtype=f32, device=mom.device)
         for e in range(eta.shape[0]):
             eta_e, w, chb, shb = eta[e]
 
@@ -159,59 +181,59 @@ def cooper_frye_feqmod_plain(cols, mom, renorm, red, eta, n_per_species: int,
             else:  # feqmod: the dan term carries no eta weight
                 pddm0 = w * ch * col(DAT) - sh * col(DANT)
                 pddb0 = w * chb * col(DAT) - shb * col(DANT)
-            wdax = w * col(DAX)
-            wday = w * col(DAY)
 
             # p' = U (mT, px, py) = A^-1 p_LRF, E_mod^2 = m^2 + |p'|^2
             pm = [Um[i] * mT64 + r[i] for i in range(3)]
             E2 = (mass2_64 + (pm[0] * pm[0] + pm[1] * pm[1]
                               + pm[2] * pm[2])).to(f32)
-            pdd_m = pddm0 * mT + wdax * px + wday * py
+            pdd_m = pddm0 * mT + w * gd
             E_mod = torch.sqrt(torch.clamp(E2, min=1e-30))
-            f_mod = rn / (torch.exp(E_mod * col(INVTEFF)
-                                    - bm * col(ALPHAB_EFF)) + sgn)
+            den = torch.clamp(torch.exp(E_mod * col(INVTEFF) + nchem) + sgn,
+                              max=MAX_DEN)
             if cfg.outflow:
                 pdd_m = torch.clamp(pdd_m, min=0.0)
-            value_mod = pdd_m * f_mod
+            value_mod = pdd_m * (1.0 / den)
 
             # ---------------- breakdown branch ----------------
-            E = (chb * col(UT) + shb * col(TUN)) * mT \
-                + (-col(UX)) * px + (-col(UY)) * py
-            pdd_b = pddb0 * mT + wdax * px + wday * py
+            E = (chb * col(UT) + shb * col(TUN)) * mT + exy
+            pdd_b = pddb0 * mT + w * gd
             if cfg.outflow:
                 pdd_b = torch.clamp(pdd_b, min=0.0)
-            invT = col(INVT)
             if mode == 0:
-                feq = 1.0 / (torch.exp(E * invT - bm * col(ALPHAB)) + sgn)
+                feq = 1.0 / torch.clamp(torch.exp(E * invT - ab) + sgn,
+                                        max=MAX_DEN)
                 value_b = pdd_b * feq
             else:
                 kq1 = (col(K) * (chb * chb) + col(K + 3) * (shb * shb)
                        - col(K + 6) * (chb * shb))
                 kq4 = col(K + 4) * chb - col(K + 8) * shb
                 kq5 = col(K + 5) * chb - col(K + 9) * shb
-                pim = (kq1 * Pq[0] + col(K + 1) * Pq[1] + col(K + 2) * Pq[2]
-                       + kq4 * Pq[3] + kq5 * Pq[4] + col(K + 7) * Pq[5])
+                pim = (kq1 * p["mT2"] + pimxy + kq4 * p["mTpx"]
+                       + kq5 * p["mTpy"])
+                rE = 1.0 / E
                 if mode == 3:
-                    Vp = ((chb * col(VT) + shb * col(TVN)) * mT
-                          - col(VX) * px - col(VY) * py)
-                    feq = 1.0 / (torch.exp(E * invT - bm * col(ALPHAB)) + sgn)
+                    Vp = (chb * col(VT) + shb * col(TVN)) * mT - vxy
+                    feq = 1.0 / torch.clamp(torch.exp(E * invT - ab) + sgn,
+                                            max=MAX_DEN)
                     feqbar = 1.0 - sgn * feq
                     df = feqbar * (
-                        col(SHEARC) * pim / E
+                        col(SHEARC) * pim * rE
                         + (col(BULK0) * E + col(BULK1) * bm
-                           + col(BULK2) * (E - mass2 / E)) * col(BULKPI)
-                        + (col(RATIO) - bm / E) * Vp * col(INVBETAV))
+                           + col(BULK2) * (E - mass2 * rE)) * col(BULKPI)
+                        + (col(RATIO) - bm * rE) * Vp * col(INVBETAV))
                 else:  # PTB linearised: f_eq with no chemical potential
-                    feq = 1.0 / (torch.exp(E * invT) + sgn)
+                    feq = 1.0 / torch.clamp(torch.exp(E * invT) + sgn,
+                                            max=MAX_DEN)
                     feqbar = 1.0 - sgn * feq
-                    df = (feqbar * col(SHEARC) * pim / E + col(DZM3DL)
-                          + feqbar * col(DL) * (E - mass2 / E) * invT)
+                    df = (feqbar * col(SHEARC) * pim * rE + col(DZM3DL)
+                          + feqbar * col(DL) * (E - mass2 * rE) * invT)
                 if cfg.regulate_deltaf:
                     df = torch.clamp(df, -1.0, 1.0)
                 value_b = pdd_b * feq * (1.0 + df)
 
-            value = torch.where(breaks, value_b, value_mod)
-            out += (rd * value).to(f64).sum(dim=0)
+            part = part + torch.where(breaks, value_b, value_mod)
+        # the species' renorm once per cell, on the modified branch only
+        out += (rd * torch.where(breaks, part, rn * part)).to(f64).sum(dim=0)
     return out
 
 
@@ -238,43 +260,94 @@ def _check(cols, mom, renorm, red, eta, n_per_species: int) -> None:
     if n_per_species < 1 or S * n_per_species < M:
         raise ValueError(f"{M} momenta do not fit {S} species x "
                          f"{n_per_species} momenta")
-    if -(-(_THREADS - 1) // n_per_species) + 1 > MAX_SPAN:
-        raise ValueError(f"{n_per_species} momenta per species: one block of "
-                         f"{_THREADS} would span more than {MAX_SPAN} species")
+
+
+def smem_bytes(n_eta: int, span: int) -> int:
+    """Dynamic shared memory of one block (smem_bytes of the CUDA source);
+    within MAX_SMEM for any eta count and span the kernel takes."""
+    return TILE_CELLS * (n_eta * (4 * 8 + 8 * 4) + 6 * 8 + N_COLS * 4
+                         + 2 * span * 4) + 4 * MAX_ETA * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FeqmodGeometry:
+    grid: Geometry
+    span: int        # species whose renorm one block stages per cell
+    smem: int        # dynamic shared memory of one block, bytes
+
+
+def geometry(mom: torch.Tensor, n_per_species: int, n_species: int,
+             n_cells: int, n_eta: int, r: int = R,
+             row_len: int | None = None) -> FeqmodGeometry:
+    """The launch geometry for these operands.  ``row_len`` is the phi count
+    of the momentum grid (a row lies inside one species); a caller that does
+    not know it leaves it out, and it is read off the momentum rows (mT is
+    constant along a row), which costs a device-to-host copy."""
+    if row_len is None:
+        keys = mom[[MOM_ROWS.index(k) for k in ("mT", "mass2", "b", "sgn")]]
+        row_len = row_length(keys, divides=n_per_species)
+    tiles_per_row = -(-row_len // r)
+    rows_per_block = -(-(THREADS - 1) // tiles_per_row) + 1
+    rows_per_species = n_per_species // row_len
+    # a block spans at most THREADS + 1 species
+    span = min(n_species,
+               (rows_per_block + rows_per_species - 2) // rows_per_species + 1)
+    sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
+           if mom.device.type == "cuda" else H100_SMS)
+    grid = launch_geometry(mom.shape[1], row_len, n_cells, r, TILE_CELLS, sms)
+    return FeqmodGeometry(grid, span, smem_bytes(n_eta, span))
+
+
+def launch(cols, mom, renorm, red, eta, n_per_species: int, cfg: Config,
+           kind: str, fg: FeqmodGeometry) -> torch.Tensor:
+    """Launch the kernel on checked CUDA operands with the geometry ``fg``."""
+    from . import _build
+    fn = _build.load("cooper_frye_feqmod").is3d2_cooper_frye_feqmod
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    C, S = renorm.shape
+    M = mom.shape[1]
+    g = fg.grid
+    out = torch.empty(M, dtype=f64, device=cols.device)
+    partial = out if g.n_split == 1 else torch.empty(
+        (g.n_split, M), dtype=f64, device=cols.device)
+    with torch.cuda.device(cols.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cols.data_ptr(), mom.data_ptr(), renorm.data_ptr(),
+                 red.data_ptr(), eta.data_ptr(), partial.data_ptr(),
+                 out.data_ptr(), C, eta.shape[0], M, S, n_per_species,
+                 g.row_len, g.n_split, g.cells_per_split, fg.span,
+                 _mode(cfg, kind), _flags(cfg), stream)
+    if err != 0:
+        raise RuntimeError(f"cooper_frye_feqmod launch failed: cudaError {err}")
+    cooper_frye_feqmod.launches += 1
+    cooper_frye_feqmod.last_geometry = fg
+    return out
 
 
 def cooper_frye_feqmod(cols, mom, renorm, red, eta, n_per_species: int,
-                       cfg: Config, kind: str) -> torch.Tensor:
+                       cfg: Config, kind: str,
+                       row_len: int | None = None) -> torch.Tensor:
     """Run kernel B3 on CUDA tensors (its plain version on CPU tensors).
     Returns the (M,) f64 spectra partials, prefactor and degeneracy not
-    applied."""
+    applied.  ``row_len``: the phi count of the momentum grid, see
+    ``geometry``."""
     _check(cols, mom, renorm, red, eta, n_per_species)
-    mode = _mode(cfg, kind)
+    _mode(cfg, kind)
     if cols.device.type == "cpu":
         return cooper_frye_feqmod_plain(cols, mom, renorm, red, eta,
                                         n_per_species, cfg, kind)
     if cols.device.type != "cuda":
         raise ValueError(f"no kernel for device {cols.device}")
     from . import _build
-    fn = _build.load("cooper_frye_feqmod").is3d2_cooper_frye_feqmod
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    C, S = renorm.shape
-    M = mom.shape[1]
-    out = torch.empty(M, dtype=f64, device=cols.device)
-    with torch.cuda.device(cols.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(cols.data_ptr(), mom.data_ptr(), renorm.data_ptr(),
-                 red.data_ptr(), eta.data_ptr(), out.data_ptr(),
-                 C, eta.shape[0], M, S, n_per_species, mode, _flags(cfg),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"cooper_frye_feqmod launch failed: cudaError {err}")
-    cooper_frye_feqmod.launches += 1
-    return out
+    r = _build.load("cooper_frye_feqmod").is3d2_cooper_frye_feqmod_tile()
+    fg = geometry(mom, n_per_species, renorm.shape[1], cols.shape[0],
+                  eta.shape[0], r, row_len)
+    return launch(cols, mom, renorm, red, eta, n_per_species, cfg, kind, fg)
 
 
 cooper_frye_feqmod.launches = 0
+cooper_frye_feqmod.last_geometry = None   # of the latest launch
 
 
 # ----------------------------------------------------------------------
@@ -318,7 +391,7 @@ def _pack(cells: CellArrays, columns: dict, Minv, k, renorm, red,
                        torch.sinh(grid.eta)], dim=1).to(f32).contiguous()
     return FeqmodOperands(cols=cols, mom=mom, renorm=renorm.to(f32).contiguous(),
                           red=red.to(f32).contiguous(), eta=eta,
-                          n_per_species=NpT * Nphi, kind=kind)
+                          n_per_species=NpT * Nphi, row_len=Nphi, kind=kind)
 
 
 def _cell_columns(c: CellArrays) -> dict:
@@ -397,7 +470,7 @@ def compute_spectra_feqmod_kernel(cells: CellArrays, fq,
                                   cfg: Config) -> torch.Tensor:
     """df 3/4 spectra through kernel B3: (S, NpT, Nphi, 1) f64."""
     ops = feqmod_operands(cells, fq, species, grid, cfg)
-    flat = cooper_frye_feqmod(*ops.args(), cfg, ops.kind)
+    flat = cooper_frye_feqmod(*ops.args(), cfg, ops.kind, row_len=ops.row_len)
     out = flat.reshape(species.mass.shape[0], grid.pT.shape[0],
                        grid.cos_phi.shape[0], 1)
     return PREFACTOR * species.degeneracy[:, None, None, None] * out

@@ -37,6 +37,7 @@ class CompOperands:
     eta: torch.Tensor     # (Ne, 2) f32
     eta_w: torch.Tensor   # (Ne,) f64
     mom: torch.Tensor     # (12, M) f32
+    row_len: int          # Nphi: momenta per (species, pT) row of mom
 
     @property
     def evaluations(self) -> int:
@@ -136,7 +137,8 @@ def pack_inputs_comp(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
             "pxf": p["px"], "py1": py1, "py2": py2, "pyf": p["py"],
             "mass2": p["mass2"], "b": p["b"], "sgn": p["sgn"]}
     mom = torch.stack([rows[k].to(f32) for k in MOM_ROWS]).contiguous()
-    return CompOperands(cell=cell, qm=qm, eta=eta, eta_w=eta_w, mom=mom)
+    return CompOperands(cell=cell, qm=qm, eta=eta, eta_w=eta_w, mom=mom,
+                        row_len=grid.cos_phi.shape[0])
 
 
 def pack_inputs(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
@@ -191,7 +193,8 @@ def compute_spectra_comp(cells: CellArrays, coeffs: dict,
     """f32c spectra through the compensated kernel B1: (S, NpT, Nphi, 1)
     f64."""
     ops = comp_operands(cells, coeffs, species, grid, cfg)
-    return _spectra(cooper_frye_comp(*ops.args(), cfg), species, grid)
+    return _spectra(cooper_frye_comp(*ops.args(), cfg, row_len=ops.row_len),
+                    species, grid)
 
 
 def compute_spectra_f32(cells: CellArrays, coeffs: dict,

@@ -14,6 +14,11 @@ One harness for ``chip_smoke.py`` and ``tests/test_torch_gpu.py``:
     FEQMOD_TOL_F64 against the f64 engine; and the famod mode on operands
     packed from the same state (no famod prep is ported yet).
 
+Each kernel also has a ragged case (RAGGED: rows of 7 phi under a register
+tile of 4, fewer momenta than one block owns, a cell count that fills
+neither the last tile nor the last split), cut from a case's operands and
+held to the plain version.
+
 Errors are relative, on bins >= FLOOR of each species' peak.  On a CPU
 device the wrappers run the plain versions, so there only the comparison
 with the f64 engine says something.
@@ -44,6 +49,14 @@ FEQMOD_TOL_PLAIN = 1e-5   # kernel B3 vs its plain version
 FEQMOD_TOL_F64 = 1e-4     # kernel B3 vs the f64 engine (the JAX kernel's bar)
 F32_TOL_PLAIN = 1e-5      # kernel B2 vs its plain version
 F32_TOL_F64 = 2e-5        # kernel B2 vs the f64 engine (JAX's f32 paths: ~5e-6)
+
+# the kernel instantiation each full-size main path launches (df 1 with shear
+# and bulk; df 4; df 2), as a pattern of its mangled name
+MAIN_PATH_KERNEL = {
+    "cooper_frye_comp": r"cooper_frye_comp_kernelILb1ELb0ELb0ELb0ELb0EE",
+    "cooper_frye_feqmod": r"cooper_frye_feqmod_kernelILi4ELb0ELb0EE",
+    "cooper_frye_f32": r"cooper_frye_f32_kernel",
+}
 
 # name -> (config fields, make_surface options); the workdir needs
 # include_baryon=True for the diffusion cases
@@ -153,6 +166,39 @@ def _check_df12(workdir, case: tuple, cfg: Config, n_cells: int, seed: int,
     return result(kern, spectra_units(state, pl), ref, launches, repeats)
 
 
+# the ragged case: species, pT and phi kept of the momentum grid, and cells
+RAGGED = {"species": 3, "pT": 5, "phi": 7, "cells": 1000}
+
+
+def _ragged_momenta(mom: torch.Tensor, species, grid) -> torch.Tensor:
+    """The momentum rows (k, S * NpT * Nphi) cut to RAGGED's grid."""
+    full = mom.reshape(mom.shape[0], species.mass.shape[0], grid.pT.shape[0],
+                       grid.cos_phi.shape[0])
+    cut = full[:, :RAGGED["species"], :RAGGED["pT"], :RAGGED["phi"]]
+    return cut.reshape(mom.shape[0], -1).contiguous()
+
+
+def _ragged_result(kernel, plain, args, result, **extra):
+    out, pl, launches, repeats = _run(kernel, plain, args)
+    pl = pl.cpu().numpy()[None]
+    return result(out.cpu().numpy()[None], pl, pl, launches, repeats, **extra)
+
+
+def check_ragged_case(workdir: str | Path, n_cells: int, seed: int,
+                      device) -> CaseResult:
+    """Kernel B1 against its plain version (which also stands in for f64) on
+    the df-1 operands cut to RAGGED."""
+    cfg = Config(compute_dtype="f32c", df_mode=1)
+    state = engine_state(workdir, cfg, make_surface(n_cells, seed=seed),
+                         device)
+    ops = comp_operands(*state, cfg)
+    n = RAGGED["cells"]
+    args = (ops.cell[:n].contiguous(), ops.qm[:n].contiguous(), ops.eta,
+            ops.eta_w, _ragged_momenta(ops.mom, state[2], state[3]), cfg)
+    return _ragged_result(ck.cooper_frye_comp, ck.cooper_frye_comp_plain,
+                          args, CaseResult)
+
+
 def check_case(workdir: str | Path, case: str, n_cells: int, seed: int,
                device, **cfg_fields) -> CaseResult:
     """Run CASES[case] on a make_surface(n_cells, seed) surface through
@@ -249,6 +295,24 @@ def check_feqmod_case(workdir: str | Path, case: str, n_cells: int, seed: int,
     return FeqmodCaseResult(kern, spectra_units(state, plain),
                             ref.reshape(kern.shape), launches, repeats,
                             breakdown_cells(state))
+
+
+def check_feqmod_ragged_case(workdir: str | Path, n_cells: int, seed: int,
+                             device) -> FeqmodCaseResult:
+    """Kernel B3 (df 4) against its plain version (which also stands in for
+    f64) on the FEQMOD_SURFACE operands cut to RAGGED."""
+    cfg = Config(compute_dtype="f32", df_mode=4)
+    surf = make_surface(n_cells, seed=seed, **FEQMOD_SURFACE)
+    state = feqmod_engine_state(workdir, cfg, surf, device)
+    ops = fk.feqmod_operands(*state, cfg)
+    n, S = RAGGED["cells"], RAGGED["species"]
+    args = (ops.cols[:n].contiguous(),
+            _ragged_momenta(ops.mom, state[2], state[3]),
+            ops.renorm[:n, :S].contiguous(), ops.red[:n, :S].contiguous(),
+            ops.eta, RAGGED["pT"] * RAGGED["phi"], cfg, ops.kind)
+    n_break = int((ops.cols[:n, fk.BREAKS] != 0).sum().item())
+    return _ragged_result(fk.cooper_frye_feqmod, fk.cooper_frye_feqmod_plain,
+                          args, FeqmodCaseResult, breakdown_cells=n_break)
 
 
 def famod_operands(state) -> fk.FeqmodOperands:

@@ -448,9 +448,14 @@ def test_wrapper_checks_operands(states):
                               "feqmod")
     with pytest.raises(ValueError, match="do not fit"):
         fk.cooper_frye_feqmod(*args[:5], 16, cfg, "feqmod")
-    with pytest.raises(ValueError, match="span"):
-        fk.cooper_frye_feqmod(ops.cols, ops.mom[:, :S * 16].contiguous(),
-                              *args[2:5], 16, cfg, "feqmod")
+    # a block may span many species (16 momenta each here, one each at
+    # worst): their renorm always fits the block's shared memory
+    few = fk.cooper_frye_feqmod(ops.cols, ops.mom[:, :S * 16].contiguous(),
+                                *args[2:5], 16, cfg, "feqmod")
+    assert few.shape == (S * 16,) and bool(torch.isfinite(few).all())
+    distinct = torch.arange(12 * 2000, dtype=torch.float32).reshape(12, 2000)
+    worst = fk.geometry(distinct, 1, 2000, 100, fk.MAX_ETA)
+    assert worst.span == 256 and worst.smem <= fk.MAX_SMEM
     with pytest.raises(ValueError, match="kernel mode"):
         fk.cooper_frye_feqmod(*args, dataclasses.replace(cfg, df_mode=2),
                               "feqmod")

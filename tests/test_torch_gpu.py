@@ -35,6 +35,15 @@ def workdir(tmp_path_factory):
                          include_baryon=True, n_T=21, n_muB=9)
 
 
+@pytest.fixture(scope="module")
+def ragged_workdir(tmp_path_factory):
+    """3 pT x 7 phi: a phi count no register tile divides, and 168 momenta
+    in all, fewer than one block's share."""
+    return write_workdir(tmp_path_factory.mktemp("torch_gpu_ragged"),
+                         n_cells=16, chosen_mcids=CHOSEN, n_pT=3, n_phi=7,
+                         n_eta=24, include_baryon=True, n_T=21, n_muB=9)
+
+
 def _needs_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -67,6 +76,69 @@ def test_cuda_kernel_ragged_tiles(workdir):
     plain = ck.cooper_frye_comp_plain(*args).cpu().numpy()[None]
     assert np.isfinite(out).all()
     assert kc.max_rel_err(out, plain) <= kc.TOL
+
+
+def _b1_operands(workdir, n_surface=512, **cfg_fields):
+    cfg = Config(compute_dtype="f32c", cell_block=512,
+                 **{"df_mode": 1, **cfg_fields})
+    surf = make_surface(n_surface, seed=5,
+                        include_baryon=bool(cfg.include_baryon))
+    return comp_operands(*kc.engine_state(workdir, cfg, surf, "cuda"),
+                         cfg), cfg
+
+
+def _b1_agrees(args):
+    out = ck.cooper_frye_comp(*args)
+    again = ck.cooper_frye_comp(*args)
+    plain = ck.cooper_frye_comp_plain(*args).cpu().numpy()[None]
+    assert torch.equal(out, again)        # no atomics: the same bits
+    out = out.cpu().numpy()[None]
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, plain) <= kc.TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cells,n_mom", [(100, 168), (70, 100), (333, 165),
+                                           (1, 7), (512, 5)])
+def test_cuda_kernel_ragged_rows_and_splits(ragged_workdir, n_cells, n_mom):
+    """Rows of 7 phi under a register tile of 4, a momentum count that stops
+    inside a row and stays below one block, and cell counts that fill
+    neither the last 64-cell tile nor the last split."""
+    _needs_cuda()
+    ops, cfg = _b1_operands(ragged_workdir)
+    g = ck.geometry(ops.mom[:, :n_mom].contiguous(), n_cells)
+    assert g.row_len == min(7, n_mom) and g.blocks == 1
+    _b1_agrees((ops.cell[:n_cells].contiguous(), ops.qm[:n_cells].contiguous(),
+                ops.eta, ops.eta_w, ops.mom[:, :n_mom].contiguous(), cfg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_eta", [1, 32])
+def test_cuda_kernel_eta_counts(workdir, n_eta):
+    """One eta node, and the most the kernel takes (the 12 folded nodes
+    repeated: another quadrature, as good as any for the comparison)."""
+    _needs_cuda()
+    ops, cfg = _b1_operands(workdir)
+    reps = -(-n_eta // ops.eta.shape[0])
+    _b1_agrees((ops.cell, ops.qm.repeat(1, reps, 1)[:, :n_eta].contiguous(),
+                ops.eta.repeat(reps, 1)[:n_eta].contiguous(),
+                ops.eta_w.repeat(reps)[:n_eta].contiguous(), ops.mom, cfg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", range(32))
+def test_cuda_kernel_every_template_combination(workdir, flags):
+    """Each of the 32 instantiations (shear, diffusion, regulate, outflow,
+    df 2) launches and agrees with the plain version."""
+    _needs_cuda()
+    shear, diffusion, regulate, outflow, df2 = ((flags >> i) & 1
+                                                for i in range(5))
+    ops, cfg = _b1_operands(
+        workdir, 200, df_mode=2 if df2 else 1, include_shear_deltaf=shear,
+        include_baryon=1, include_baryondiff_deltaf=diffusion,
+        regulate_deltaf=regulate, outflow=outflow)
+    assert ck._flags(cfg) == flags
+    _b1_agrees((*ops.args(), cfg))
 
 
 @pytest.mark.parametrize("case", list(kc.CASES))
@@ -121,6 +193,74 @@ def test_feqmod_kernel_ragged_tiles(workdir):
     plain = fk.cooper_frye_feqmod_plain(*args).cpu().numpy()[None]
     assert np.isfinite(out).all()
     assert kc.max_rel_err(out, plain) <= kc.FEQMOD_TOL_PLAIN
+
+
+def _b3_operands(workdir, df_mode=3, **cfg_fields):
+    cfg = Config(compute_dtype="f32", df_mode=df_mode, cell_block=512,
+                 **cfg_fields)
+    surf = make_surface(512, seed=5, **kc.FEQMOD_SURFACE)
+    state = kc.feqmod_engine_state(workdir, cfg, surf, "cuda")
+    return fk.feqmod_operands(*state, cfg), cfg
+
+
+def _b3_agrees(args):
+    out = fk.cooper_frye_feqmod(*args)
+    again = fk.cooper_frye_feqmod(*args)
+    plain = fk.cooper_frye_feqmod_plain(*args).cpu().numpy()[None]
+    assert torch.equal(out, again)        # no atomics: the same bits
+    out = out.cpu().numpy()[None]
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, plain) <= kc.FEQMOD_TOL_PLAIN
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("df_mode", [3, 4])
+@pytest.mark.parametrize("n_cells,n_mom", [(100, 168), (70, 100), (333, 165),
+                                           (1, 7), (512, 26)])
+def test_feqmod_kernel_ragged_rows_and_splits(ragged_workdir, df_mode,
+                                              n_cells, n_mom):
+    """As for B1: rows of 7 phi, a momentum count that stops inside a row
+    (and inside a species) below one block, ragged cell tiles and splits;
+    one block spans all eight species."""
+    _needs_cuda()
+    ops, cfg = _b3_operands(ragged_workdir, df_mode)
+    mom = ops.mom[:, :n_mom].contiguous()
+    fg = fk.geometry(mom, ops.n_per_species, ops.renorm.shape[1], n_cells,
+                     ops.eta.shape[0])
+    assert fg.grid.row_len == 7 and fg.grid.blocks == 1
+    _b3_agrees((ops.cols[:n_cells].contiguous(), mom,
+                ops.renorm[:n_cells].contiguous(),
+                ops.red[:n_cells].contiguous(), ops.eta, ops.n_per_species,
+                cfg, ops.kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_eta", [1, 32])
+def test_feqmod_kernel_eta_counts(workdir, n_eta):
+    """One eta node, and the most the kernel takes."""
+    _needs_cuda()
+    ops, cfg = _b3_operands(workdir, 4)
+    reps = -(-n_eta // ops.eta.shape[0])
+    eta = ops.eta.repeat(reps, 1)[:n_eta].contiguous()
+    assert bool((ops.cols[:, fk.BREAKS] != 0).any())
+    _b3_agrees((ops.cols, ops.mom, ops.renorm, ops.red, eta,
+                ops.n_per_species, cfg, ops.kind))
+
+
+@pytest.mark.gpu
+def test_feqmod_kernel_hands_a_nan_on(workdir):
+    """A NaN effective temperature on a cell that takes the modified branch
+    reaches the sum, as in the plain version: the clamp of exp + sign must
+    not swallow it."""
+    _needs_cuda()
+    ops, cfg = _b3_operands(workdir, 4)
+    cols = ops.cols.clone()
+    cell = int(torch.nonzero(cols[:, fk.BREAKS] == 0)[0])
+    cols[cell, fk.INVTEFF] = float("nan")
+    args = (cols, ops.mom, ops.renorm, ops.red, ops.eta, ops.n_per_species,
+            cfg, ops.kind)
+    assert bool(torch.isnan(fk.cooper_frye_feqmod(*args)).all())
+    assert bool(torch.isnan(fk.cooper_frye_feqmod_plain(*args)).all())
 
 
 @pytest.mark.parametrize("case", list(kc.FEQMOD_CASES))
