@@ -8,7 +8,10 @@ with ctypes), and its plain torch version with the same f32c arithmetic.
 version only for CPU tensors; ``cooper_frye_comp.launches`` counts kernel
 launches and ``cooper_frye_comp.last_geometry`` holds the latest launch's
 geometry.  The launch geometry (register tile, cell split) comes from the
-operands' shapes alone (``geometry``, ops/launch_geometry.py).
+operands' shapes alone (``geometry``, ops/launch_geometry.py).  A launch
+takes at most ETA_CHUNK eta nodes: a longer table runs chunk by chunk, one
+launch each, and the chunks' results are added in order; the plain version
+chunks alike.
 
 Operand layout (all contiguous; written by
 ops/spectra_fast_common.py::pack_inputs_comp):
@@ -30,8 +33,8 @@ import ctypes
 import torch
 
 from ..config import Config
-from .launch_geometry import (H100_SMS, Geometry, launch_geometry,
-                              row_length)
+from .launch_geometry import (Geometry, df12_flags, has_diffusion,
+                              operand_geometry, over_eta_chunks)
 
 CELL_COLS = ("qx1", "qx2", "qy1", "qy2", "abf", "abl", "Tf",
              "shear", "bulk0", "bulk1", "bulk2", "diff0", "diff1",
@@ -39,28 +42,16 @@ CELL_COLS = ("qx1", "qx2", "qy1", "qy2", "abf", "abl", "Tf",
              *(f"qpi{k}" for k in range(10)), "unused")
 MOM_ROWS = ("mT1", "mT2", "mTf", "px1", "px2", "pxf", "py1", "py2", "pyf",
             "mass2", "b", "sgn")
-MAX_ETA = 32   # kMaxEta in the CUDA source
+ETA_CHUNK = 32   # kMaxEta in the CUDA source: the eta nodes of one launch
 TILE_CELLS = 64   # kTileCells
 MAX_DEN = 2.0 ** 126   # kMaxDen: exp overflows past it, 1 / x flushes to 0
 R = 4          # kR: momenta (consecutive phi) of one thread's register tile
-
-# flag bits of the CUDA launcher
-_SHEAR, _DIFFUSION, _REGULATE, _OUTFLOW, _DF2 = 1, 2, 4, 8, 16
+# the rows constant along a (species, pT) row of the momentum grid
+_ROW_KEYS = [MOM_ROWS.index(k)
+             for k in ("mT1", "mT2", "mTf", "mass2", "b", "sgn")]
 
 # elements of one (cells x M) f32 block of the plain version
 _PLAIN_BLOCK_ELEMENTS = 1 << 24
-
-
-def _diffusion(cfg: Config) -> bool:
-    return bool(cfg.include_baryon and cfg.include_baryondiff_deltaf)
-
-
-def _flags(cfg: Config) -> int:
-    return ((_SHEAR if cfg.include_shear_deltaf else 0)
-            | (_DIFFUSION if _diffusion(cfg) else 0)
-            | (_REGULATE if cfg.regulate_deltaf else 0)
-            | (_OUTFLOW if cfg.outflow else 0)
-            | (_DF2 if cfg.df_mode == 2 else 0))
 
 
 def _two_sum(x, y):
@@ -75,14 +66,22 @@ def cooper_frye_comp_plain(cell, qm, eta, eta_w, mom, cfg: Config):
     eta, species, pT) or on (cell, phi) only formed apart, the pi
     coefficients scaled by the shear coefficient, df 2 through one
     reciprocal of E, the eta terms of a cell summed in f32 with f32 weights
-    -- and the cells summed in f64.  Runs on any device."""
+    -- and the cells summed in f64; eta chunk by chunk, as the wrapper
+    launches the kernel.  Runs on any device."""
+    return over_eta_chunks(
+        eta.shape[0], ETA_CHUNK,
+        lambda e0, e1: _plain_chunk(cell, qm[:, e0:e1], eta[e0:e1],
+                                    eta_w[e0:e1], mom, cfg))
+
+
+def _plain_chunk(cell, qm, eta, eta_w, mom, cfg: Config):
     C = cell.shape[0]
     M = mom.shape[1]
     p = dict(zip(MOM_ROWS, mom))
     b, sgn, mass2, mTf, pxf, pyf = (p["b"], p["sgn"], p["mass2"], p["mTf"],
                                     p["pxf"], p["pyf"])
     shear = bool(cfg.include_shear_deltaf)
-    diffusion = _diffusion(cfg)
+    diffusion = has_diffusion(cfg)
     df2 = cfg.df_mode == 2
     w32 = eta_w.to(torch.float32)
     out = torch.zeros(M, dtype=torch.float64, device=mom.device)
@@ -178,29 +177,23 @@ def _check(cell, qm, eta, eta_w, mom) -> None:
                              f"got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= Ne <= MAX_ETA:
-        raise ValueError(f"the kernel takes 1..{MAX_ETA} eta nodes, got {Ne}")
+    if Ne < 1:
+        raise ValueError("the kernel needs at least one eta node")
     if mom.shape[1] < 1 or mom.shape[1] >= 2**31 or C >= 2**31:
         raise ValueError("momentum and cell counts must fit in int32")
 
 
 def geometry(mom: torch.Tensor, n_cells: int, r: int = R,
              row_len: int | None = None) -> Geometry:
-    """The launch geometry for these operands.  ``row_len`` is the phi count
-    of the momentum grid; a caller that does not know it leaves it out, and
-    it is read off the momentum rows (mT, mass2, b and sign are constant
-    along a row), which costs a device-to-host copy."""
-    if row_len is None:
-        keys = mom[[MOM_ROWS.index(k) for k in ("mT1", "mT2", "mTf", "mass2",
-                                                "b", "sgn")]]
-        row_len = row_length(keys)
-    sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
-           if mom.device.type == "cuda" else H100_SMS)
-    return launch_geometry(mom.shape[1], row_len, n_cells, r, TILE_CELLS, sms)
+    """The launch geometry for these operands; ``row_len``, the phi count of
+    the momentum grid, is read off the rows mT, mass2, b and sign where the
+    caller leaves it out (ops/launch_geometry.py::operand_geometry)."""
+    return operand_geometry(mom, _ROW_KEYS, n_cells, r, TILE_CELLS, row_len)
 
 
 def launch(cell, qm, eta, eta_w, mom, cfg: Config, g: Geometry) -> torch.Tensor:
-    """Launch the kernel on checked CUDA operands with the geometry ``g``."""
+    """Launch the kernel on checked CUDA operands of at most ETA_CHUNK eta
+    nodes with the geometry ``g``."""
     from . import _build
     fn = _build.load("cooper_frye_comp").is3d2_cooper_frye_comp
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -214,7 +207,7 @@ def launch(cell, qm, eta, eta_w, mom, cfg: Config, g: Geometry) -> torch.Tensor:
         err = fn(cell.data_ptr(), qm.data_ptr(), eta.data_ptr(),
                  eta_w.data_ptr(), mom.data_ptr(), partial.data_ptr(),
                  out.data_ptr(), cell.shape[0], eta.shape[0], M, g.row_len,
-                 g.n_split, g.cells_per_split, _flags(cfg), stream)
+                 g.n_split, g.cells_per_split, df12_flags(cfg), stream)
     if err != 0:
         raise RuntimeError(f"cooper_frye_comp launch failed: cudaError {err}")
     cooper_frye_comp.launches += 1
@@ -234,8 +227,11 @@ def cooper_frye_comp(cell, qm, eta, eta_w, mom, cfg: Config,
         raise ValueError(f"no kernel for device {cell.device}")
     from . import _build
     r = _build.load("cooper_frye_comp").is3d2_cooper_frye_comp_tile()
-    return launch(cell, qm, eta, eta_w, mom, cfg,
-                  geometry(mom, cell.shape[0], r, row_len))
+    g = geometry(mom, cell.shape[0], r, row_len)
+    return over_eta_chunks(
+        eta.shape[0], ETA_CHUNK,
+        lambda e0, e1: launch(cell, qm[:, e0:e1].contiguous(), eta[e0:e1],
+                              eta_w[e0:e1], mom, cfg, g))
 
 
 cooper_frye_comp.launches = 0

@@ -8,7 +8,12 @@ ctypes), and its plain torch version with the same f32 arithmetic.
 
 ``cooper_frye_f32`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; ``cooper_frye_f32.launches`` counts kernel
-launches.
+launches and ``cooper_frye_f32.last_geometry`` holds the latest launch's
+geometry.  The launch geometry (register tile, cell split) comes from the
+operands' shapes alone (``geometry``, ops/launch_geometry.py).  A launch
+takes at most ETA_CHUNK eta nodes: a longer table runs chunk by chunk, one
+launch each, and the chunks' results are added in order; the plain version
+chunks alike.
 
 Operand layout (all contiguous; written by
 ops/spectra_fast_common.py::pack_inputs):
@@ -21,16 +26,20 @@ ops/spectra_fast_common.py::pack_inputs):
 and the result is the (M,) f64 sum over cells and eta of w * p.dsigma * f.
 
 The arithmetic, in f32, of one (cell, eta, m) evaluation with
-P = (mT cosh, px, py, -mT sinh):
+P = (m1, px, py, m4) = (mT cosh, px, py, -mT sinh):
 
-  * per (cell, eta), independent of m: the mT coefficients of u.p, p.dsigma
-    and V.p (cE, cD, cV) and the mT^2, mT px, mT py coefficients of
-    pi^munu p_mu p_nu (kmm, kmx, kmy);
-  * per (cell, m), independent of eta: the px/py parts of the same sums
-    (exy, dxy, vxy, pxy);
-  * E = cE mT + exy, a = E / T - alphaB b, f_eq = 1 / (e^a + sign), and the
-    Grad (df 1) or Chapman-Enskog (df 2) delta-f chain of
-    cooper_frye_pallas.py:179-187, with one reciprocal of E for df 2.
+  * per (cell, eta, species, pT), shared by the phi of a row: m1, m4, the
+    mT parts of u.p, p.dsigma and V.p, and the pi^munu p_mu p_nu terms in
+    m1 m1, m4 m4, m1 m4 and the coefficients of px and py (kmm, kmx, kmy),
+    with the pi coefficients scaled by the shear coefficient once per cell;
+  * per (cell, phi), independent of eta: the px/py parts of the same sums
+    (exy, dxy, vxy, and the pi terms in px^2, py^2, px py, which df 1 joins
+    with bulk0 mass2);
+  * E = e_m + exy, a = E / T - alphaB b, f_eq = 1 / min(e^a + sign, 2^126),
+    and the Grad (df 1) or Chapman-Enskog (df 2) delta-f chain of
+    cooper_frye_pallas.py:179-187, with one reciprocal of E for df 2;
+  * the eta terms of a cell summed in f32 with f32 weights, the cells in
+    f64.
 """
 
 from __future__ import annotations
@@ -40,96 +49,103 @@ import ctypes
 import torch
 
 from ..config import Config
+# the CUDA launcher takes kernel B1's flag bits
+from .launch_geometry import (Geometry, df12_flags, has_diffusion,
+                              operand_geometry, over_eta_chunks)
 
 CELL_COLS = ("qe0", "qe1", "qe2", "qe3", "qd0", "qd1", "qd2", "qd3",
              *(f"qpi{k}" for k in range(10)), "qv0", "qv1", "qv2", "qv3",
              "invT", "alphaB", "shear", "bulk0", "bulk1", "bulk2",
              "diff0", "diff1", "unused0", "unused1")
 MOM_ROWS = ("mT", "px", "py", "mass2", "b", "sgn")
-MAX_ETA = 32   # kMaxEta in the CUDA source
-
-# flag bits of the CUDA launcher (the same as kernel B1's)
-_SHEAR, _DIFFUSION, _REGULATE, _OUTFLOW, _DF2 = 1, 2, 4, 8, 16
+ETA_CHUNK = 32   # kMaxEta in the CUDA source: the eta nodes of one launch
+TILE_CELLS = 64   # kTileCells
+MAX_DEN = 2.0 ** 126   # kMaxDen: exp overflows past it, 1 / x flushes to 0
+R = 4          # kR: momenta (consecutive phi) of one thread's register tile
+# the rows constant along a (species, pT) row of the momentum grid
+_ROW_KEYS = [MOM_ROWS.index(k) for k in ("mT", "mass2", "b", "sgn")]
 
 # elements of one (cells x M) f32 block of the plain version
 _PLAIN_BLOCK_ELEMENTS = 1 << 24
 
 
-def _diffusion(cfg: Config) -> bool:
-    return bool(cfg.include_baryon and cfg.include_baryondiff_deltaf)
-
-
-def _flags(cfg: Config) -> int:
-    return ((_SHEAR if cfg.include_shear_deltaf else 0)
-            | (_DIFFUSION if _diffusion(cfg) else 0)
-            | (_REGULATE if cfg.regulate_deltaf else 0)
-            | (_OUTFLOW if cfg.outflow else 0)
-            | (_DF2 if cfg.df_mode == 2 else 0))
-
-
 def cooper_frye_f32_plain(cell, eta, eta_w, mom, cfg: Config):
     """Plain torch version of the kernel: the same f32 arithmetic in the
-    same order on (cell block, M) tensors, summed in f64.  Runs on any
-    device."""
+    same order on (cell block, M) tensors (see the module docstring), the
+    cells summed in f64; eta chunk by chunk, as the wrapper launches the
+    kernel.  Runs on any device."""
+    return over_eta_chunks(
+        eta.shape[0], ETA_CHUNK,
+        lambda e0, e1: _plain_chunk(cell, eta[e0:e1], eta_w[e0:e1], mom, cfg))
+
+
+def _plain_chunk(cell, eta, eta_w, mom, cfg: Config):
     C = cell.shape[0]
     M = mom.shape[1]
     mT, px, py, mass2, b, sgn = mom
-    mT2, mTpx, mTpy = mT * mT, mT * px, mT * py
-    px2, py2, pxpy = px * px, py * py, px * py
     shear = bool(cfg.include_shear_deltaf)
-    diffusion = _diffusion(cfg)
+    diffusion = has_diffusion(cfg)
     df2 = cfg.df_mode == 2
+    w32 = eta_w.to(torch.float32)
     out = torch.zeros(M, dtype=torch.float64, device=mom.device)
     blk = max(1, min(C, _PLAIN_BLOCK_ELEMENTS // M))
     for c0 in range(0, C, blk):
         q = {name: cell[c0:c0 + blk, i:i + 1]
              for i, name in enumerate(CELL_COLS)}
-        qpi = [q[f"qpi{k}"] for k in range(10)]
-        # per (cell, m): the px/py parts, independent of eta
+        # once per (cell, row)
+        abb = q["alphaB"] * b   # b in {-1, 0, 1}: exact
+        c1 = q["bulk1"] * b
+        c0b = 0.0 if df2 else q["bulk0"] * mass2
+        diffb = (q["diff1"] if df2 else q["diff0"]) * b
+        sk = [q["shear"] * q[f"qpi{k}"] for k in range(10)]
+        # once per (cell, phi): the px/py parts, independent of eta
         exy = q["qe1"] * px + q["qe2"] * py
         dxy = q["qd1"] * px + q["qd2"] * py
+        if shear:
+            sp0 = ((sk[1] * (px * px) + sk[2] * (py * py)) + sk[7] * (px * py)
+                   + c0b)
+        else:
+            sp0 = c0b
         if diffusion:
             vxy = q["qv1"] * px + q["qv2"] * py
-        if shear:
-            pxy = (qpi[1] * px2 + qpi[2] * py2) + qpi[7] * pxpy
-        abb = q["alphaB"] * b
+        part = torch.zeros((q["qe0"].shape[0], M), dtype=torch.float32,
+                           device=mom.device)
         for e in range(eta.shape[0]):
-            ch, sh = eta[e, 0], eta[e, 1]
-            # per (cell, eta): the mT coefficients, independent of m
-            cE = q["qe0"] * ch + q["qe3"] * sh
-            cD = q["qd0"] * ch + q["qd3"] * sh
-            E = cE * mT + exy
-            feq = 1.0 / (torch.exp(E * q["invT"] - abb) + sgn)
+            # once per (cell, eta, row)
+            m1 = mT * eta[e, 0]
+            m4 = mT * eta[e, 1]
+            # per evaluation
+            E = (q["qe0"] * m1 + q["qe3"] * m4) + exy
+            feq = 1.0 / torch.clamp(torch.exp(E * q["invT"] - abb) + sgn,
+                                    max=MAX_DEN)
             feqbar = 1.0 - sgn * feq
-            pdd = cD * mT + dxy
+            pdd = (q["qd0"] * m1 + q["qd3"] * m4) + dxy
             if shear:
-                kmm = (qpi[0] * ch) * ch + (qpi[3] * sh) * sh + (qpi[6] * ch) * sh
-                kmx = qpi[4] * ch + qpi[8] * sh
-                kmy = qpi[5] * ch + qpi[9] * sh
-                pim = ((kmm * mT2 + kmx * mTpx) + kmy * mTpy) + pxy
+                kmm = m1 * (sk[0] * m1 + sk[6] * m4) + sk[3] * (m4 * m4)
+                kmx = sk[4] * m1 + sk[8] * m4
+                kmy = sk[5] * m1 + sk[9] * m4
+                sp = ((kmm + kmx * px) + kmy * py) + sp0
             else:
-                pim = 0.0
-            if df2:
-                rE = 1.0 / E
-                df = (q["shear"] * pim * rE + q["bulk0"] * E + q["bulk1"] * b
-                      + q["bulk2"] * (E - mass2 * rE))
-            else:
-                df = (q["shear"] * pim + q["bulk0"] * mass2
-                      + (q["bulk1"] * b + q["bulk2"] * E) * E)
+                sp = sp0
             if diffusion:
-                cV = q["qv0"] * ch + q["qv3"] * sh
-                Vp = cV * mT + vxy
-                if df2:
-                    df = df + (q["diff0"] - q["diff1"] * b * rE) * Vp
-                else:
-                    df = df + (q["diff0"] * b + q["diff1"] * E) * Vp
+                Vp = (q["qv0"] * m1 + q["qv3"] * m4) + vxy
+            if not df2:
+                df = sp + (c1 + q["bulk2"] * E) * E
+                if diffusion:
+                    df = df + (diffb + q["diff1"] * E) * Vp
+            else:
+                rE = 1.0 / E
+                df = (sp * rE + (q["bulk0"] * E + c1)
+                      + q["bulk2"] * (E - mass2 * rE))
+                if diffusion:
+                    df = df + (q["diff0"] - diffb * rE) * Vp
             df = feqbar * df
             if cfg.regulate_deltaf:
                 df = torch.clamp(df, -1.0, 1.0)
             if cfg.outflow:
                 pdd = torch.where(pdd > 0.0, pdd, 0.0)
-            value = pdd * (feq * (1.0 + df))
-            out += eta_w[e] * value.to(torch.float64).sum(dim=0)
+            part = part + w32[e] * (pdd * (feq * (1.0 + df)))
+        out += part.to(torch.float64).sum(dim=0)
     return out
 
 
@@ -148,35 +164,61 @@ def _check(cell, eta, eta_w, mom) -> None:
                              f"got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= Ne <= MAX_ETA:
-        raise ValueError(f"the kernel takes 1..{MAX_ETA} eta nodes, got {Ne}")
+    if Ne < 1:
+        raise ValueError("the kernel needs at least one eta node")
     if mom.shape[1] < 1 or mom.shape[1] >= 2**31 or C >= 2**31:
         raise ValueError("momentum and cell counts must fit in int32")
 
 
-def cooper_frye_f32(cell, eta, eta_w, mom, cfg: Config) -> torch.Tensor:
+def geometry(mom: torch.Tensor, n_cells: int, r: int = R,
+             row_len: int | None = None) -> Geometry:
+    """The launch geometry for these operands; ``row_len``, the phi count of
+    the momentum grid, is read off the rows mT, mass2, b and sign where the
+    caller leaves it out (ops/launch_geometry.py::operand_geometry)."""
+    return operand_geometry(mom, _ROW_KEYS, n_cells, r, TILE_CELLS, row_len)
+
+
+def launch(cell, eta, eta_w, mom, cfg: Config, g: Geometry) -> torch.Tensor:
+    """Launch the kernel on checked CUDA operands of at most ETA_CHUNK eta
+    nodes with the geometry ``g``."""
+    from . import _build
+    fn = _build.load("cooper_frye_f32").is3d2_cooper_frye_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    M = mom.shape[1]
+    out = torch.empty(M, dtype=torch.float64, device=cell.device)
+    partial = out if g.n_split == 1 else torch.empty(
+        (g.n_split, M), dtype=torch.float64, device=cell.device)
+    with torch.cuda.device(cell.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cell.data_ptr(), eta.data_ptr(), eta_w.data_ptr(),
+                 mom.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                 cell.shape[0], eta.shape[0], M, g.row_len, g.n_split,
+                 g.cells_per_split, df12_flags(cfg), stream)
+    if err != 0:
+        raise RuntimeError(f"cooper_frye_f32 launch failed: cudaError {err}")
+    cooper_frye_f32.launches += 1
+    cooper_frye_f32.last_geometry = g
+    return out
+
+
+def cooper_frye_f32(cell, eta, eta_w, mom, cfg: Config,
+                    row_len: int | None = None) -> torch.Tensor:
     """Run the plain-f32 kernel on CUDA tensors (its plain version on CPU
-    tensors).  Returns the (M,) f64 spectra partials."""
+    tensors).  Returns the (M,) f64 spectra partials.  ``row_len``: the phi
+    count of the momentum grid, see ``geometry``."""
     _check(cell, eta, eta_w, mom)
     if cell.device.type == "cpu":
         return cooper_frye_f32_plain(cell, eta, eta_w, mom, cfg)
     if cell.device.type != "cuda":
         raise ValueError(f"no kernel for device {cell.device}")
     from . import _build
-    fn = _build.load("cooper_frye_f32").is3d2_cooper_frye_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    M = mom.shape[1]
-    out = torch.empty(M, dtype=torch.float64, device=cell.device)
-    with torch.cuda.device(cell.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(cell.data_ptr(), eta.data_ptr(), eta_w.data_ptr(),
-                 mom.data_ptr(), out.data_ptr(),
-                 cell.shape[0], eta.shape[0], M, _flags(cfg), stream)
-    if err != 0:
-        raise RuntimeError(f"cooper_frye_f32 launch failed: cudaError {err}")
-    cooper_frye_f32.launches += 1
-    return out
+    r = _build.load("cooper_frye_f32").is3d2_cooper_frye_f32_tile()
+    g = geometry(mom, cell.shape[0], r, row_len)
+    return over_eta_chunks(
+        eta.shape[0], ETA_CHUNK,
+        lambda e0, e1: launch(cell, eta[e0:e1], eta_w[e0:e1], mom, cfg, g))
 
 
 cooper_frye_f32.launches = 0
+cooper_frye_f32.last_geometry = None   # of the latest launch

@@ -11,7 +11,10 @@ the same arithmetic, and the operand packs (counterparts of
 plain version only for CPU tensors; ``cooper_frye_feqmod.launches`` counts
 kernel launches and ``cooper_frye_feqmod.last_geometry`` holds the latest
 launch's geometry.  The launch geometry (register tile, cell split) comes
-from the operands' shapes alone (``geometry``, ops/launch_geometry.py).
+from the operands' shapes alone (``geometry``, ops/launch_geometry.py).  A
+launch takes at most ETA_CHUNK eta nodes: a longer table runs chunk by
+chunk, one launch each, and the chunks' results are added in order; the
+plain version chunks alike.
 
 Operand layout (all contiguous, nothing padded):
 
@@ -36,8 +39,8 @@ from ..config import Config
 from ..core.cells import CellArrays
 from ..core.spectra import PREFACTOR, MomentumGridDevice, SpeciesArrays
 from ..core.spectra_fast import fold_eta_quadrature
-from .launch_geometry import (H100_SMS, THREADS, Geometry, launch_geometry,
-                              row_length)
+from .launch_geometry import (THREADS, Geometry, operand_geometry,
+                              over_eta_chunks)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -57,7 +60,7 @@ N_COLS = 64
 
 MOM_ROWS = ("mT", "px", "py", "mT2", "px2", "py2", "mTpx", "mTpy", "pxpy",
             "mass2", "b", "sgn")
-MAX_ETA = 32      # kMaxEta in the CUDA source
+ETA_CHUNK = 32    # kMaxEta in the CUDA source: the eta nodes of one launch
 MAX_DEN = 2.0 ** 126   # kMaxDen: exp overflows past it, 1 / x flushes to 0
 R = 4             # kR: momenta (consecutive phi) of one thread's register tile
 TILE_CELLS = 16   # kTileCells
@@ -115,8 +118,16 @@ def cooper_frye_feqmod_plain(cols, mom, renorm, red, eta, n_per_species: int,
     E_mod^2 in f64 as in the kernel; the px/py parts formed apart from the
     mT parts; the breakdown branch through one reciprocal of E; both
     branches where-selected per cell; the eta terms of a cell summed in f32,
-    the renorm applied once per cell, the cells summed in f64.  Runs on any
-    device."""
+    the renorm applied once per cell, the cells summed in f64; eta chunk by
+    chunk, as the wrapper launches the kernel.  Runs on any device."""
+    return over_eta_chunks(
+        eta.shape[0], ETA_CHUNK,
+        lambda e0, e1: _plain_chunk(cols, mom, renorm, red, eta[e0:e1],
+                                    n_per_species, cfg, kind))
+
+
+def _plain_chunk(cols, mom, renorm, red, eta, n_per_species: int,
+                 cfg: Config, kind: str) -> torch.Tensor:
     mode = _mode(cfg, kind)
     C = cols.shape[0]
     M = mom.shape[1]
@@ -252,8 +263,8 @@ def _check(cols, mom, renorm, red, eta, n_per_species: int) -> None:
                              f"got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= Ne <= MAX_ETA:
-        raise ValueError(f"the kernel takes 1..{MAX_ETA} eta nodes, got {Ne}")
+    if Ne < 1:
+        raise ValueError("the kernel needs at least one eta node")
     if C < 1 or M < 1 or M >= 2**31 or C * S >= 2**31:
         raise ValueError("cell, species and momentum counts must be >= 1 "
                          "and fit in int32")
@@ -264,9 +275,10 @@ def _check(cols, mom, renorm, red, eta, n_per_species: int) -> None:
 
 def smem_bytes(n_eta: int, span: int) -> int:
     """Dynamic shared memory of one block (smem_bytes of the CUDA source);
-    within MAX_SMEM for any eta count and span the kernel takes."""
+    within MAX_SMEM for any eta count of a launch (at most ETA_CHUNK) and
+    any span."""
     return TILE_CELLS * (n_eta * (4 * 8 + 8 * 4) + 6 * 8 + N_COLS * 4
-                         + 2 * span * 4) + 4 * MAX_ETA * 4
+                         + 2 * span * 4) + 4 * ETA_CHUNK * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,28 +291,26 @@ class FeqmodGeometry:
 def geometry(mom: torch.Tensor, n_per_species: int, n_species: int,
              n_cells: int, n_eta: int, r: int = R,
              row_len: int | None = None) -> FeqmodGeometry:
-    """The launch geometry for these operands.  ``row_len`` is the phi count
-    of the momentum grid (a row lies inside one species); a caller that does
-    not know it leaves it out, and it is read off the momentum rows (mT is
-    constant along a row), which costs a device-to-host copy."""
-    if row_len is None:
-        keys = mom[[MOM_ROWS.index(k) for k in ("mT", "mass2", "b", "sgn")]]
-        row_len = row_length(keys, divides=n_per_species)
-    tiles_per_row = -(-row_len // r)
-    rows_per_block = -(-(THREADS - 1) // tiles_per_row) + 1
-    rows_per_species = n_per_species // row_len
+    """The launch geometry for these operands (``n_eta``: the eta nodes of
+    one launch).  ``row_len``, the phi count of the momentum grid (a row
+    lies inside one species), is read off the rows mT, mass2, b and sign
+    where the caller leaves it out (ops/launch_geometry.py::
+    operand_geometry)."""
+    grid = operand_geometry(
+        mom, [MOM_ROWS.index(k) for k in ("mT", "mass2", "b", "sgn")],
+        n_cells, r, TILE_CELLS, row_len, divides=n_per_species)
+    rows_per_block = -(-(THREADS - 1) // grid.tiles_per_row) + 1
+    rows_per_species = n_per_species // grid.row_len
     # a block spans at most THREADS + 1 species
     span = min(n_species,
                (rows_per_block + rows_per_species - 2) // rows_per_species + 1)
-    sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
-           if mom.device.type == "cuda" else H100_SMS)
-    grid = launch_geometry(mom.shape[1], row_len, n_cells, r, TILE_CELLS, sms)
     return FeqmodGeometry(grid, span, smem_bytes(n_eta, span))
 
 
 def launch(cols, mom, renorm, red, eta, n_per_species: int, cfg: Config,
            kind: str, fg: FeqmodGeometry) -> torch.Tensor:
-    """Launch the kernel on checked CUDA operands with the geometry ``fg``."""
+    """Launch the kernel on checked CUDA operands of at most ETA_CHUNK eta
+    nodes with the geometry ``fg``."""
     from . import _build
     fn = _build.load("cooper_frye_feqmod").is3d2_cooper_frye_feqmod
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -342,8 +352,11 @@ def cooper_frye_feqmod(cols, mom, renorm, red, eta, n_per_species: int,
     from . import _build
     r = _build.load("cooper_frye_feqmod").is3d2_cooper_frye_feqmod_tile()
     fg = geometry(mom, n_per_species, renorm.shape[1], cols.shape[0],
-                  eta.shape[0], r, row_len)
-    return launch(cols, mom, renorm, red, eta, n_per_species, cfg, kind, fg)
+                  min(eta.shape[0], ETA_CHUNK), r, row_len)
+    return over_eta_chunks(
+        eta.shape[0], ETA_CHUNK,
+        lambda e0, e1: launch(cols, mom, renorm, red, eta[e0:e1],
+                              n_per_species, cfg, kind, fg))
 
 
 cooper_frye_feqmod.launches = 0

@@ -1,8 +1,9 @@
-"""Launch geometry of the Cooper-Frye kernels B1 and B3, on the host.
+"""Launch geometry of the Cooper-Frye kernels B1, B2 and B3, on the host.
 
-Both kernels give a thread a register tile of ``r`` consecutive phi of one
-(species, pT) row, walk the cells in shared-memory tiles, and split the
-cells across ``blockIdx.y`` so that the grid fills whole waves of the card.
+The three kernels give a thread a register tile of ``r`` consecutive phi
+of one (species, pT) row, walk the cells in shared-memory tiles, and split
+the cells across ``blockIdx.y`` so that the grid fills whole waves of the
+card.
 Everything here is a function of the shapes (and of the card's SM count),
 never of timing, so two launches on the same operands run the same grid and
 give the same bits.
@@ -10,8 +11,14 @@ give the same bits.
   * ``row_length``: the run length along which mT, mass2, b and sign stay
     constant in the momentum rows, i.e. the phi count of the grid;
   * ``launch_geometry``: tiles per row, blocks, the cell split;
+  * ``operand_geometry``: the same for a kernel's momentum rows on the
+    card that holds them;
   * ``momentum_index``: the map (block, thread, j) -> m that the kernels
-    compute, for the tests.
+    compute, for the tests;
+  * ``over_eta_chunks``: a table of more eta nodes than one launch takes,
+    run chunk by chunk;
+  * ``df12_flags``: the flag bits that pick the template instantiation of
+    the df-1/2 kernels B1 and B2 (their ``dispatch<>``).
 """
 
 from __future__ import annotations
@@ -22,11 +29,14 @@ import math
 import numpy as np
 import torch
 
-THREADS = 256          # kThreads of both CUDA sources
+THREADS = 256          # kThreads of the three CUDA sources
 BLOCKS_PER_SM = 2      # kMinBlocks: what __launch_bounds__ keeps resident
 MAX_SPLIT = 32         # (n_split, M) f64 partials: 32 x 7 MB at the full grid
 GOOD_FILL = 0.95       # take the smallest split that fills its waves this far
 H100_SMS = 132
+
+# flag bits of the df-1/2 launchers (B1 and B2): one template parameter each
+SHEAR, DIFFUSION, REGULATE, OUTFLOW, DF2 = 1, 2, 4, 8, 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +98,22 @@ def launch_geometry(n_mom: int, row_len: int, n_cells: int, r: int,
                     cells_per_split, tile_cells)
 
 
+def operand_geometry(mom: torch.Tensor, keys: list[int], n_cells: int,
+                     r: int, tile_cells: int, row_len: int | None = None,
+                     divides: int | None = None) -> Geometry:
+    """The launch geometry for the momentum rows ``mom`` (k, M) on the card
+    that holds them (an H100 for a tensor elsewhere).  ``row_len`` is the
+    phi count of the momentum grid; a caller that does not know it leaves
+    it out, and it is read off the rows ``keys`` of ``mom``, which are
+    constant along a grid row (``row_length``), at the cost of a
+    device-to-host copy."""
+    if row_len is None:
+        row_len = row_length(mom[keys], divides)
+    sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
+           if mom.device.type == "cuda" else H100_SMS)
+    return launch_geometry(mom.shape[1], row_len, n_cells, r, tile_cells, sms)
+
+
 def momentum_index(g: Geometry) -> np.ndarray:
     """(blocks, THREADS, r) int64: the momentum point m that thread
     ``thread`` of block ``block`` owns in slot j, or -1 where the slot is
@@ -105,3 +131,28 @@ def cell_ranges(g: Geometry, n_cells: int) -> list[tuple[int, int]]:
     return [(y * g.cells_per_split,
              min(n_cells, (y + 1) * g.cells_per_split))
             for y in range(g.n_split)]
+
+
+def over_eta_chunks(n_eta: int, chunk: int, run) -> torch.Tensor:
+    """``run(e0, e1)`` on each chunk [e0, e1) of at most ``chunk`` eta
+    nodes, in order, and the (M,) f64 results added in that order: a
+    kernel and its plain version chunked alike sum alike, and with
+    ``n_eta <= chunk`` the one result is returned as it is."""
+    out = run(0, min(n_eta, chunk))
+    for e0 in range(chunk, n_eta, chunk):
+        out += run(e0, min(n_eta, e0 + chunk))
+    return out
+
+
+def has_diffusion(cfg) -> bool:
+    """Whether the df-1/2 sum takes the baryon-diffusion term."""
+    return bool(cfg.include_baryon and cfg.include_baryondiff_deltaf)
+
+
+def df12_flags(cfg) -> int:
+    """The flag bits of a df-1/2 launch (B1 and B2) for ``cfg``."""
+    return ((SHEAR if cfg.include_shear_deltaf else 0)
+            | (DIFFUSION if has_diffusion(cfg) else 0)
+            | (REGULATE if cfg.regulate_deltaf else 0)
+            | (OUTFLOW if cfg.outflow else 0)
+            | (DF2 if cfg.df_mode == 2 else 0))

@@ -56,6 +56,7 @@ class F32Operands:
     eta: torch.Tensor     # (Ne, 2) f32
     eta_w: torch.Tensor   # (Ne,) f64
     mom: torch.Tensor     # (6, M) f32
+    row_len: int          # Nphi: momenta per (species, pT) row of mom
 
     @property
     def evaluations(self) -> int:
@@ -156,7 +157,8 @@ def pack_inputs(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
     eta, eta_w = _eta_rows(grid)
     p = _momentum_rows(species, grid)
     mom = torch.stack([p[k].to(f32) for k in b2.MOM_ROWS]).contiguous()
-    return F32Operands(cell=cell, eta=eta, eta_w=eta_w, mom=mom)
+    return F32Operands(cell=cell, eta=eta, eta_w=eta_w, mom=mom,
+                       row_len=grid.cos_phi.shape[0])
 
 
 def _fold(cells: CellArrays, grid: MomentumGridDevice, cfg: Config, what: str):
@@ -202,4 +204,5 @@ def compute_spectra_f32(cells: CellArrays, coeffs: dict,
                         cfg: Config) -> torch.Tensor:
     """Plain-f32 spectra through kernel B2: (S, NpT, Nphi, 1) f64."""
     ops = f32_operands(cells, coeffs, species, grid, cfg)
-    return _spectra(b2.cooper_frye_f32(*ops.args(), cfg), species, grid)
+    return _spectra(b2.cooper_frye_f32(*ops.args(), cfg, row_len=ops.row_len),
+                    species, grid)

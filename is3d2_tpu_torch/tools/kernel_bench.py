@@ -27,7 +27,7 @@ script
   * B3: takes the ``--f64-species`` species on which the trees disagree
     most at that cut and holds every tree, and the plain version, to the
     f64 feqmod engine there, at the cut and at the full cell count;
-  * B1 and B3 of this tree: with the momenta cut to the first
+  * every kernel of this tree: with the momenta cut to the first
     ``--few-species`` species (a chosen-particles list of a few hadrons:
     fewer blocks than the card holds), times the launch with the wrapper's
     cell split and with none.
@@ -42,6 +42,7 @@ import dataclasses
 import functools
 import importlib
 import importlib.util
+import inspect
 import json
 import re
 import shutil
@@ -244,7 +245,12 @@ def operands(kernel: Kernel, wd: Path):
 
     def cut(n):
         return (ops.cell[:n].contiguous(), ops.eta, ops.eta_w, ops.mom, cfg)
-    return cfg, state, ops, (*ops.args(), cfg), cut, None
+
+    def few(s):
+        per = ops.mom.shape[1] // state[2].mass.shape[0]
+        return (ops.cell, ops.eta, ops.eta_w,
+                ops.mom[:, :s * per].contiguous(), cfg)
+    return cfg, state, ops, (*ops.args(), cfg), cut, few
 
 
 def cuda_ms(fn) -> float:
@@ -334,13 +340,14 @@ def race_split(kernel: Kernel, few, n_species: int) -> dict:
     mod = importlib.import_module(f"..ops.{kernel.name}", __package__)
     wrapper = getattr(mod, kernel.name)
     args = few(n_species)
-    n_mom = args[4 if kernel.key == "b1" else 1].shape[1]
+    # the momentum rows: argument 4 of B1, 3 of B2, 1 of B3
+    n_mom = args[{"b1": 4, "b2": 3, "b3": 1}[kernel.key]].shape[1]
     out = wrapper(*args)
     g = wrapper.last_geometry
-    grid = g if kernel.key == "b1" else g.grid
+    grid = g.grid if kernel.key == "b3" else g
     one = dataclasses.replace(grid, n_split=1,
                               cells_per_split=args[0].shape[0])
-    unsplit = one if kernel.key == "b1" else dataclasses.replace(g, grid=one)
+    unsplit = dataclasses.replace(g, grid=one) if kernel.key == "b3" else one
     same = torch.equal(out, mod.launch(*args, g))
     ms = {"split": [], "no split": []}
     for which, geom in (("split", g), ("no split", unsplit),
@@ -396,19 +403,20 @@ def main(argv=None) -> int:
             cfg, state, ops, args, cut, few = operands(k, wd)
             print(f"{k.key}: {args[0].shape[0]} cells x {ops.eta.shape[0]} "
                   f"eta x {ops.mom.shape[1]} momenta")
-            versions = {label: k.wrapper(package)
-                        for label, package in packages.items()}
-            if k.key != "b2":       # as the main path calls it
-                versions[THIS_TREE] = functools.partial(
-                    versions[THIS_TREE], row_len=ops.row_len)
+            # as the main path calls them: with the phi count, where a
+            # tree's wrapper takes it
+            versions = {}
+            for label, package in packages.items():
+                call = k.wrapper(package)
+                if "row_len" in inspect.signature(call).parameters:
+                    call = functools.partial(call, row_len=ops.row_len)
+                versions[label] = call
             mine = importlib.import_module(
                 f"{packages[THIS_TREE]}.ops.{k.name}")
             plain = getattr(mine, f"{k.name}_plain")
             rec, spectra = race(k, versions, args, cut(a.compare_cells),
                                 plain, state)
-            if k.key != "b2":
-                print(f"{k.key}: geometry "
-                      f"{getattr(mine, k.name).last_geometry}")
+            print(f"{k.key}: geometry {getattr(mine, k.name).last_geometry}")
             if k.key == "b3" and a.f64_species:
                 species = disagreeing_species(spectra, a.f64_species) \
                     if len(spectra) > 2 else list(range(a.f64_species))
@@ -422,9 +430,8 @@ def main(argv=None) -> int:
                 rec["vs_f64_full"] = hold_to_f64(
                     f"all {args[0].shape[0]} cells", full,
                     feqmod_f64(state, cfg, args[0].shape[0], species), species)
-            if few is not None:
-                rec["few_species"] = {s: race_split(k, few, s)
-                                      for s in few_species}
+            rec["few_species"] = {s: race_split(k, few, s)
+                                  for s in few_species}
             record["kernels"][k.name] = rec
             del ops, args, cut, few, state, versions
             torch.cuda.empty_cache()

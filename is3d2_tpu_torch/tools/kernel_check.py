@@ -17,7 +17,9 @@ One harness for ``chip_smoke.py`` and ``tests/test_torch_gpu.py``:
 Each kernel also has a ragged case (RAGGED: rows of 7 phi under a register
 tile of 4, fewer momenta than one block owns, a cell count that fills
 neither the last tile nor the last split), cut from a case's operands and
-held to the plain version.
+held to the plain version.  A workdir with an eta table of more nodes than
+one launch takes (ETA_NODES, unfolded with ``eta_fold = 0``) runs any case
+chunk by chunk.
 
 Errors are relative, on bins >= FLOOR of each species' peak.  On a CPU
 device the wrappers run the plain versions, so there only the comparison
@@ -55,7 +57,7 @@ F32_TOL_F64 = 2e-5        # kernel B2 vs the f64 engine (JAX's f32 paths: ~5e-6)
 MAIN_PATH_KERNEL = {
     "cooper_frye_comp": r"cooper_frye_comp_kernelILb1ELb0ELb0ELb0ELb0EE",
     "cooper_frye_feqmod": r"cooper_frye_feqmod_kernelILi4ELb0ELb0EE",
-    "cooper_frye_f32": r"cooper_frye_f32_kernel",
+    "cooper_frye_f32": r"cooper_frye_f32_kernelILb1ELb0ELb0ELb0ELb1EE",
 }
 
 # name -> (config fields, make_surface options); the workdir needs
@@ -169,6 +171,9 @@ def _check_df12(workdir, case: tuple, cfg: Config, n_cells: int, seed: int,
 # the ragged case: species, pT and phi kept of the momentum grid, and cells
 RAGGED = {"species": 3, "pT": 5, "phi": 7, "cells": 1000}
 
+# eta nodes of the chunked case: three launches of at most 32 nodes
+ETA_NODES = 80
+
 
 def _ragged_momenta(mom: torch.Tensor, species, grid) -> torch.Tensor:
     """The momentum rows (k, S * NpT * Nphi) cut to RAGGED's grid."""
@@ -230,6 +235,21 @@ def check_f32_case(workdir: str | Path, case: str, n_cells: int, seed: int,
                        lambda *st: f32_operands(*st).args(),
                        b2.cooper_frye_f32, b2.cooper_frye_f32_plain,
                        F32CaseResult)
+
+
+def check_f32_ragged_case(workdir: str | Path, n_cells: int, seed: int,
+                          device) -> F32CaseResult:
+    """Kernel B2 (df 2) against its plain version (which also stands in for
+    f64) on the operands cut to RAGGED."""
+    cfg = Config(compute_dtype="f64", use_pallas=1, df_mode=2)
+    state = engine_state(workdir, cfg, make_surface(n_cells, seed=seed),
+                         device)
+    ops = f32_operands(*state, cfg)
+    n = RAGGED["cells"]
+    args = (ops.cell[:n].contiguous(), ops.eta, ops.eta_w,
+            _ragged_momenta(ops.mom, state[2], state[3]), cfg)
+    return _ragged_result(b2.cooper_frye_f32, b2.cooper_frye_f32_plain,
+                          args, F32CaseResult)
 
 
 # ----------------------------------------------------------------------

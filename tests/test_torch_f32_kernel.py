@@ -119,6 +119,21 @@ def test_pack_matches_jax_pack(cases, case):
                                   eta_pack[2, :Ne])
 
 
+def test_pack_hands_the_phi_count_over(cases, monkeypatch):
+    """F32Operands.row_len is the phi count, and compute_spectra_f32 hands
+    it to the wrapper, so that no launch reads the momentum rows back."""
+    st = cases["df1"][0]
+    cfg = port_config(st.cfg)
+    ops = f32_operands(st.cells, st.coeffs, st.species, st.grid, cfg)
+    assert ops.row_len == st.grid.cos_phi.shape[0] == 8
+    seen = []
+    wrapper = b2.cooper_frye_f32
+    monkeypatch.setattr(b2, "cooper_frye_f32",
+                        lambda *a, **kw: seen.append(kw) or wrapper(*a, **kw))
+    compute_spectra_f32(st.cells, st.coeffs, st.species, st.grid, cfg)
+    assert seen == [{"row_len": 8}]
+
+
 def test_wrapper_checks_operands(cases):
     st = cases["df1"][0]
     cfg = port_config(st.cfg)

@@ -454,7 +454,7 @@ def test_wrapper_checks_operands(states):
                                 *args[2:5], 16, cfg, "feqmod")
     assert few.shape == (S * 16,) and bool(torch.isfinite(few).all())
     distinct = torch.arange(12 * 2000, dtype=torch.float32).reshape(12, 2000)
-    worst = fk.geometry(distinct, 1, 2000, 100, fk.MAX_ETA)
+    worst = fk.geometry(distinct, 1, 2000, 100, fk.ETA_CHUNK)
     assert worst.span == 256 and worst.smem <= fk.MAX_SMEM
     with pytest.raises(ValueError, match="kernel mode"):
         fk.cooper_frye_feqmod(*args, dataclasses.replace(cfg, df_mode=2),

@@ -20,6 +20,7 @@ from is3d2_tpu_torch.config import Config  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_comp as ck  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_f32 as b2  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
+from is3d2_tpu_torch.ops.launch_geometry import df12_flags  # noqa: E402
 from is3d2_tpu_torch.ops.spectra_fast_common import (  # noqa: E402
     comp_operands, f32_operands)
 from is3d2_tpu_torch.tools import kernel_check as kc  # noqa: E402
@@ -78,12 +79,12 @@ def test_cuda_kernel_ragged_tiles(workdir):
     assert kc.max_rel_err(out, plain) <= kc.TOL
 
 
-def _b1_operands(workdir, n_surface=512, **cfg_fields):
+def _b1_operands(workdir, n_surface=512, device="cuda", **cfg_fields):
     cfg = Config(compute_dtype="f32c", cell_block=512,
                  **{"df_mode": 1, **cfg_fields})
     surf = make_surface(n_surface, seed=5,
                         include_baryon=bool(cfg.include_baryon))
-    return comp_operands(*kc.engine_state(workdir, cfg, surf, "cuda"),
+    return comp_operands(*kc.engine_state(workdir, cfg, surf, device),
                          cfg), cfg
 
 
@@ -112,17 +113,25 @@ def test_cuda_kernel_ragged_rows_and_splits(ragged_workdir, n_cells, n_mom):
                 ops.eta, ops.eta_w, ops.mom[:, :n_mom].contiguous(), cfg))
 
 
+def _b1_eta_args(ops, cfg, n_eta):
+    """B1's arguments on an eta table of n_eta nodes: the 12 folded nodes
+    repeated (another quadrature, as good as any for a comparison)."""
+    reps = -(-n_eta // ops.eta.shape[0])
+    return (ops.cell, ops.qm.repeat(1, reps, 1)[:, :n_eta].contiguous(),
+            ops.eta.repeat(reps, 1)[:n_eta].contiguous(),
+            ops.eta_w.repeat(reps)[:n_eta].contiguous(), ops.mom, cfg)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_eta", [1, 32])
+@pytest.mark.parametrize("n_eta", [1, 32, 33, 80])
 def test_cuda_kernel_eta_counts(workdir, n_eta):
-    """One eta node, and the most the kernel takes (the 12 folded nodes
-    repeated: another quadrature, as good as any for the comparison)."""
+    """One eta node, the most one launch takes, and more: one launch per
+    chunk of at most 32 nodes."""
     _needs_cuda()
     ops, cfg = _b1_operands(workdir)
-    reps = -(-n_eta // ops.eta.shape[0])
-    _b1_agrees((ops.cell, ops.qm.repeat(1, reps, 1)[:, :n_eta].contiguous(),
-                ops.eta.repeat(reps, 1)[:n_eta].contiguous(),
-                ops.eta_w.repeat(reps)[:n_eta].contiguous(), ops.mom, cfg))
+    before = ck.cooper_frye_comp.launches
+    _b1_agrees(_b1_eta_args(ops, cfg, n_eta))
+    assert ck.cooper_frye_comp.launches - before == 2 * -(-n_eta // 32)
 
 
 @pytest.mark.gpu
@@ -137,7 +146,7 @@ def test_cuda_kernel_every_template_combination(workdir, flags):
         workdir, 200, df_mode=2 if df2 else 1, include_shear_deltaf=shear,
         include_baryon=1, include_baryondiff_deltaf=diffusion,
         regulate_deltaf=regulate, outflow=outflow)
-    assert ck._flags(cfg) == flags
+    assert df12_flags(cfg) == flags
     _b1_agrees((*ops.args(), cfg))
 
 
@@ -195,12 +204,20 @@ def test_feqmod_kernel_ragged_tiles(workdir):
     assert kc.max_rel_err(out, plain) <= kc.FEQMOD_TOL_PLAIN
 
 
-def _b3_operands(workdir, df_mode=3, **cfg_fields):
+def _b3_operands(workdir, df_mode=3, device="cuda", **cfg_fields):
     cfg = Config(compute_dtype="f32", df_mode=df_mode, cell_block=512,
                  **cfg_fields)
     surf = make_surface(512, seed=5, **kc.FEQMOD_SURFACE)
-    state = kc.feqmod_engine_state(workdir, cfg, surf, "cuda")
+    state = kc.feqmod_engine_state(workdir, cfg, surf, device)
     return fk.feqmod_operands(*state, cfg), cfg
+
+
+def _b3_eta_args(ops, cfg, n_eta):
+    """B3's arguments on the folded nodes repeated to n_eta nodes."""
+    reps = -(-n_eta // ops.eta.shape[0])
+    return (ops.cols, ops.mom, ops.renorm, ops.red,
+            ops.eta.repeat(reps, 1)[:n_eta].contiguous(), ops.n_per_species,
+            cfg, ops.kind)
 
 
 def _b3_agrees(args):
@@ -235,16 +252,16 @@ def test_feqmod_kernel_ragged_rows_and_splits(ragged_workdir, df_mode,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_eta", [1, 32])
+@pytest.mark.parametrize("n_eta", [1, 32, 33, 80])
 def test_feqmod_kernel_eta_counts(workdir, n_eta):
-    """One eta node, and the most the kernel takes."""
+    """One eta node, the most one launch takes, and more: one launch per
+    chunk of at most 32 nodes."""
     _needs_cuda()
     ops, cfg = _b3_operands(workdir, 4)
-    reps = -(-n_eta // ops.eta.shape[0])
-    eta = ops.eta.repeat(reps, 1)[:n_eta].contiguous()
     assert bool((ops.cols[:, fk.BREAKS] != 0).any())
-    _b3_agrees((ops.cols, ops.mom, ops.renorm, ops.red, eta,
-                ops.n_per_species, cfg, ops.kind))
+    before = fk.cooper_frye_feqmod.launches
+    _b3_agrees(_b3_eta_args(ops, cfg, n_eta))
+    assert fk.cooper_frye_feqmod.launches - before == 2 * -(-n_eta // 32)
 
 
 @pytest.mark.gpu
@@ -291,7 +308,7 @@ def test_f32_kernel_vs_plain_and_f64(workdir, case):
 
 @pytest.mark.gpu
 def test_f32_kernel_ragged_tiles(workdir):
-    """100 cells and 1,000 momenta: neither the last 32-cell tile nor the
+    """100 cells and 1,000 momenta: neither the last 64-cell tile nor the
     last 256-thread block is full."""
     _needs_cuda()
     cfg = Config(compute_dtype="f64", use_pallas=1, df_mode=2,
@@ -307,6 +324,89 @@ def test_f32_kernel_ragged_tiles(workdir):
     assert kc.max_rel_err(out, plain) <= kc.F32_TOL_PLAIN
 
 
+def _b2_operands(workdir, n_surface=512, device="cuda", **cfg_fields):
+    cfg = Config(compute_dtype="f64", use_pallas=1, cell_block=512,
+                 **{"df_mode": 2, **cfg_fields})
+    surf = make_surface(n_surface, seed=5,
+                        include_baryon=bool(cfg.include_baryon))
+    return f32_operands(*kc.engine_state(workdir, cfg, surf, device),
+                        cfg), cfg
+
+
+def _b2_eta_args(ops, cfg, n_eta):
+    """B2's arguments on the folded nodes repeated to n_eta nodes."""
+    reps = -(-n_eta // ops.eta.shape[0])
+    return (ops.cell, ops.eta.repeat(reps, 1)[:n_eta].contiguous(),
+            ops.eta_w.repeat(reps)[:n_eta].contiguous(), ops.mom, cfg)
+
+
+def _b2_agrees(args):
+    out = b2.cooper_frye_f32(*args)
+    again = b2.cooper_frye_f32(*args)
+    plain = b2.cooper_frye_f32_plain(*args).cpu().numpy()[None]
+    assert torch.equal(out, again)        # no atomics: the same bits
+    out = out.cpu().numpy()[None]
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, plain) <= kc.F32_TOL_PLAIN
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cells,n_mom", [(100, 168), (70, 100), (333, 165),
+                                           (1, 7), (512, 5)])
+def test_f32_kernel_ragged_rows_and_splits(ragged_workdir, n_cells, n_mom):
+    """As for B1: rows of 7 phi under a register tile of 4, a momentum
+    count that stops inside a row and stays below one block, and cell
+    counts that fill neither the last 64-cell tile nor the last split."""
+    _needs_cuda()
+    ops, cfg = _b2_operands(ragged_workdir)
+    g = b2.geometry(ops.mom[:, :n_mom].contiguous(), n_cells)
+    assert g.row_len == min(7, n_mom) and g.blocks == 1
+    _b2_agrees((ops.cell[:n_cells].contiguous(), ops.eta, ops.eta_w,
+                ops.mom[:, :n_mom].contiguous(), cfg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_eta", [1, 32, 33, 80])
+def test_f32_kernel_eta_counts(workdir, n_eta):
+    """One eta node, the most one launch takes, and more: one launch per
+    chunk of at most 32 nodes."""
+    _needs_cuda()
+    ops, cfg = _b2_operands(workdir)
+    before = b2.cooper_frye_f32.launches
+    _b2_agrees(_b2_eta_args(ops, cfg, n_eta))
+    assert b2.cooper_frye_f32.launches - before == 2 * -(-n_eta // 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", range(32))
+def test_f32_kernel_every_template_combination(workdir, flags):
+    """Each of the 32 instantiations (shear, diffusion, regulate, outflow,
+    df 2) launches and agrees with the plain version."""
+    _needs_cuda()
+    shear, diffusion, regulate, outflow, df2 = ((flags >> i) & 1
+                                                for i in range(5))
+    ops, cfg = _b2_operands(
+        workdir, 200, df_mode=2 if df2 else 1, include_shear_deltaf=shear,
+        include_baryon=1, include_baryondiff_deltaf=diffusion,
+        regulate_deltaf=regulate, outflow=outflow)
+    assert df12_flags(cfg) == flags
+    _b2_agrees((*ops.args(), cfg))
+
+
+@pytest.mark.gpu
+def test_f32_kernel_hands_a_nan_on(workdir):
+    """A NaN temperature on a live cell reaches the sum, as in the plain
+    version: the clamp of exp + sign must not swallow it."""
+    _needs_cuda()
+    ops, cfg = _b2_operands(workdir)
+    cell = ops.cell.clone()
+    live = int(torch.nonzero(cell[:, b2.CELL_COLS.index("qd0")] != 0)[0])
+    cell[live, b2.CELL_COLS.index("invT")] = float("nan")
+    args = (cell, ops.eta, ops.eta_w, ops.mom, cfg)
+    assert bool(torch.isnan(b2.cooper_frye_f32(*args)).all())
+    assert bool(torch.isnan(b2.cooper_frye_f32_plain(*args)).all())
+
+
 @pytest.mark.parametrize("case", list(kc.F32_CASES))
 def test_f32_kernel_check_plain_on_cpu(workdir, case):
     """The B2 harness on the CPU: the wrapper takes the plain version (no
@@ -315,3 +415,51 @@ def test_f32_kernel_check_plain_on_cpu(workdir, case):
     assert r.launches == 0
     assert r.vs_plain == 0.0
     assert r.ok, r.vs_f64
+
+
+# ----------------------------------------------------------------------
+# more eta nodes than one launch takes
+# ----------------------------------------------------------------------
+
+def _eta_args(workdir, kernel, n_eta, device):
+    """(wrapper, plain version, chunk, arguments on n_eta eta nodes) of one
+    kernel, on 128 cells."""
+    if kernel == "b1":
+        ops, cfg = _b1_operands(workdir, 128, device)
+        return (ck.cooper_frye_comp, ck.cooper_frye_comp_plain, ck.ETA_CHUNK,
+                _b1_eta_args(ops, cfg, n_eta))
+    if kernel == "b2":
+        ops, cfg = _b2_operands(workdir, 128, device)
+        return (b2.cooper_frye_f32, b2.cooper_frye_f32_plain, b2.ETA_CHUNK,
+                _b2_eta_args(ops, cfg, n_eta))
+    ops, cfg = _b3_operands(workdir, 4, device)
+    return (fk.cooper_frye_feqmod, fk.cooper_frye_feqmod_plain, fk.ETA_CHUNK,
+            _b3_eta_args(ops, cfg, n_eta))
+
+
+def _eta_slice(kernel, args, e0, e1):
+    """The arguments of one chunk [e0, e1) of the eta table."""
+    if kernel == "b1":
+        cell, qm, eta, eta_w, mom, cfg = args
+        return (cell, qm[:, e0:e1].contiguous(), eta[e0:e1], eta_w[e0:e1],
+                mom, cfg)
+    if kernel == "b2":
+        cell, eta, eta_w, mom, cfg = args
+        return cell, eta[e0:e1], eta_w[e0:e1], mom, cfg
+    return (*args[:4], args[4][e0:e1], *args[5:])
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2", "b3"])
+def test_chunked_plain_version_is_the_sum_of_its_chunks(workdir, kernel):
+    """On 80 eta nodes the plain version is, bit for bit, the sum in chunk
+    order of its calls on nodes 0-31, 32-63 and 64-79, and the wrapper on
+    CPU tensors gives the same bits without a launch."""
+    wrapper, plain, chunk, args = _eta_args(workdir, kernel, 80, "cpu")
+    assert chunk == 32
+    by_hand = plain(*_eta_slice(kernel, args, 0, 32))
+    by_hand = by_hand + plain(*_eta_slice(kernel, args, 32, 64))
+    by_hand = by_hand + plain(*_eta_slice(kernel, args, 64, 80))
+    assert torch.equal(plain(*args), by_hand)
+    before = wrapper.launches
+    assert torch.equal(wrapper(*args), by_hand)
+    assert wrapper.launches == before

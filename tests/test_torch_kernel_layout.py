@@ -1,4 +1,4 @@
-"""Launch geometry of kernels B1 and B3 (ops/launch_geometry.py and the
+"""Launch geometry of kernels B1, B2 and B3 (ops/launch_geometry.py and the
 wrappers' ``geometry``): the host-side arithmetic the CUDA kernels repeat.
 
 Every momentum point must be owned by exactly one (block, thread, slot) and
@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from is3d2_tpu_torch.ops import _build  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_comp as ck  # noqa: E402
+from is3d2_tpu_torch.ops import cooper_frye_f32 as b2  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
 from is3d2_tpu_torch.ops.launch_geometry import (  # noqa: E402
     BLOCKS_PER_SM, H100_SMS, MAX_SPLIT, THREADS, cell_ranges, fill,
@@ -119,6 +120,36 @@ def test_the_split_depends_on_the_shape_alone_and_fills_the_card():
         > fill(small.blocks, resident)
 
 
+def _b2_mom(keys):
+    """B2's (6, M) momentum rows with the key rows of ``_rows``."""
+    mom = torch.zeros((len(b2.MOM_ROWS), keys.shape[1]))
+    for name, row in zip(("mT", "mass2", "b", "sgn"), keys):
+        mom[b2.MOM_ROWS.index(name)] = row
+    return mom
+
+
+@pytest.mark.parametrize("n_cells", [1, 63, 64, 100, 2048, 100_001])
+@pytest.mark.parametrize("n_species,n_pT,n_phi,stop_short", [
+    (1, 1, 1, 0), (3, 5, 7, 0), (5, 3, 7, 2), (2, 51, 48, 0), (4, 51, 48, 5),
+    (371, 1, 5, 3)])
+def test_b2_geometry_covers_every_momentum_and_cell_once(
+        n_species, n_pT, n_phi, stop_short, n_cells):
+    """Kernel B2's geometry on ragged shapes: rows that its register tile
+    does not divide, momentum counts that stop inside a row, cell counts
+    that fill neither the last tile nor the last split."""
+    mom = _b2_mom(_rows(n_species, n_pT, n_phi, stop_short))
+    M = mom.shape[1]
+    g = b2.geometry(mom, n_cells)
+    assert (g.row_len, g.r, g.tile_cells) == (min(n_phi, M), b2.R,
+                                              b2.TILE_CELLS)
+    owner = momentum_index(g)
+    np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
+    covered = np.concatenate([np.arange(a, b)
+                              for a, b in cell_ranges(g, n_cells)])
+    np.testing.assert_array_equal(covered, np.arange(n_cells))
+    assert g.n_split * g.cells_per_split >= n_cells
+
+
 def test_wrappers_read_their_geometry_off_the_operands():
     n_species, n_pT, n_phi = 5, 16, 8
     keys = _rows(n_species, n_pT, n_phi)
@@ -145,7 +176,14 @@ def test_wrappers_read_their_geometry_off_the_operands():
                        row_len=n_phi) == fg
     # the most eta nodes and the widest span a block can have still leave
     # room for two blocks on an SM
-    assert fk.smem_bytes(fk.MAX_ETA, 257) <= fk.MAX_SMEM
+    assert fk.smem_bytes(fk.ETA_CHUNK, 257) <= fk.MAX_SMEM
+
+    mom2 = _b2_mom(keys)
+    g2 = b2.geometry(mom2, 300)
+    assert (g2.row_len, g2.r, g2.tile_cells) == (n_phi, b2.R, b2.TILE_CELLS)
+    assert b2.geometry(mom2, 300, row_len=n_phi) == g2
+    assert b2.geometry(torch.empty_like(mom2, device="meta"), 300,
+                       row_len=n_phi) == g2
 
 
 @pytest.mark.parametrize("n_species,n_pT,n_phi", [

@@ -90,6 +90,29 @@ def test_port_cli_matches_jax_driver_use_pallas(tmp_path, df_mode):
     _compare_result_files(wd, tmp_path / "port", 3e-5)
 
 
+# eta tables of more nodes than one kernel launch takes (32, after the
+# fold): one case per kernel route, at that route's bar
+@pytest.mark.parametrize("params,n_eta,surface_kw,tol", [
+    ({"df_mode": 1, "compute_dtype": "f32c", "eta_fold": 0}, 40, {}, 1e-6),
+    ({"df_mode": 4, "compute_dtype": "f32"}, 66,
+     {"shear_scale": 0.12, "bulk_scale": FEQMOD_BULK}, 1e-4),
+    ({"df_mode": 2, "compute_dtype": "f64", "use_pallas": 1, "eta_fold": 0},
+     80, {}, 3e-5),
+], ids=["df1-f32c-40-unfolded", "df4-f32-66-folded-to-33",
+        "df2-f64-use_pallas-80-unfolded"])
+def test_port_cli_takes_any_eta_count(tmp_path, params, n_eta, surface_kw,
+                                      tol):
+    """Kernels B1, B3 and B2 on more eta nodes than one launch takes: the
+    wrappers run the table chunk by chunk, and the result files agree with
+    the JAX driver's, which takes any number of nodes."""
+    wd = build_workdir(tmp_path / "jax", params=params, n_eta=n_eta,
+                       **surface_kw)
+    shutil.copytree(wd, tmp_path / "port")
+    JIS3D(wd).run_particlization()
+    assert cli.main([str(tmp_path / "port"), "--device", "cpu"]) == 0
+    _compare_result_files(wd, tmp_path / "port", tol)
+
+
 def test_port_f32_runs_kernel_b1_as_f32c(tmp_path):
     """compute_dtype f32 with the kernels on (use_pallas = -1) runs the
     compensated kernel B1, as the JAX package does on an accelerator: the

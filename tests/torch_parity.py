@@ -58,11 +58,12 @@ DF12_CASES = {
 
 
 def build_workdir(root: Path, params: dict | None = None,
-                  include_baryon: bool = False, **surface_kw) -> Path:
+                  include_baryon: bool = False, n_eta: int = 24,
+                  **surface_kw) -> Path:
     """The small workdir; delta-f tables on a coarse (T, muB) grid.
     ``surface_kw`` (shear_scale, bulk_scale) go to make_surface."""
     return write_workdir(root, n_cells=N_CELLS, seed=3, chosen_mcids=CHOSEN,
-                         n_pT=16, n_phi=8, n_eta=24, params=params,
+                         n_pT=16, n_phi=8, n_eta=n_eta, params=params,
                          include_baryon=include_baryon, n_T=21, n_muB=9,
                          **surface_kw)
 
