@@ -47,9 +47,26 @@ Phases (any failure raises; nothing is caught):
      and B3's must stay at 0;
  11. B2 on phase 10's operands, timed at full size, and held to its plain
      version (<= 1e-5) on the first 8,192 cells at the full M, both timed
-     there; two launches at full size must give equal bits.
+     there; two launches at full size must give equal bits;
+ 12. the operation-2 histogram main path at full size through the CLI:
+     phase 5's workdir (1e5 cells, all species, df 1) with test_sampler 1,
+     fast 1, min_num_hadrons 1e7, max_num_samples 1000 and a fixed
+     sampler_seed.  No kernel may launch; the kept yield must lie within
+     0.05 Ntot + 5 sqrt(Ntot / n_events) of the estimate per event, drawn /
+     kept below 2.7, no lane dropped, and the sampled dN/dy of pi+, K+ and
+     p within 5 sigma + 1% of phase 5's op-1 dN_dy files.  Then the six
+     phase functions on one full chunk, each timed with CUDA events, the
+     chunk run twice with one seed (equal bits), and torch.poisson held to
+     its mean and variance at the chunk's largest Poisson mean;
+ 13. the operation-2 OSCAR path at full size through the CLI: phase 7's
+     df-4 workdir with test_sampler 0 and min_num_hadrons 1e7: one file per
+     event with the OSCAR header and 11 columns, rows summing to the kept
+     count, the yield bound of phase 12; it prints the write, transfer and
+     overlapped seconds.
 
-The line before the last is a JSON object with each kernel's measurements,
+Before the card's line, a JSON object {"sampler": {...}} carries phases
+12-13's numbers.  The line before the last is a JSON object with each
+kernel's measurements,
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
 (no single PyTorch call computes a Cooper-Frye sum), and the register tile
@@ -540,6 +557,222 @@ def phase_b2_full(wd: Path) -> dict:
         lambda: b2.cooper_frye_f32.last_geometry)
 
 
+SAMPLER_SEED = 20261017
+# cuRAND's Poisson draw takes a normal approximation above this mean
+CURAND_POISSON_NORMAL = 4000.0
+
+
+def op2_workdir(tmp: Path, src: Path, label: str, params: dict) -> Path:
+    """A copy of a main path's workdir (no results) with its parameters
+    updated to an operation-2 run."""
+    wd = shutil.copytree(src, tmp / label,
+                         ignore=shutil.ignore_patterns("results"))
+    p = wd / "iS3D_parameters.dat"
+    kv = dict(line.split(" = ", 1) for line in p.read_text().splitlines())
+    kv.update({k: str(v) for k, v in params.items()})
+    p.write_text("".join(f"{k} = {v}\n" for k, v in kv.items()))
+    return wd
+
+
+def run_op2(wd: Path) -> dict:
+    """cli.main on an operation-2 workdir with every kernel's launch count
+    set to 0 just before and read just after (operation 2 launches none);
+    returns what its log says."""
+    from is3d2_tpu_torch import cli
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main([str(wd)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    out = log.getvalue()
+    print(out, end="")
+    print(f"cli.main returned {rc} after {wall:.2f} s; kernel launches "
+          f"{launches}")
+    if rc != 0 or any(launches.values()):
+        raise AssertionError("the operation-2 path failed or launched a "
+                             "Cooper-Frye kernel")
+    m = re.search(r"Estimated total particle yield = (\d+) particles; "
+                  r"sampling (\d+) events", out, re.M)
+    k = re.search(r"sampled hadrons: (\d+) kept / (\d+) drawn", out)
+    r = {"wall_s": wall, "Ntot": int(m.group(1)), "n_events": int(m.group(2)),
+         "kept": int(k.group(1)), "drawn": int(k.group(2)),
+         "stage_seconds": json.loads(re.search(r"^stage seconds: (.*)$", out,
+                                               re.M).group(1)),
+         "momentum_efficiency_pct": float(re.search(
+             r"Momentum sampling efficiency = ([0-9.]+) %", out).group(1)),
+         "syncs_per_chunk": float(re.search(
+             r"([0-9.]+) device syncs per chunk", out).group(1)),
+         "chunks": int(re.search(r"sampler: (\d+) chunk", out).group(1)),
+         "dropped_lanes": 0}
+    d = re.search(r"WARNING: (\d+) hadron lanes", out)
+    if d:
+        r["dropped_lanes"] = int(d.group(1))
+    comp = r["stage_seconds"]["compute"]
+    r.update(drawn_per_kept=r["drawn"] / r["kept"],
+             kept_per_s=r["kept"] / comp, drawn_per_s=r["drawn"] / comp)
+    print(f"kept {r['kept']} / drawn {r['drawn']} (drawn/kept "
+          f"{r['drawn_per_kept']:.4f}) over {r['n_events']} events in "
+          f"{r['chunks']} chunks; {r['kept_per_s']:.4g} kept and "
+          f"{r['drawn_per_s']:.4g} drawn hadrons per second of compute; "
+          f"momentum efficiency {r['momentum_efficiency_pct']:.4f} %; "
+          f"{r['syncs_per_chunk']} syncs per chunk")
+    Ntot, n = r["Ntot"], r["n_events"]
+    per_event = r["kept"] / n
+    bar = 0.05 * Ntot + 5.0 * np.sqrt(Ntot / n)
+    print(f"kept per event {per_event:.2f} vs the estimate Ntot = {Ntot} "
+          f"(bar {bar:.2f})")
+    if abs(per_event - Ntot) >= bar:
+        raise AssertionError("kept yield outside the estimate's bound")
+    if r["dropped_lanes"]:
+        raise AssertionError(f"{r['dropped_lanes']} lanes were dropped")
+    return r
+
+
+def phase_timings(wd: Path) -> dict:
+    """The six phase functions on one full chunk of the workdir's campaign,
+    each timed with CUDA events; a warm-up chunk first, then the timed
+    chunk and a repeat with the same seed, which must give equal bits.
+    Also checks torch.poisson on the card at the chunk's largest mean."""
+    from is3d2_tpu_torch.core import sampler as ps
+    from is3d2_tpu_torch.driver import IS3D
+    run = IS3D(wd, device="cuda")
+    run.load_surface_from_file()
+    run._setup()
+    setup, species = ps.prepare_sampler(
+        run.surface, run.species, run.chosen_idx, run.df_data, run.cfg,
+        run.laguerre, run.device)
+    camp = ps.prepare_campaign(setup, species,
+                               run.species.mc_id[run.chosen_idx], run.cfg)
+    Ntot = ps.compute_total_yield(run.surface, run.species, run.chosen_idx,
+                                  run.df_data, run.cfg, run.laguerre,
+                                  run.device)
+    n_ev = ps.chunk_plan(camp.mean_1ev, ps.number_of_events(Ntot, run.cfg),
+                         run.cfg)
+    lam_max = float(camp.lam_1ev.max()) * n_ev
+    print(f"one full chunk: {n_ev} events, mean {camp.mean_1ev * n_ev:.4g} "
+          f"drawn lanes, largest Poisson mean per cell {lam_max:.1f}")
+    lam = torch.full((4_000_000,), lam_max, dtype=torch.float64, device="cuda")
+    draws = torch.poisson(lam, generator=ps.chunk_generator(1, 0, "cuda"))
+    mean, var = float(draws.mean()), float(draws.var())
+    sig = np.sqrt(lam_max / draws.numel())
+    print(f"torch.poisson at that mean: mean {mean:.4f} var {var:.4f} "
+          f"(mean's sigma {sig:.4f}; cuRAND's normal approximation starts "
+          f"above {CURAND_POISSON_NORMAL:g})")
+    if abs(mean - lam_max) > 5 * sig or abs(var / lam_max - 1.0) > 0.01:
+        raise AssertionError("torch.poisson on the card is off at the "
+                             "chunk's largest mean")
+    del lam, draws
+
+    def chunk(seed, marks=None):
+        stats = ps.ChunkStats()
+        out = ps.sample_chunk(camp, n_ev, 0,
+                              ps.chunk_generator(seed, 0, "cuda"), stats,
+                              mark=marks)
+        torch.cuda.synchronize()
+        return out, stats
+
+    chunk(SAMPLER_SEED + 1)
+    events = [torch.cuda.Event(enable_timing=True)]
+    names = []
+
+    def mark(phase):
+        names.append(phase)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    t0 = time.perf_counter()
+    events[0].record()
+    a, stats = chunk(SAMPLER_SEED, mark)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ms = {n: events[i].elapsed_time(events[i + 1])
+          for i, n in enumerate(names)}
+    print(f"phase ms on one chunk ({stats.drawn} drawn, {stats.kept} kept, "
+          f"{stats.syncs} syncs): {json.dumps(ms)}; sum "
+          f"{sum(ms.values()):.1f} ms, host wall {wall_ms:.1f} ms")
+    b, _ = chunk(SAMPLER_SEED)
+    same = all(torch.equal(a[k], b[k]) for k in a
+               if isinstance(a[k], torch.Tensor))
+    if not same:
+        raise AssertionError("one chunk run twice with one seed gave "
+                             "different bits")
+    print("one chunk run twice with one seed gave equal bits")
+    return {"phase_ms": ms, "chunk_events": n_ev, "chunk_drawn": stats.drawn,
+            "chunk_kept": stats.kept, "chunk_syncs": stats.syncs,
+            "chunk_wall_ms": wall_ms, "largest_poisson_mean": lam_max}
+
+
+def phase_sampler_histograms(tmp: Path, wd1: Path) -> dict:
+    print(f"== 12. op-2 histogram main path: {MAIN_CELLS} cells, all "
+          "species, df 1, test_sampler 1, fast 1, min_num_hadrons 1e7")
+    wd = op2_workdir(tmp, wd1, "op2_hist", {
+        "operation": 2, "test_sampler": 1, "fast": 1,
+        "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
+        "sampler_seed": SAMPLER_SEED})
+    r = run_op2(wd)
+    if r["drawn_per_kept"] >= 2.7:
+        raise AssertionError("drawn/kept >= 2.7: the tilted envelope is off")
+    # closure: the sampled dN/dy against phase 5's op-1 dN_dy files
+    # (outflow and regulation off there; they move dN/dy by ~5e-4 here)
+    closure = {}
+    for m in (211, 321, 2212):
+        smooth = float(np.loadtxt(wd1 / f"results/continuous/dN_dy_{m}.dat")[1])
+        avg = float(np.loadtxt(
+            wd / f"results/sampled/dN_dy/dN_dy_{m}_average_test.dat"))
+        n = avg * 10.0 * r["n_events"]
+        sigma = np.sqrt(max(n, 1.0)) / (10.0 * r["n_events"])
+        closure[m] = {"sampled": avg, "smooth": smooth, "sigma": sigma}
+        print(f"dN/dy {m}: sampled {avg:.6g} (sigma {sigma:.3g}) vs op-1 "
+              f"{smooth:.6g}: {(avg - smooth) / smooth:+.3e} relative")
+        if abs(avg - smooth) >= 5.0 * sigma + 0.01 * smooth:
+            raise AssertionError(f"dN/dy closure of {m} fails")
+    r["closure"] = {str(k): v for k, v in closure.items()}
+    r.update(phase_timings(wd))
+    return r
+
+
+def phase_sampler_oscar(tmp: Path, wd4: Path) -> dict:
+    print(f"== 13. op-2 OSCAR path: {MAIN_CELLS} cells, all species, df 4 "
+          "(shear 0.2, bulk 0.1), test_sampler 0, min_num_hadrons 1e7")
+    wd = op2_workdir(tmp, wd4, "op2_oscar", {
+        "operation": 2, "test_sampler": 0, "fast": 1,
+        "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
+        "sampler_seed": SAMPLER_SEED})
+    r = run_op2(wd)
+    files = sorted((wd / "results").glob("particle_list_osc_*.dat"))
+    if len(files) != r["n_events"]:
+        raise AssertionError(f"{len(files)} OSCAR files for "
+                             f"{r['n_events']} events")
+    t0 = time.perf_counter()
+    rows = 0
+    for f in files:
+        data = f.read_bytes()
+        head, _, body = data.partition(b"\n")
+        if head != b"n pid px py pz E m x y z t":
+            raise AssertionError(f"{f.name}: header {head!r}")
+        first = body.split(b"\n", 1)[0].split()
+        if len(first) != 11:
+            raise AssertionError(f"{f.name}: {len(first)} columns")
+        rows += body.count(b"\n")
+    print(f"{len(files)} files, {rows} rows, "
+          f"{sum(f.stat().st_size for f in files) / 1e9:.3f} GB "
+          f"(counted in {time.perf_counter() - t0:.1f} s)")
+    if rows != r["kept"]:
+        raise AssertionError(f"{rows} OSCAR rows, {r['kept']} kept")
+    st = r["stage_seconds"]
+    print(f"write {st['write']:.3f} s (of it {st['write_boost']:.3f} s the "
+          f"host boost, {st['write_overlapped']:.3f} s overlapped with "
+          f"compute; {st['write_exposed']:.3f} s exposed after compute), "
+          f"waiting for device->host copies "
+          f"{st['write_transfer']:.3f} s")
+    r["oscar_rows"] = rows
+    return r
+
+
 def main() -> int:
     card = phase_environment()
     # the package is imported only now: a copy of this script alone, or a
@@ -564,6 +797,8 @@ def main() -> int:
         phase_b2_compare(wd, wd_eta)
         b2_launches, _, wd2 = phase_b2_main_path(tmp)
         b2 = phase_b2_full(wd2)
+        op2_hist = phase_sampler_histograms(tmp, wd1)
+        op2_oscar = phase_sampler_oscar(tmp, wd4)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -571,6 +806,8 @@ def main() -> int:
           f"{json.dumps(OPS_PER_EVALUATION)}; executed by the kernels "
           f"{json.dumps(EXECUTED_OPS_PER_EVALUATION)}; the bounds take the "
           f"smaller {json.dumps(BOUND_OPS_PER_EVALUATION)}")
+    print(json.dumps({"sampler": {"card": card, "histograms": op2_hist,
+                                  "oscar": op2_oscar}}))
     print(card)
     print(json.dumps({"kernels": [
         {"name": "cooper_frye_comp", "route": "cuda",

@@ -4,17 +4,18 @@ A second package beside the JAX package ``is3d2_tpu``, which stays the
 reference.  The layout mirrors it so each module has a counterpart:
 
   - io/        numpy readers and writers (parameters, quadrature tables, PDG
-               lists, mode-1 surfaces, delta-f tables, op-1 result files);
+               lists, mode-1 surfaces, delta-f tables, result files) and the
+               native I/O library (g++ at first use, ctypes);
   - physics/   per-cell physics on torch f64 tensors (spline, rest-frame
                algebra, delta-f coefficients);
-  - core/      the Cooper-Frye engines: the torch f64 engine and the
-               compensated-f32 ("f32c") path;
+  - core/      the Cooper-Frye engines (the torch f64 engines and the
+               kernel routes) and the Monte-Carlo hadron sampler;
   - ops/       hand-written CUDA kernels for Hopper, their plain torch
                versions and the nvcc build;
   - tools/     delta-f table generator and the synthetic-workdir builder.
 
-The port covers operation 1 (continuous spectra), df 1/2, 2+1d, mode-1
-surfaces; ``Config.validate_slice`` rejects the rest.  Importing it never
+The port covers operations 1 (continuous spectra) and 2 (the sampler), df
+1-4, 2+1d, mode-1 surfaces; ``Config.validate_slice`` rejects the rest.  Importing it never
 imports jax.
 """
 

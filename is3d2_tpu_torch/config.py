@@ -183,7 +183,7 @@ class Config:
         if self.operation == 0:
             todo = "operation 0 (dN/dX): ROADMAP A8"
         elif self.operation == 2:
-            todo = "operation 2 (sampler): ROADMAP A6"
+            todo = self._sampler_todo()
         elif self.df_mode == 5:
             todo = "df_mode 5 (famod: aniso.py and the famod prep): ROADMAP A10"
         elif self.dimension == 3:
@@ -198,7 +198,7 @@ class Config:
         elif self.mode == 5:
             todo = "mode 5 (polarization): ROADMAP A8"
         elif self.mode != 1:
-            todo = f"surface mode {self.mode}: ROADMAP A2"
+            todo = f"surface mode {self.mode}: ROADMAP A2b"
         elif feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
             todo = (f"use_pallas 0 with {self.compute_dtype} for df "
                     f"{self.df_mode} (XLA feqmod fast path): ROADMAP A9")
@@ -211,3 +211,20 @@ class Config:
             todo = "use_mesh 1 (multi-device): ROADMAP A12"
         if todo is not None:
             raise NotImplementedError(f"not ported yet: {todo}")
+
+    def _sampler_todo(self) -> str | None:
+        """What operation 2 (the sampler: df 1-4, 2+1d, mode 1, one
+        device) does not run yet, or None."""
+        if self.df_mode == 5:
+            return ("operation 2 with df_mode 5 (the sampler's famod prep, "
+                    "core/sampler_famod.py): ROADMAP A10")
+        if self.dimension == 3:
+            return "operation 2 in dimension 3 (the 3+1d sampler): ROADMAP A7"
+        if self.mode != 1:
+            return f"operation 2 on surface mode {self.mode}: ROADMAP A2b"
+        if self.group_particles:
+            return "group_particles: ROADMAP A11"
+        if self.use_mesh == 1:
+            return ("operation 2 with use_mesh 1 (parallel/sampler_shard.py):"
+                    " ROADMAP A12")
+        return None

@@ -29,6 +29,9 @@ class CellArrays:
 
     mask: torch.Tensor
     tau: torch.Tensor
+    x: torch.Tensor        # cell position (the sampler's particle rows)
+    y_pos: torch.Tensor
+    eta: torch.Tensor
     dat: torch.Tensor
     dax: torch.Tensor
     day: torch.Tensor
@@ -142,7 +145,8 @@ def prepare_cells(surf: SurfaceData, cfg: Config, device,
                                device=device)
 
     return CellArrays(
-        mask=j(mask), tau=j(tau), dat=j(dat), dax=j(dax), day=j(day),
+        mask=j(mask), tau=j(tau), x=j(_pad(surf.x, pad)),
+        y_pos=j(_pad(surf.y, pad)), eta=j(_pad(surf.eta, pad)), dat=j(dat), dax=j(dax), day=j(day),
         dan=j(dan), ux=j(ux), uy=j(uy), un=j(un), ut=j(ut), T=j(T), P=j(P),
         E=j(E), pitt=j(pitt), pitx=j(pitx), pity=j(pity), pitn=j(pitn),
         pixx=j(pixx), pixy=j(pixy), pixn=j(pixn), piyy=j(piyy), piyn=j(piyn),

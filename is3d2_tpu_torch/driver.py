@@ -1,9 +1,12 @@
-"""Top-level particlization driver, operation 1 (df 1-4).
+"""Top-level particlization driver, operations 1 and 2 (df 1-4).
 
 Counterpart of is3d2_tpu/driver.py (the reference's IS3D class,
 iS3D.cpp:81-282): load parameters, surface, PDG list, delta-f coefficient
-tables and quadrature grids, compute the continuous spectra on ``device``
-and write the result files.
+tables and quadrature grids, then on ``device`` either compute the
+continuous spectra (operation 1) or sample hadrons (operation 2) into the
+test histograms or the OSCAR event files, and write the result files.
+After operation 2 without files (``write=False``) the sampled particles
+are ``.final_particles``.
 """
 
 from __future__ import annotations
@@ -15,13 +18,16 @@ from pathlib import Path
 import torch
 
 from .config import Config
+from .core.sampler import (ChunkCollector, compute_total_yield,
+                           number_of_events, sample_particles)
+from .core.sampler_hist import ChunkBinner
 from .core.spectra import compute_spectra
 from .io import output
 from .io.deltaf_tables import DeltafTables
 from .io.pdg import read_pdg
 from .io.surface import SurfaceData, read_surface
 from .io.tables import GaussLaguerre, GaussLegendre, MomentumGrids, load_table
-from .physics.deltaf import DeltafData
+from .physics.deltaf import DeltafData, compute_particle_densities
 from .report import RunReport, check_invariants
 
 
@@ -49,6 +55,10 @@ class IS3D:
                                "device='cpu' (--device cpu) to run on the CPU")
         self.surface: SurfaceData | None = None
         self.spectra = None
+        self.histograms = None
+        self.final_particles = None
+        self.n_events = None
+        self.sampler_diags = None
         self.report = RunReport()
 
     def load_surface_from_file(self, path: str | Path | None = None) -> None:
@@ -80,6 +90,8 @@ class IS3D:
         if not cfg.include_baryon:
             self.df_data.compute_jonah_coefficients(self.species, self.laguerre,
                                                     self.plasma)
+        compute_particle_densities(self.species, self.df_data, self.laguerre,
+                                   self.plasma)
 
     def run_particlization(self, write: bool = True) -> None:
         cfg = self.cfg
@@ -107,23 +119,93 @@ class IS3D:
             self.surface, include_baryondiff=bool(cfg.include_baryon
                                                   and cfg.include_baryondiff_deltaf))
 
-        print("computing continuous momentum spectra ...", flush=True)
         t_compute = time.time()
-        spectra = compute_spectra(self.surface, self.species, self.chosen_idx,
-                                  self.grids, self.df_data, cfg, self.device,
-                                  laguerre=self.laguerre, report=report)
-        self.spectra = spectra
-        dt = time.time() - t_compute
-        self.stage_seconds["compute"] = dt
-        print(f"spectra calculation took {dt:.3f} seconds", flush=True)
-        if write:
-            tw = time.time()
-            for writer in (output.write_spectra, output.write_vn,
-                           output.write_dN_2pipTdpTdy, output.write_dN_dphidy,
-                           output.write_dN_dy):
-                writer(results, mcids, spectra, self.grids, cfg.dimension)
-            self.stage_seconds["write"] = time.time() - tw
+        if cfg.operation == 1:
+            print("computing continuous momentum spectra ...", flush=True)
+            spectra = compute_spectra(self.surface, self.species,
+                                      self.chosen_idx, self.grids,
+                                      self.df_data, cfg, self.device,
+                                      laguerre=self.laguerre, report=report)
+            self.spectra = spectra
+            self._mark_compute(t_compute, "spectra")
+            if write:
+                tw = time.time()
+                for writer in (output.write_spectra, output.write_vn,
+                               output.write_dN_2pipTdpTdy,
+                               output.write_dN_dphidy, output.write_dN_dy):
+                    writer(results, mcids, spectra, self.grids, cfg.dimension)
+                self.stage_seconds["write"] = time.time() - tw
+        else:
+            self._sample(results, mcids, t_compute, write)
 
         report.print()
         print(f"Particlization took {time.time() - t0:.3f} seconds")
         print("stage seconds: " + json.dumps(self.stage_seconds), flush=True)
+
+    def _sample(self, results: Path, mcids, t_compute: float,
+                write: bool) -> None:
+        """Operation 2: the yield estimate, the event count, then the
+        sampler's chunks streamed into the histogram binner
+        (test_sampler = 1), the event-file writer (test_sampler = 0) or,
+        without files, the collector of ``final_particles``."""
+        cfg = self.cfg
+        args = (self.surface, self.species, self.chosen_idx, self.df_data,
+                cfg, self.laguerre)
+        Ntot = compute_total_yield(*args, self.device)
+        n_events = number_of_events(Ntot, cfg)
+        self.n_events = n_events
+        print(f"Estimated total particle yield = {int(Ntot)} particles; "
+              f"sampling {n_events} events", flush=True)
+
+        if cfg.test_sampler:
+            consumer = ChunkBinner(len(mcids), cfg)
+        elif write:
+            consumer = output.StreamingEventWriter(results,
+                                                   csv=bool(cfg.write_csv))
+        else:
+            consumer = ChunkCollector()
+        lean = not cfg.test_sampler
+        self.sampler_diags = sample_particles(
+            *args, n_events, self.device, report=self.report,
+            chunk_consumer=consumer, lean=lean)
+        t_end = time.perf_counter()
+        self._mark_compute(t_compute, "sampling")
+        ta = time.time()
+        if cfg.test_sampler:
+            self.histograms = consumer.result(n_events)
+            self.stage_seconds["assemble"] = time.time() - ta
+            if write:
+                tw = time.time()
+                output.write_sampled_histograms(results, mcids,
+                                                self.histograms, cfg)
+                self.stage_seconds["write"] = time.time() - tw
+                print(f"histogram output stage took "
+                      f"{self.stage_seconds['write']:.3f} seconds", flush=True)
+            return
+        if write:
+            consumer.close()
+            self.stage_seconds["write_exposed"] = time.time() - ta
+        self.final_particles = consumer.particle_list()
+        self.stage_seconds["assemble"] = time.time() - ta
+        if write:
+            overlap = consumer.overlapped_seconds(t_end)
+            self.stage_seconds["write"] = consumer.write_seconds
+            self.stage_seconds["write_transfer"] = consumer.transfer_seconds
+            self.stage_seconds["write_overlapped"] = overlap
+            self.stage_seconds["write_boost"] = consumer.boost_seconds
+            print(f"particle-list export: {consumer.rows_written} rows / "
+                  f"{consumer.events_written} events, "
+                  f"{consumer.write_seconds:.3f} s host boost+format+write "
+                  f"({consumer.boost_seconds:.3f} s of it the host boost, "
+                  f"{overlap:.3f} s overlapped with sampling), "
+                  f"{consumer.transfer_seconds:.3f} s waiting for "
+                  "device->host copies", flush=True)
+
+    def _mark_compute(self, t_start: float, what: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.time() - t_start
+        self.stage_seconds["compute"] = dt
+        # the reference prints "Spectra calculation took X seconds"
+        # (EmissionFunction.cpp:1375-1385); keep the same shape
+        print(f"{what} calculation took {dt:.3f} seconds", flush=True)

@@ -51,3 +51,27 @@ def feqmod_from_numpy(d: dict, device="cpu") -> FeqmodCellData:
     out["breaks_down"] = torch.as_tensor(np.array(d["breaks_down"], dtype=bool),
                                          device=device)
     return FeqmodCellData(**out)
+
+
+def sampler_setup_from_numpy(d: dict, device="cpu"):
+    """SamplerSetup from a dict of numpy values: ``cells`` and ``fq``
+    (None or a dict) as above, ``df_cols`` a dict of columns,
+    ``breaks_down`` bool, every other field an f64 column."""
+    from .core.sampler import SamplerSetup
+    names = [f.name for f in dataclasses.fields(SamplerSetup)]
+    plain = [n for n in names
+             if n not in ("cells", "fq", "df_cols", "breaks_down")]
+    return SamplerSetup(
+        cells=cells_from_numpy(d["cells"], device),
+        fq=None if d["fq"] is None else feqmod_from_numpy(d["fq"], device),
+        df_cols=_tensors(d["df_cols"], list(d["df_cols"]), device),
+        breaks_down=torch.as_tensor(np.array(d["breaks_down"], dtype=bool),
+                                    device=device),
+        **_tensors(d, plain, device))
+
+
+def copy_species_densities(src, dst) -> None:
+    """Carry the cached densities of compute_particle_densities from one
+    species table (any object with the three arrays) to the port's."""
+    for name in ("equilibrium_density", "bulk_density", "diff_density"):
+        setattr(dst, name, np.array(getattr(src, name), dtype=np.float64))

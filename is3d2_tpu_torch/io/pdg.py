@@ -50,8 +50,10 @@ class SpeciesTable:
     """Struct-of-arrays view over the HRG composition.
 
     Mirrors the data the reference flattens in EmissionFunction.cpp:1008-1036
-    (Mass/Sign/Degeneracy/Baryon/MCID per species).  The sampler's cached
-    densities come with the sampler port.
+    (Mass/Sign/Degeneracy/Baryon/MCID per species), plus the per-species
+    densities at the surface-averaged (T, muB) that
+    physics.deltaf.compute_particle_densities caches for the sampler's fast
+    mode and the yield estimate (None until it runs).
     """
 
     species: list[Species]
@@ -60,6 +62,9 @@ class SpeciesTable:
     gspin: np.ndarray       # (N,) f64
     sign: np.ndarray        # (N,) f64
     baryon: np.ndarray      # (N,) f64
+    equilibrium_density: np.ndarray | None = None   # (N,) fm^-3
+    bulk_density: np.ndarray | None = None          # d n / d bulkPi
+    diff_density: np.ndarray | None = None          # d n / d (V.dsigma)
 
     def __len__(self) -> int:
         return len(self.species)

@@ -4,10 +4,9 @@ Counterpart of is3d2_tpu/physics/deltaf.py (Deltaf_Data,
 src/cpp/DeltafData.cpp:220-519): cubic-spline (muB = 0) or bilinear
 (T, muB) interpolation of the Grad-14 / Chapman-Enskog coefficient tables
 with the temperature-power scaling undone, and the PTB (Jonah)
-lambda^2(Pi/Peq), z(Pi/Peq) splines, on f64 tensors over the cell axis.
-
-Not ported yet: ``compute_particle_densities``, which feeds only the
-sampler (ROADMAP A3, A6).
+lambda^2(Pi/Peq), z(Pi/Peq) splines, on f64 tensors over the cell axis;
+and the per-species densities at the surface-averaged (T, muB) that the
+sampler's fast mode and yield estimate read (compute_particle_densities).
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..constants import two_pi2_hbarC3
 from ..io.deltaf_tables import DeltafTables
 from ..io.pdg import SpeciesTable
 from ..io.surface import ThermoAverages
@@ -223,3 +223,57 @@ class DeltafData:
         lo = -(1.0 - 1.0e-5) * P
         hi = P * (self.bulkPi_over_Peq_max - 1.0e-5)
         return torch.minimum(torch.maximum(bulkPi, lo), hi)
+
+
+def compute_particle_densities(species: SpeciesTable, df_data: DeltafData,
+                               laguerre: GaussLaguerre,
+                               plasma: ThermoAverages) -> None:
+    """Per-species (neq, dn_bulk, dn_diff) at the surface-averaged (T, muB)
+    (DeltafData.cpp:555-690), in f64 on the host, cached on the species
+    table for the sampler's fast mode and the yield estimate."""
+    def h(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64)
+
+    T = plasma.temperature
+    E = plasma.energy_density
+    P = plasma.pressure
+    muB = plasma.baryon_chemical_potential
+    nB = plasma.net_baryon_density
+    df = df_data.evaluate(h(T), h(muB), h(E), h(P), h(0.0))
+
+    alphaB = muB / T
+    baryon_enthalpy_ratio = nB / (E + P)
+    mass = h(species.mass)
+    mbar = mass / T
+    g = h(species.gspin)
+    b = h(species.baryon)
+    sgn = h(species.sign)
+    r1, w1 = laguerre.roots[1], laguerre.weights[1]
+    r2, w2 = laguerre.roots[2], laguerre.weights[2]
+    r3, w3 = laguerre.roots[3], laguerre.weights[3]
+
+    neq_fact = g * T**3 / two_pi2_hbarC3
+    neq = neq_fact * thermal.neq_integral(r1, w1, mbar, alphaB, b, sgn)
+
+    mode = df_data.df_mode
+    if mode == 1:
+        J10 = g * T**3 / two_pi2_hbarC3 * thermal.J10_integral(r1, w1, mbar, alphaB, b, sgn)
+        J20 = g * T**4 / two_pi2_hbarC3 * thermal.J20_integral(r2, w2, mbar, alphaB, b, sgn)
+        J30 = g * T**5 / two_pi2_hbarC3 * thermal.J30_integral(r3, w3, mbar, alphaB, b, sgn)
+        J31 = g * T**5 / two_pi2_hbarC3 / 3.0 * thermal.J31_integral(r3, w3, mbar, alphaB, b, sgn)
+        dn_bulk = (df.c0 - df.c2) * mass**2 * J10 + df.c1 * b * J20 \
+            + (4.0 * df.c2 - df.c0) * J30
+        dn_diff = b * df.c3 * neq * T + df.c4 * J31
+    elif mode in (2, 3):
+        J10 = g * T**3 / two_pi2_hbarC3 * thermal.J10_integral(r1, w1, mbar, alphaB, b, sgn)
+        J11 = g * T**3 / two_pi2_hbarC3 / 3.0 * thermal.J11_integral(r1, w1, mbar, alphaB, b, sgn)
+        J20 = g * T**4 / two_pi2_hbarC3 * thermal.J20_integral(r2, w2, mbar, alphaB, b, sgn)
+        dn_bulk = (neq + b * J10 * df.G + J20 * df.F / T**2) / df.betabulk
+        dn_diff = (neq * T * baryon_enthalpy_ratio - b * J11) / df.betaV
+    else:   # PTB: the yield comes from z, not from linear bulk/diffusion terms
+        dn_bulk = torch.zeros_like(neq)
+        dn_diff = torch.zeros_like(neq)
+
+    species.equilibrium_density = neq.numpy()
+    species.bulk_density = dn_bulk.numpy()
+    species.diff_density = dn_diff.numpy()

@@ -27,17 +27,21 @@ import torch
 f64 = torch.float64
 
 
-def _t(a, device) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=f64, device=device)
-
-
 def _bcast(roots, weights, *args):
     """The quadrature on the device of the first tensor argument (else the
-    roots' own), and each argument as f64 with a trailing quadrature axis."""
-    device = next((a.device for a in args if isinstance(a, torch.Tensor)),
-                  roots.device if isinstance(roots, torch.Tensor) else "cpu")
-    return (_t(roots, device), _t(weights, device),
-            *(_t(a, device)[..., None] for a in args))
+    roots' own), and each argument with a trailing quadrature axis, all in
+    the dtype of the first floating tensor argument (f64 when there is
+    none): f32 arguments give an f32 integral, as the sampler's exact rates
+    on the f32 route need."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    device = (tensors[0].device if tensors else
+              roots.device if isinstance(roots, torch.Tensor) else "cpu")
+    dtype = next((a.dtype for a in tensors if a.is_floating_point()), f64)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return (t(roots), t(weights), *(t(a)[..., None] for a in args))
 
 
 def _w1(p, t, sign):

@@ -1,4 +1,4 @@
-"""Synthetic working directories for op-1 runs, built from a seed.
+"""Synthetic working directories for op-1 and op-2 runs, built from a seed.
 
 Writes everything ``python -m is3d2_tpu_torch <workdir>`` (and the JAX
 package's CLI) reads, with no data files from outside the repository:
@@ -16,8 +16,9 @@ package's CLI) reads, with no data files from outside the repository:
 same seed gives the same surface bit for bit.
 
 Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]
-[--df-mode 1-4] [--compute-dtype f32c|f32|f64] [--use-pallas -1|0|1]
-[--shear-scale X] [--bulk-scale X]``.  ``--compute-dtype f64 --use-pallas 1``
+[--operation 1|2] [--df-mode 1-4] [--compute-dtype f32c|f32|f64]
+[--use-pallas -1|0|1] [--shear-scale X] [--bulk-scale X]
+[--test-sampler 1|0]``.  ``--compute-dtype f64 --use-pallas 1``
 selects kernel B2 for df 1/2.  The feqmod breakdown branch (df 3/4) needs
 viscous corrections well above the defaults: ``--shear-scale 0.2
 --bulk-scale 0.1`` sends a few percent of the cells there.
@@ -201,10 +202,12 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
                   params: dict | None = None, include_baryon: bool = False,
                   shear_scale: float = 0.02, bulk_scale: float = 0.01,
                   n_T: int = 101, n_muB: int | None = None) -> Path:
-    """Write a complete op-1 working directory; returns its path.
+    """Write a complete working directory; returns its path.
 
     ``chosen_mcids`` defaults to every species of the list.  ``params``
-    overrides entries of iS3D_parameters.dat (op 1, df 1, f32c by default).
+    overrides entries of iS3D_parameters.dat (op 1, df 1, f32c by default;
+    ``{"operation": 2}`` makes it a sampler run, which reads the same
+    files).
     The delta-f tables span T = 0.1..0.2 GeV in ``n_T`` points and, with
     baryons, muB = 0..0.8 GeV in ``n_muB`` points (one point without)."""
     from ..io.pdg import SpeciesTable, read_pdg_smash_box
@@ -241,10 +244,11 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="write a synthetic op-1 workdir")
+    ap = argparse.ArgumentParser(description="write a synthetic workdir")
     ap.add_argument("workdir")
     ap.add_argument("--cells", type=int, default=100_000)
     ap.add_argument("--seed", type=int, default=3)
+    ap.add_argument("--operation", type=int, default=1, choices=(1, 2))
     ap.add_argument("--df-mode", type=int, default=1, choices=(1, 2, 3, 4))
     ap.add_argument("--compute-dtype", default="f32c",
                     choices=("f32c", "f32", "f64"))
@@ -254,9 +258,14 @@ def main(argv=None) -> int:
                     help="shear stress in units of E + P (default 0.02)")
     ap.add_argument("--bulk-scale", type=float, default=0.01,
                     help="bulk pressure in units of E + P (default 0.01)")
+    ap.add_argument("--test-sampler", type=int, default=1, choices=(0, 1),
+                    help="operation 2: 1 = test histograms, 0 = OSCAR "
+                         "event files (default 1)")
     args = ap.parse_args(argv)
     write_workdir(args.workdir, n_cells=args.cells, seed=args.seed,
-                  params={"df_mode": args.df_mode,
+                  params={"operation": args.operation,
+                          "test_sampler": args.test_sampler,
+                          "df_mode": args.df_mode,
                           "compute_dtype": args.compute_dtype,
                           "use_pallas": args.use_pallas},
                   shear_scale=args.shear_scale, bulk_scale=args.bulk_scale)

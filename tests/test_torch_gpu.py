@@ -11,6 +11,8 @@ Imports nothing of JAX, so it runs where only torch is installed:
 plain version.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -463,3 +465,84 @@ def test_chunked_plain_version_is_the_sum_of_its_chunks(workdir, kernel):
     before = wrapper.launches
     assert torch.equal(wrapper(*args), by_hand)
     assert wrapper.launches == before
+
+
+# ----------------------------------------------------------------------
+# the sampler (operation 2) on the card
+# ----------------------------------------------------------------------
+
+def _sampler_run(tmp_path, device, df_mode=1):
+    """A set-up driver on the 60-cell sampler workdir (pi+, K+, p)."""
+    from is3d2_tpu_torch.driver import IS3D
+    wd = write_workdir(tmp_path / f"sampler_{device}_{df_mode}", n_cells=60,
+                       chosen_mcids=(211, 321, 2212), n_pT=8, n_phi=8,
+                       n_T=21, shear_scale=0.2 if df_mode > 2 else 0.03,
+                       bulk_scale=0.1 if df_mode > 2 else 0.01,
+                       params={"operation": 2, "df_mode": df_mode,
+                               "cell_block": 64})
+    run = IS3D(wd, device=device)
+    run.load_surface_from_file()
+    run._setup()
+    return run
+
+
+def _campaign(run, n_events, seed, **kw):
+    from is3d2_tpu_torch.core import sampler as ps
+    return ps.sample_particles(run.surface, run.species, run.chosen_idx,
+                               run.df_data, run.cfg, run.laguerre, n_events,
+                               run.device, seed=seed, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("df_mode", [1, 4])
+def test_sampler_repeats_its_bits_on_cuda(tmp_path, df_mode):
+    _needs_cuda()
+    run = _sampler_run(tmp_path, "cuda", df_mode)
+    a, b = _campaign(run, 2000, 5), _campaign(run, 2000, 5)
+    assert a["kept"] == b["kept"] > 0
+    for k in ("event", "sp_idx", "px", "py", "pz", "E", "eta", "x"):
+        assert a[k].is_cuda and torch.equal(a[k], b[k]), k
+    c = _campaign(run, 2000, 6)
+    assert c["kept"] != a["kept"] or not torch.equal(c["px"], a["px"])
+
+
+@pytest.mark.gpu
+def test_sampler_cuda_and_cpu_agree_on_dN_dy(tmp_path):
+    """The card's and the CPU's campaigns (different generators) give the
+    same dN/dy per species within 5 sigma of the difference."""
+    _needs_cuda()
+    from is3d2_tpu_torch.core.sampler_hist import bin_sampled_particles
+    n_events = 20000
+    counts = {}
+    for device in ("cuda", "cpu"):
+        run = _sampler_run(tmp_path, device)
+        out = _campaign(run, n_events, 3)
+        counts[device] = bin_sampled_particles(out, 3, run.cfg,
+                                               n_events).dN_dy.sum(axis=1)
+    a, b = counts["cuda"].astype(float), counts["cpu"].astype(float)
+    assert (a > 3000).all()
+    assert (np.abs(a - b) < 5.0 * np.sqrt(a + b)).all(), (a, b)
+
+
+@pytest.mark.gpu
+def test_alias_draw_on_cuda_reproduces_the_categorical():
+    """draw_species on the card: the species frequencies of hadrons drawn
+    in each of 4 cells match the cells' rates within 5 sigma."""
+    _needs_cuda()
+    from is3d2_tpu_torch.core import sampler as ps
+    rng = np.random.default_rng(0)
+    C, S, per_cell = 4, 37, 400_000
+    rates = torch.as_tensor(rng.lognormal(0.0, 1.5, (C, S)) *
+                            (rng.random((C, S)) > 0.3), device="cuda")
+    prob, alias = ps.species_alias(rates)
+    camp = types.SimpleNamespace(prob=prob, alias=alias, n_species=S)
+    cell_idx = torch.arange(C, device="cuda").repeat_interleave(per_cell)
+    gen = ps.chunk_generator(1, 0, "cuda")
+    sp = ps.draw_species(camp, cell_idx, gen)
+    counts = torch.bincount(cell_idx * S + sp, minlength=C * S).reshape(C, S)
+    p = (rates / rates.sum(dim=1, keepdim=True)).cpu().numpy()
+    expect = p * per_cell
+    got = counts.cpu().numpy()
+    assert (got[p == 0] == 0).all()
+    sigma = np.sqrt(np.maximum(expect * (1 - p), 1.0))
+    assert (np.abs(got - expect) < 5.0 * sigma).all()

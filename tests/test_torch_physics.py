@@ -172,7 +172,7 @@ def test_config_parser_and_slice(workdir):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"operation": 0}, "A8"), ({"operation": 2}, "A6"),
+    ({"operation": 0}, "A8"), ({"operation": 2, "dimension": 3}, "A7"),
     ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "dimension": 3}, "A9"),
     ({"df_mode": 5}, "A10"),
     ({"dimension": 3}, "A7"), ({"mode": 6}, "A2"), ({"mode": 5}, "A8"),

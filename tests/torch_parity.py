@@ -193,3 +193,69 @@ def feqmod_state(workdir: Path, df_mode: int, include_baryon: bool = False,
         fq=interop.feqmod_from_numpy(numpy_fields(j_fq)),
         species=interop.species_from_numpy(numpy_fields(j_species)),
         grid=interop.grid_from_numpy(numpy_fields(j_grid)))
+
+
+# ----------------------------------------------------------------------
+# the sampler (operation 2)
+# ----------------------------------------------------------------------
+
+PIKP = (211, 321, 2212)
+SAMPLER_CELLS = 60
+
+
+def build_sampler_workdir(root: Path, chosen=PIKP, **kw) -> Path:
+    """The sampler tests' workdir: 60 cells of make_surface(seed=3, shear
+    0.03, bulk 0.01), pi+ K+ p, a 32 pT x 48 phi grid fine enough for the
+    closures against the op-1 spectra."""
+    args = dict(n_cells=SAMPLER_CELLS, seed=3, chosen_mcids=chosen, n_pT=32,
+                n_phi=48, n_T=21, shear_scale=0.03, bulk_scale=0.01)
+    args.update(kw)
+    return write_workdir(root, **args)
+
+
+@dataclasses.dataclass
+class SamplerInputs:
+    """What sample_particles takes, read from a workdir by one package."""
+
+    surf: object
+    species: object
+    chosen: np.ndarray
+    df_data: object
+    laguerre: object
+    grids: object
+
+
+def sampler_inputs(workdir: Path, df_mode: int, jax_side: bool,
+                   include_baryon: bool = False) -> SamplerInputs:
+    """Read ``workdir`` with the JAX package or the port, build the df
+    interpolators (with the Jonah splines when muB = 0) and cache the
+    per-species densities on the species table, as each driver does."""
+    if jax_side:
+        from is3d2_tpu.io.surface import read_surface
+        from is3d2_tpu.physics.deltaf import compute_particle_densities
+        pdg, tabs, Lag, Grids, Tables, DD = (
+            j_read_pdg, j_load_table, JLaguerre, JGrids, JTables, JDeltafData)
+    else:
+        from is3d2_tpu_torch.io.deltaf_tables import DeltafTables as Tables
+        from is3d2_tpu_torch.io.pdg import read_pdg as pdg
+        from is3d2_tpu_torch.io.surface import read_surface
+        from is3d2_tpu_torch.io.tables import GaussLaguerre as Lag
+        from is3d2_tpu_torch.io.tables import MomentumGrids as Grids
+        from is3d2_tpu_torch.io.tables import load_table as tabs
+        from is3d2_tpu_torch.physics.deltaf import DeltafData as DD
+        from is3d2_tpu_torch.physics.deltaf import compute_particle_densities
+    species = pdg(3, workdir / "PDG")
+    chosen = species.chosen_indices(
+        tabs(workdir / "PDG/chosen_particles.dat")[:, 0].astype(int))
+    laguerre = Lag.from_file(workdir / "tables/gauss/gla_roots_weights.txt")
+    surf = read_surface(workdir / "input/surface.dat", 1, 2, include_baryon)
+    plasma = surf.thermo_averages()
+    df_data = DD(Tables.load(3, include_baryon,
+                             workdir / "deltaf_coefficients/vh"),
+                 df_mode, include_baryon)
+    if not include_baryon:
+        df_data.compute_jonah_coefficients(species, laguerre, plasma)
+    compute_particle_densities(species, df_data, laguerre, plasma)
+    return SamplerInputs(surf=surf, species=species, chosen=chosen,
+                         df_data=df_data, laguerre=laguerre,
+                         grids=Grids.from_dir(workdir / "tables"))
