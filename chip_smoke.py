@@ -20,9 +20,10 @@ Phases (any failure raises; nothing is caught):
      feqmod engine (<= 1e-4) at the same shape, on a surface with large
      viscous corrections (shear 0.2, bulk 0.1 of E + P) so that cells break
      down: df 3, df 4, df 3 with outflow + regulation, df 4 with
-     regulation; and the famod mode vs its plain version on operands packed
-     from the df 3 state; the ragged case in df 4; and df 4 on the 80-node
-     table;
+     regulation; the famod mode (df 5) vs its plain version (<= 1e-5) and
+     the f64 famod engine (<= 1e-4) on the famod prep of an EOS-consistent
+     surface (shear 0.1, bulk 0.05; kernel_check.FAMOD_SURFACE); the ragged
+     case in df 4; and df 4 on the 80-node table;
   5. the df-1 main path at full size through the CLI: 1e5 cells, the full
      ~370-species list, 51 pT x 48 phi x 24 eta, f32c.  B1's launch count
      must move, the spectra must be finite and non-negative and dN/dy must
@@ -62,10 +63,25 @@ Phases (any failure raises; nothing is caught):
      df-4 workdir with test_sampler 0 and min_num_hadrons 1e7: one file per
      event with the OSCAR header and 11 columns, rows summing to the kept
      count, the yield bound of phase 12; it prints the write, transfer and
-     overlapped seconds.
+     overlapped seconds;
+ 14. the df-5 main path at full size through the CLI: 1e5 cells of an
+     EOS-consistent surface (shear 0.1, bulk 0.05), all species, 51 x 48 x
+     24, f32: the famod prep (the VAH reconstruction in f64 on the card)
+     and B3's famod mode.  B3's launch count must move, B1's and B2's stay
+     at 0, cells must break down; it prints the breakdown, pl < 0 and
+     reconstruction-failure counts, the Newton iterations and the stage
+     seconds with the famod prep split out;
+ 15. B3's famod mode on phase 14's operands, timed at full size, held to its
+     plain version (<= 1e-5) on the first 8,192 cells at the full S and M;
+     two launches at full size must give equal bits;
+ 16. operation 2 with df 5 on phase 14's workdir: test histograms, 1e7
+     hadrons, a fixed seed, phase 12's bounds (yield, no dropped lane, equal
+     bits from one seed, dN/dy of pi+, K+ and p within 5 sigma + 1% of an
+     op-1 run of phase 14's surface on tables that resolve it: 96 eta nodes,
+     pT to 6 GeV) and no kernel launch in the sampler.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
-12-13's numbers.  The line before the last is a JSON object with each
+12-13's and 16's numbers.  The line before the last is a JSON object with each
 kernel's measurements,
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
@@ -118,7 +134,13 @@ OPS_PER_EVALUATION = {
     "cooper_frye_comp": 70 + 26 / 12,     # df 1
     "cooper_frye_f32": 34 + 12 / 12,      # df 2
     "cooper_frye_feqmod": {"modified": 30 + 9 / 12,    # df 4
-                           "breakdown": 43 + 9 / 12},
+                           "breakdown": 43 + 9 / 12,
+                           # df 5: the modified branch is df 4's; the
+                           # breakdown branch is plain f_eq (E 2, p.dsigma 3,
+                           # f_eq 6, value 1, the sum 2; gd, exy and the
+                           # per-cell sum 11 outside the loop)
+                           "famod_modified": 30 + 9 / 12,
+                           "famod_breakdown": 14 + 11 / 12},
 }
 # What the kernels execute per evaluation, counted the same way from their
 # sources (a multiply-add counts two; work shared by a thread's 4 momenta
@@ -126,7 +148,11 @@ OPS_PER_EVALUATION = {
 EXECUTED_OPS_PER_EVALUATION = {
     "cooper_frye_comp": 41 + 16 / 4 + 45 / 12,
     "cooper_frye_feqmod": {"modified": 23 + 5 / 4 + 16 / 12,
-                           "breakdown": 31 + 4 / 4 + 14 / 12},
+                           "breakdown": 31 + 4 / 4 + 14 / 12,
+                           "famod_modified": 23 + 5 / 4 + 16 / 12,
+                           # E 1, p.dsigma 2, f_eq 6, value 1, sum 1; EmT
+                           # and pddb per row; gd, exy, the f64 add
+                           "famod_breakdown": 11 + 2 / 4 + 9 / 12},
     "cooper_frye_f32": 30 + 21 / 4 + 20 / 12,    # df 2
 }
 
@@ -288,7 +314,8 @@ def phase_b3_compare(wd: Path, wd_eta: Path) -> None:
     from is3d2_tpu_torch.tools import kernel_check as kc
     results = {name: kc.check_feqmod_case(wd, name, 2048, 7, "cuda")
                for name in kc.FEQMOD_CASES}
-    results["famod (operands)"] = kc.check_famod_operands(wd, 2048, 7, "cuda")
+    results["famod (real prep)"] = kc.check_famod_case(wd, 2048, 7, "cuda",
+                                                       cell_block=512)
     results["df4 ragged"] = kc.check_feqmod_ragged_case(wd, 2048, 7, "cuda")
     for name, r in results.items():
         print(f"{name:22s} breakdown cells {r.breakdown_cells:4d}  kernel vs "
@@ -424,9 +451,14 @@ def time_on_main_path(name, kernel, plain, ops, args, cut, n_cut, state, tol,
     ms, plain_ms, max_abs = compare_on_cut(
         kernel, plain, cut(64), cut(n_cut),
         lambda flat: kc.spectra_units(state, flat), tol, name)
+    main_bound = bound(ops_of(C), args, M)["bound_ms"]
+    print(f"bound at full size {main_bound:.1f} ms: "
+          f"{100 * main_bound / full_ms:.1f} % of it")
     return {**shape, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             **bound(ops_of(n_cut), cut(n_cut), M),
-            "main_path_bound_ms": bound(ops_of(C), args, M)["bound_ms"],
+            "main_path_bound_ms": main_bound,
+            "main_path_evaluations_per_s": ops.evaluations / full_ms * 1e3,
+            "main_path_share_of_bound": main_bound / full_ms,
             # no single PyTorch call computes a Cooper-Frye sum
             "library_ms": None,
             "cells_compared": n_cut, "main_path_ms": full_ms,
@@ -643,7 +675,7 @@ def phase_timings(wd: Path) -> dict:
     run = IS3D(wd, device="cuda")
     run.load_surface_from_file()
     run._setup()
-    setup, species = ps.prepare_sampler(
+    setup, species, _ = ps.prepare_setup(
         run.surface, run.species, run.chosen_idx, run.df_data, run.cfg,
         run.laguerre, run.device)
     camp = ps.prepare_campaign(setup, species,
@@ -716,23 +748,31 @@ def phase_sampler_histograms(tmp: Path, wd1: Path) -> dict:
     r = run_op2(wd)
     if r["drawn_per_kept"] >= 2.7:
         raise AssertionError("drawn/kept >= 2.7: the tilted envelope is off")
-    # closure: the sampled dN/dy against phase 5's op-1 dN_dy files
-    # (outflow and regulation off there; they move dN/dy by ~5e-4 here)
+    # (outflow and regulation off in phase 5; they move dN/dy by ~5e-4 here)
+    r["closure"] = dndy_closure(wd, wd1, r["n_events"])
+    r.update(phase_timings(wd))
+    return r
+
+
+def dndy_closure(wd: Path, wd_op1: Path, n_events: int) -> dict:
+    """The sampled dN/dy of pi+, K+ and p (the test histograms of ``wd``)
+    against the op-1 dN_dy files of ``wd_op1``: within 5 sigma + 1%."""
+    from is3d2_tpu_torch.config import Config
+    norm = 2.0 * Config.from_file(wd / "iS3D_parameters.dat").y_cut * n_events
     closure = {}
     for m in (211, 321, 2212):
-        smooth = float(np.loadtxt(wd1 / f"results/continuous/dN_dy_{m}.dat")[1])
+        smooth = float(np.loadtxt(
+            wd_op1 / f"results/continuous/dN_dy_{m}.dat")[1])
         avg = float(np.loadtxt(
             wd / f"results/sampled/dN_dy/dN_dy_{m}_average_test.dat"))
-        n = avg * 10.0 * r["n_events"]
-        sigma = np.sqrt(max(n, 1.0)) / (10.0 * r["n_events"])
-        closure[m] = {"sampled": avg, "smooth": smooth, "sigma": sigma}
+        n = avg * norm
+        sigma = np.sqrt(max(n, 1.0)) / norm
+        closure[str(m)] = {"sampled": avg, "smooth": smooth, "sigma": sigma}
         print(f"dN/dy {m}: sampled {avg:.6g} (sigma {sigma:.3g}) vs op-1 "
               f"{smooth:.6g}: {(avg - smooth) / smooth:+.3e} relative")
         if abs(avg - smooth) >= 5.0 * sigma + 0.01 * smooth:
             raise AssertionError(f"dN/dy closure of {m} fails")
-    r["closure"] = {str(k): v for k, v in closure.items()}
-    r.update(phase_timings(wd))
-    return r
+    return closure
 
 
 def phase_sampler_oscar(tmp: Path, wd4: Path) -> dict:
@@ -773,6 +813,100 @@ def phase_sampler_oscar(tmp: Path, wd4: Path) -> dict:
     return r
 
 
+def phase_famod_main_path(tmp: Path) -> tuple[int, dict, Path, dict]:
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    print(f"== 14. df-5 main path: {MAIN_CELLS} cells (EOS-consistent), all "
+          "species, 51 x 48 x 24, f32, shear 0.1, bulk 0.05")
+    launches, stages, wd, out = run_main_path(
+        tmp, "main_df5", "cooper_frye_feqmod",
+        {"df_mode": 5, "compute_dtype": "f32"}, eos_consistent=True,
+        device="cuda", **kc.FAMOD_SURFACE)
+
+    def count(pattern):
+        return int(re.search(pattern, out, re.M).group(1))
+
+    info = {"breakdown_cells": count(r"^famod breaks down for (\d+) /"),
+            "pl_negative_cells": count(r"^pl went negative for (\d+) /"),
+            "reconstruction_failures": count(
+                r"^Number of reconstruction failures = (\d+)"),
+            "newton_iterations": count(r"(\d+) Newton iterations"),
+            "stage_seconds": stages}
+    print(f"famod: {json.dumps(info)}")
+    if info["breakdown_cells"] < 1:
+        raise AssertionError("no cell of the df-5 main path broke down")
+    return launches, stages, wd, info
+
+
+def phase_famod_full(wd: Path) -> dict:
+    print("== 15. B3's famod mode on the df-5 main path's operands")
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    cfg, state = main_path_state(wd, kc.famod_engine_state)
+    ops = fk.famod_operands(*state, cfg)
+    n_break = int((state[1].breaks_down[:B3_COMPARE_CELLS]
+                   & (state[0].mask[:B3_COMPARE_CELLS] > 0)).sum().item())
+    print(f"{kc.breakdown_cells(state)} breakdown cells, {n_break} of them "
+          f"among the first {B3_COMPARE_CELLS}")
+    if n_break < 1:
+        raise AssertionError("no breakdown cell among the compared cells")
+    per_eval = BOUND_OPS_PER_EVALUATION["cooper_frye_feqmod"]
+    per_cell = ops.evaluations / ops.cols.shape[0]
+
+    def famod_ops(n):
+        """Operations on the first n operand cells, by the branch each
+        cell takes."""
+        n_b = int((ops.cols[:n, fk.BREAKS] != 0).sum().item())
+        return per_cell * (n_b * per_eval["famod_breakdown"]
+                           + (n - n_b) * per_eval["famod_modified"])
+
+    return time_on_main_path(
+        "B3 famod", functools.partial(fk.cooper_frye_feqmod,
+                                      row_len=ops.row_len),
+        fk.cooper_frye_feqmod_plain, ops, (*ops.args(), cfg, ops.kind),
+        lambda n: (ops.cols[:n].contiguous(), ops.mom,
+                   ops.renorm[:n].contiguous(), ops.red[:n].contiguous(),
+                   ops.eta, ops.n_per_species, cfg, ops.kind),
+        B3_COMPARE_CELLS, state, kc.FEQMOD_TOL_PLAIN, famod_ops,
+        lambda: fk.cooper_frye_feqmod.last_geometry.grid)
+
+
+def phase_famod_sampler(tmp: Path, wd5: Path) -> dict:
+    print(f"== 16. op-2 df-5 histograms: phase 14's {MAIN_CELLS} cells, all "
+          "species, test_sampler 1, min_num_hadrons 1e7")
+    wd = op2_workdir(tmp, wd5, "op2_df5", {
+        "operation": 2, "test_sampler": 1, "fast": 1,
+        "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
+        "sampler_seed": SAMPLER_SEED})
+    r = run_op2(wd)
+    r["closure"] = dndy_closure(wd, famod_reference(tmp, wd5), r["n_events"])
+    r.update(phase_timings(wd))
+    return r
+
+
+def famod_reference(tmp: Path, wd5: Path) -> Path:
+    """Phase 14's surface through the op-1 CLI (B3's famod mode) on tables
+    that resolve dN/dy: pi+, K+ and p, 96 eta nodes (48 folded) and 64 pT
+    up to 6 GeV.  Phase 14's north-star tables (24 eta nodes, pT <= 3 GeV)
+    leave protons a few percent low (the 24 nodes ~1.6 %, the pT cut ~2 %
+    on this flow), which the sampler, drawing every momentum, does not."""
+    from is3d2_tpu_torch import cli
+    from is3d2_tpu_torch.tools.synthetic import write_quadrature_tables
+    wd = shutil.copytree(wd5, tmp / "main_df5_fine",
+                         ignore=shutil.ignore_patterns("results"))
+    write_quadrature_tables(wd, 64, 48, 96, pT_max=6.0)
+    (wd / "PDG/chosen_particles.dat").write_text("211\n321\n2212\n")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main([str(wd)])
+    stages = re.search(r"^stage seconds: (.*)$", log.getvalue(), re.M)
+    print(f"op-1 reference (pi+ K+ p, 96 eta, 64 pT to 6 GeV): rc {rc}, "
+          f"stage seconds {stages.group(1)}")
+    if rc != 0:
+        raise AssertionError("the op-1 reference run failed")
+    return wd
+
+
 def main() -> int:
     card = phase_environment()
     # the package is imported only now: a copy of this script alone, or a
@@ -799,6 +933,9 @@ def main() -> int:
         b2 = phase_b2_full(wd2)
         op2_hist = phase_sampler_histograms(tmp, wd1)
         op2_oscar = phase_sampler_oscar(tmp, wd4)
+        b3f_launches, _, wd5, famod = phase_famod_main_path(tmp)
+        b3f = phase_famod_full(wd5)
+        op2_famod = phase_famod_sampler(tmp, wd5)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -807,7 +944,7 @@ def main() -> int:
           f"{json.dumps(EXECUTED_OPS_PER_EVALUATION)}; the bounds take the "
           f"smaller {json.dumps(BOUND_OPS_PER_EVALUATION)}")
     print(json.dumps({"sampler": {"card": card, "histograms": op2_hist,
-                                  "oscar": op2_oscar}}))
+                                  "oscar": op2_oscar, "famod": op2_famod}}))
     print(card)
     print(json.dumps({"kernels": [
         {"name": "cooper_frye_comp", "route": "cuda",
@@ -817,7 +954,9 @@ def main() -> int:
         {"name": "cooper_frye_feqmod", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_feqmod_pallas.py:68",
-         "launches": b3_launches, **b3},
+         "launches": b3_launches, **b3,
+         # the famod mode (df 5) on its own main path, phases 14-15
+         "famod": {"launches": b3f_launches, **b3f, **famod}},
         {"name": "cooper_frye_f32", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_f32.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:83",

@@ -4,10 +4,10 @@ A second package beside the JAX package ``is3d2_tpu``, which stays the
 reference.  The layout mirrors it so each module has a counterpart:
 
   - io/        numpy readers and writers (parameters, quadrature tables, PDG
-               lists, mode-1 surfaces, delta-f tables, result files) and the
+               lists, mode-1/2/3 surfaces, delta-f tables, result files) and the
                native I/O library (g++ at first use, ctypes);
   - physics/   per-cell physics on torch f64 tensors (spline, rest-frame
-               algebra, delta-f coefficients);
+               algebra, delta-f coefficients, the VAH reconstruction);
   - core/      the Cooper-Frye engines (the torch f64 engines and the
                kernel routes) and the Monte-Carlo hadron sampler;
   - ops/       hand-written CUDA kernels for Hopper, their plain torch
@@ -15,8 +15,9 @@ reference.  The layout mirrors it so each module has a counterpart:
   - tools/     delta-f table generator and the synthetic-workdir builder.
 
 The port covers operations 1 (continuous spectra) and 2 (the sampler), df
-1-4, 2+1d, mode-1 surfaces; ``Config.validate_slice`` rejects the rest.  Importing it never
-imports jax.
+1-5, 2+1d, mode-1 surfaces, and operation 1 with df 5 on the legacy VAH
+surfaces (modes 2 and 3); ``Config.validate_slice`` rejects the rest.
+Importing it never imports jax.
 """
 
 from .constants import hbarC, two_pi, two_pi2_hbarC3, four_pi2_hbarC3  # noqa: F401

@@ -178,17 +178,16 @@ class Config:
         if self.df_mode == 4 and self.include_baryon:
             # as the JAX package's DeltafData.evaluate raises
             raise ValueError("PTB (Jonah) df does not support nonzero muB")
-        feqmod = self.df_mode in (3, 4)
+        feqmod = self.df_mode in (3, 4, 5)
         todo = None
         if self.operation == 0:
             todo = "operation 0 (dN/dX): ROADMAP A8"
         elif self.operation == 2:
             todo = self._sampler_todo()
-        elif self.df_mode == 5:
-            todo = "df_mode 5 (famod: aniso.py and the famod prep): ROADMAP A10"
         elif self.dimension == 3:
             if feqmod:
-                todo = "dimension 3 (3+1d feqmod engines): ROADMAP A7 and A9"
+                todo = ("dimension 3 (3+1d feqmod and famod engines): "
+                        "ROADMAP A7 and A9")
             elif self.compute_dtype == "f64" and self.use_pallas == 1:
                 # the JAX package runs the 3+1d f64 engine there
                 todo = ("dimension 3 (3+1d engines; use_pallas 1 reaches "
@@ -197,7 +196,11 @@ class Config:
                 todo = "dimension 3 (3+1d engines): ROADMAP A7"
         elif self.mode == 5:
             todo = "mode 5 (polarization): ROADMAP A8"
-        elif self.mode != 1:
+        elif self.mode in (2, 3) and self.df_mode != 5:
+            # the legacy VAH readers are ported for the famod path
+            todo = (f"surface mode {self.mode} with df_mode {self.df_mode}: "
+                    "ROADMAP A2b")
+        elif self.mode not in (1, 2, 3):
             todo = f"surface mode {self.mode}: ROADMAP A2b"
         elif feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
             todo = (f"use_pallas 0 with {self.compute_dtype} for df "
@@ -213,11 +216,8 @@ class Config:
             raise NotImplementedError(f"not ported yet: {todo}")
 
     def _sampler_todo(self) -> str | None:
-        """What operation 2 (the sampler: df 1-4, 2+1d, mode 1, one
+        """What operation 2 (the sampler: df 1-5, 2+1d, mode 1, one
         device) does not run yet, or None."""
-        if self.df_mode == 5:
-            return ("operation 2 with df_mode 5 (the sampler's famod prep, "
-                    "core/sampler_famod.py): ROADMAP A10")
         if self.dimension == 3:
             return "operation 2 in dimension 3 (the 3+1d sampler): ROADMAP A7"
         if self.mode != 1:

@@ -14,7 +14,8 @@ MomentumSpectra.cpp:32-415) and its dispatcher over df modes.  For df 1/2:
     ops/cooper_frye_f32.py, likewise.
 
 df 3/4 (feqmod) run the torch f64 engine of core/spectra_feqmod.py or
-kernel B3 (ops/cooper_frye_feqmod.py).
+kernel B3 (ops/cooper_frye_feqmod.py); df 5 (famod) the torch f64 engine of
+core/spectra_famod.py or kernel B3's famod mode.
 
 All data-dependent per-cell branches of the reference (u.dsigma <= 0 skip,
 outflow Theta, |df| <= 1 regulation) are masks and where's.
@@ -236,9 +237,9 @@ def df12_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
 
 
 def uses_feqmod_kernel(cfg: Config) -> bool:
-    """df 3/4 through kernel B3 (as is3d2_tpu/core/spectra.py:428-442
-    chooses its Pallas kernel or XLA fast path): always with use_pallas = 1,
-    and for f32/f32c unless use_pallas = 0."""
+    """df 3/4/5 through kernel B3 (as is3d2_tpu/core/spectra.py:428-442 and
+    :449-465 choose its Pallas kernel or XLA fast path): always with
+    use_pallas = 1, and for f32/f32c unless use_pallas = 0."""
     return cfg.use_pallas == 1 or (cfg.compute_dtype in ("f32", "f32c")
                                    and cfg.use_pallas != 0)
 
@@ -254,10 +255,22 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     use_pallas = 1 and the torch f64 engine otherwise.  df 3/4 (``laguerre``
     needed): the feqmod prep,
     then kernel B3 (see uses_feqmod_kernel) or the torch f64 feqmod engine.
-    A kernel runs as CUDA on a GPU device and as its plain version on the
-    CPU.
+    df 5: the famod prep (the VAH reconstruction, or a mode-2/3 surface's
+    own variables), then kernel B3's famod mode (the same routes) or the
+    torch f64 famod engine.  A kernel runs as CUDA on a GPU device and as
+    its plain version on the CPU.
     """
     cfg.validate_slice()
+    if cfg.df_mode == 5:
+        from .spectra_famod import famod_state, spectra_famod
+        state = famod_state(surf, species_table, chosen_idx, grids, cfg,
+                            device, report)
+        if uses_feqmod_kernel(cfg):
+            from ..ops.cooper_frye_feqmod import compute_spectra_famod_kernel
+            out = compute_spectra_famod_kernel(*state, cfg)
+        else:
+            out = spectra_famod(*state, cfg)
+        return out.cpu().numpy()
     if cfg.df_mode in (3, 4):
         from .spectra_feqmod import feqmod_state, spectra_feqmod
         state = feqmod_state(surf, species_table, chosen_idx, grids, df_data,

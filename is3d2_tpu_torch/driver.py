@@ -1,4 +1,4 @@
-"""Top-level particlization driver, operations 1 and 2 (df 1-4).
+"""Top-level particlization driver, operations 1 and 2 (df 1-5).
 
 Counterpart of is3d2_tpu/driver.py (the reference's IS3D class,
 iS3D.cpp:81-282): load parameters, surface, PDG list, delta-f coefficient
@@ -137,6 +137,9 @@ class IS3D:
                 self.stage_seconds["write"] = time.time() - tw
         else:
             self._sample(results, mcids, t_compute, write)
+        if report.reconstruction is not None:
+            # part of compute: the famod prep (df 5)
+            self.stage_seconds["famod_prep"] = report.reconstruction.seconds
 
         report.print()
         print(f"Particlization took {time.time() - t0:.3f} seconds")

@@ -53,6 +53,18 @@ def feqmod_from_numpy(d: dict, device="cpu") -> FeqmodCellData:
     return FeqmodCellData(**out)
 
 
+def famod_from_numpy(d: dict, device="cpu"):
+    """FamodCellData from a dict holding every field (the three masks as
+    bool, the rest f64)."""
+    from .core.spectra_famod import FamodCellData
+    masks = ("breaks_down", "pl_negative", "recon_failed")
+    names = [f.name for f in dataclasses.fields(FamodCellData)]
+    out = _tensors(d, [n for n in names if n not in masks], device)
+    for n in masks:
+        out[n] = torch.as_tensor(np.array(d[n], dtype=bool), device=device)
+    return FamodCellData(**out)
+
+
 def sampler_setup_from_numpy(d: dict, device="cpu"):
     """SamplerSetup from a dict of numpy values: ``cells`` and ``fq``
     (None or a dict) as above, ``df_cols`` a dict of columns,

@@ -450,11 +450,12 @@ def pack_feqmod(cells: CellArrays, fq, species: SpeciesArrays,
 
 def pack_famod(cells: CellArrays, fm, species: SpeciesArrays,
                grid: MomentumGridDevice) -> FeqmodOperands:
-    """Operands of the famod (df 5) mode from a famod prep ``fm`` (fields
-    of is3d2_tpu/core/spectra_famod.py::FamodCellData: the LRF basis,
-    Binv, lam, upsilonB, eta_scale, breaks_down and the per-cell renorm).
-    The delta-f columns stay zero.  A non-finite famod renorm sends its
-    cell to the breakdown branch in the prep, so no species is skipped."""
+    """Operands of the famod (df 5) mode from the famod prep ``fm``
+    (core/spectra_famod.py::FamodCellData: the LRF basis, Binv, lam,
+    upsilonB, eta_scale, breaks_down and the per-cell renorm, broadcast over
+    the species).  The delta-f columns stay zero.  A non-finite famod
+    renorm sends its cell to the breakdown branch in the prep, so no
+    species is skipped."""
     c = cells
     C = c.n_padded
     S = species.mass.shape[0]
@@ -477,13 +478,37 @@ def feqmod_operands(cells: CellArrays, fq, species: SpeciesArrays,
     return pack_feqmod(cells, fq, species, grid)
 
 
+def famod_operands(cells: CellArrays, fm, species: SpeciesArrays,
+                   grid: MomentumGridDevice, cfg: Config) -> FeqmodOperands:
+    """Fold the eta quadrature where the strict gate allows (the famod
+    integrand is as nonlinear in the odd sources as feqmod's), then pack."""
+    if cfg.dimension != 2 or cfg.df_mode != 5:
+        raise ValueError("kernel B3's famod mode implements 2+1d df 5")
+    cells, grid, _ = fold_eta_quadrature(cells, grid, cfg, strict=True)
+    return pack_famod(cells, fm, species, grid)
+
+
+def _spectra(ops: FeqmodOperands, species: SpeciesArrays,
+             grid: MomentumGridDevice, cfg: Config) -> torch.Tensor:
+    flat = cooper_frye_feqmod(*ops.args(), cfg, ops.kind, row_len=ops.row_len)
+    out = flat.reshape(species.mass.shape[0], grid.pT.shape[0],
+                       grid.cos_phi.shape[0], 1)
+    return PREFACTOR * species.degeneracy[:, None, None, None] * out
+
+
 def compute_spectra_feqmod_kernel(cells: CellArrays, fq,
                                   species: SpeciesArrays,
                                   grid: MomentumGridDevice,
                                   cfg: Config) -> torch.Tensor:
     """df 3/4 spectra through kernel B3: (S, NpT, Nphi, 1) f64."""
-    ops = feqmod_operands(cells, fq, species, grid, cfg)
-    flat = cooper_frye_feqmod(*ops.args(), cfg, ops.kind, row_len=ops.row_len)
-    out = flat.reshape(species.mass.shape[0], grid.pT.shape[0],
-                       grid.cos_phi.shape[0], 1)
-    return PREFACTOR * species.degeneracy[:, None, None, None] * out
+    return _spectra(feqmod_operands(cells, fq, species, grid, cfg), species,
+                    grid, cfg)
+
+
+def compute_spectra_famod_kernel(cells: CellArrays, fm,
+                                 species: SpeciesArrays,
+                                 grid: MomentumGridDevice,
+                                 cfg: Config) -> torch.Tensor:
+    """df 5 spectra through kernel B3's famod mode: (S, NpT, Nphi, 1) f64."""
+    return _spectra(famod_operands(cells, fm, species, grid, cfg), species,
+                    grid, cfg)

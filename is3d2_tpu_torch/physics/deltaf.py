@@ -1,4 +1,5 @@
-"""Delta-f coefficient evaluation for df 1-4.
+"""Delta-f coefficient evaluation for df 1-5 (df 5 takes the
+Chapman-Enskog coefficients, as df 2 and 3 do).
 
 Counterpart of is3d2_tpu/physics/deltaf.py (Deltaf_Data,
 src/cpp/DeltafData.cpp:220-519): cubic-spline (muB = 0) or bilinear
@@ -57,10 +58,8 @@ class DeltafData:
     """Interpolators over the delta-f coefficient tables."""
 
     def __init__(self, tables: DeltafTables, df_mode: int, include_baryon: bool):
-        if df_mode not in (1, 2, 3, 4):
-            raise NotImplementedError(
-                f"df_mode {df_mode} coefficients are not ported yet "
-                "(ROADMAP A10)")
+        if df_mode not in (1, 2, 3, 4, 5):
+            raise ValueError("df_mode must be in 1..5")
         self.tables = tables
         self.df_mode = df_mode
         self.include_baryon = include_baryon
@@ -179,7 +178,7 @@ class DeltafData:
                 c0 = self._c0(T) / T4
                 c2 = self._c2(T) / T4
                 shear14 = 2.0 * T * T * (E + P)
-            elif mode in (2, 3):
+            elif mode in (2, 3, 5):
                 F = self._F(T) * T
                 betabulk = self._betabulk(T) * T4
                 betapi = self._betapi(T) * T4
@@ -202,7 +201,7 @@ class DeltafData:
                 c3 = self._bilinear(g["c3"], T, muB) / T4
                 c4 = self._bilinear(g["c4"], T, muB) / T5
                 shear14 = 2.0 * T * T * (E + P)
-            elif mode in (2, 3):
+            elif mode in (2, 3, 5):
                 F = self._bilinear(g["F"], T, muB) * T
                 G = self._bilinear(g["G"], T, muB)
                 betabulk = self._bilinear(g["betabulk"], T, muB) * T4
@@ -264,7 +263,7 @@ def compute_particle_densities(species: SpeciesTable, df_data: DeltafData,
         dn_bulk = (df.c0 - df.c2) * mass**2 * J10 + df.c1 * b * J20 \
             + (4.0 * df.c2 - df.c0) * J30
         dn_diff = b * df.c3 * neq * T + df.c4 * J31
-    elif mode in (2, 3):
+    elif mode in (2, 3, 5):
         J10 = g * T**3 / two_pi2_hbarC3 * thermal.J10_integral(r1, w1, mbar, alphaB, b, sgn)
         J11 = g * T**3 / two_pi2_hbarC3 / 3.0 * thermal.J11_integral(r1, w1, mbar, alphaB, b, sgn)
         J20 = g * T**4 / two_pi2_hbarC3 * thermal.J20_integral(r2, w2, mbar, alphaB, b, sgn)

@@ -2,7 +2,7 @@
 call, and count what was compiled.
 
     python -m is3d2_tpu_torch.tools.kernel_bench [--tree NAME=DIR ...]
-        [--only b1,b3,b2] [--cells 100000] [--compare-cells 8192]
+        [--only b1,b3,b2,prep] [--cells 100000] [--compare-cells 8192]
         [--f64-species 4] [--few-species 3,16] [--out build/kernel_bench.json]
 
 The card's power limit may differ between calls, so two versions of a
@@ -30,7 +30,14 @@ script
   * every kernel of this tree: with the momenta cut to the first
     ``--few-species`` species (a chosen-particles list of a few hadrons:
     fewer blocks than the card holds), times the launch with the wrapper's
-    cell split and with none.
+    cell split and with none;
+  * ``prep`` (listed in ``--only``): the df-5 famod prep, whose VAH
+    reconstruction is the df-5 path's first cost, of every tree on one
+    EOS-consistent surface of ``--cells`` cells (kernel_check.famod_surface),
+    twice after a warm-up, on the host clock with the device synchronised:
+    its seconds, Newton iterations, cell blocks and cells iterated, and for
+    the other trees the largest relative difference of (lambda, aT, aL) and
+    the count of differing breakdown cells against this tree.
 
 Needs a CUDA device, nvcc and cuobjdump; imports nothing of JAX.
 """
@@ -49,6 +56,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +64,7 @@ import torch
 
 from ..config import Config
 from ..core.spectra_feqmod import spectra_feqmod
+from ..io.pdg import read_pdg
 from ..io.surface import read_surface
 from ..ops.spectra_fast_common import comp_operands, f32_operands
 from . import kernel_check as kc
@@ -361,6 +370,45 @@ def race_split(kernel: Kernel, few, n_species: int) -> dict:
     return {"blocks": grid.blocks, "n_split": grid.n_split, **ms}
 
 
+def race_prep(packages: dict, wd: Path, n_cells: int) -> dict:
+    """Time every tree's prepare_famod on one famod surface (see the module
+    docstring) and hold the others to this tree's result."""
+    surf = kc.famod_surface(wd, n_cells, 3, "cuda")
+    table = read_pdg(3, wd / "PDG")
+    cfg = Config(df_mode=5, compute_dtype="f32")
+
+    def prep(package):
+        sf = importlib.import_module(f"{package}.core.spectra_famod")
+        cells = sf.famod_cells(surf, cfg, "cuda")
+        stats = sf.Reconstruction()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fm = sf.prepare_famod(cells, table, cfg, stats=stats)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, stats, fm
+
+    prep(packages[THIS_TREE])                   # warm-up
+    record, preps = {}, {}
+    for label in list(packages) * 2:
+        seconds, stats, preps[label] = prep(packages[label])
+        r = record.setdefault(label, {"seconds": []})
+        r["seconds"].append(seconds)
+        r.update(newton_iterations=stats.newton_iterations,
+                 blocks=stats.blocks, cell_iterations=stats.lane_iterations)
+    ref = preps[THIS_TREE]
+    for label, r in record.items():
+        fm = preps[label]
+        if label != THIS_TREE:
+            r["max_rel_diff"] = max(
+                float(((getattr(fm, k) - getattr(ref, k)).abs()
+                       / getattr(ref, k).abs().clamp(min=1e-300)).max())
+                for k in ("lam", "aT", "aL"))
+            r["breakdown_cells_differing"] = int(
+                (fm.breaks_down != ref.breaks_down).sum())
+        print(f"prep {label:20s} {json.dumps(r)}")
+    return record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
@@ -435,6 +483,9 @@ def main(argv=None) -> int:
             record["kernels"][k.name] = rec
             del ops, args, cut, few, state, versions
             torch.cuda.empty_cache()
+        if "prep" in a.only.split(","):
+            wd = write_workdir(Path(tmp) / "prep", n_cells=16)
+            record["prep"] = race_prep(packages, wd, a.cells)
     a.out.parent.mkdir(parents=True, exist_ok=True)
     a.out.write_text(json.dumps(record, indent=1))
     print(card)

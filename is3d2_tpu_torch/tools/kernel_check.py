@@ -11,8 +11,9 @@ One harness for ``chip_smoke.py`` and ``tests/test_torch_gpu.py``:
   * kernel B3 (feqmod, df 3/4): the feqmod state on a surface with large
     viscous corrections (FEQMOD_SURFACE, so that cells break down), the
     cases FEQMOD_CASES, bars FEQMOD_TOL_PLAIN against the plain version and
-    FEQMOD_TOL_F64 against the f64 engine; and the famod mode on operands
-    packed from the same state (no famod prep is ported yet).
+    FEQMOD_TOL_F64 against the f64 engine; and its famod mode (df 5) on the
+    famod prep of an EOS-consistent surface (FAMOD_SURFACE), with the same
+    bars against its plain version and the f64 famod engine.
 
 Each kernel also has a ragged case (RAGGED: rows of 7 phi under a register
 tile of 4, fewer momenta than one block owns, a cell count that fills
@@ -29,7 +30,6 @@ with the f64 engine says something.
 from __future__ import annotations
 
 import dataclasses
-import types
 from pathlib import Path
 
 import numpy as np
@@ -37,13 +37,16 @@ import torch
 
 from ..config import Config
 from ..core.spectra import PREFACTOR, df12_state, spectra_df12
+from ..core.spectra_famod import famod_state, spectra_famod
 from ..core.spectra_feqmod import feqmod_state, spectra_feqmod
 from ..driver import IS3D
+from ..io.pdg import read_pdg
+from ..io.tables import GaussLaguerre
 from ..ops import cooper_frye_comp as ck
 from ..ops import cooper_frye_f32 as b2
 from ..ops import cooper_frye_feqmod as fk
 from ..ops.spectra_fast_common import comp_operands, f32_operands
-from .synthetic import make_surface
+from .synthetic import make_eos_consistent, make_surface
 
 TOL = 1e-6     # relative, on bins >= FLOOR of their species' peak
 FLOOR = 1e-4
@@ -324,7 +327,11 @@ def check_feqmod_ragged_case(workdir: str | Path, n_cells: int, seed: int,
     cfg = Config(compute_dtype="f32", df_mode=4)
     surf = make_surface(n_cells, seed=seed, **FEQMOD_SURFACE)
     state = feqmod_engine_state(workdir, cfg, surf, device)
-    ops = fk.feqmod_operands(*state, cfg)
+    return _b3_ragged(state, fk.feqmod_operands(*state, cfg), cfg)
+
+
+def _b3_ragged(state, ops: fk.FeqmodOperands, cfg: Config):
+    """B3's kernel and plain version on ``ops`` cut to RAGGED."""
     n, S = RAGGED["cells"], RAGGED["species"]
     args = (ops.cols[:n].contiguous(),
             _ragged_momenta(ops.mom, state[2], state[3]),
@@ -335,28 +342,58 @@ def check_feqmod_ragged_case(workdir: str | Path, n_cells: int, seed: int,
                           args, FeqmodCaseResult, breakdown_cells=n_break)
 
 
-def famod_operands(state) -> fk.FeqmodOperands:
-    """famod-mode operands from a feqmod state: B^-1 = A^-1, lambda =
-    T_mod, upsilonB = alphaB_mod, the per-cell renorm of the first species.
-    Holds the kernel's famod arithmetic until the famod prep is ported."""
-    cells, fq, species, grid = state
-    fm = types.SimpleNamespace(
-        Xt=fq.Xt, Xx=fq.Xx, Xy=fq.Xy, Xn=fq.Xn, Yx=fq.Yx, Yy=fq.Yy,
-        Zt=fq.Zt, Zn=fq.Zn, Binv=fq.Ainv, lam=fq.T_mod,
-        upsilonB=fq.alphaB_mod, eta_scale=fq.eta_scale,
-        breaks_down=fq.breaks_down, renorm=fq.renorm[:, 0])
-    return fk.pack_famod(cells, fm, species, grid)
+# make_surface options of the famod (df 5) checks, on an EOS-consistent
+# surface (make_eos_consistent): ~1 % of the cells break down (pl < 0, a
+# failed reconstruction)
+FAMOD_SURFACE = {"shear_scale": 0.1, "bulk_scale": 0.05}
 
 
-def check_famod_operands(workdir: str | Path, n_cells: int, seed: int,
-                         device) -> FeqmodCaseResult:
-    """Kernel B3's famod mode against its plain version, on operands packed
-    from the df 3 state of FEQMOD_SURFACE (f64 holds the plain version:
-    there is no famod f64 engine yet)."""
-    cfg = Config(compute_dtype="f32", df_mode=3)
-    surf = make_surface(n_cells, seed=seed, **FEQMOD_SURFACE)
-    state = feqmod_engine_state(workdir, cfg, surf, device)
-    out, plain, launches, repeats = _run_b3(famod_operands(state), cfg)
-    plain = spectra_units(state, plain)
-    return FeqmodCaseResult(spectra_units(state, out), plain, plain,
-                            launches, repeats, breakdown_cells(state))
+def famod_surface(workdir: str | Path, n_cells: int, seed: int, device):
+    """make_surface(n_cells, seed, **FAMOD_SURFACE) with the HRG (E, P) of
+    the workdir's species list."""
+    workdir = Path(workdir)
+    surf = make_surface(n_cells, seed=seed, **FAMOD_SURFACE)
+    return make_eos_consistent(
+        surf, read_pdg(3, workdir / "PDG"),
+        GaussLaguerre.from_file(workdir / "tables/gauss/gla_roots_weights.txt"),
+        device)
+
+
+def famod_engine_state(workdir: str | Path, cfg: Config, surf, device):
+    """The df-5 engines' inputs for ``surf`` with the workdir's tables:
+    (cells, famod prep, species, grid)."""
+    run = IS3D(workdir, cfg=cfg, device=device)
+    run.surface = surf
+    run._setup()
+    return famod_state(surf, run.species, run.chosen_idx, run.grids, cfg,
+                       device)
+
+
+def check_famod_case(workdir: str | Path, n_cells: int, seed: int, device,
+                     surf=None, **cfg_fields) -> FeqmodCaseResult:
+    """Kernel B3's famod mode (its plain version on a CPU device), the
+    plain version and the f64 famod engine on the famod prep of
+    famod_surface(n_cells, seed) (or of ``surf``, a mode-2/3 surface's
+    variables included), compute_dtype f32."""
+    cfg = Config(compute_dtype="f32", df_mode=5, **cfg_fields)
+    if surf is None:
+        surf = famod_surface(workdir, n_cells, seed, device)
+    state = famod_engine_state(workdir, cfg, surf, device)
+    out, plain, launches, repeats = _run_b3(fk.famod_operands(*state, cfg),
+                                            cfg)
+    ref = spectra_famod(*state, cfg).cpu().numpy()
+    kern = spectra_units(state, out)
+    return FeqmodCaseResult(kern, spectra_units(state, plain),
+                            ref.reshape(kern.shape), launches, repeats,
+                            breakdown_cells(state))
+
+
+def check_famod_ragged_case(workdir: str | Path, n_cells: int, seed: int,
+                            device) -> FeqmodCaseResult:
+    """Kernel B3's famod mode against its plain version (which also stands
+    in for f64) on the famod operands cut to RAGGED."""
+    cfg = Config(compute_dtype="f32", df_mode=5)
+    state = famod_engine_state(workdir, cfg,
+                               famod_surface(workdir, n_cells, seed, device),
+                               device)
+    return _b3_ragged(state, fk.famod_operands(*state, cfg), cfg)

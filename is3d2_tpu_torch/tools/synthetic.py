@@ -9,19 +9,24 @@ package's CLI) reads, with no data files from outside the repository:
   tables/momentum/{pT,phi,y}_table.dat
   tables/spacetime_rapidity/eta_table.dat
   deltaf_coefficients/vh/smash_box/*.dat      from generate_deltaf_tables
-  input/surface.dat                           mode-1 surface
+  input/surface.dat                           mode-1 surface (or mode 2/3)
   iS3D_parameters.dat
 
 ``make_surface`` and ``write_mode1`` are copies of tests/surfgen.py, so the
-same seed gives the same surface bit for bit.
+same seed gives the same surface bit for bit; ``make_eos_consistent`` is
+the torch counterpart of its helper of that name (the HRG (E, P) at each
+cell's T, so that a df-5 run can reconstruct (E, p_L, p_T)).
+``write_mode2`` / ``write_mode3`` write the legacy VAH formats the port
+reads for df 5.
 
 Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]
-[--operation 1|2] [--df-mode 1-4] [--compute-dtype f32c|f32|f64]
+[--operation 1|2] [--df-mode 1-5] [--compute-dtype f32c|f32|f64]
 [--use-pallas -1|0|1] [--shear-scale X] [--bulk-scale X]
 [--test-sampler 1|0]``.  ``--compute-dtype f64 --use-pallas 1``
 selects kernel B2 for df 1/2.  The feqmod breakdown branch (df 3/4) needs
 viscous corrections well above the defaults: ``--shear-scale 0.2
---bulk-scale 0.1`` sends a few percent of the cells there.
+--bulk-scale 0.1`` sends a few percent of the cells there.  ``--df-mode 5``
+writes an EOS-consistent surface.
 """
 
 from __future__ import annotations
@@ -30,11 +35,13 @@ import argparse
 from pathlib import Path
 
 import numpy as np
+import torch
 from scipy.special import roots_genlaguerre
 
-from ..constants import hbarC
+from ..constants import hbarC, two_pi2_hbarC3
 from ..io.pdg import decode_mcid
 from ..io.surface import SurfaceData
+from ..physics import thermal
 from .generate_deltaf_tables import compute_tables
 from .generate_deltaf_tables import write_tables as write_df_tables
 
@@ -101,6 +108,95 @@ def write_mode1(s: SurfaceData, path: str | Path, include_baryon: bool = False,
         cols += [s.wtx, s.wty, s.wtn, s.wxy, s.wxn, s.wyn]
     arr = np.column_stack(cols)
     np.savetxt(path, arr, fmt="%.16e")
+
+
+def make_eos_consistent(s: SurfaceData, species_table, laguerre,
+                        device="cpu", block: int = 4096) -> SurfaceData:
+    """Overwrite (E, P) with the HRG equilibrium values at each cell's T
+    (every massive species of the table), so that the VAH solver can
+    reconstruct (E, p_L, p_T).  f64 on ``device``, ``block`` cells at a
+    time (one (cells x species x 32) block is ~50 MB)."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    mask = species_table.mass > 0
+    m_sp = t(species_table.mass[mask])
+    g = t(species_table.gspin[mask])[None, :]
+    sgn = t(species_table.sign[mask])[None, :]
+    r2, w2 = laguerre.roots[2], laguerre.weights[2]
+    E_out, P_out = [], []
+    for i in range(0, s.T.shape[0], block):
+        T = t(s.T[i:i + block])
+        mbar = m_sp[None, :] / T[:, None]
+        zero = torch.zeros_like(mbar)
+        E_int = thermal.E_mod_integral(r2, w2, mbar, zero, sgn)
+        P_int = thermal.P_mod_integral(r2, w2, mbar, zero, sgn)
+        fact = T ** 4 / two_pi2_hbarC3
+        E_out.append((fact * (g * E_int).sum(dim=1)).cpu().numpy())
+        P_out.append((fact * (g * P_int).sum(dim=1)).cpu().numpy())
+    s.E = np.concatenate(E_out)
+    s.P = np.concatenate(P_out) / 3.0
+    return s
+
+
+def _vah_head(s: SurfaceData) -> list:
+    """The columns both legacy VAH formats start with, up to T."""
+    ut = np.sqrt(1.0 + s.ux**2 + s.uy**2 + (s.tau * s.un) ** 2)
+    return [s.tau, s.x, s.y, s.eta, s.dat, s.dax, s.day, s.dan,
+            ut, s.ux, s.uy, s.un, s.E / hbarC, s.T / hbarC]
+
+
+def _vah_shear_w(s: SurfaceData) -> list:
+    """pi^munu (tt tx ty tn recomputed by the reader, nn too) and W^mu = 0."""
+    z = np.zeros(s.n_cells)
+    return [z, z, z, z, s.pixx / hbarC, s.pixy / hbarC, s.pixn / hbarC,
+            s.piyy / hbarC, s.piyn / hbarC, z, z, z, z, z]
+
+
+def write_mode2(s: SurfaceData, path: str | Path, pl=None) -> None:
+    """Write in the legacy VAH P_L-matching format (mode 2,
+    readindata.cu:812-930): ..., E, T, P, pl, pi^munu[10], W^mu[4], bulkPi
+    in raw hbar=1 units; ``pl`` defaults to P."""
+    pl = s.P if pl is None else pl
+    cols = (_vah_head(s) + [s.P / hbarC, pl / hbarC] + _vah_shear_w(s)
+            + [s.bulkPi / hbarC])
+    np.savetxt(path, np.column_stack(cols), fmt="%.17g")
+
+
+def write_mode3(s: SurfaceData, path: str | Path, lam, aT, aL, pl=None,
+                pt=None) -> None:
+    """Write in the legacy VAH (P_L, P_T)-matching format (mode 3,
+    readindata.cu:932-1055): ..., e, T, pl, pt, pi^munu[10], W^mu[4],
+    Lambda, aT, aL in raw hbar=1 units, no baryon columns; ``pl`` and ``pt``
+    default to P.  The format has no bulkPi column."""
+    pl = s.P if pl is None else pl
+    pt = s.P if pt is None else pt
+    cols = (_vah_head(s) + [pl / hbarC, pt / hbarC] + _vah_shear_w(s)
+            + [np.asarray(lam) / hbarC, aT, aL])
+    np.savetxt(path, np.column_stack(cols), fmt="%.17g")
+
+
+def write_vah_surface(s: SurfaceData, path: str | Path, mode: int,
+                      species_table, device="cpu") -> None:
+    """Write ``s`` in VAH mode 2 or 3 with its LRF (pl, pt); mode 3 also
+    carries (Lambda, aT, aL) from the port's reconstruction (f64 on
+    ``device``)."""
+    from ..config import Config
+    from ..core.spectra_famod import famod_cells, lrf_pressures, prepare_famod
+    cfg = Config(df_mode=5, cell_block=s.n_cells)   # no padding cells
+    cells = famod_cells(s, cfg, device)
+    n = s.n_cells
+
+    def h(t):
+        return t.cpu().numpy()[:n]
+
+    _, _, pl, pt = lrf_pressures(cells)
+    if mode == 2:
+        write_mode2(s, path, h(pl))
+        return
+    fm = prepare_famod(cells, species_table, cfg)
+    write_mode3(s, path, h(fm.lam), h(fm.aT), h(fm.aL), h(pl), h(pt))
 
 
 # ground states and low resonances: (name, mass [GeV], parity, MC IDs);
@@ -201,7 +297,9 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
                   n_pT: int = 51, n_phi: int = 48, n_eta: int = 24,
                   params: dict | None = None, include_baryon: bool = False,
                   shear_scale: float = 0.02, bulk_scale: float = 0.01,
-                  n_T: int = 101, n_muB: int | None = None) -> Path:
+                  n_T: int = 101, n_muB: int | None = None,
+                  eos_consistent: bool = False, surface_mode: int = 1,
+                  device="cpu") -> Path:
     """Write a complete working directory; returns its path.
 
     ``chosen_mcids`` defaults to every species of the list.  ``params``
@@ -209,8 +307,13 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
     ``{"operation": 2}`` makes it a sampler run, which reads the same
     files).
     The delta-f tables span T = 0.1..0.2 GeV in ``n_T`` points and, with
-    baryons, muB = 0..0.8 GeV in ``n_muB`` points (one point without)."""
+    baryons, muB = 0..0.8 GeV in ``n_muB`` points (one point without).
+    ``eos_consistent`` replaces (E, P) by the HRG values (make_eos_consistent
+    on ``device``), as a df-5 run needs.  ``surface_mode`` 2 or 3 writes a
+    legacy VAH surface (write_vah_surface; mode 3 reconstructs on
+    ``device``) and sets ``mode`` in the parameters."""
     from ..io.pdg import SpeciesTable, read_pdg_smash_box
+    from ..io.tables import GaussLaguerre
 
     root = Path(root)
     (root / "PDG").mkdir(parents=True, exist_ok=True)
@@ -230,9 +333,19 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
 
     surf = make_surface(n_cells, seed=seed, include_baryon=include_baryon,
                         shear_scale=shear_scale, bulk_scale=bulk_scale)
-    write_mode1(surf, root / "input/surface.dat", include_baryon=include_baryon)
+    if eos_consistent:
+        make_eos_consistent(surf, species, GaussLaguerre.from_file(
+            root / "tables/gauss/gla_roots_weights.txt"), device)
+    if surface_mode == 1:
+        write_mode1(surf, root / "input/surface.dat",
+                    include_baryon=include_baryon)
+    elif include_baryon:
+        raise ValueError("the VAH surface writers take no baryon columns")
+    else:
+        write_vah_surface(surf, root / "input/surface.dat", surface_mode,
+                          species, device)
 
-    p = {"operation": 1, "mode": 1, "hrg_eos": 3, "dimension": 2,
+    p = {"operation": 1, "mode": surface_mode, "hrg_eos": 3, "dimension": 2,
          "df_mode": 1, "include_baryon": int(include_baryon),
          "include_bulk_deltaf": 1, "include_shear_deltaf": 1,
          "include_baryondiff_deltaf": int(include_baryon),
@@ -249,7 +362,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", type=int, default=100_000)
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--operation", type=int, default=1, choices=(1, 2))
-    ap.add_argument("--df-mode", type=int, default=1, choices=(1, 2, 3, 4))
+    ap.add_argument("--df-mode", type=int, default=1,
+                    choices=(1, 2, 3, 4, 5))
     ap.add_argument("--compute-dtype", default="f32c",
                     choices=("f32c", "f32", "f64"))
     ap.add_argument("--use-pallas", type=int, default=-1, choices=(-1, 0, 1),
@@ -268,7 +382,8 @@ def main(argv=None) -> int:
                           "df_mode": args.df_mode,
                           "compute_dtype": args.compute_dtype,
                           "use_pallas": args.use_pallas},
-                  shear_scale=args.shear_scale, bulk_scale=args.bulk_scale)
+                  shear_scale=args.shear_scale, bulk_scale=args.bulk_scale,
+                  eos_consistent=args.df_mode == 5)
     print(f"wrote {args.workdir}")
     return 0
 

@@ -10,12 +10,13 @@ Same per-cell state into both packages (tests/torch_parity.py), 512 cells,
   * the kernel's plain version against the JAX kernel in interpret mode on
     the same operands: <= 1e-5 (on the mild surface with forced
     breakdowns, see torch_parity), and against the JAX f64 engine: <= 1e-4,
-    the bar of the JAX kernel (tests/test_pallas_kernel.py).
+    the bar of the JAX kernel (tests/test_pallas_kernel.py).  The famod
+    mode's operands are packed from the JAX package's own f64 famod prep
+    (torch_parity.famod_state), carried across by interop.famod_from_numpy.
 Errors are relative, on bins >= 1e-4 of their species' peak.
 """
 
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -35,14 +36,13 @@ from is3d2_tpu.physics import thermal as j_thermal  # noqa: E402
 from is3d2_tpu.report import RunReport as JRunReport  # noqa: E402
 
 from torch_parity import (BLOCK, CHOSEN, MILD_SHEAR, build_workdir,  # noqa: E402
-                          feqmod_state, max_rel_err, numpy_fields,
-                          port_config)
+                          famod_state, feqmod_state, max_rel_err,
+                          numpy_fields, port_config)
 
 from is3d2_tpu_torch import interop  # noqa: E402
 from is3d2_tpu_torch.config import Config  # noqa: E402
 from is3d2_tpu_torch.core.feqmod import FeqmodCellData, prepare_feqmod  # noqa: E402
 from is3d2_tpu_torch.core.spectra import PREFACTOR  # noqa: E402
-from is3d2_tpu_torch.core.spectra_fast import fold_eta_quadrature  # noqa: E402
 from is3d2_tpu_torch.core.spectra_feqmod import spectra_feqmod  # noqa: E402
 from is3d2_tpu_torch.io.deltaf_tables import DeltafTables  # noqa: E402
 from is3d2_tpu_torch.io.pdg import read_pdg  # noqa: E402
@@ -51,7 +51,6 @@ from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
 from is3d2_tpu_torch.physics import lrf, thermal  # noqa: E402
 from is3d2_tpu_torch.physics.deltaf import DeltafData  # noqa: E402
 from is3d2_tpu_torch.report import RunReport  # noqa: E402
-from is3d2_tpu_torch.tools import kernel_check as kc  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -87,13 +86,24 @@ def states(workdir):
 
 @pytest.fixture(scope="module")
 def mild(workdir):
-    """The mild surface with forced breakdowns, per kernel case."""
+    """The mild surface with forced breakdowns, per kernel case (famod: the
+    EOS-consistent surface at MILD_SHEAR)."""
     out = {}
     for name in KERNEL_CASES:
-        df_mode, baryon, kw = CASES["df3" if name == "famod" else name]
+        if name == "famod":
+            out[name] = famod_state(workdir, shear_scale=MILD_SHEAR,
+                                    force_breaks=True)
+            continue
+        df_mode, baryon, kw = CASES[name]
         out[name] = feqmod_state(workdir, df_mode, baryon,
                                  shear_scale=MILD_SHEAR, force_breaks=True, **kw)
     return out
+
+
+@pytest.fixture(scope="module")
+def famod(workdir):
+    """The famod state of the EOS-consistent surface at FAMOD_SHEAR."""
+    return famod_state(workdir)
 
 
 def _jax_f64(st):
@@ -115,21 +125,10 @@ def _rel(ours, ref):
                  / max(np.abs(ref[fin]).max(), 1e-300))
 
 
-def _j_famod(j_fq):
-    """A famod prep for the JAX pack, built from a feqmod prep exactly as
-    kernel_check.famod_operands builds the port's operands."""
-    return types.SimpleNamespace(
-        Xt=j_fq.Xt, Xx=j_fq.Xx, Xy=j_fq.Xy, Xn=j_fq.Xn, Yx=j_fq.Yx,
-        Yy=j_fq.Yy, Zt=j_fq.Zt, Zn=j_fq.Zn, Binv=j_fq.Ainv, lam=j_fq.T_mod,
-        upsilonB=j_fq.alphaB_mod, eta_scale=j_fq.eta_scale,
-        breaks_down=j_fq.breaks_down, detB=j_fq.detA,
-        renorm=np.asarray(j_fq.renorm)[:, 0])
-
-
 def _jax_operands(st, kind):
     j_cells, j_grid, _ = j_fold(st.j_cells, st.j_grid, st.cfg, strict=True)
     if kind == "famod":
-        data = _pack_famod_fast(j_cells, _j_famod(st.j_fq), S)
+        data = _pack_famod_fast(j_cells, st.j_fm, S)
     else:
         data = _pack_feqmod_fast(j_cells, st.j_fq, st.cfg)
     return pack_feqmod_pallas(data, st.j_species, j_grid, 256, 512)
@@ -138,9 +137,7 @@ def _jax_operands(st, kind):
 def _port_operands(st, kind):
     cfg = port_config(st.cfg)
     if kind == "famod":
-        cells, grid, _ = fold_eta_quadrature(st.cells, st.grid, cfg,
-                                             strict=True)
-        return kc.famod_operands((cells, st.fq, st.species, grid))
+        return fk.famod_operands(st.cells, st.fm, st.species, st.grid, cfg)
     return fk.feqmod_operands(st.cells, st.fq, st.species, st.grid, cfg)
 
 
@@ -325,8 +322,9 @@ def test_pack_matches_jax_pack(states, case):
     _assert_pack_equal(ops, _jax_operands(st, "feqmod"))
 
 
-def test_famod_pack_matches_jax_pack(states):
-    st, _ = states["df3"]
+def test_famod_pack_matches_jax_pack(famod):
+    st = famod
+    assert (st.fm.breaks_down & (st.cells.mask > 0)).any()
     ops = _port_operands(st, "famod")
     _assert_pack_equal(ops, _jax_operands(st, "famod"))
 
@@ -351,7 +349,8 @@ def test_plain_kernel_vs_jax_kernel_interpret(mild, case):
     st = mild[case]
     kind = "famod" if case == "famod" else "feqmod"
     live = st.cells.mask.numpy() > 0
-    assert (st.fq.breaks_down.numpy() & live).sum() > 0
+    prep = st.fm if kind == "famod" else st.fq
+    assert (prep.breaks_down.numpy() & live).sum() > 0
     err = max_rel_err(_plain(st, kind), _jax_kernel(st, kind))
     assert err <= 1e-5, f"{case}: plain B3 vs JAX B3 (interpret) {err:.3e}"
 
@@ -475,7 +474,8 @@ def test_wrapper_checks_operands(states):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,match,exc", [
-    ({"df_mode": 5}, "A10", NotImplementedError),
+    ({"df_mode": 5, "compute_dtype": "f32", "use_pallas": 0}, "A9",
+     NotImplementedError),
     ({"df_mode": 4, "include_baryon": 1}, "does not support nonzero muB",
      ValueError),
     ({"df_mode": 3, "compute_dtype": "f32", "use_pallas": 0}, "A9",

@@ -181,10 +181,74 @@ def test_feqmod_kernel_vs_plain_and_f64(workdir, case):
 
 @pytest.mark.gpu
 def test_feqmod_kernel_famod_mode(workdir):
+    """B3's famod mode on the real famod prep (the VAH reconstruction of
+    an EOS-consistent surface, 2,048 cells): <= 1e-5 against its plain
+    version and <= 1e-4 against the f64 famod engine."""
     _needs_cuda()
-    r = kc.check_famod_operands(workdir, 512, 3, "cuda")
+    r = kc.check_famod_case(workdir, 2048, 3, "cuda", cell_block=512)
     assert r.launches == 1 and r.repeats and r.breakdown_cells > 0
+    assert np.isfinite(r.kernel).all()
     assert r.vs_plain <= kc.FEQMOD_TOL_PLAIN
+    assert r.vs_f64 <= kc.FEQMOD_TOL_F64
+
+
+@pytest.mark.gpu
+def test_famod_kernel_ragged_case(workdir):
+    """The famod operands cut to kc.RAGGED (rows of 7 phi, 105 momenta,
+    1,000 cells)."""
+    _needs_cuda()
+    r = kc.check_famod_ragged_case(workdir, 2048, 3, "cuda")
+    assert r.ok and r.launches == 1, (r.vs_plain, r.breakdown_cells)
+
+
+@pytest.fixture(scope="module")
+def workdir_eta80(workdir, tmp_path_factory):
+    """The workdir with an eta table of kc.ETA_NODES nodes."""
+    import shutil
+    from is3d2_tpu_torch.tools.synthetic import write_quadrature_tables
+    wd = shutil.copytree(workdir, tmp_path_factory.mktemp("gpu_eta") / "wd")
+    write_quadrature_tables(wd, 16, 8, kc.ETA_NODES)
+    return wd
+
+
+@pytest.mark.gpu
+def test_famod_kernel_80_eta_nodes_unfolded(workdir_eta80):
+    """80 eta nodes, not folded: three launches of at most 32 nodes, held
+    to the plain version and the f64 famod engine."""
+    _needs_cuda()
+    r = kc.check_famod_case(workdir_eta80, 2048, 3, "cuda", cell_block=512,
+                            eta_fold=0)
+    assert r.launches == -(-kc.ETA_NODES // fk.ETA_CHUNK) and r.repeats
+    assert r.vs_plain <= kc.FEQMOD_TOL_PLAIN
+    assert r.vs_f64 <= kc.FEQMOD_TOL_F64
+
+
+@pytest.mark.gpu
+def test_famod_kernel_on_a_mode3_surface(workdir, tmp_path):
+    """A mode-3 surface (its own Lambda, aT, aL: no Newton) through the
+    kernel: <= 1e-5 against the plain version, <= 1e-4 against f64."""
+    _needs_cuda()
+    from is3d2_tpu_torch.io.surface import read_surface
+    from is3d2_tpu_torch.tools.synthetic import write_vah_surface
+    from is3d2_tpu_torch.io.pdg import read_pdg
+    surf = kc.famod_surface(workdir, 2048, 3, "cuda")
+    path = tmp_path / "surface_mode3.dat"
+    write_vah_surface(surf, path, 3, read_pdg(3, workdir / "PDG"), "cuda")
+    surf3 = read_surface(path, 3, 2, False)
+    assert surf3.has_aniso_variables
+    r = kc.check_famod_case(workdir, 2048, 3, "cuda", surf=surf3,
+                            cell_block=512, mode=3)
+    assert r.launches == 1 and r.repeats and np.isfinite(r.kernel).all()
+    assert r.vs_plain <= kc.FEQMOD_TOL_PLAIN
+    assert r.vs_f64 <= kc.FEQMOD_TOL_F64
+
+
+def test_famod_kernel_check_plain_on_cpu(workdir):
+    """The famod harness on the CPU: the wrapper takes the plain version
+    (no launch), which meets the f64 famod engine on the real prep."""
+    r = kc.check_famod_case(workdir, 512, 3, "cpu", cell_block=512)
+    assert r.launches == 0 and r.vs_plain == 0.0
+    assert r.ok, (r.vs_f64, r.breakdown_cells)
 
 
 @pytest.mark.gpu

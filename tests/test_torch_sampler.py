@@ -29,14 +29,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-from scipy import stats as sstats
 
 torch = pytest.importorskip("torch")
 
 sys.path.insert(0, str(Path(__file__).parent))
 
-from torch_parity import (build_sampler_workdir, numpy_fields,  # noqa: E402
-                          port_config, sampler_inputs)
+from torch_parity import (build_sampler_workdir, chi2_p,  # noqa: E402
+                          numpy_fields, port_config, sampler_inputs,
+                          scale_err)
 
 from is3d2_tpu.config import Config as JConfig  # noqa: E402
 from is3d2_tpu.core import sampler as js  # noqa: E402
@@ -86,11 +86,6 @@ def jcfg(df_mode, include_baryon=False, **kw):
 def closure_cfg(df_mode, **kw):
     return port_config(jcfg(df_mode, regulate_deltaf=1, outflow=1, fast=1,
                             y_cut=5.0, **kw))
-
-
-def scale_err(out, ref) -> float:
-    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
-    return float(np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-300))
 
 
 # ----------------------------------------------------------------------
@@ -422,20 +417,6 @@ def test_lean_host_boost_matches_device_boost(workdir):
                   - np.percentile(dev.eta, q)).max() < 0.35
 
 
-def _chi2_p(a, b, min_count=10):
-    """Two-sample chi^2 p-value of two histograms drawn for the same
-    number of events (bins with fewer than min_count entries together are
-    merged into one)."""
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    big = a + b >= min_count
-    aa = np.append(a[big], a[~big].sum())
-    bb = np.append(b[big], b[~big].sum())
-    keep = aa + bb > 0
-    aa, bb = aa[keep], bb[keep]
-    chi2 = float(((aa - bb) ** 2 / (aa + bb)).sum())
-    return float(sstats.chi2.sf(chi2, aa.shape[0])), chi2, aa.shape[0]
-
-
 @pytest.mark.parametrize("df_mode", [1, 4])
 def test_port_and_jax_samplers_agree(workdir, df_mode):
     n_events = 4000
@@ -450,6 +431,6 @@ def test_port_and_jax_samplers_agree(workdir, df_mode):
     ours = bin_sampled_particles(out, PIKP_N, port_config(cfg), n_events)
     for name in ("dN_dy", "dN_2pipTdpTdy"):
         for i in range(PIKP_N):
-            p, chi2, dof = _chi2_p(getattr(ours, name)[i],
+            p, chi2, dof = chi2_p(getattr(ours, name)[i],
                                    np.asarray(getattr(ref, name))[i])
             assert p > 1e-3, (name, i, chi2, dof)

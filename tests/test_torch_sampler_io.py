@@ -248,7 +248,7 @@ def test_sampler_report_lines_match_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"df_mode": 5}, "A10"), ({"dimension": 3}, "A7"),
+    ({"df_mode": 5, "mode": 2}, "A2b"), ({"dimension": 3}, "A7"),
     ({"use_mesh": 1}, "A12"), ({"mode": 6}, "A2b"),
     ({"group_particles": 1}, "A11")])
 def test_validate_slice_operation2_names_its_item(kw, item):
@@ -258,7 +258,7 @@ def test_validate_slice_operation2_names_its_item(kw, item):
 
 @pytest.mark.parametrize("kw", [
     {"df_mode": d, "test_sampler": t, "fast": f, "compute_dtype": c}
-    for d in (1, 2, 3, 4) for t, f, c in ((1, 1, "f64"), (0, 0, "f32c"))]
+    for d in (1, 2, 3, 4, 5) for t, f, c in ((1, 1, "f64"), (0, 0, "f32c"))]
     + [{"df_mode": 1, "use_pallas": 0, "compute_dtype": "f32"}])
 def test_validate_slice_lets_operation2_through(kw):
     Config(operation=2, **kw).validate_slice()

@@ -7,7 +7,9 @@ the JAX objects are converted with ``np.asarray`` and fed to the port through
 phi, 24 eta nodes (12 after the fold).
 
 The feqmod cases (df 3/4) use a surface with large viscous corrections
-(FEQMOD_SHEAR, FEQMOD_BULK), so that some cells take the breakdown branch.
+(FEQMOD_SHEAR, FEQMOD_BULK), so that some cells take the breakdown branch;
+the famod cases (df 5) an EOS-consistent surface (eos_surface: FAMOD_SHEAR,
+FAMOD_BULK) and the JAX package's own f64 famod prep.
 Against the JAX kernel in interpret mode they use a milder surface
 (MILD_SHEAR) with breakdown forced on every FORCE_EVERY-th cell: on the
 large-viscosity surface the JAX kernel's own f32 error is ~1e-4 (ROADMAP
@@ -35,7 +37,10 @@ from is3d2_tpu.io.tables import load_table as j_load_table
 from is3d2_tpu.physics.deltaf import DeltafData as JDeltafData
 
 from is3d2_tpu_torch import interop
-from is3d2_tpu_torch.tools.synthetic import make_surface, write_workdir
+from is3d2_tpu_torch.io.pdg import read_pdg
+from is3d2_tpu_torch.io.tables import GaussLaguerre
+from is3d2_tpu_torch.tools.synthetic import (make_eos_consistent,
+                                             make_surface, write_workdir)
 
 CHOSEN = (211, -211, 111, 321, -321, 2212, -2212, 3122)
 N_CELLS = 512
@@ -138,6 +143,27 @@ def max_rel_err(out: np.ndarray, ref: np.ndarray, floor: float = 1e-4) -> float:
     return float((np.abs(out - ref)[sig] / np.abs(ref)[sig]).max())
 
 
+def scale_err(out, ref) -> float:
+    """Max |out - ref| over max |ref|."""
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+def chi2_p(a, b, min_count=10):
+    """Two-sample chi^2 p-value of two histograms drawn for the same
+    number of events (bins with fewer than min_count entries together are
+    merged into one): (p, chi2, degrees of freedom)."""
+    from scipy import stats
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    big = a + b >= min_count
+    aa = np.append(a[big], a[~big].sum())
+    bb = np.append(b[big], b[~big].sum())
+    keep = aa + bb > 0
+    aa, bb = aa[keep], bb[keep]
+    chi2 = float(((aa - bb) ** 2 / (aa + bb)).sum())
+    return float(stats.chi2.sf(chi2, aa.shape[0])), chi2, aa.shape[0]
+
+
 @dataclasses.dataclass
 class FeqmodState:
     """One df 3/4 case: the JAX feqmod state and the same state as port
@@ -191,6 +217,77 @@ def feqmod_state(workdir: Path, df_mode: int, include_baryon: bool = False,
         j_fq=j_fq, j_species=j_species, j_grid=j_grid,
         cells=interop.cells_from_numpy(numpy_fields(j_cells)),
         fq=interop.feqmod_from_numpy(numpy_fields(j_fq)),
+        species=interop.species_from_numpy(numpy_fields(j_species)),
+        grid=interop.grid_from_numpy(numpy_fields(j_grid)))
+
+
+# ----------------------------------------------------------------------
+# famod (df 5)
+# ----------------------------------------------------------------------
+
+# viscous corrections of the famod cases: ~1 % of the cells break down
+FAMOD_SHEAR = 0.1
+FAMOD_BULK = 0.05
+
+
+def eos_surface(workdir: Path, n_cells: int = N_CELLS, seed: int = 3,
+                shear_scale: float = FAMOD_SHEAR,
+                bulk_scale: float = FAMOD_BULK, **kw):
+    """make_surface with the HRG (E, P) of the workdir's species list (the
+    port's make_eos_consistent), so that the VAH solver can reconstruct
+    (E, pl, pt)."""
+    surf = make_surface(n_cells, seed=seed, shear_scale=shear_scale,
+                        bulk_scale=bulk_scale, **kw)
+    return make_eos_consistent(
+        surf, read_pdg(3, workdir / "PDG"),
+        GaussLaguerre.from_file(workdir / "tables/gauss/gla_roots_weights.txt"))
+
+
+@dataclasses.dataclass
+class FamodState:
+    """One df-5 case: the JAX famod state (its f64 prep) and the same state
+    as port tensors (the port's prep is fed the JAX prep's output)."""
+
+    cfg: JConfig
+    surf: object
+    j_species_table: object
+    j_cells: object
+    j_fm: object
+    j_species: object
+    j_grid: object
+    cells: object        # port CellArrays (cpu)
+    fm: object           # port FamodCellData (cpu)
+    species: object
+    grid: object
+
+
+def famod_state(workdir: Path, shear_scale: float = FAMOD_SHEAR,
+                force_breaks: bool = False, n_cells: int = N_CELLS,
+                **cfg_kw) -> FamodState:
+    """The JAX package's f64 famod prep (_prepare_famod_host) on
+    eos_surface(workdir, n_cells), and the same state as port tensors.
+    ``force_breaks`` sends every FORCE_EVERY-th cell to the breakdown
+    branch as well."""
+    from is3d2_tpu.core.spectra_famod import prepare_famod as j_prepare_famod
+    cfg = jax_config(5, **cfg_kw)
+    species_t = j_read_pdg(3, workdir / "PDG")
+    chosen = species_t.chosen_indices(
+        j_load_table(workdir / "PDG/chosen_particles.dat")[:, 0].astype(int))
+    grids = JGrids.from_dir(workdir / "tables")
+    surf = eos_surface(workdir, n_cells, shear_scale=shear_scale)
+    j_cells = j_prepare_cells(surf, cfg, block=BLOCK)
+    j_fm = j_prepare_famod(j_cells, species_t, cfg)
+    if force_breaks:
+        every = np.arange(j_cells.n_padded) % FORCE_EVERY == 0
+        j_fm = dataclasses.replace(
+            j_fm, breaks_down=np.asarray(j_fm.breaks_down) | every)
+    j_species = JSpecies.from_table(species_t, chosen)
+    j_grid = JGrid.from_grids(grids, 2)
+    return FamodState(
+        cfg=cfg, surf=surf, j_species_table=species_t, j_cells=j_cells,
+        j_fm=j_fm, j_species=j_species, j_grid=j_grid,
+        cells=interop.cells_from_numpy(numpy_fields(j_cells)),
+        fm=interop.famod_from_numpy(numpy_fields(j_fm)),
         species=interop.species_from_numpy(numpy_fields(j_species)),
         grid=interop.grid_from_numpy(numpy_fields(j_grid)))
 
