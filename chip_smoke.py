@@ -78,11 +78,34 @@ Phases (any failure raises; nothing is caught):
      hadrons, a fixed seed, phase 12's bounds (yield, no dropped lane, equal
      bits from one seed, dN/dy of pi+, K+ and p within 5 sigma + 1% of an
      op-1 run of phase 14's surface on tables that resolve it: 96 eta nodes,
-     pT to 6 GeV) and no kernel launch in the sampler.
+     pT to 6 GeV) and no kernel launch in the sampler;
+ 17. the grouped main path through the CLI: phase 5's surface written in
+     mode 6 (public MUSIC), df 1, f32c, group_particles 1 (371 species ->
+     94 representatives at tolerance 0.01).  Only B1 may launch; it prints
+     M and B1's time on the representatives, and holds the grouped spectra
+     to an ungrouped run of the same surface: <= 1e-12 on the species that
+     share (mass, sign, baryon) with their representative, <= GROUP_BAR
+     (the grouping's own error, measured with the JAX package) on all;
+ 18. operation 0 (dN/dX), df 1, f32c, on phase 5's surface through the
+     CLI: B1 once per non-empty (tau, r, phi_s) bin, the launches timed one
+     by one by CUDA events and summed; the files finite, the tau bins
+     summed back to phase 5's dN/dy of pi+, K+ and p (<= 1e-5); B1 on the
+     fullest bin's cells at the full M against its plain version
+     (<= 1e-6); and at 2,048 cells the whole route against its plain
+     version and the f64 engine (<= 1e-6 both);
+ 19. operation 0, df 4, f32, on a mode-6 surface with dsigma_eta / tau in
+     +-0.05 (not folded: 24 eta nodes), shear 0.2, bulk 0.1: B3 in its
+     dan-weighted variant once per bin, timed as in 18; B3 on the fullest
+     bin that holds a breakdown cell against its plain version (<= 1e-5);
+     at 2,048 cells (df 4, and df 3 with outflow, where the convention
+     decides the number) the route against its plain version (<= 1e-5) and
+     the f64 engine (<= 1e-4).
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
 12-13's and 16's numbers.  The line before the last is a JSON object with each
-kernel's measurements,
+kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
+"operation0", phase 19 under B3's "operation0", each with the launches of
+its own path),
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
 (no single PyTorch call computes a Cooper-Frye sum), and the register tile
@@ -97,6 +120,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -333,16 +357,36 @@ def phase_b3_compare(wd: Path, wd_eta: Path) -> None:
 
 def run_main_path(tmp: Path, label: str, kernel: str, params: dict,
                   **surface_kw) -> tuple[int, dict, Path, str]:
-    """Write the full-size workdir and run the CLI on it, with every launch
-    count set to 0 just before and read just after.  Only ``kernel`` may
-    launch."""
-    from is3d2_tpu_torch import cli
+    """Write the full-size workdir and run the operation-1 CLI on it
+    (run_cli), then check its result files."""
     from is3d2_tpu_torch.tools.synthetic import write_workdir
 
     t0 = time.perf_counter()
     wd = write_workdir(tmp / label, n_cells=MAIN_CELLS, params=params,
                        **surface_kw)
     print(f"workdir written in {time.perf_counter() - t0:.1f} s")
+    launches, stages, out = run_cli(wd, kernel)
+
+    res = wd / "results/continuous"
+    mcids = [int(v) for v in np.loadtxt(wd / "PDG/chosen_particles.dat")]
+    for m in mcids:
+        v = np.loadtxt(res / f"dN_pTdpTdphidy_{m}.dat", skiprows=1)[:, 3]
+        if v.shape != (51 * 48,) or not np.isfinite(v).all() or (v < 0).any():
+            raise AssertionError(f"spectra of {m}: bad shape, value or sign")
+    dndy = {m: float(np.loadtxt(res / f"dN_dy_{m}.dat")[1])
+            for m in (211, 321, 2212)}
+    print(f"{len(mcids)} species; dN/dy pi+ {dndy[211]:.6g}  K+ "
+          f"{dndy[321]:.6g}  p {dndy[2212]:.6g}")
+    if not dndy[211] > dndy[321] > dndy[2212] > 0:
+        raise AssertionError("dN/dy is not ordered pi+ > K+ > p")
+    return launches, stages, wd, out
+
+
+def run_cli(wd: Path, kernel: str) -> tuple[int, dict, str]:
+    """cli.main on a workdir with every launch count set to 0 just before
+    and read just after.  Only ``kernel`` may launch, and it must.
+    Returns its launches, the driver's stage seconds and the log."""
+    from is3d2_tpu_torch import cli
     counters = launch_counters()
     log = io.StringIO()
     for fn in counters.values():
@@ -363,20 +407,7 @@ def run_main_path(tmp: Path, label: str, kernel: str, params: dict,
         raise AssertionError(f"the {kernel} main path launched another kernel")
     stages = json.loads(re.search(r"^stage seconds: (.*)$", out,
                                   re.M).group(1))
-
-    res = wd / "results/continuous"
-    mcids = [int(v) for v in np.loadtxt(wd / "PDG/chosen_particles.dat")]
-    for m in mcids:
-        v = np.loadtxt(res / f"dN_pTdpTdphidy_{m}.dat", skiprows=1)[:, 3]
-        if v.shape != (51 * 48,) or not np.isfinite(v).all() or (v < 0).any():
-            raise AssertionError(f"spectra of {m}: bad shape, value or sign")
-    dndy = {m: float(np.loadtxt(res / f"dN_dy_{m}.dat")[1])
-            for m in (211, 321, 2212)}
-    print(f"{len(mcids)} species; dN/dy pi+ {dndy[211]:.6g}  K+ "
-          f"{dndy[321]:.6g}  p {dndy[2212]:.6g}")
-    if not dndy[211] > dndy[321] > dndy[2212] > 0:
-        raise AssertionError("dN/dy is not ordered pi+ > K+ > p")
-    return launches[kernel], stages, wd, out
+    return launches[kernel], stages, out
 
 
 def phase_b1_main_path(tmp: Path) -> tuple[int, dict, Path]:
@@ -417,7 +448,8 @@ def main_path_state(wd: Path, state_fn):
     from is3d2_tpu_torch.io.surface import read_surface
 
     cfg = Config.from_file(wd / "iS3D_parameters.dat")
-    surf = read_surface(wd / "input/surface.dat", 1, 2, False)
+    surf = read_surface(wd / "input/surface.dat", cfg.mode, cfg.dimension,
+                        bool(cfg.include_baryon))
     return cfg, state_fn(wd, cfg, surf, "cuda")
 
 
@@ -594,9 +626,9 @@ SAMPLER_SEED = 20261017
 CURAND_POISSON_NORMAL = 4000.0
 
 
-def op2_workdir(tmp: Path, src: Path, label: str, params: dict) -> Path:
+def derived_workdir(tmp: Path, src: Path, label: str, params: dict) -> Path:
     """A copy of a main path's workdir (no results) with its parameters
-    updated to an operation-2 run."""
+    updated, e.g. to an operation-2 or operation-0 run."""
     wd = shutil.copytree(src, tmp / label,
                          ignore=shutil.ignore_patterns("results"))
     p = wd / "iS3D_parameters.dat"
@@ -741,7 +773,7 @@ def phase_timings(wd: Path) -> dict:
 def phase_sampler_histograms(tmp: Path, wd1: Path) -> dict:
     print(f"== 12. op-2 histogram main path: {MAIN_CELLS} cells, all "
           "species, df 1, test_sampler 1, fast 1, min_num_hadrons 1e7")
-    wd = op2_workdir(tmp, wd1, "op2_hist", {
+    wd = derived_workdir(tmp, wd1, "op2_hist", {
         "operation": 2, "test_sampler": 1, "fast": 1,
         "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
         "sampler_seed": SAMPLER_SEED})
@@ -778,7 +810,7 @@ def dndy_closure(wd: Path, wd_op1: Path, n_events: int) -> dict:
 def phase_sampler_oscar(tmp: Path, wd4: Path) -> dict:
     print(f"== 13. op-2 OSCAR path: {MAIN_CELLS} cells, all species, df 4 "
           "(shear 0.2, bulk 0.1), test_sampler 0, min_num_hadrons 1e7")
-    wd = op2_workdir(tmp, wd4, "op2_oscar", {
+    wd = derived_workdir(tmp, wd4, "op2_oscar", {
         "operation": 2, "test_sampler": 0, "fast": 1,
         "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
         "sampler_seed": SAMPLER_SEED})
@@ -874,7 +906,7 @@ def phase_famod_full(wd: Path) -> dict:
 def phase_famod_sampler(tmp: Path, wd5: Path) -> dict:
     print(f"== 16. op-2 df-5 histograms: phase 14's {MAIN_CELLS} cells, all "
           "species, test_sampler 1, min_num_hadrons 1e7")
-    wd = op2_workdir(tmp, wd5, "op2_df5", {
+    wd = derived_workdir(tmp, wd5, "op2_df5", {
         "operation": 2, "test_sampler": 1, "fast": 1,
         "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
         "sampler_seed": SAMPLER_SEED})
@@ -907,6 +939,293 @@ def famod_reference(tmp: Path, wd5: Path) -> Path:
     return wd
 
 
+# The grouping's own error: grouped against ungrouped spectra, the max
+# relative error over the species on bins >= 1e-4 of each species' peak.
+# The JAX package's group_particles gives 0.0709 on the synthetic list's
+# surface (512 cells) at particle_diff_tolerance 0.01, from eta' grouped
+# with a radial eta excitation 9.9 MeV below it (CPU; tests/
+# test_torch_group.py::test_the_grouping_bar_of_the_chip_check prints it,
+# holds the port's error to the JAX package's and both under this bar).
+GROUP_BAR = 0.075
+GROUP_BAR_SOURCE = ("the JAX package's grouping error on this list, "
+                    "0.0709 at 512 cells on the CPU")
+
+
+def phase_grouped_main_path(tmp: Path) -> dict:
+    print(f"== 17. mode-6 grouped main path: {MAIN_CELLS} cells written in "
+          "mode 6, all species, 51 x 48 x 24, df 1, f32c, group_particles 1")
+    from is3d2_tpu_torch.core.spectra import compute_spectra, df12_state
+    from is3d2_tpu_torch.driver import IS3D
+    from is3d2_tpu_torch.ops import cooper_frye_comp as ck
+    from is3d2_tpu_torch.ops.spectra_fast_common import comp_operands
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    launches, stages, wd, _ = run_main_path(
+        tmp, "main_mode6_grouped", "cooper_frye_comp",
+        {"df_mode": 1, "compute_dtype": "f32c", "group_particles": 1},
+        surface_mode=6)
+    print(f"stage seconds: {json.dumps(stages)}")
+    run = IS3D(wd, device="cuda")
+    run.load_surface_from_file()
+    run._setup()
+    cfg, idx, table = run.cfg, run.chosen_idx, run.species
+    rep, group_of = table.group_species(idx, cfg.particle_diff_tolerance,
+                                        bool(cfg.include_baryon))
+    state = df12_state(run.surface, table, idx[rep], run.grids, run.df_data,
+                       cfg, "cuda")
+    ops = comp_operands(*state, cfg)
+    args = (*ops.args(), cfg)
+    ms, _ = cuda_ms(lambda: ck.cooper_frye_comp(*args, row_len=ops.row_len))
+    geometry = ck.cooper_frye_comp.last_geometry
+    M = ops.mom.shape[1]
+    per_species = M // len(rep)
+    print(f"{len(idx)} species -> {len(rep)} representatives: M "
+          f"{len(idx) * per_species} -> {M}; B1 {ms:.1f} ms "
+          f"({ops.evaluations / ms * 1e3:.4g} evaluations/s), launched with "
+          f"{geometry}")
+    surf = (run.surface, table, idx, run.grids, run.df_data)
+    grouped = compute_spectra(*surf, cfg, "cuda")
+    plain = compute_spectra(*surf, dataclasses.replace(cfg,
+                                                       group_particles=0),
+                            "cuda")
+    key = np.stack([table.mass, table.sign, table.baryon], axis=1)
+    exact = [i for i in range(len(idx))
+             if (key[idx[i]] == key[idx[rep[group_of[i]]]]).all()]
+    exact_err = kc.max_rel_err(grouped[exact], plain[exact])
+    errs = np.array([kc.max_rel_err(grouped[i:i + 1], plain[i:i + 1])
+                     for i in range(len(idx))])
+    worst = int(np.argmax(errs))
+    print(f"{len(exact)} species share (mass, sign, baryon) with their "
+          f"representative: grouped vs ungrouped {exact_err:.3e} (bar "
+          f"1e-12); every species: max {errs[worst]:.4e} "
+          f"({int(table.mc_id[idx[worst]])}), median {np.median(errs):.4e}; "
+          f"bar {GROUP_BAR:.4e}, {GROUP_BAR_SOURCE}")
+    if not (np.isfinite(grouped).all() and exact_err <= 1e-12
+            and errs.max() <= GROUP_BAR):
+        raise AssertionError("the grouped main path is off its ungrouped "
+                             "run beyond the grouping's bar")
+    bnd = bound(BOUND_OPS_PER_EVALUATION["cooper_frye_comp"]
+                * ops.evaluations, args, M)
+    return {"launches": launches, "stage_seconds": stages,
+            "species": len(idx), "representatives": len(rep), "momenta": M,
+            "ms": ms, "evaluations": ops.evaluations, **bnd,
+            "exact_multiplets": len(exact), "exact_max_rel_err": exact_err,
+            "max_grouping_err": float(errs.max()),
+            "cell_split": geometry.n_split}
+
+
+def dX_main_path_timing(wd: Path, state_fn, kernel, ops_of) -> dict:
+    """The operation-0 kernel route on a main path's state, each launch
+    timed by CUDA events: the summed kernel ms, the launches, the
+    evaluations, the bound (``ops_of(slice operands)``: the operations of
+    one launch) and the host wall of the whole route."""
+    from is3d2_tpu_torch.core import spacetime
+    cfg, state = main_path_state(wd, state_fn)
+    ops = spacetime.kernel_operands(*state, cfg)
+    events, work = [], {"evaluations": 0, "ops": 0.0, "bytes": 0}
+
+    def timed(o, c):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = spacetime.run_kernel(o, c)
+        end.record()
+        events.append((start, end))
+        work["evaluations"] += o.evaluations
+        work["ops"] += ops_of(o)
+        work["bytes"] += sum(a.numel() * a.element_size() for a in o.args()
+                             if isinstance(a, torch.Tensor)) \
+            + 8 * o.mom.shape[1]
+        return out
+
+    before = kernel.launches
+    t0 = time.perf_counter()
+    spacetime.kernel_bins(state[0], ops, *state[2:], cfg, timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = sum(a.elapsed_time(b) for a, b in events)
+    ops_ms = work["ops"] / PEAK_FP32_OPS * 1e3
+    bytes_ms = work["bytes"] / PEAK_BYTES * 1e3
+    print(f"kernel route: {kernel.launches - before} launches, "
+          f"{work['evaluations']:.4g} evaluations, kernel {ms:.1f} ms summed "
+          f"({work['evaluations'] / ms * 1e3:.4g} evaluations/s), host wall "
+          f"{wall * 1e3:.1f} ms; bound {max(ops_ms, bytes_ms):.1f} ms "
+          f"({100 * max(ops_ms, bytes_ms) / ms:.1f} %)")
+    return {"main_path_ms": ms, "main_path_launches": len(events),
+            "main_path_evaluations": work["evaluations"],
+            "main_path_wall_ms": wall * 1e3,
+            "main_path_bound_ms": max(ops_ms, bytes_ms),
+            "main_path_evaluations_per_s": work["evaluations"] / ms * 1e3,
+            "state": (cfg, state, ops)}
+
+
+def dX_bin_vs_plain(name, cfg, state, ops, tol, ops_of,
+                    min_breakdown=0) -> dict:
+    """The kernel and its plain version on the cells of the fullest tau bin
+    (with at least ``min_breakdown`` breakdown cells, for B3), both timed;
+    ``ops_of(operands)``: the operations of one launch, for the bound."""
+    from is3d2_tpu_torch.core import spacetime
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cells = state[0]
+    idx, n = spacetime.bin_indices(cells, cfg)[0]
+    rows, runs = spacetime.binned_cells(idx, n, cells.mask.cpu().numpy())
+    sorted_ops = spacetime.cell_rows(ops, torch.as_tensor(rows,
+                                                          device="cuda"))
+    breaks = None if not hasattr(ops, "cols") else \
+        (sorted_ops.cols[:, fk.BREAKS] != 0).cpu().numpy()
+    best = None
+    for b, begin, end in sorted(runs, key=lambda r: r[1] - r[2]):
+        if breaks is None or breaks[begin:end].sum() >= min_breakdown:
+            best = (b, begin, end)
+            break
+    if best is None:
+        raise AssertionError(f"{name}: no bin holds a breakdown cell")
+    b, begin, end = best
+    one = spacetime.cell_rows(sorted_ops, slice(begin, end))
+    n_break = 0 if breaks is None else int(breaks[begin:end].sum())
+    ms, out = cuda_ms(lambda: spacetime.run_kernel(one, cfg))
+    plain_ms, ref = cuda_ms(
+        lambda: spacetime.run_kernel(one, cfg, plain=True),
+        warmup=lambda: spacetime.run_kernel(
+            spacetime.cell_rows(one, slice(0, 4)), cfg, plain=True))
+    S = state[2].mass.shape[0]
+    kern = out.reshape(S, -1).cpu().numpy()
+    plain = ref.reshape(S, -1).cpu().numpy()
+    rel = kc.max_rel_err(kern, plain)
+    max_abs = float(np.abs(kc.spectra_units(state, out)
+                           - kc.spectra_units(state, ref)).max())
+    print(f"tau bin {b}: {end - begin} cells ({n_break} breakdown): kernel "
+          f"{ms:.1f} ms, plain {plain_ms:.1f} ms; kernel vs plain {rel:.3e} "
+          f"(bar {tol:g}), max |kernel - plain| {max_abs:.3e}")
+    if not (np.isfinite(kern).all() and rel <= tol):
+        raise AssertionError(f"{name} on one bin's cells disagrees with its "
+                             "plain version")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs,
+            **bound(ops_of(one), one.args(), one.mom.shape[1]),
+            "cells_compared": end - begin, "breakdown_compared": n_break}
+
+
+def dX_check(wd_parity: Path, cfg_fields: dict, surface_kw: dict) -> dict:
+    """check_dX_case at 2,048 cells (the parity workdir's 16 species)."""
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cfg = Config(operation=0, cell_block=512, **cfg_fields)
+    r = kc.check_dX_case(wd_parity, cfg, 2048, 7, "cuda", **surface_kw)
+    print(f"2048 cells {json.dumps(cfg_fields)}: {r.launches} launches on "
+          f"{r.bins} bins, {r.breakdown_cells} breakdown cells; kernel vs "
+          f"plain {r.vs_plain:.3e} (bar {r.tol_plain:g}), kernel vs f64 "
+          f"{r.vs_f64:.3e} (bar {r.tol_f64:g}), plain vs f64 "
+          f"{r.plain_vs_f64:.3e}")
+    feqmod = cfg.df_mode in (3, 4)
+    if not (r.ok and r.launches == r.bins
+            and (r.breakdown_cells > 0 or not feqmod)):
+        raise AssertionError(f"operation 0 {cfg_fields}: the kernel route "
+                             "is off its plain version or the f64 engine")
+    return {"vs_plain": r.vs_plain, "vs_f64": r.vs_f64,
+            "breakdown_cells": r.breakdown_cells}
+
+
+def check_dX_files(wd: Path, wd_op1: Path | None) -> None:
+    """The operation-0 files: three per species, finite, each axis summing
+    to a positive yield (a bin of a few breakdown cells may be negative:
+    the linearised delta-f is); with ``wd_op1`` (the same surface through
+    operation 1), the tau axis summed back to dN/dy against its dN_dy
+    files for pi+, K+ and p."""
+    from is3d2_tpu_torch.config import Config
+    cfg = Config.from_file(wd / "iS3D_parameters.dat")
+    res = wd / "results/continuous"
+    mcids = [int(v) for v in np.loadtxt(wd / "PDG/chosen_particles.dat")]
+    for m in mcids:
+        for name, n in (("dN_taudtaudy", cfg.tau_bins),
+                        ("dN_2pirdrdy", cfg.r_bins),
+                        ("dN_dphidy", cfg.phip_bins)):
+            v = np.loadtxt(res / f"{name}_{m}.dat")
+            if v.shape != (n, 2) or not np.isfinite(v).all() \
+                    or not v[:, 1].sum() > 0:
+                raise AssertionError(f"{name}_{m}: bad shape, value or sum")
+    print(f"{3 * len(mcids)} files of {len(mcids)} species")
+    if wd_op1 is None:
+        return
+    tau_w = (cfg.tau_max - cfg.tau_min) / cfg.tau_bins
+    for m in (211, 321, 2212):
+        v = np.loadtxt(res / f"dN_taudtaudy_{m}.dat")
+        total = float((v[:, 0] * v[:, 1]).sum() * tau_w)
+        op1 = float(np.loadtxt(wd_op1 / f"results/continuous/dN_dy_{m}.dat")
+                    [1])
+        print(f"{m}: sum over tau bins {total:.8g} vs op-1 dN/dy {op1:.8g} "
+              f"({(total - op1) / op1:+.2e})")
+        if abs(total - op1) > 1e-5 * op1:
+            raise AssertionError(f"{m}: the tau bins do not sum to dN/dy")
+
+
+def phase_op0_b1(tmp: Path, wd1: Path, wd_parity: Path) -> dict:
+    print(f"== 18. operation 0, df 1, f32c: phase 5's {MAIN_CELLS} cells, all "
+          "species, 51 x 48 x 24, through B1 on every bin")
+    from is3d2_tpu_torch.ops import cooper_frye_comp as ck
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    wd = derived_workdir(tmp, wd1, "op0_df1", {"operation": 0})
+    launches, stages, _ = run_cli(wd, "cooper_frye_comp")
+    print(f"stage seconds: {json.dumps(stages)}")
+    check_dX_files(wd, wd1)
+    per_eval = BOUND_OPS_PER_EVALUATION["cooper_frye_comp"]
+
+    def b1_ops(o):
+        return per_eval * o.evaluations
+
+    t = dX_main_path_timing(wd, kc.engine_state, ck.cooper_frye_comp, b1_ops)
+    cfg, state, ops = t.pop("state")
+    cmp = dX_bin_vs_plain("B1", cfg, state, ops, kc.TOL, b1_ops)
+    small = dX_check(wd_parity, {"df_mode": 1, "compute_dtype": "f32c"}, {})
+    return {"launches": launches, "stage_seconds": stages, **t, **cmp,
+            "library_ms": None, "at_2048_cells": small}
+
+
+def phase_op0_b3(tmp: Path, wd_parity: Path) -> dict:
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    print(f"== 19. operation 0, df 4, f32: {MAIN_CELLS} cells written in "
+          f"mode 6 with dsigma_eta / tau in +-{kc.DX_DAN}, shear 0.2, bulk "
+          "0.1, all species, 51 x 48 x 24 (not folded), through B3 "
+          "(dan-weighted) on every bin")
+    from is3d2_tpu_torch.tools.synthetic import write_workdir
+    t0 = time.perf_counter()
+    wd = write_workdir(tmp / "op0_df4", n_cells=MAIN_CELLS,
+                       params={"operation": 0, "df_mode": 4,
+                               "compute_dtype": "f32"},
+                       surface_mode=6, dan_scale=kc.DX_DAN,
+                       **kc.FEQMOD_SURFACE)
+    print(f"workdir written in {time.perf_counter() - t0:.1f} s")
+    launches, stages, out = run_cli(wd, "cooper_frye_feqmod")
+    n_break = int(re.search(r"^feqmod breaks down for (\d+) /", out,
+                            re.M).group(1))
+    print(f"stage seconds: {json.dumps(stages)}; {n_break} breakdown cells")
+    check_dX_files(wd, None)
+    per_eval = BOUND_OPS_PER_EVALUATION["cooper_frye_feqmod"]
+
+    def b3_ops(o):
+        n_b = int((o.cols[:, fk.BREAKS] != 0).sum().item())
+        per_cell = o.evaluations / o.cols.shape[0]
+        return per_cell * (n_b * per_eval["breakdown"]
+                           + (o.cols.shape[0] - n_b) * per_eval["modified"])
+
+    t = dX_main_path_timing(wd, kc.feqmod_engine_state, fk.cooper_frye_feqmod,
+                            b3_ops)
+    cfg, state, ops = t.pop("state")
+    if not ops.dan_weighted or ops.eta.shape[0] != 24:
+        raise AssertionError("B3's operation-0 operands are not dan-weighted "
+                             "on the unfolded 24 nodes")
+    cmp = dX_bin_vs_plain("B3", cfg, state, ops, kc.FEQMOD_TOL_PLAIN, b3_ops,
+                          min_breakdown=1)
+    small = {name: dX_check(wd_parity, fields, kc.FEQMOD_SURFACE)
+             for name, fields in (
+                 ("df4", {"df_mode": 4, "compute_dtype": "f32"}),
+                 ("df3-outflow", {"df_mode": 3, "compute_dtype": "f32",
+                                  "outflow": 1}))}
+    return {"launches": launches, "stage_seconds": stages,
+            "breakdown_cells": n_break, **t, **cmp, "library_ms": None,
+            "at_2048_cells": small}
+
+
 def main() -> int:
     card = phase_environment()
     # the package is imported only now: a copy of this script alone, or a
@@ -936,6 +1255,9 @@ def main() -> int:
         b3f_launches, _, wd5, famod = phase_famod_main_path(tmp)
         b3f = phase_famod_full(wd5)
         op2_famod = phase_famod_sampler(tmp, wd5)
+        grouped = phase_grouped_main_path(tmp)
+        op0_b1 = phase_op0_b1(tmp, wd1, wd)
+        op0_b3 = phase_op0_b3(tmp, wd)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -950,13 +1272,18 @@ def main() -> int:
         {"name": "cooper_frye_comp", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_comp.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:241",
-         "launches": b1_launches, **b1},
+         "launches": b1_launches, **b1,
+         # phase 17: the grouped mode-6 main path; phase 18: operation 0,
+         # one launch per non-empty bin
+         "grouped_mode6": grouped, "operation0": op0_b1},
         {"name": "cooper_frye_feqmod", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_feqmod_pallas.py:68",
          "launches": b3_launches, **b3,
          # the famod mode (df 5) on its own main path, phases 14-15
-         "famod": {"launches": b3f_launches, **b3f, **famod}},
+         "famod": {"launches": b3f_launches, **b3f, **famod},
+         # phase 19: operation 0, dan-weighted, one launch per bin
+         "operation0": op0_b3},
         {"name": "cooper_frye_f32", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_f32.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:83",

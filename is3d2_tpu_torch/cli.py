@@ -2,8 +2,8 @@
 
 Counterpart of is3d2_tpu/cli.py (the reference binary, Main.cpp:4-24):
 reads <workdir>/iS3D_parameters.dat, <workdir>/input/surface.dat and the
-data assets, then runs operation 1 (continuous spectra) or 2 (the hadron
-sampler).
+data assets, then runs operation 0 (spacetime distributions), 1
+(continuous spectra) or 2 (the hadron sampler).
 """
 
 from __future__ import annotations

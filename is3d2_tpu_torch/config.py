@@ -22,7 +22,8 @@ class Config:
     operation: int = 1
 
     # surface file format (readindata.cpp:149-164)
-    #   1 = CPU VH / CPU VAH, 5 = CPU VH + thermal vorticity,
+    #   0 = legacy GPU VH, 1 = CPU VH / CPU VAH, 2/3 = legacy VAH,
+    #   4 = MUSIC (old), 5 = CPU VH + thermal vorticity,
     #   6 = MUSIC (public), 7 = HIC-EventGen
     mode: int = 1
 
@@ -172,20 +173,28 @@ class Config:
 
     def validate_slice(self) -> None:
         """Reject what the port does not run yet, naming the ROADMAP item
-        that brings it (ROADMAP.md, queues A and B), and df 4 with baryons,
-        which the JAX package rejects too."""
+        that brings it (ROADMAP.md, queues A and B), and what the JAX
+        package rejects too: df 4 with baryons, and df 5 in operation 0."""
         self.validate()
         if self.df_mode == 4 and self.include_baryon:
             # as the JAX package's DeltafData.evaluate raises
             raise ValueError("PTB (Jonah) df does not support nonzero muB")
+        if self.operation == 0 and self.df_mode == 5:
+            # as the JAX package's compute_dN_dX raises
+            raise ValueError("no spacetime distribution routine for famod "
+                             "(matches the reference, "
+                             "EmissionFunction.cpp:1184-1189)")
         feqmod = self.df_mode in (3, 4, 5)
         todo = None
-        if self.operation == 0:
-            todo = "operation 0 (dN/dX): ROADMAP A8"
-        elif self.operation == 2:
-            todo = self._sampler_todo()
+        if self.mode == 5:
+            todo = "mode 5 (thermal vorticity, polarization): ROADMAP A8b"
         elif self.dimension == 3:
-            if feqmod:
+            if self.operation == 2:
+                todo = ("operation 2 in dimension 3 (the 3+1d sampler): "
+                        "ROADMAP A7")
+            elif self.operation == 0:
+                todo = "operation 0 in dimension 3 (3+1d dN/dX): ROADMAP A7"
+            elif feqmod:
                 todo = ("dimension 3 (3+1d feqmod and famod engines): "
                         "ROADMAP A7 and A9")
             elif self.compute_dtype == "f64" and self.use_pallas == 1:
@@ -194,37 +203,19 @@ class Config:
                         "kernel B2 only in 2+1d): ROADMAP A7")
             else:
                 todo = "dimension 3 (3+1d engines): ROADMAP A7"
-        elif self.mode == 5:
-            todo = "mode 5 (polarization): ROADMAP A8"
-        elif self.mode in (2, 3) and self.df_mode != 5:
-            # the legacy VAH readers are ported for the famod path
-            todo = (f"surface mode {self.mode} with df_mode {self.df_mode}: "
-                    "ROADMAP A2b")
-        elif self.mode not in (1, 2, 3):
-            todo = f"surface mode {self.mode}: ROADMAP A2b"
+        elif self.operation in (0, 2):
+            # the sampler has no kernel; the JAX package's operation 0
+            # ignores use_pallas (f64 runs the f64 engines, f32/f32c the
+            # kernels, where the JAX package runs its XLA fast paths)
+            pass
         elif feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
             todo = (f"use_pallas 0 with {self.compute_dtype} for df "
                     f"{self.df_mode} (XLA feqmod fast path): ROADMAP A9")
         elif not feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
             todo = (f"use_pallas 0 with {self.compute_dtype} (XLA f32/f32c "
                     "fast path): ROADMAP A7")
-        elif self.group_particles:
-            todo = "group_particles: ROADMAP A11"
-        elif self.use_mesh == 1:
-            todo = "use_mesh 1 (multi-device): ROADMAP A12"
+        if todo is None and self.use_mesh == 1:
+            todo = ("use_mesh 1 (multi-device; for operation 2 "
+                    "parallel/sampler_shard.py): ROADMAP A12")
         if todo is not None:
             raise NotImplementedError(f"not ported yet: {todo}")
-
-    def _sampler_todo(self) -> str | None:
-        """What operation 2 (the sampler: df 1-5, 2+1d, mode 1, one
-        device) does not run yet, or None."""
-        if self.dimension == 3:
-            return "operation 2 in dimension 3 (the 3+1d sampler): ROADMAP A7"
-        if self.mode != 1:
-            return f"operation 2 on surface mode {self.mode}: ROADMAP A2b"
-        if self.group_particles:
-            return "group_particles: ROADMAP A11"
-        if self.use_mesh == 1:
-            return ("operation 2 with use_mesh 1 (parallel/sampler_shard.py):"
-                    " ROADMAP A12")
-        return None

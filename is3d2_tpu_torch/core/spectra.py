@@ -259,8 +259,25 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     own variables), then kernel B3's famod mode (the same routes) or the
     torch f64 famod engine.  A kernel runs as CUDA on a GPU device and as
     its plain version on the CPU.
+
+    With cfg.group_particles, species within particle_diff_tolerance in
+    mass (same sign, and baryon number with baryons on) share one spectra
+    evaluation on every route, rescaled by degeneracy
+    (SpeciesTable.group_species; is3d2_tpu/core/spectra.py:310-321).
     """
     cfg.validate_slice()
+    if cfg.group_particles and len(chosen_idx) > 1:
+        chosen_idx = np.asarray(chosen_idx)
+        rep_pos, group_of = species_table.group_species(
+            chosen_idx, cfg.particle_diff_tolerance, bool(cfg.include_baryon))
+        if len(rep_pos) < len(chosen_idx):
+            rep_out = compute_spectra(
+                surf, species_table, chosen_idx[rep_pos], grids, df_data,
+                dataclasses.replace(cfg, group_particles=0), device,
+                laguerre, report)
+            deg = species_table.gspin[chosen_idx]
+            scale = deg / deg[rep_pos][group_of]
+            return rep_out[group_of] * scale[:, None, None, None]
     if cfg.df_mode == 5:
         from .spectra_famod import famod_state, spectra_famod
         state = famod_state(surf, species_table, chosen_idx, grids, cfg,

@@ -1,12 +1,16 @@
-"""Top-level particlization driver, operations 1 and 2 (df 1-5).
+"""Top-level particlization driver, operations 0, 1 and 2.
 
 Counterpart of is3d2_tpu/driver.py (the reference's IS3D class,
 iS3D.cpp:81-282): load parameters, surface, PDG list, delta-f coefficient
-tables and quadrature grids, then on ``device`` either compute the
-continuous spectra (operation 1) or sample hadrons (operation 2) into the
-test histograms or the OSCAR event files, and write the result files.
-After operation 2 without files (``write=False``) the sampled particles
-are ``.final_particles``.
+tables and quadrature grids, then on ``device`` compute the spacetime
+distributions dN/dX (operation 0) or the continuous spectra (operation 1),
+or sample hadrons (operation 2) into the test histograms or the OSCAR event
+files, and write the result files.
+
+Library use (the JETSCAPE-style in-memory path, iS3D.cpp:33-78) is
+``IS3D.load_surface_from_memory(...)`` followed by
+``run_particlization(fo_from_file=False)``; after operation 2 without files
+(``write=False``) the sampled particles are ``.final_particles``.
 """
 
 from __future__ import annotations
@@ -21,11 +25,12 @@ from .config import Config
 from .core.sampler import (ChunkCollector, compute_total_yield,
                            number_of_events, sample_particles)
 from .core.sampler_hist import ChunkBinner
+from .core.spacetime import compute_dN_dX
 from .core.spectra import compute_spectra
 from .io import output
 from .io.deltaf_tables import DeltafTables
 from .io.pdg import read_pdg
-from .io.surface import SurfaceData, read_surface
+from .io.surface import SurfaceData, read_surface, surface_from_memory
 from .io.tables import GaussLaguerre, GaussLegendre, MomentumGrids, load_table
 from .physics.deltaf import DeltafData, compute_particle_densities
 from .report import RunReport, check_invariants
@@ -55,6 +60,7 @@ class IS3D:
                                "device='cpu' (--device cpu) to run on the CPU")
         self.surface: SurfaceData | None = None
         self.spectra = None
+        self.dN_dX = None
         self.histograms = None
         self.final_particles = None
         self.n_events = None
@@ -66,13 +72,17 @@ class IS3D:
         self.surface = read_surface(path, self.cfg.mode, self.cfg.dimension,
                                     bool(self.cfg.include_baryon))
 
+    def load_surface_from_memory(self, **fields) -> None:
+        self.surface = surface_from_memory(**fields)
+
     def _setup(self):
         cfg = self.cfg
         data = self.data_dir
         self.species = read_pdg(cfg.hrg_eos, data / "PDG")
         chosen_mcids = load_table(data / "PDG/chosen_particles.dat")[:, 0].astype(int)
         self.chosen_mcids = chosen_mcids
-        self.chosen_idx = self.species.chosen_indices(chosen_mcids)
+        self.chosen_idx = self.species.chosen_indices(
+            chosen_mcids, group_by_mass=bool(cfg.group_particles))
 
         self.laguerre = GaussLaguerre.from_file(data / "tables/gauss/gla_roots_weights.txt")
         self.legendre = GaussLegendre.from_file(data / "tables/gauss/gauss_legendre.dat")
@@ -93,13 +103,18 @@ class IS3D:
         compute_particle_densities(self.species, self.df_data, self.laguerre,
                                    self.plasma)
 
-    def run_particlization(self, write: bool = True) -> None:
+    def run_particlization(self, fo_from_file: bool = True,
+                           write: bool = True) -> None:
+        """Run the configured operation.  With ``fo_from_file`` False a
+        surface already loaded (load_surface_from_memory) is used as it
+        is; the file is read only when none is loaded."""
         cfg = self.cfg
         print(f"is3d2_tpu_torch particlization: operation={cfg.operation} "
               f"df_mode={cfg.df_mode} hrg_eos={cfg.hrg_eos} "
               f"dimension={cfg.dimension} device={self.device}", flush=True)
         t_read = time.time()
-        self.load_surface_from_file()
+        if fo_from_file or self.surface is None:
+            self.load_surface_from_file()
         t_read = time.time() - t_read
         print(f"surface: {self.surface.n_cells} cells ({t_read:.1f}s)",
               flush=True)
@@ -120,7 +135,18 @@ class IS3D:
                                                   and cfg.include_baryondiff_deltaf))
 
         t_compute = time.time()
-        if cfg.operation == 1:
+        if cfg.operation == 0:
+            print("computing spacetime distributions dN/dX ...", flush=True)
+            self.dN_dX = compute_dN_dX(self.surface, self.species,
+                                       self.chosen_idx, self.grids,
+                                       self.df_data, cfg, self.device,
+                                       laguerre=self.laguerre, report=report)
+            self._mark_compute(t_compute, "dN/dX")
+            if write:
+                tw = time.time()
+                output.write_dN_dX(results, mcids, self.dN_dX, cfg)
+                self.stage_seconds["write"] = time.time() - tw
+        elif cfg.operation == 1:
             print("computing continuous momentum spectra ...", flush=True)
             spectra = compute_spectra(self.surface, self.species,
                                       self.chosen_idx, self.grids,

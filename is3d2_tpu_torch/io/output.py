@@ -8,11 +8,13 @@ EmissionFunction.cpp:406-975:
   results/continuous/dN_2pipTdpTdy_<mcid>.dat
   results/continuous/dN_dphidy_<mcid>.dat
   results/continuous/dN_dy_<mcid>.dat
+  results/continuous/{dN_taudtaudy,dN_2pirdrdy,dN_dphidy}_<mcid>.dat
+                                                    (operation 0)
   results/sampled/<obs>/..._test.dat                (sampler tests)
   results/particle_list_osc_<n>.dat                 (OSCAR)
   results/particle_list_<n>.dat                     (CSV, write_csv = 1)
 
-The op-1 block tables and the particle lists are formatted by the threaded
+The op-0 and op-1 block tables and the particle lists are formatted by the threaded
 native writer (io/fastio.py), which prints %.Ne as printf does.
 """
 
@@ -126,6 +128,21 @@ def write_dN_dy(results_dir: Path, mcids, spectra, grids, dimension):
                              * grids.pT_weight[:, None]
                              * spectra[i, :, :, iy]).sum())
                 fh.write(f"{y_vals[iy]:.8f}\t{val:.8f}\n")
+
+
+def write_dN_dX(results_dir: Path, mcids, dX, cfg: Config) -> None:
+    """Spacetime distributions (SpacetimeDistribution.cpp:448-496):
+    dN_taudtaudy, dN_2pirdrdy and dN_dphidy per species, (bin middle,
+    normalized value) rows in %.6e."""
+    d = _continuous_dir(results_dir)
+    S = len(mcids)
+    for name, mid, vals in zip(("dN_taudtaudy", "dN_2pirdrdy", "dN_dphidy"),
+                               (dX.tau_mid, dX.r_mid, dX.phi_mid),
+                               dX.normalized(cfg)):
+        n = mid.shape[0]
+        write_blocks_fast(str(d / f"{name}_%lld.dat"), list(mcids), "", "\t",
+                          6, np.arange(S + 1, dtype=np.int64) * n,
+                          [np.tile(mid, S), np.asarray(vals).reshape(-1)])
 
 
 # ----------------------------------------------------------------------

@@ -86,11 +86,53 @@ class SpeciesTable:
             raise KeyError(f"MC ID {mcid} not in species table")
         return int(hits[0])
 
-    def chosen_indices(self, chosen_mcids) -> np.ndarray:
+    def chosen_indices(self, chosen_mcids,
+                       group_by_mass: bool = False) -> np.ndarray:
         """Map chosen-particle MC IDs to table indices, preserving file order.
-        (Mass-sorted grouping, group_particles, is not ported yet.)"""
-        return np.array([self.index_of_mcid(int(m)) for m in chosen_mcids],
-                        dtype=np.int64)
+
+        With group_by_mass, stable-sort by mass (the reference's bubble sort,
+        EmissionFunction.cpp:375-390).
+        """
+        idx = [self.index_of_mcid(int(m)) for m in chosen_mcids]
+        if group_by_mass:
+            idx = sorted(idx, key=lambda i: self.mass[i])
+        return np.array(idx, dtype=np.int64)
+
+    def group_species(self, indices: np.ndarray, tolerance: float,
+                      key_baryon: bool):
+        """Group species whose Cooper-Frye integrands are equal up to the
+        (linear) degeneracy factor: the same quantum-statistics sign, the
+        same baryon number (when chemistry is on), and masses within
+        ``tolerance`` of the group's representative.  One spectra
+        evaluation per group then serves every member, rescaled by
+        degeneracy (group_particles; the reference reads
+        particle_diff_tolerance and mass-sorts, EmissionFunction.cpp:
+        375-390, but computes every species).
+
+        Returns (rep_positions, group_of): positions into ``indices`` of
+        the group representatives, and for every entry of ``indices`` the
+        index of its group in rep_positions.
+        """
+        indices = np.asarray(indices)
+        mass = self.mass[indices]
+        sign = self.sign[indices]
+        baryon = self.baryon[indices] if key_baryon else np.zeros(len(indices))
+        order = np.argsort(mass, kind="stable")
+
+        rep_positions: list[int] = []
+        group_of = np.empty(len(indices), dtype=np.int64)
+        # (sign, baryon) -> index into rep_positions of the open group
+        open_group: dict[tuple, int] = {}
+        for pos in order:
+            key = (float(sign[pos]), float(baryon[pos]))
+            g = open_group.get(key)
+            if g is None or \
+                    not abs(mass[pos] - mass[rep_positions[g]]) < tolerance:
+                rep_positions.append(int(pos))
+                g = len(rep_positions) - 1
+                open_group[key] = g
+            group_of[pos] = g
+        return np.array(rep_positions, dtype=np.int64), group_of
 
 
 # ----------------------------------------------------------------------

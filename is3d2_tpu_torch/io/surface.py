@@ -1,4 +1,4 @@
-"""Freezeout-surface readers (modes 1, 2 and 3).
+"""Freezeout-surface readers (modes 0-4, 6 and 7) and the in-memory surface.
 
 Counterpart of is3d2_tpu/io/surface.py, which replaces the reference's
 FO_data_reader (src/cpp/readindata.cpp:122-729).  The reader produces a
@@ -11,14 +11,25 @@ cell) in iS3D's internal units:
 
 Ported formats (``mode``), read with the threaded native parser
 (io/fastio.py):
+  0 : legacy GPU-VH with a u^t column and the full pi tensor
+      (readindata.cu:147-318)
   1 : CPU VH, raw hbar=1 units (readindata.cpp:167-367)
   2 : legacy VAH P_L-matching, with (Lambda, a_L) inferred from the
       conformal factorization fit (readindata.cu:812-930)
   3 : legacy VAH (P_L, P_T)-matching with explicit (Lambda, a_T, a_L)
       columns (readindata.cu:932-1055)
+  4 : MUSIC old (private), boost-invariant: tau-scaled dsigma/u/pi
+      columns, P from the entropy column, P = s T - E; dsigma_eta is
+      zeroed in 2+1d (readindata.cu:551-686)
+  6 : MUSIC public, tau-scaled columns, P from the (E + P)/T column
+      (readindata.cpp:372-567); dsigma_eta is kept in 2+1d
+  7 : HIC-EventGen, 2+1d velocity columns in GeV units
+      (readindata.cpp:570-729)
 Modes 2/3 fill the optional VAH fields (PL, PT, W^mu, Lambda, aT, aL,
 upsilonB), which the df-5 famod prep uses instead of reconstructing the
-anisotropic variables.  The other formats come later (ROADMAP A2b).
+anisotropic variables.  Mode 5 (thermal vorticity, for polarization) comes
+with ROADMAP A8b.  ``surface_from_memory`` is the JETSCAPE-style surface
+handed over in memory (iS3D.cpp:33-78).
 """
 
 from __future__ import annotations
@@ -149,6 +160,40 @@ class SurfaceData:
 def _enforce_boost_invariance(s: SurfaceData) -> None:
     """2+1d surfaces: zero the spacetime rapidity (readindata.cpp:310-327)."""
     s.eta[:] = 0.0
+
+
+def _read_vh_old(cols: np.ndarray, include_baryon: bool,
+                 include_baryondiff: bool) -> SurfaceData:
+    """Legacy GPU-VH format (readindata.cu:147-318): explicit u^t column and
+    the full 10-component shear tensor, of which the 5 independent
+    components are kept (the engines complete the rest from orthogonality
+    and tracelessness)."""
+    n = cols.shape[0]
+    s = SurfaceData.zeros(n)
+    s.tau, s.x, s.y, s.eta = cols[:, 0], cols[:, 1], cols[:, 2], cols[:, 3]
+    s.dat, s.dax, s.day, s.dan = cols[:, 4], cols[:, 5], cols[:, 6], cols[:, 7]
+    # col 8 is u^t (recomputed from the normalization)
+    s.ux, s.uy, s.un = cols[:, 9], cols[:, 10], cols[:, 11]
+    s.E = cols[:, 12] * hbarC
+    s.T = cols[:, 13] * hbarC
+    s.P = cols[:, 14] * hbarC
+    # full pi tensor: pitt pitx pity pitn pixx pixy pixn piyy piyn pinn
+    s.pixx = cols[:, 19] * hbarC
+    s.pixy = cols[:, 20] * hbarC
+    s.pixn = cols[:, 21] * hbarC
+    s.piyy = cols[:, 22] * hbarC
+    s.piyn = cols[:, 23] * hbarC
+    s.bulkPi = cols[:, 25] * hbarC
+    c = 26
+    if include_baryon:
+        s.muB = cols[:, c] * hbarC
+        c += 1
+    if include_baryondiff:
+        s.nB = cols[:, c]
+        s.Vx = cols[:, c + 2]
+        s.Vy = cols[:, c + 3]
+        s.Vn = cols[:, c + 4]
+    return s
 
 
 def _read_cpu_vh(cols: np.ndarray, mode: int, include_baryon: bool) -> SurfaceData:
@@ -302,19 +347,169 @@ def _read_vah_plpt_match(cols: np.ndarray, include_baryon: bool,
     return s
 
 
+def _read_music_old(cols: np.ndarray, dimension: int) -> SurfaceData:
+    """Old (private) MUSIC boost-invariant format (readindata.cu:551-686):
+    [tau x y eta | dsigma_mu/tau (4) | u^t ux uy tau.u^eta | E T muB s |
+    pi^munu (10, tau-scaled *n components) | bulkPi], raw hbar=1 units.
+    P is rebuilt from the entropy column as P = s T - E."""
+    n = cols.shape[0]
+    s = SurfaceData.zeros(n)
+    tau = cols[:, 0]
+    s.tau, s.x, s.y, s.eta = tau, cols[:, 1], cols[:, 2], cols[:, 3]
+    # covariant normal vector: cornelius writes dsigma_mu / tau
+    s.dat = cols[:, 4] * tau
+    s.dax = cols[:, 5] * tau
+    s.day = cols[:, 6] * tau
+    s.dan = cols[:, 7] * tau
+    if dimension == 2:
+        # the reference zeroes dsigma_eta on boost-invariant surfaces
+        # (readindata.cu:588-593)
+        s.dan = np.zeros(n)
+    # col 8 is u^t (recomputed from the normalization)
+    s.ux, s.uy = cols[:, 9], cols[:, 10]
+    s.un = cols[:, 11] / tau
+    s.E = cols[:, 12] * hbarC
+    T = cols[:, 13] * hbarC
+    s.T = T
+    s.muB = cols[:, 14] * hbarC
+    s.P = cols[:, 15] * T - s.E        # P = s T - E (readindata.cu:615-616)
+    # pi^tt tx ty tau.tn  xx xy tau.xn  yy tau.yn  tau2.nn (16..25)
+    s.pixx = cols[:, 20] * hbarC
+    s.pixy = cols[:, 21] * hbarC
+    s.pixn = cols[:, 22] * hbarC / tau
+    s.piyy = cols[:, 23] * hbarC
+    s.piyn = cols[:, 24] * hbarC / tau
+    s.bulkPi = cols[:, 26] * hbarC
+    return s
+
+
+def _read_music(cols: np.ndarray, include_baryon: bool) -> SurfaceData:
+    """Public MUSIC format (readindata.cpp:372-567): [tau x y eta |
+    dsigma_mu/tau (4) | u^t ux uy tau.u^eta | E T muB muS muC (E+P)/T |
+    pi^munu (10, tau-scaled *n components) | bulkPi | nB, V^mu (4)],
+    raw hbar=1 units.  P is rebuilt from the enthalpy column."""
+    n = cols.shape[0]
+    s = SurfaceData.zeros(n)
+    tau = cols[:, 0]
+    s.tau, s.x, s.y, s.eta = tau, cols[:, 1], cols[:, 2], cols[:, 3]
+    # dsigma_mu / tau columns -> multiply by tau
+    s.dat = cols[:, 4] * tau
+    s.dax = cols[:, 5] * tau
+    s.day = cols[:, 6] * tau
+    s.dan = cols[:, 7] * tau
+    # u^t ux uy tau.u^eta
+    s.ux, s.uy = cols[:, 9], cols[:, 10]
+    s.un = cols[:, 11] / tau
+    s.E = cols[:, 12] * hbarC
+    T = cols[:, 13] * hbarC
+    s.T = T
+    s.muB = cols[:, 14] * hbarC
+    # cols 15, 16 = muS, muC (unused); col 17 = (E+P)/T [fm^-3]
+    s.P = cols[:, 17] * T - s.E
+    # pi^tt tx ty tau.tn  xx xy tau.xn  yy tau.yn  tau2.nn
+    s.pixx = cols[:, 22] * hbarC
+    s.pixy = cols[:, 23] * hbarC
+    s.pixn = cols[:, 24] * hbarC / tau
+    s.piyy = cols[:, 25] * hbarC
+    s.piyn = cols[:, 26] * hbarC / tau
+    s.bulkPi = cols[:, 28] * hbarC
+    if include_baryon:
+        s.nB = cols[:, 29]
+        s.Vx = cols[:, 31]
+        s.Vy = cols[:, 32]
+        s.Vn = cols[:, 33] / tau
+    return s
+
+
+def _read_hic_eventgen(cols: np.ndarray) -> SurfaceData:
+    """HIC-EventGen format (readindata.cpp:570-729): [tau x y eta |
+    dsigma_mu/tau (4) | vx vy (col 10 unused) | pi^munu (10) | bulkPi T E P
+    muB], boost-invariant, already in GeV units; u^mu from the velocity."""
+    n = cols.shape[0]
+    s = SurfaceData.zeros(n)
+    tau = cols[:, 0]
+    s.tau, s.x, s.y = tau, cols[:, 1], cols[:, 2]
+    s.eta = np.zeros(n)
+    s.dat = cols[:, 4] * tau
+    s.dax = cols[:, 5] * tau
+    s.day = cols[:, 6] * tau
+    s.dan = np.zeros(n)
+    vx, vy = cols[:, 8], cols[:, 9]
+    ut = 1.0 / np.sqrt(np.abs(1.0 - vx**2 - vy**2))
+    s.ux = ut * vx
+    s.uy = ut * vy
+    s.un = np.zeros(n)
+    # shear columns 11..20 = pi^tt tx ty tau.tn xx xy tau.xn yy tau.yn
+    # tau2.nn [GeV/fm^3]
+    s.pixx = cols[:, 15]
+    s.pixy = cols[:, 16]
+    s.pixn = np.zeros(n)
+    s.piyy = cols[:, 18]
+    s.piyn = np.zeros(n)
+    s.bulkPi = cols[:, 21]
+    s.T = cols[:, 22]
+    s.E = cols[:, 23]
+    s.P = cols[:, 24]
+    s.muB = cols[:, 25]
+    return s
+
+
 def read_surface(path: str | Path, mode: int, dimension: int,
                  include_baryon: bool) -> SurfaceData:
-    """Read input/surface.dat in the format of ``mode`` (1, 2 or 3)."""
-    if mode not in (1, 2, 3):
+    """Read input/surface.dat in the format of ``mode`` (0-4, 6 or 7)."""
+    if mode == 5:
         raise NotImplementedError(
-            f"surface mode {mode} is not ported yet (ROADMAP A2b)")
+            "surface mode 5 (thermal vorticity) is not ported yet "
+            "(ROADMAP A8b)")
+    if mode not in (0, 1, 2, 3, 4, 6, 7):
+        raise ValueError(f"unknown surface mode {mode} (supported: 0-7)")
+    if mode == 7:
+        if dimension != 2:
+            raise ValueError("HIC-EventGen surfaces are boost-invariant "
+                             "(dimension must be 2)")
+        if include_baryon:
+            raise ValueError("HIC-EventGen has no baryon chemical potential "
+                             "(set include_baryon = 0)")
     cols = load_table_fast(path)
-    if mode == 1:
+    if mode == 0:
+        s = _read_vh_old(cols, include_baryon, include_baryon)
+    elif mode == 1:
         s = _read_cpu_vh(cols, mode, include_baryon)
     elif mode == 2:
         s = _read_vah_pl_match(cols)
-    else:
+    elif mode == 3:
         s = _read_vah_plpt_match(cols, include_baryon, include_baryon)
+    elif mode == 4:
+        s = _read_music_old(cols, dimension)
+    elif mode == 6:
+        s = _read_music(cols, include_baryon)
+    else:
+        s = _read_hic_eventgen(cols)
     if dimension == 2:
         _enforce_boost_invariance(s)
+    return s
+
+
+def surface_from_memory(tau, x, y, eta, dsigma_tau, dsigma_x, dsigma_y,
+                        dsigma_eta, E, T, P, ux, uy, un, pixx, pixy, pixn,
+                        piyy, piyn, pinn, Pi) -> SurfaceData:
+    """JETSCAPE-style in-memory surface (iS3D.cpp:33-78).
+
+    The inputs are already in iS3D units (GeV, fm); pinn is accepted but
+    completed from orthogonality and tracelessness like the other
+    dependent components, as the reference does ("pinn is extraneous",
+    iS3D.cpp:76)."""
+    s = SurfaceData.zeros(len(tau))
+
+    def f64(a):
+        return np.asarray(a, dtype=np.float64)
+
+    s.tau, s.x, s.y, s.eta = f64(tau), f64(x), f64(y), f64(eta)
+    s.dat, s.dax = f64(dsigma_tau), f64(dsigma_x)
+    s.day, s.dan = f64(dsigma_y), f64(dsigma_eta)
+    s.E, s.T, s.P = f64(E), f64(T), f64(P)
+    s.ux, s.uy, s.un = f64(ux), f64(uy), f64(un)
+    s.pixx, s.pixy, s.pixn = f64(pixx), f64(pixy), f64(pixn)
+    s.piyy, s.piyn = f64(piyy), f64(piyn)
+    s.bulkPi = f64(Pi)
     return s

@@ -10,11 +10,13 @@ the same arithmetic, and the operand packs (counterparts of
 ``cooper_frye_feqmod`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors; ``cooper_frye_feqmod.launches`` counts
 kernel launches and ``cooper_frye_feqmod.last_geometry`` holds the latest
-launch's geometry.  The launch geometry (register tile, cell split) comes
-from the operands' shapes alone (``geometry``, ops/launch_geometry.py).  A
-launch takes at most ETA_CHUNK eta nodes: a longer table runs chunk by
-chunk, one launch each, and the chunks' results are added in order; the
-plain version chunks alike.
+launch's geometry.  ``dan_weighted`` puts the eta weight on the dsigma_eta
+term of p.dsigma, as the spacetime distributions (operation 0) and the
+famod mode do; the feqmod spectra leave it off.  The launch geometry
+(register tile, cell split) comes from the operands' shapes alone
+(``geometry``, ops/launch_geometry.py).  A launch takes at most ETA_CHUNK
+eta nodes: a longer table runs chunk by chunk, one launch each, and the
+chunks' results are added in order; the plain version chunks alike.
 
 Operand layout (all contiguous, nothing padded):
 
@@ -68,7 +70,7 @@ MAX_SMEM = 100 * 1024   # bytes of shared memory per block: two fit an SM
 
 # mode and flag values of the CUDA launcher
 _MODES = {"famod": 0, 3: 3, 4: 4}
-_OUTFLOW, _REGULATE = 1, 2
+_OUTFLOW, _REGULATE, _DAN_WEIGHTED = 1, 2, 4
 
 # elements of one (cells x M) f32 block of the plain version
 _PLAIN_BLOCK_ELEMENTS = 1 << 24
@@ -86,6 +88,7 @@ class FeqmodOperands:
     n_per_species: int    # NpT * Nphi
     row_len: int          # Nphi: momenta per (species, pT) row of mom
     kind: str             # "feqmod" or "famod"
+    dan_weighted: bool = False   # feqmod only: famod always weights dan
 
     @property
     def evaluations(self) -> int:
@@ -106,13 +109,20 @@ def _mode(cfg: Config, kind: str) -> int:
     return _MODES[cfg.df_mode]
 
 
-def _flags(cfg: Config) -> int:
+def _dan(kind: str, dan_weighted: bool) -> bool:
+    """Whether p.dsigma weights its dan term: famod always does."""
+    return dan_weighted or kind == "famod"
+
+
+def _flags(cfg: Config, kind: str, dan_weighted: bool) -> int:
     return ((_OUTFLOW if cfg.outflow else 0)
-            | (_REGULATE if cfg.regulate_deltaf else 0))
+            | (_REGULATE if cfg.regulate_deltaf else 0)
+            | (_DAN_WEIGHTED if _dan(kind, dan_weighted) else 0))
 
 
 def cooper_frye_feqmod_plain(cols, mom, renorm, red, eta, n_per_species: int,
-                             cfg: Config, kind: str) -> torch.Tensor:
+                             cfg: Config, kind: str,
+                             dan_weighted: bool = False) -> torch.Tensor:
     """Plain torch version of the kernel: the same arithmetic in the same
     order on (cell block, M) tensors -- f32, except U = M^-1 L, p' = U p and
     E_mod^2 in f64 as in the kernel; the px/py parts formed apart from the
@@ -123,11 +133,12 @@ def cooper_frye_feqmod_plain(cols, mom, renorm, red, eta, n_per_species: int,
     return over_eta_chunks(
         eta.shape[0], ETA_CHUNK,
         lambda e0, e1: _plain_chunk(cols, mom, renorm, red, eta[e0:e1],
-                                    n_per_species, cfg, kind))
+                                    n_per_species, cfg, kind,
+                                    _dan(kind, dan_weighted)))
 
 
 def _plain_chunk(cols, mom, renorm, red, eta, n_per_species: int,
-                 cfg: Config, kind: str) -> torch.Tensor:
+                 cfg: Config, kind: str, dan: bool) -> torch.Tensor:
     mode = _mode(cfg, kind)
     C = cols.shape[0]
     M = mom.shape[1]
@@ -186,10 +197,10 @@ def _plain_chunk(cols, mom, renorm, red, eta, n_per_species: int,
             Um = [d(MINV + 3 * i) * a1 + d(MINV + 3 * i + 2) * c1
                   for i in range(3)]
             ch, sh = ch64.to(f32), sh64.to(f32)
-            if mode == 0:
+            if dan:
                 pddm0 = w * (ch * col(DAT) - sh * col(DANT))
                 pddb0 = w * (chb * col(DAT) - shb * col(DANT))
-            else:  # feqmod: the dan term carries no eta weight
+            else:  # feqmod spectra: the dan term carries no eta weight
                 pddm0 = w * ch * col(DAT) - sh * col(DANT)
                 pddb0 = w * chb * col(DAT) - shb * col(DANT)
 
@@ -308,7 +319,8 @@ def geometry(mom: torch.Tensor, n_per_species: int, n_species: int,
 
 
 def launch(cols, mom, renorm, red, eta, n_per_species: int, cfg: Config,
-           kind: str, fg: FeqmodGeometry) -> torch.Tensor:
+           kind: str, fg: FeqmodGeometry,
+           dan_weighted: bool = False) -> torch.Tensor:
     """Launch the kernel on checked CUDA operands of at most ETA_CHUNK eta
     nodes with the geometry ``fg``."""
     from . import _build
@@ -327,7 +339,7 @@ def launch(cols, mom, renorm, red, eta, n_per_species: int, cfg: Config,
                  red.data_ptr(), eta.data_ptr(), partial.data_ptr(),
                  out.data_ptr(), C, eta.shape[0], M, S, n_per_species,
                  g.row_len, g.n_split, g.cells_per_split, fg.span,
-                 _mode(cfg, kind), _flags(cfg), stream)
+                 _mode(cfg, kind), _flags(cfg, kind, dan_weighted), stream)
     if err != 0:
         raise RuntimeError(f"cooper_frye_feqmod launch failed: cudaError {err}")
     cooper_frye_feqmod.launches += 1
@@ -336,17 +348,19 @@ def launch(cols, mom, renorm, red, eta, n_per_species: int, cfg: Config,
 
 
 def cooper_frye_feqmod(cols, mom, renorm, red, eta, n_per_species: int,
-                       cfg: Config, kind: str,
-                       row_len: int | None = None) -> torch.Tensor:
+                       cfg: Config, kind: str, row_len: int | None = None,
+                       dan_weighted: bool = False) -> torch.Tensor:
     """Run kernel B3 on CUDA tensors (its plain version on CPU tensors).
     Returns the (M,) f64 spectra partials, prefactor and degeneracy not
     applied.  ``row_len``: the phi count of the momentum grid, see
-    ``geometry``."""
+    ``geometry``; ``dan_weighted``: see the module docstring."""
     _check(cols, mom, renorm, red, eta, n_per_species)
     _mode(cfg, kind)
     if cols.device.type == "cpu":
-        return cooper_frye_feqmod_plain(cols, mom, renorm, red, eta,
-                                        n_per_species, cfg, kind)
+        args = (cols, mom, renorm, red, eta, n_per_species, cfg, kind)
+        if dan_weighted:
+            return cooper_frye_feqmod_plain(*args, dan_weighted=True)
+        return cooper_frye_feqmod_plain(*args)
     if cols.device.type != "cuda":
         raise ValueError(f"no kernel for device {cols.device}")
     from . import _build
@@ -356,7 +370,7 @@ def cooper_frye_feqmod(cols, mom, renorm, red, eta, n_per_species: int,
     return over_eta_chunks(
         eta.shape[0], ETA_CHUNK,
         lambda e0, e1: launch(cols, mom, renorm, red, eta[e0:e1],
-                              n_per_species, cfg, kind, fg))
+                              n_per_species, cfg, kind, fg, dan_weighted))
 
 
 cooper_frye_feqmod.launches = 0
@@ -470,12 +484,15 @@ def pack_famod(cells: CellArrays, fm, species: SpeciesArrays,
 
 
 def feqmod_operands(cells: CellArrays, fq, species: SpeciesArrays,
-                    grid: MomentumGridDevice, cfg: Config) -> FeqmodOperands:
-    """Fold the eta quadrature where the strict gate allows, then pack."""
+                    grid: MomentumGridDevice, cfg: Config,
+                    dan_weighted: bool = False) -> FeqmodOperands:
+    """Fold the eta quadrature where the strict gate allows, then pack;
+    ``dan_weighted``: the spacetime distributions' p.dsigma."""
     if cfg.dimension != 2 or cfg.df_mode not in (3, 4):
         raise ValueError("kernel B3's feqmod mode implements 2+1d df 3/4")
     cells, grid, _ = fold_eta_quadrature(cells, grid, cfg, strict=True)
-    return pack_feqmod(cells, fq, species, grid)
+    return dataclasses.replace(pack_feqmod(cells, fq, species, grid),
+                               dan_weighted=dan_weighted)
 
 
 def famod_operands(cells: CellArrays, fm, species: SpeciesArrays,
@@ -490,7 +507,8 @@ def famod_operands(cells: CellArrays, fm, species: SpeciesArrays,
 
 def _spectra(ops: FeqmodOperands, species: SpeciesArrays,
              grid: MomentumGridDevice, cfg: Config) -> torch.Tensor:
-    flat = cooper_frye_feqmod(*ops.args(), cfg, ops.kind, row_len=ops.row_len)
+    flat = cooper_frye_feqmod(*ops.args(), cfg, ops.kind, row_len=ops.row_len,
+                              dan_weighted=ops.dan_weighted)
     out = flat.reshape(species.mass.shape[0], grid.pT.shape[0],
                        grid.cos_phi.shape[0], 1)
     return PREFACTOR * species.degeneracy[:, None, None, None] * out

@@ -15,6 +15,12 @@ One harness for ``chip_smoke.py`` and ``tests/test_torch_gpu.py``:
     famod prep of an EOS-consistent surface (FAMOD_SURFACE), with the same
     bars against its plain version and the f64 famod engine.
 
+Operation 0 (dN/dX) runs B1 and B3 (its dan-weighted convention) once per
+non-empty bin of each axis: ``check_dX_case`` holds the kernel route to
+the plain versions on the same bins and to the f64 engines' binned
+per-cell sums, normalized, with the same bars; DX_DAN draws the 2+1d
+surface's dsigma_eta, which the spacetime convention weights.
+
 Each kernel also has a ragged case (RAGGED: rows of 7 phi under a register
 tile of 4, fewer momenta than one block owns, a cell count that fills
 neither the last tile nor the last split), cut from a case's operands and
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core import spacetime
 from ..core.spectra import PREFACTOR, df12_state, spectra_df12
 from ..core.spectra_famod import famod_state, spectra_famod
 from ..core.spectra_feqmod import feqmod_state, spectra_feqmod
@@ -46,7 +53,7 @@ from ..ops import cooper_frye_comp as ck
 from ..ops import cooper_frye_f32 as b2
 from ..ops import cooper_frye_feqmod as fk
 from ..ops.spectra_fast_common import comp_operands, f32_operands
-from .synthetic import make_eos_consistent, make_surface
+from .synthetic import add_dsigma_eta, make_eos_consistent, make_surface
 
 TOL = 1e-6     # relative, on bins >= FLOOR of their species' peak
 FLOOR = 1e-4
@@ -59,7 +66,7 @@ F32_TOL_F64 = 2e-5        # kernel B2 vs the f64 engine (JAX's f32 paths: ~5e-6)
 # and bulk; df 4; df 2), as a pattern of its mangled name
 MAIN_PATH_KERNEL = {
     "cooper_frye_comp": r"cooper_frye_comp_kernelILb1ELb0ELb0ELb0ELb0EE",
-    "cooper_frye_feqmod": r"cooper_frye_feqmod_kernelILi4ELb0ELb0EE",
+    "cooper_frye_feqmod": r"cooper_frye_feqmod_kernelILi4ELb0ELb0ELb0EE",
     "cooper_frye_f32": r"cooper_frye_f32_kernelILb1ELb0ELb0ELb0ELb1EE",
 }
 
@@ -397,3 +404,90 @@ def check_famod_ragged_case(workdir: str | Path, n_cells: int, seed: int,
                                famod_surface(workdir, n_cells, seed, device),
                                device)
     return _b3_ragged(state, fk.famod_operands(*state, cfg), cfg)
+
+
+# ----------------------------------------------------------------------
+# operation 0 (dN/dX) through B1 and B3
+# ----------------------------------------------------------------------
+
+# dsigma_eta / tau of the operation-0 checks' 2+1d surfaces (add_dsigma_eta)
+DX_DAN = 0.05
+
+
+@dataclasses.dataclass
+class DXCaseResult:
+    """Normalized (S, bins) of the three axes side by side."""
+
+    kernel: np.ndarray
+    plain: np.ndarray
+    f64: np.ndarray
+    launches: int         # kernel launches of the kernel route
+    bins: int             # non-empty bins, over the three axes
+    breakdown_cells: int
+    tol_plain: float
+    tol_f64: float
+
+    @property
+    def vs_plain(self) -> float:
+        return _axes_err(self.kernel, self.plain)
+
+    @property
+    def vs_f64(self) -> float:
+        return _axes_err(self.kernel, self.f64)
+
+    @property
+    def plain_vs_f64(self) -> float:
+        return _axes_err(self.plain, self.f64)
+
+    @property
+    def ok(self) -> bool:
+        return bool(all(np.isfinite(a).all() for a in self.kernel)
+                    and self.vs_plain <= self.tol_plain
+                    and self.vs_f64 <= self.tol_f64)
+
+
+def _axes_err(out, ref) -> float:
+    return max(max_rel_err(a, b) for a, b in zip(out, ref))
+
+
+def dX_state(workdir: str | Path, cfg: Config, surf, device):
+    """The operation-0 engines' inputs for ``surf``: df 1/2 (cells,
+    coefficients, species, grid) or df 3/4 (cells, feqmod prep, ...)."""
+    if cfg.df_mode in (1, 2):
+        return engine_state(workdir, cfg, surf, device)
+    return feqmod_engine_state(workdir, cfg, surf, device)
+
+
+def check_dX_case(workdir: str | Path, cfg: Config, n_cells: int, seed: int,
+                  device, **surface_kw) -> DXCaseResult:
+    """Operation 0 on make_surface(n_cells, seed, **surface_kw) with a
+    dsigma_eta (DX_DAN): the kernel route (B1 for df 1/2, B3 dan-weighted
+    for df 3/4; the plain versions on a CPU device), the same bins through
+    the plain versions, and the f64 engines' binned per-cell sums."""
+    surf = add_dsigma_eta(make_surface(n_cells, seed=seed, **surface_kw),
+                          seed, DX_DAN)
+    state = dX_state(workdir, cfg, surf, device)
+    cells = state[0]
+    ops = spacetime.kernel_operands(*state, cfg)
+    kernel = ck.cooper_frye_comp if cfg.df_mode in (1, 2) \
+        else fk.cooper_frye_feqmod
+    before = kernel.launches
+    out = spacetime.kernel_bins(cells, ops, *state[2:], cfg)
+    launches = kernel.launches - before
+    plain = spacetime.kernel_bins(
+        cells, ops, *state[2:], cfg,
+        lambda o, c: spacetime.run_kernel(o, c, plain=True))
+    ref = spacetime.f64_bins(*state, cfg)
+    mask = cells.mask.cpu().numpy()
+    bins = sum(len(spacetime.binned_cells(idx, n, mask)[1])
+               for idx, n in spacetime.bin_indices(cells, cfg))
+
+    def norm(acc):
+        return spacetime.distributions(acc, cfg).normalized(cfg)
+
+    feqmod = cfg.df_mode in (3, 4)
+    return DXCaseResult(
+        norm(out), norm(plain), norm(ref), launches, bins,
+        breakdown_cells(state) if feqmod else 0,
+        FEQMOD_TOL_PLAIN if feqmod else TOL,
+        FEQMOD_TOL_F64 if feqmod else TOL)

@@ -9,7 +9,8 @@ package's CLI) reads, with no data files from outside the repository:
   tables/momentum/{pT,phi,y}_table.dat
   tables/spacetime_rapidity/eta_table.dat
   deltaf_coefficients/vh/smash_box/*.dat      from generate_deltaf_tables
-  input/surface.dat                           mode-1 surface (or mode 2/3)
+  input/surface.dat                           mode-1 surface (or mode
+                                              0, 2, 3, 4, 6 or 7)
   iS3D_parameters.dat
 
 ``make_surface`` and ``write_mode1`` are copies of tests/surfgen.py, so the
@@ -17,12 +18,18 @@ same seed gives the same surface bit for bit; ``make_eos_consistent`` is
 the torch counterpart of its helper of that name (the HRG (E, P) at each
 cell's T, so that a df-5 run can reconstruct (E, p_L, p_T)).
 ``write_mode2`` / ``write_mode3`` write the legacy VAH formats the port
-reads for df 5.
+reads for df 5; ``write_mode0`` (legacy GPU VH), ``write_mode4`` (old
+MUSIC), ``write_mode6`` (public MUSIC, a copy of tests/surfgen.py's) and
+``write_mode7`` (HIC-EventGen) the other formats, each in the column map
+of its reader (io/surface.py).  ``dan_scale`` gives a 2+1d surface a
+dsigma_eta, which mode 6 keeps (mode 4 zeroes it, modes 1 and 0 keep it,
+mode 7 has none).
 
 Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]
-[--operation 1|2] [--df-mode 1-5] [--compute-dtype f32c|f32|f64]
+[--operation 0|1|2] [--df-mode 1-5] [--compute-dtype f32c|f32|f64]
 [--use-pallas -1|0|1] [--shear-scale X] [--bulk-scale X]
-[--test-sampler 1|0]``.  ``--compute-dtype f64 --use-pallas 1``
+[--test-sampler 1|0] [--surface-mode 0-4|6|7] [--dan-scale X]
+[--group-particles 0|1]``.  ``--compute-dtype f64 --use-pallas 1``
 selects kernel B2 for df 1/2.  The feqmod breakdown branch (df 3/4) needs
 viscous corrections well above the defaults: ``--shear-scale 0.2
 --bulk-scale 0.1`` sends a few percent of the cells there.  ``--df-mode 5``
@@ -94,6 +101,15 @@ def make_surface(n_cells: int, seed: int = 0, dimension: int = 2,
     return s
 
 
+def add_dsigma_eta(s: SurfaceData, seed: int, scale: float) -> SurfaceData:
+    """Give a 2+1d surface a dsigma_eta: dsigma_eta / tau uniform in
+    [-scale, scale], drawn from its own stream of ``seed`` (the other
+    fields keep make_surface's bits)."""
+    rng = np.random.default_rng([seed, 1])
+    s.dan = s.tau * rng.uniform(-scale, scale, s.n_cells)
+    return s
+
+
 def write_mode1(s: SurfaceData, path: str | Path, include_baryon: bool = False,
                 vorticity: bool = False) -> None:
     """Write in mode-1/5 CPU-VH format (raw hbar=1 units, one row per cell)."""
@@ -140,11 +156,88 @@ def make_eos_consistent(s: SurfaceData, species_table, laguerre,
     return s
 
 
+def _u_t(s: SurfaceData) -> np.ndarray:
+    return np.sqrt(1.0 + s.ux**2 + s.uy**2 + (s.tau * s.un) ** 2)
+
+
+def write_mode0(s: SurfaceData, path: str | Path,
+                include_baryon: bool = False) -> None:
+    """Write in the legacy GPU-VH format (mode 0, readindata.cu:147-318):
+    x^mu, dsigma_mu, u^mu with u^t, E, T, P, the ten pi^munu (the
+    dependent ones zero: the reader recomputes them), bulkPi in raw hbar=1
+    units, then muB and nB, V^mu with baryons."""
+    z = np.zeros(s.n_cells)
+    cols = [s.tau, s.x, s.y, s.eta, s.dat, s.dax, s.day, s.dan,
+            _u_t(s), s.ux, s.uy, s.un, s.E / hbarC, s.T / hbarC, s.P / hbarC,
+            z, z, z, z, s.pixx / hbarC, s.pixy / hbarC, s.pixn / hbarC,
+            s.piyy / hbarC, s.piyn / hbarC, z, s.bulkPi / hbarC]
+    if include_baryon:
+        cols += [s.muB / hbarC, s.nB, z, s.Vx, s.Vy, s.Vn]
+    np.savetxt(path, np.column_stack(cols), fmt="%.17g")
+
+
+def write_mode4(s: SurfaceData, path: str | Path) -> None:
+    """Write in the old (private) MUSIC format (mode 4,
+    readindata.cu:551-686): dsigma_mu / tau, u^t ux uy tau.u^eta, E T muB
+    and the entropy density s = (E + P) / T, the ten pi^munu with the eta
+    components tau-scaled, bulkPi, in raw hbar=1 units."""
+    tau = s.tau
+    z = np.zeros(s.n_cells)
+    cols = [tau, s.x, s.y, s.eta,
+            s.dat / tau, s.dax / tau, s.day / tau, s.dan / tau,
+            _u_t(s), s.ux, s.uy, s.un * tau,
+            s.E / hbarC, s.T / hbarC, s.muB / hbarC, (s.E + s.P) / s.T,
+            z, z, z, z, s.pixx / hbarC, s.pixy / hbarC, s.pixn * tau / hbarC,
+            s.piyy / hbarC, s.piyn * tau / hbarC, z, s.bulkPi / hbarC]
+    np.savetxt(path, np.column_stack(cols), fmt="%.17g")
+
+
+def write_mode6(s: SurfaceData, path: str | Path,
+                include_baryon: bool = False) -> None:
+    """Write in mode-6 public-MUSIC format (the production surface format:
+    dsigma/tau columns, tau-scaled u^eta/pi^{x eta}/pi^{y eta}, E/T/muB in
+    fm^-4/fm^-1; see io/surface.py:_read_music and readindata.cpp:372-567)."""
+    n = s.tau.shape[0]
+    tau = s.tau
+    z = np.zeros(n)
+    ut = np.sqrt(1.0 + s.ux**2 + s.uy**2 + (tau * s.un) ** 2)
+    cols = [tau, s.x, s.y, s.eta,
+            s.dat / tau, s.dax / tau, s.day / tau, s.dan / tau,
+            ut, s.ux, s.uy, s.un * tau,
+            s.E / hbarC, s.T / hbarC, s.muB / hbarC, z, z,
+            (s.E + s.P) / np.where(s.T != 0, s.T, 1.0),
+            z, z, z, z,                      # pi^{tt,tx,ty,tn}: recomputed
+            s.pixx / hbarC, s.pixy / hbarC, s.pixn * tau / hbarC,
+            s.piyy / hbarC, s.piyn * tau / hbarC, z,
+            s.bulkPi / hbarC]
+    if include_baryon:
+        cols += [s.nB, z, s.Vx, s.Vy, s.Vn * tau]
+    np.savetxt(path, np.column_stack(cols), fmt="%.10e")
+
+
+def write_mode7(s: SurfaceData, path: str | Path) -> None:
+    """Write in the HIC-EventGen format (mode 7, readindata.cpp:570-729):
+    dsigma_mu / tau, the velocity (vx, vy, 0), the ten pi^munu, bulkPi, T,
+    E, P and muB, all in GeV units; boost-invariant (u^eta = 0)."""
+    tau = s.tau
+    z = np.zeros(s.n_cells)
+    ut = _u_t(s)
+    cols = [tau, s.x, s.y, s.eta,
+            s.dat / tau, s.dax / tau, s.day / tau, s.dan / tau,
+            s.ux / ut, s.uy / ut, z,
+            z, z, z, z, s.pixx, s.pixy, z, s.piyy, z, z,
+            s.bulkPi, s.T, s.E, s.P, s.muB]
+    np.savetxt(path, np.column_stack(cols), fmt="%.17g")
+
+
+_WRITERS = {0: write_mode0, 1: write_mode1, 4: write_mode4, 6: write_mode6,
+            7: write_mode7}
+
+
 def _vah_head(s: SurfaceData) -> list:
     """The columns both legacy VAH formats start with, up to T."""
-    ut = np.sqrt(1.0 + s.ux**2 + s.uy**2 + (s.tau * s.un) ** 2)
     return [s.tau, s.x, s.y, s.eta, s.dat, s.dax, s.day, s.dan,
-            ut, s.ux, s.uy, s.un, s.E / hbarC, s.T / hbarC]
+            _u_t(s), s.ux, s.uy, s.un, s.E / hbarC, s.T / hbarC]
 
 
 def _vah_shear_w(s: SurfaceData) -> list:
@@ -299,7 +392,7 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
                   shear_scale: float = 0.02, bulk_scale: float = 0.01,
                   n_T: int = 101, n_muB: int | None = None,
                   eos_consistent: bool = False, surface_mode: int = 1,
-                  device="cpu") -> Path:
+                  dan_scale: float = 0.0, device="cpu") -> Path:
     """Write a complete working directory; returns its path.
 
     ``chosen_mcids`` defaults to every species of the list.  ``params``
@@ -309,9 +402,13 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
     The delta-f tables span T = 0.1..0.2 GeV in ``n_T`` points and, with
     baryons, muB = 0..0.8 GeV in ``n_muB`` points (one point without).
     ``eos_consistent`` replaces (E, P) by the HRG values (make_eos_consistent
-    on ``device``), as a df-5 run needs.  ``surface_mode`` 2 or 3 writes a
-    legacy VAH surface (write_vah_surface; mode 3 reconstructs on
-    ``device``) and sets ``mode`` in the parameters."""
+    on ``device``), as a df-5 run needs.  ``surface_mode`` picks the
+    surface file's format and sets ``mode`` in the parameters: 1 (default),
+    0, 4, 6 or 7 (modes 4 and 7 carry no baryon columns but muB), or 2 or 3,
+    a legacy VAH surface (write_vah_surface; mode 3 reconstructs on
+    ``device``).  ``dan_scale`` draws dsigma_eta / tau uniform in
+    [-dan_scale, dan_scale] (from the seed, after every other field) for a
+    2+1d surface whose p.dsigma has a dan term."""
     from ..io.pdg import SpeciesTable, read_pdg_smash_box
     from ..io.tables import GaussLaguerre
 
@@ -333,14 +430,19 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
 
     surf = make_surface(n_cells, seed=seed, include_baryon=include_baryon,
                         shear_scale=shear_scale, bulk_scale=bulk_scale)
+    if dan_scale:
+        add_dsigma_eta(surf, seed, dan_scale)
     if eos_consistent:
         make_eos_consistent(surf, species, GaussLaguerre.from_file(
             root / "tables/gauss/gla_roots_weights.txt"), device)
-    if surface_mode == 1:
-        write_mode1(surf, root / "input/surface.dat",
-                    include_baryon=include_baryon)
+    if surface_mode in (0, 1, 6):
+        _WRITERS[surface_mode](surf, root / "input/surface.dat",
+                               include_baryon=include_baryon)
     elif include_baryon:
-        raise ValueError("the VAH surface writers take no baryon columns")
+        raise ValueError(f"the mode-{surface_mode} writer takes no baryon "
+                         "columns")
+    elif surface_mode in (4, 7):
+        _WRITERS[surface_mode](surf, root / "input/surface.dat")
     else:
         write_vah_surface(surf, root / "input/surface.dat", surface_mode,
                           species, device)
@@ -361,7 +463,7 @@ def main(argv=None) -> int:
     ap.add_argument("workdir")
     ap.add_argument("--cells", type=int, default=100_000)
     ap.add_argument("--seed", type=int, default=3)
-    ap.add_argument("--operation", type=int, default=1, choices=(1, 2))
+    ap.add_argument("--operation", type=int, default=1, choices=(0, 1, 2))
     ap.add_argument("--df-mode", type=int, default=1,
                     choices=(1, 2, 3, 4, 5))
     ap.add_argument("--compute-dtype", default="f32c",
@@ -375,15 +477,25 @@ def main(argv=None) -> int:
     ap.add_argument("--test-sampler", type=int, default=1, choices=(0, 1),
                     help="operation 2: 1 = test histograms, 0 = OSCAR "
                          "event files (default 1)")
+    ap.add_argument("--surface-mode", type=int, default=1,
+                    choices=(0, 1, 2, 3, 4, 6, 7),
+                    help="format of input/surface.dat (default 1)")
+    ap.add_argument("--dan-scale", type=float, default=0.0,
+                    help="dsigma_eta / tau drawn in [-X, X] (default 0)")
+    ap.add_argument("--group-particles", type=int, default=0, choices=(0, 1),
+                    help="1 = species of near-equal mass share one spectra "
+                         "evaluation (default 0)")
     args = ap.parse_args(argv)
     write_workdir(args.workdir, n_cells=args.cells, seed=args.seed,
                   params={"operation": args.operation,
                           "test_sampler": args.test_sampler,
                           "df_mode": args.df_mode,
                           "compute_dtype": args.compute_dtype,
-                          "use_pallas": args.use_pallas},
+                          "use_pallas": args.use_pallas,
+                          "group_particles": args.group_particles},
                   shear_scale=args.shear_scale, bulk_scale=args.bulk_scale,
-                  eos_consistent=args.df_mode == 5)
+                  eos_consistent=args.df_mode == 5,
+                  surface_mode=args.surface_mode, dan_scale=args.dan_scale)
     print(f"wrote {args.workdir}")
     return 0
 

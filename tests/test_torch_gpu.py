@@ -11,6 +11,7 @@ Imports nothing of JAX, so it runs where only torch is installed:
 plain version.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -610,3 +611,128 @@ def test_alias_draw_on_cuda_reproduces_the_categorical():
     assert (got[p == 0] == 0).all()
     sigma = np.sqrt(np.maximum(expect * (1 - p), 1.0))
     assert (np.abs(got - expect) < 5.0 * sigma).all()
+
+
+# ----------------------------------------------------------------------
+# operation 0 (dN/dX): B1 and B3's dan-weighted convention on bins
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg_fields,surface_kw", [
+    ({"df_mode": 1, "compute_dtype": "f32c"}, {}),
+    ({"df_mode": 2, "compute_dtype": "f32c", "outflow": 1}, {}),
+    ({"df_mode": 4, "compute_dtype": "f32"}, kc.FEQMOD_SURFACE),
+    ({"df_mode": 3, "compute_dtype": "f32", "outflow": 1},
+     kc.FEQMOD_SURFACE)])
+def test_dX_kernel_route_vs_plain_and_f64(workdir, cfg_fields, surface_kw):
+    """Operation 0 at 2,048 cells with dsigma_eta != 0: the kernel on every
+    non-empty bin against its plain version and the f64 engines' binned
+    per-cell sums (B1 <= 1e-6 both; B3 <= 1e-5 and <= 1e-4)."""
+    _needs_cuda()
+    from is3d2_tpu_torch.config import Config as C
+    cfg = C(operation=0, cell_block=512, **cfg_fields)
+    r = kc.check_dX_case(workdir, cfg, 2048, 3, "cuda", **surface_kw)
+    assert r.launches == r.bins > 0
+    assert r.ok, (r.vs_plain, r.vs_f64)
+    if cfg.df_mode in (3, 4):
+        assert r.breakdown_cells > 0
+
+
+def _dX_b1_slice(workdir, n_cells=300):
+    """B1's operand rows of the first n_cells cells of the fullest of 20
+    tau bins (sorted by bin as the route does), on the card."""
+    from is3d2_tpu_torch.config import Config as C
+    from is3d2_tpu_torch.core import spacetime
+    from is3d2_tpu_torch.tools.synthetic import add_dsigma_eta
+    cfg = C(operation=0, df_mode=1, compute_dtype="f32c", cell_block=512,
+            tau_bins=20)
+    surf = add_dsigma_eta(make_surface(8192, seed=3), 3, kc.DX_DAN)
+    state = kc.engine_state(workdir, cfg, surf, "cuda")
+    ops = spacetime.kernel_operands(*state, cfg)
+    idx, n = spacetime.bin_indices(state[0], cfg)[0]
+    rows, runs = spacetime.binned_cells(idx, n, state[0].mask.cpu().numpy())
+    b, begin, end = max(runs, key=lambda r: r[2] - r[1])
+    assert end - begin >= n_cells
+    sorted_ops = spacetime.cell_rows(ops, torch.as_tensor(rows,
+                                                          device="cuda"))
+    return spacetime.cell_rows(sorted_ops, slice(begin, begin + n_cells)), cfg
+
+
+@pytest.mark.gpu
+def test_b1_on_a_300_cell_bin_slice(workdir):
+    """300 cells of one bin, all momenta: one launch, <= 1e-6 against the
+    plain version, the same bits twice."""
+    _needs_cuda()
+    from is3d2_tpu_torch.core import spacetime
+    ops, cfg = _dX_b1_slice(workdir)
+    assert ops.cell.shape[0] == 300 and ops.cell.is_contiguous()
+    before = ck.cooper_frye_comp.launches
+    out = spacetime.run_kernel(ops, cfg)
+    assert ck.cooper_frye_comp.launches - before == 1
+    assert torch.equal(out, spacetime.run_kernel(ops, cfg))
+    plain = spacetime.run_kernel(ops, cfg, plain=True)
+    S = 8
+    assert kc.max_rel_err(out.reshape(S, -1).cpu().numpy(),
+                          plain.reshape(S, -1).cpu().numpy()) <= kc.TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_eta", [33, 80])
+def test_feqmod_kernel_dan_weighted_flag(workdir, n_eta):
+    """B3's dan-weighted variant on a surface with dsigma_eta != 0 (the
+    strict fold refuses it: 24 nodes repeated to n_eta) and outflow, where
+    the convention decides the number: each variant against its plain
+    version (<= 1e-5), and the two variants apart."""
+    _needs_cuda()
+    from is3d2_tpu_torch.tools.synthetic import add_dsigma_eta
+    cfg = Config(compute_dtype="f32", df_mode=4, outflow=1, cell_block=512)
+    surf = add_dsigma_eta(make_surface(512, seed=5, **kc.FEQMOD_SURFACE), 5,
+                          kc.DX_DAN)
+    state = kc.feqmod_engine_state(workdir, cfg, surf, "cuda")
+    outs = {}
+    for dan in (False, True):
+        ops = fk.feqmod_operands(*state, cfg, dan_weighted=dan)
+        assert ops.eta.shape[0] == 24 and ops.dan_weighted == dan
+        args = _b3_eta_args(ops, cfg, n_eta)
+        out = fk.cooper_frye_feqmod(*args, dan_weighted=dan)
+        plain = fk.cooper_frye_feqmod_plain(*args, dan_weighted=dan)
+        assert kc.max_rel_err(out.cpu().numpy()[None],
+                              plain.cpu().numpy()[None]) \
+            <= kc.FEQMOD_TOL_PLAIN
+        outs[dan] = out.cpu().numpy()[None]
+    assert kc.max_rel_err(outs[True], outs[False]) > 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("df_mode,dtype", [(1, "f32c"), (4, "f32"),
+                                           (2, "f64")])
+def test_grouped_equals_ungrouped_on_exact_multiplets(workdir, df_mode,
+                                                      dtype):
+    """group_particles on the card (B1, B3, B2 with use_pallas = 1): the
+    species whose (mass, sign, baryon) equal their representative's match
+    the ungrouped run to 1e-12."""
+    _needs_cuda()
+    from is3d2_tpu_torch.core.spectra import compute_spectra
+    from is3d2_tpu_torch.driver import IS3D
+    chosen = (2212, 2224, 2214, 2114, 1114, 3224, 3214, 3114, 211, -211)
+    wd = write_workdir(workdir.parent / f"group_{df_mode}", n_cells=16,
+                       chosen_mcids=chosen, n_pT=16, n_phi=8, n_T=21)
+    cfg = Config(df_mode=df_mode, compute_dtype=dtype, cell_block=512,
+                 use_pallas=1 if dtype == "f64" else -1)
+    run = IS3D(wd, cfg=cfg, device="cuda")
+    run.surface = make_surface(2048, seed=3, **(kc.FEQMOD_SURFACE
+                                                if df_mode == 4 else {}))
+    run._setup()
+    idx = run.chosen_idx
+    args = (run.surface, run.species, idx, run.grids, run.df_data)
+    plain_run = compute_spectra(*args, cfg, "cuda", run.laguerre)
+    grouped = compute_spectra(*args, dataclasses.replace(
+        cfg, group_particles=1), "cuda", run.laguerre)
+    rep, group_of = run.species.group_species(idx, 0.01, False)
+    key = np.stack([run.species.mass, run.species.sign,
+                    run.species.baryon], axis=1)
+    exact = [i for i in range(len(idx))
+             if (key[idx[i]] == key[idx[rep[group_of[i]]]]).all()]
+    # the representatives, pi-, 3 more Deltas and 2 more Sigma*s
+    assert len(exact) == len(rep) + 6
+    assert kc.max_rel_err(grouped[exact], plain_run[exact]) <= 1e-12

@@ -120,8 +120,9 @@ def test_mode1_surface_reader(workdir, tmp_path, include_baryon):
     b.write(tmp_path / "ref.dat")
     assert filecmp.cmp(tmp_path / "ours.dat", tmp_path / "ref.dat",
                        shallow=False)
-    with pytest.raises(NotImplementedError, match="A2"):
-        surface.read_surface(path, 6, 2, include_baryon)
+    # mode 5 (thermal vorticity) comes with polarization
+    with pytest.raises(NotImplementedError, match="A8b"):
+        surface.read_surface(path, 5, 2, include_baryon)
 
 
 @pytest.mark.parametrize("kw", [

@@ -120,6 +120,29 @@ def test_the_split_depends_on_the_shape_alone_and_fills_the_card():
         > fill(small.blocks, resident)
 
 
+@pytest.mark.parametrize("n_cells", [32, 300, 739, 1053, 1187, 1700, 3183])
+@pytest.mark.parametrize("kernel", ["b1", "b3"])
+def test_operation0_bin_slices_fill_the_card_from_the_momenta(kernel,
+                                                              n_cells):
+    """Operation 0 hands B1 and B3 the cells of one bin (32-3,183 on the
+    1e5-cell main path, ~300-1,700 in most bins) and every momentum of the
+    full grid (371 species x 51 x 48): the momentum axis alone gives more
+    blocks than the card holds at once, every cell lies in one split, and
+    the split keeps the waves full."""
+    tile = ck.TILE_CELLS if kernel == "b1" else fk.TILE_CELLS
+    g = launch_geometry(908_208, 48, n_cells, 4, tile)
+    resident = BLOCKS_PER_SM * H100_SMS
+    assert g.blocks == 887 > resident
+    covered = np.concatenate([np.arange(a, b)
+                              for a, b in cell_ranges(g, n_cells)])
+    np.testing.assert_array_equal(covered, np.arange(n_cells))
+    n_tiles = -(-n_cells // tile)
+    assert g.n_split <= n_tiles
+    assert fill(g.blocks * g.n_split, resident) >= fill(g.blocks, resident)
+    if n_tiles >= 2:
+        assert fill(g.blocks * g.n_split, resident) > 0.95
+
+
 def _b2_mom(keys):
     """B2's (6, M) momentum rows with the key rows of ``_rows``."""
     mom = torch.zeros((len(b2.MOM_ROWS), keys.shape[1]))

@@ -172,20 +172,37 @@ def test_config_parser_and_slice(workdir):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"operation": 0}, "A8"), ({"operation": 2, "dimension": 3}, "A7"),
+    ({"operation": 0, "mode": 5}, "A8"),
+    ({"operation": 2, "dimension": 3}, "A7"),
     ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "dimension": 3}, "A9"),
     ({"df_mode": 5, "dimension": 3}, "A7"),
-    ({"dimension": 3}, "A7"), ({"mode": 6}, "A2"), ({"mode": 5}, "A8"),
+    ({"dimension": 3}, "A7"), ({"operation": 0, "dimension": 3}, "A7"),
+    ({"mode": 5}, "A8"),
     ({"compute_dtype": "f32", "use_pallas": 0}, "A7"),
     ({"compute_dtype": "f32c", "use_pallas": 0}, "A7"),
     # kernel B2 is 2+1d, as in the JAX package
     ({"compute_dtype": "f64", "use_pallas": 1, "dimension": 3}, "B2"),
-    ({"group_particles": 1}, "A11"), ({"use_mesh": 1}, "A12"),
+    ({"group_particles": 1, "use_mesh": 1}, "A12"), ({"use_mesh": 1}, "A12"),
 ])
 def test_validate_slice_rejects_the_rest(kw, item):
     cfg = Config(**{"df_mode": 1, "compute_dtype": "f32c", **kw})
     with pytest.raises(NotImplementedError, match=item):
         cfg.validate_slice()
+
+
+@pytest.mark.parametrize("kw", [{"mode": m} for m in (0, 1, 2, 3, 4, 6, 7)]
+                         + [{"use_pallas": 0}, {"group_particles": 1}])
+def test_validate_slice_lets_this_slice_through(kw):
+    """Operations 0, 1 and 2 with df 1-4 on every ported surface mode, and
+    group_particles; operation 0 with use_pallas = 0 too (the JAX
+    package's operation 0 ignores it)."""
+    for operation in (0, 1, 2):
+        if operation == 1 and kw.get("use_pallas") == 0:
+            continue
+        for df_mode in (1, 2, 3, 4):
+            for dtype in ("f64", "f32c"):
+                Config(operation=operation, df_mode=df_mode,
+                       compute_dtype=dtype, **kw).validate_slice()
 
 
 @pytest.mark.parametrize("baryon", [False, True])

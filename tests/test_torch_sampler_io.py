@@ -248,9 +248,9 @@ def test_sampler_report_lines_match_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"df_mode": 5, "mode": 2}, "A2b"), ({"dimension": 3}, "A7"),
-    ({"use_mesh": 1}, "A12"), ({"mode": 6}, "A2b"),
-    ({"group_particles": 1}, "A11")])
+    ({"df_mode": 5, "mode": 5}, "A8b"), ({"dimension": 3}, "A7"),
+    ({"use_mesh": 1}, "A12"), ({"mode": 6, "dimension": 3}, "A7"),
+    ({"group_particles": 1, "use_mesh": 1}, "A12")])
 def test_validate_slice_operation2_names_its_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
         Config(operation=2, **{"df_mode": 1, **kw}).validate_slice()
@@ -259,7 +259,9 @@ def test_validate_slice_operation2_names_its_item(kw, item):
 @pytest.mark.parametrize("kw", [
     {"df_mode": d, "test_sampler": t, "fast": f, "compute_dtype": c}
     for d in (1, 2, 3, 4, 5) for t, f, c in ((1, 1, "f64"), (0, 0, "f32c"))]
-    + [{"df_mode": 1, "use_pallas": 0, "compute_dtype": "f32"}])
+    + [{"df_mode": 1, "use_pallas": 0, "compute_dtype": "f32"}]
+    + [{"df_mode": 1, "mode": m} for m in (0, 2, 3, 4, 6, 7)]
+    + [{"df_mode": 5, "mode": 3}, {"df_mode": 4, "group_particles": 1}])
 def test_validate_slice_lets_operation2_through(kw):
     Config(operation=2, **kw).validate_slice()
 

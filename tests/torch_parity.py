@@ -18,7 +18,9 @@ C4), so it cannot hold the port to 1e-5 there.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 from pathlib import Path
 
 import numpy as np
@@ -290,6 +292,26 @@ def famod_state(workdir: Path, shear_scale: float = FAMOD_SHEAR,
         fm=interop.famod_from_numpy(numpy_fields(j_fm)),
         species=interop.species_from_numpy(numpy_fields(j_species)),
         grid=interop.grid_from_numpy(numpy_fields(j_grid)))
+
+
+def run_drivers(workdir: Path, **fields):
+    """The JAX driver's f64 route and the port's driver (on the CPU), in
+    memory (write=False) on one workdir whose parameters ``fields``
+    update; their logs are swallowed.  Returns (JAX run, port run)."""
+    from is3d2_tpu.driver import IS3D as JIS3D
+
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.driver import IS3D
+    path = workdir / "iS3D_parameters.dat"
+    jcfg = dataclasses.replace(JConfig.from_file(path), compute_dtype="f64",
+                               **fields)
+    cfg = dataclasses.replace(Config.from_file(path), **fields)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = JIS3D(workdir, cfg=jcfg)
+        ref.run_particlization(write=False)
+        ours = IS3D(workdir, cfg=cfg, device="cpu")
+        ours.run_particlization(write=False)
+    return ref, ours
 
 
 # ----------------------------------------------------------------------
