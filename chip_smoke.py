@@ -3,7 +3,7 @@
 Phases (any failure raises; nothing is caught):
   1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
      fails without a CUDA device;
-  2. build the three kernels with nvcc (sm_90a), one nvcc per source,
+  2. build the four kernels with nvcc (sm_90a), one nvcc per source,
      started together, and print ptxas' registers, static shared memory and
      spills of each (the most over a source's instantiations, and the
      instantiation its main path launches);
@@ -99,16 +99,34 @@ Phases (any failure raises; nothing is caught):
      bin that holds a breakdown cell against its plain version (<= 1e-5);
      at 2,048 cells (df 4, and df 3 with outflow, where the convention
      decides the number) the route against its plain version (<= 1e-5) and
-     the f64 engine (<= 1e-4).
+     the f64 engine (<= 1e-4);
+ 20. kernel P1 (spin polarization, f32) vs its plain version (<= 1e-5 on
+     both metrics) and the f64 polarization engine at the JAX package's
+     bars for its f32 route (Snorm <= 2e-5 relative on bins >= 1e-6 of its
+     max; P^mu = S^mu / Snorm within 1e-5 of max |P| where Snorm >= 1e-3
+     of its max) at phase 3's shape on a surface with thermal vorticity;
+     on the 80-node table (three launches); the ragged case;
+ 21. the mode-5 main path at full size through the CLI: phase 5's surface
+     with thermal vorticity, written in mode 5, df 1, f32c.  B1 (the
+     spectra) and P1 (the polarization) must both launch and no other
+     kernel; the four files St, Sx, Sy, Sn hold S x 48 x 51 = 908,208
+     finite rows each; it prints the stage seconds (polarization
+     included);
+ 22. P1 on phase 21's operands (102,400 padded cells x 24 eta, not folded,
+     x 908,208 momenta), timed at full size: evaluations/s and share of
+     the bound; every sum finite and Snorm > 0; two launches give equal
+     bits; held to its plain version (<= 1e-5 on both metrics) on the
+     first 4,096 cells at the full M, both timed there.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
 12-13's and 16's numbers.  The line before the last is a JSON object with each
 kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
 "operation0", phase 19 under B3's "operation0", each with the launches of
-its own path),
+its own path; P1's launches from phase 21),
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
-(no single PyTorch call computes a Cooper-Frye sum), and the register tile
+(no single PyTorch call computes a Cooper-Frye or polarization sum), and
+the register tile
 and the cell split that the wrapper launched with at full size.  The bound
 counts, per kernel, the fewer of the operations of its plain version
 (OPS_PER_EVALUATION) and of the kernel itself
@@ -136,10 +154,12 @@ import numpy as np
 import torch
 
 MAIN_CELLS = 100_000
-KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod", "cooper_frye_f32")
+KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod", "cooper_frye_f32",
+           "polarization_f32")
 B1_COMPARE_CELLS = 16_384
 B2_COMPARE_CELLS = 8_192
 B3_COMPARE_CELLS = 8_192
+P1_COMPARE_CELLS = 4_096
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_OPS = 67e12
@@ -150,10 +170,10 @@ PEAK_BYTES = 3.35e12
 # counted from the plain versions' arithmetic: each elementwise add,
 # multiply, divide, exp, sqrt, clamp or f32 -> f64 conversion on a
 # (cells, M) tensor counts one, and so does each term of the f64 sum; work
-# outside the eta loop counts once per 12 eta nodes; per-cell and
-# per-momentum work is left out.  f64 operations count at the FP32 rate, so
-# the bound stays a lower bound.  B3's kernel runs one branch per cell, so
-# its two branches count apart.
+# outside the eta loop counts once per 12 eta nodes (24 for P1, which
+# never folds); per-cell and per-momentum work is left out.  f64 operations
+# count at the FP32 rate, so the bound stays a lower bound.  B3's kernel
+# runs one branch per cell, so its two branches count apart.
 OPS_PER_EVALUATION = {
     "cooper_frye_comp": 70 + 26 / 12,     # df 1
     "cooper_frye_f32": 34 + 12 / 12,      # df 2
@@ -165,6 +185,10 @@ OPS_PER_EVALUATION = {
                            # per-cell sum 11 outside the loop)
                            "famod_modified": 30 + 9 / 12,
                            "famod_breakdown": 14 + 11 / 12},
+    # the six contractions' mT parts 14, E and f0 6, w 2, g 5, the four
+    # spin sums 4 each, Snorm 2; the px/py parts 14 and the per-cell mask,
+    # conversion and f64 sum 15 outside the loop
+    "polarization_f32": 45 + 29 / 24,
 }
 # What the kernels execute per evaluation, counted the same way from their
 # sources (a multiply-add counts two; work shared by a thread's 4 momenta
@@ -178,6 +202,10 @@ EXECUTED_OPS_PER_EVALUATION = {
                            # and pddb per row; gd, exy, the f64 add
                            "famod_breakdown": 11 + 2 / 4 + 9 / 12},
     "cooper_frye_f32": 30 + 21 / 4 + 20 / 12,    # df 2
+    # E 1, E / T 1, exp 1, + sign 1, clamp 1, reciprocal 5, w 2, g 4, the
+    # four spin sums 4 each, Snorm 2; per row m1, m4 and the mT parts 16;
+    # the px/py parts 14 and the per-cell mask, conversion and f64 add 15
+    "polarization_f32": 34 + 16 / 4 + 29 / 24,
 }
 
 
@@ -218,16 +246,18 @@ def launch_counters():
     from is3d2_tpu_torch.ops.cooper_frye_comp import cooper_frye_comp
     from is3d2_tpu_torch.ops.cooper_frye_f32 import cooper_frye_f32
     from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod
+    from is3d2_tpu_torch.ops.polarization_f32 import polarization_f32
     return {"cooper_frye_comp": cooper_frye_comp,
             "cooper_frye_feqmod": cooper_frye_feqmod,
-            "cooper_frye_f32": cooper_frye_f32}
+            "cooper_frye_f32": cooper_frye_f32,
+            "polarization_f32": polarization_f32}
 
 
 def bound(ops: float, args: tuple, n_mom: int) -> dict:
     """The least time the card could take for one kernel call on ``args``:
     the larger of ``ops`` over the FP32 peak and the bytes (each operand
-    read once, the (n_mom,) f64 output written once) over the memory
-    rate."""
+    read once, the (n_mom,) f64 output written once; P1 writes 5 M) over
+    the memory rate."""
     nbytes = sum(a.numel() * a.element_size() for a in args
                  if isinstance(a, torch.Tensor)) + 8 * n_mom
     ops_ms = ops / PEAK_FP32_OPS * 1e3
@@ -356,16 +386,19 @@ def phase_b3_compare(wd: Path, wd_eta: Path) -> None:
 
 
 def run_main_path(tmp: Path, label: str, kernel: str, params: dict,
-                  **surface_kw) -> tuple[int, dict, Path, str]:
+                  also: tuple = (), **surface_kw
+                  ) -> tuple[dict, dict, Path, str]:
     """Write the full-size workdir and run the operation-1 CLI on it
-    (run_cli), then check its result files."""
+    (run_cli: ``kernel`` and ``also`` launch, no other), then check its
+    spectra files.  Returns every kernel's launches, the stage seconds,
+    the workdir and the log."""
     from is3d2_tpu_torch.tools.synthetic import write_workdir
 
     t0 = time.perf_counter()
     wd = write_workdir(tmp / label, n_cells=MAIN_CELLS, params=params,
                        **surface_kw)
     print(f"workdir written in {time.perf_counter() - t0:.1f} s")
-    launches, stages, out = run_cli(wd, kernel)
+    launches, stages, out = run_cli(wd, kernel, also)
 
     res = wd / "results/continuous"
     mcids = [int(v) for v in np.loadtxt(wd / "PDG/chosen_particles.dat")]
@@ -382,10 +415,12 @@ def run_main_path(tmp: Path, label: str, kernel: str, params: dict,
     return launches, stages, wd, out
 
 
-def run_cli(wd: Path, kernel: str) -> tuple[int, dict, str]:
+def run_cli(wd: Path, kernel: str, also: tuple = ()
+            ) -> tuple[dict, dict, str]:
     """cli.main on a workdir with every launch count set to 0 just before
-    and read just after.  Only ``kernel`` may launch, and it must.
-    Returns its launches, the driver's stage seconds and the log."""
+    and read just after.  Only ``kernel`` and the kernels ``also`` may
+    launch, and each must.  Returns every kernel's launches, the driver's
+    stage seconds and the log."""
     from is3d2_tpu_torch import cli
     counters = launch_counters()
     log = io.StringIO()
@@ -401,13 +436,14 @@ def run_cli(wd: Path, kernel: str) -> tuple[int, dict, str]:
     print(out, end="")
     print(f"cli.main returned {rc} after {wall:.2f} s; kernel launches "
           f"{launches}")
-    if rc != 0 or launches[kernel] < 1:
-        raise AssertionError(f"the main path did not run through {kernel}")
-    if any(n for name, n in launches.items() if name != kernel):
+    ours = (kernel, *also)
+    if rc != 0 or any(launches[k] < 1 for k in ours):
+        raise AssertionError(f"the main path did not run through {ours}")
+    if any(n for name, n in launches.items() if name not in ours):
         raise AssertionError(f"the {kernel} main path launched another kernel")
     stages = json.loads(re.search(r"^stage seconds: (.*)$", out,
                                   re.M).group(1))
-    return launches[kernel], stages, out
+    return launches, stages, out
 
 
 def phase_b1_main_path(tmp: Path) -> tuple[int, dict, Path]:
@@ -416,7 +452,7 @@ def phase_b1_main_path(tmp: Path) -> tuple[int, dict, Path]:
     launches, stages, wd, _ = run_main_path(
         tmp, "main_df1", "cooper_frye_comp",
         {"df_mode": 1, "compute_dtype": "f32c"})
-    return launches, stages, wd
+    return launches["cooper_frye_comp"], stages, wd
 
 
 def compare_on_cut(kernel, plain, few_args, cut_args, spectra_units, tol,
@@ -531,7 +567,7 @@ def phase_b3_main_path(tmp: Path) -> tuple[int, dict, Path]:
     if n_break < 1:
         raise AssertionError("no cell of the df-4 main path broke down")
     print(f"stage seconds: {json.dumps(stages)}")
-    return launches, stages, wd
+    return launches["cooper_frye_feqmod"], stages, wd
 
 
 def phase_b3_full(wd: Path) -> dict:
@@ -599,7 +635,7 @@ def phase_b2_main_path(tmp: Path) -> tuple[int, dict, Path]:
         tmp, "main_df2_pallas", "cooper_frye_f32",
         {"df_mode": 2, "compute_dtype": "f64", "use_pallas": 1})
     print(f"stage seconds: {json.dumps(stages)}")
-    return launches, stages, wd
+    return launches["cooper_frye_f32"], stages, wd
 
 
 def phase_b2_full(wd: Path) -> dict:
@@ -866,7 +902,7 @@ def phase_famod_main_path(tmp: Path) -> tuple[int, dict, Path, dict]:
     print(f"famod: {json.dumps(info)}")
     if info["breakdown_cells"] < 1:
         raise AssertionError("no cell of the df-5 main path broke down")
-    return launches, stages, wd, info
+    return launches["cooper_frye_feqmod"], stages, wd, info
 
 
 def phase_famod_full(wd: Path) -> dict:
@@ -1005,7 +1041,8 @@ def phase_grouped_main_path(tmp: Path) -> dict:
                              "run beyond the grouping's bar")
     bnd = bound(BOUND_OPS_PER_EVALUATION["cooper_frye_comp"]
                 * ops.evaluations, args, M)
-    return {"launches": launches, "stage_seconds": stages,
+    return {"launches": launches["cooper_frye_comp"],
+            "stage_seconds": stages,
             "species": len(idx), "representatives": len(rep), "momenta": M,
             "ms": ms, "evaluations": ops.evaluations, **bnd,
             "exact_multiplets": len(exact), "exact_max_rel_err": exact_err,
@@ -1165,6 +1202,7 @@ def phase_op0_b1(tmp: Path, wd1: Path, wd_parity: Path) -> dict:
     from is3d2_tpu_torch.tools import kernel_check as kc
     wd = derived_workdir(tmp, wd1, "op0_df1", {"operation": 0})
     launches, stages, _ = run_cli(wd, "cooper_frye_comp")
+    launches = launches["cooper_frye_comp"]
     print(f"stage seconds: {json.dumps(stages)}")
     check_dX_files(wd, wd1)
     per_eval = BOUND_OPS_PER_EVALUATION["cooper_frye_comp"]
@@ -1196,6 +1234,7 @@ def phase_op0_b3(tmp: Path, wd_parity: Path) -> dict:
                        **kc.FEQMOD_SURFACE)
     print(f"workdir written in {time.perf_counter() - t0:.1f} s")
     launches, stages, out = run_cli(wd, "cooper_frye_feqmod")
+    launches = launches["cooper_frye_feqmod"]
     n_break = int(re.search(r"^feqmod breaks down for (\d+) /", out,
                             re.M).group(1))
     print(f"stage seconds: {json.dumps(stages)}; {n_break} breakdown cells")
@@ -1224,6 +1263,123 @@ def phase_op0_b3(tmp: Path, wd_parity: Path) -> dict:
     return {"launches": launches, "stage_seconds": stages,
             "breakdown_cells": n_break, **t, **cmp, "library_ms": None,
             "at_2048_cells": small}
+
+
+def phase_p1_compare(wd: Path, wd_eta: Path) -> None:
+    print("== 20. P1 vs plain version vs f64 polarization engine (2048 cells, "
+          "16 species, 51 x 48, 24 eta; vorticity)")
+    from is3d2_tpu_torch.ops import polarization_f32 as pz
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    chunks = -(-kc.ETA_NODES // pz.ETA_CHUNK)
+    cases = {
+        "24 eta": (kc.check_polarization_case(wd, 2048, 7, "cuda",
+                                              cell_block=512), 1),
+        f"{kc.ETA_NODES} eta, unfolded": (kc.check_polarization_case(
+            wd_eta, 2048, 7, "cuda", cell_block=512), chunks),
+        "ragged " + json.dumps(kc.RAGGED): (
+            kc.check_polarization_ragged_case(wd, 2048, 7, "cuda"), 1)}
+    for name, (r, launches) in cases.items():
+        print(f"{name:22s} ({r.launches} launches) kernel vs plain: Snorm "
+              f"{r.vs_plain[0]:.3e}, P {r.vs_plain[1]:.3e}; kernel vs f64: "
+              f"Snorm {r.vs_f64[0]:.3e}, P {r.vs_f64[1]:.3e}; plain vs f64: "
+              f"Snorm {r.plain_vs_f64[0]:.3e}, P {r.plain_vs_f64[1]:.3e}")
+        if not (r.ok and r.launches == launches):
+            raise AssertionError(
+                f"P1 {name}: kernel disagrees, does not repeat or launched "
+                f"{r.launches} times, not {launches} ({r.vs_plain} vs plain,"
+                f" {r.vs_f64} vs f64; bars {kc.POLZN_TOL_PLAIN:g} plain, "
+                f"{kc.POLZN_TOL_NORM:g} / {kc.POLZN_TOL_P:g} f64)")
+
+
+def phase_p1_main_path(tmp: Path) -> tuple[dict, dict, Path]:
+    print(f"== 21. mode-5 main path: {MAIN_CELLS} cells with thermal "
+          "vorticity, all species, 51 x 48 x 24, df 1, f32c: the spectra "
+          "on B1, the polarization on P1")
+    from is3d2_tpu_torch.io.fastio import load_table_fast
+    from is3d2_tpu_torch.io.output import POLARIZATION_FILES
+    launches, stages, wd, _ = run_main_path(
+        tmp, "main_mode5", "cooper_frye_comp",
+        {"df_mode": 1, "compute_dtype": "f32c"}, also=("polarization_f32",),
+        surface_mode=5)
+    n_species = len(np.loadtxt(wd / "PDG/chosen_particles.dat"))
+    rows = n_species * 48 * 51
+    t0 = time.perf_counter()
+    for name in POLARIZATION_FILES:
+        v = load_table_fast(wd / f"results/{name}.dat")
+        if v.shape != (rows, 4) or not np.isfinite(v).all():
+            raise AssertionError(f"{name}.dat: shape {v.shape} (want "
+                                 f"({rows}, 4)) or a value not finite")
+        print(f"{name}.dat: {v.shape[0]} rows, finite, max |P| "
+              f"{np.abs(v[:, 3]).max():.4e}")
+    print(f"(parsed in {time.perf_counter() - t0:.1f} s); kernel launches "
+          f"{json.dumps(launches)}; stage seconds: {json.dumps(stages)}")
+    return launches, stages, wd
+
+
+def phase_p1_full(wd: Path) -> dict:
+    print("== 22. P1 on the mode-5 main path's operands")
+    from is3d2_tpu_torch.ops import polarization_f32 as pz
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    cfg, state = main_path_state(wd, kc.polarization_engine_state)
+    ops = pz.pack_inputs(*state)
+    args = ops.args()
+    kernel = functools.partial(pz.polarization_f32, row_len=ops.row_len)
+    C, Ne, M = ops.cell.shape[0], ops.eta.shape[0], ops.mom.shape[1]
+    print(f"{C} padded cells x {Ne} eta x {M} momenta (M mod 256 = "
+          f"{M % 256}) = {ops.evaluations:.4g} evaluations")
+    first = kernel(*args)
+    full_ms, second = cuda_ms(lambda: kernel(*args), warmup=lambda: None)
+    print(f"kernel at full size {full_ms:.1f} ms, "
+          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
+    if not torch.equal(first, second):
+        raise AssertionError("two launches of P1 on the main path's operands "
+                             "gave different bits")
+    print("two launches at full size gave equal bits")
+    if not (torch.isfinite(first).all() and (first[4] > 0).all()):
+        raise AssertionError("P1 at full size: a sum not finite or an "
+                             "Snorm <= 0")
+    print(f"every sum finite, Snorm > 0 on all {M} momenta")
+    del first, second
+    g = pz.polarization_f32.last_geometry
+    print(f"launched with {g}")
+
+    per_eval = BOUND_OPS_PER_EVALUATION["polarization_f32"]
+
+    def cut(n):
+        return (ops.cell[:n].contiguous(), *args[1:])
+
+    n = P1_COMPARE_CELLS
+    print(f"compared on the first {n} cells at the full M")
+    ms, out = cuda_ms(lambda: kernel(*cut(n)))
+    plain_ms, ref = cuda_ms(lambda: pz.polarization_f32_plain(*cut(n)),
+                            warmup=lambda: pz.polarization_f32_plain(*cut(64)))
+    print(f"cut: kernel {ms:.1f} ms, plain version {plain_ms:.1f} ms "
+          f"({plain_ms / ms:.1f}x the kernel)")
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    norm_err, p_err = kc.polarization_errors(out, ref)
+    max_abs = kc.polarization_units(out, ref)
+    print(f"kernel vs plain: Snorm {norm_err:.3e} relative, P {p_err:.3e} of "
+          f"max |P| (bar {kc.POLZN_TOL_PLAIN:g}), max |P_kernel - P_plain| "
+          f"{max_abs:.3e}")
+    if not (np.isfinite(out).all() and max(norm_err, p_err)
+            <= kc.POLZN_TOL_PLAIN):
+        raise AssertionError("P1 disagrees with its plain version on the "
+                             "main path's operands")
+    main_bound = bound(per_eval * ops.evaluations, args, 5 * M)["bound_ms"]
+    print(f"bound at full size {main_bound:.1f} ms: "
+          f"{100 * main_bound / full_ms:.1f} % of it")
+    return {"register_tile": g.r, "cell_split": g.n_split,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            **bound(per_eval * n * Ne * M, cut(n), 5 * M),
+            "main_path_bound_ms": main_bound,
+            "main_path_evaluations_per_s": ops.evaluations / full_ms * 1e3,
+            "main_path_share_of_bound": main_bound / full_ms,
+            # no single PyTorch call computes a polarization sum
+            "library_ms": None,
+            "cells_compared": n, "snorm_rel_err": norm_err,
+            "p_err": p_err, "main_path_ms": full_ms,
+            "main_path_evaluations": ops.evaluations}
 
 
 def main() -> int:
@@ -1258,6 +1414,9 @@ def main() -> int:
         grouped = phase_grouped_main_path(tmp)
         op0_b1 = phase_op0_b1(tmp, wd1, wd)
         op0_b3 = phase_op0_b3(tmp, wd)
+        phase_p1_compare(wd, wd_eta)
+        p1_launches, p1_stages, wd_m5 = phase_p1_main_path(tmp)
+        p1 = phase_p1_full(wd_m5)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1287,7 +1446,15 @@ def main() -> int:
         {"name": "cooper_frye_f32", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_f32.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:83",
-         "launches": b2_launches, **b2}]}))
+         "launches": b2_launches, **b2},
+        {"name": "polarization_f32", "route": "cuda",
+         "source": "is3d2_tpu_torch/csrc/polarization_f32.cu",
+         # an XLA program: the JAX package has no Pallas kernel for it
+         "replaces": "is3d2_tpu/core/polarization_fast.py:96",
+         "launches": p1_launches["polarization_f32"], **p1,
+         # phase 21: the mode-5 main path, B1 for its spectra beside P1
+         "mode5_main_path": {"launches": p1_launches,
+                             "stage_seconds": p1_stages}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -186,10 +186,11 @@ class Config:
                              "EmissionFunction.cpp:1184-1189)")
         feqmod = self.df_mode in (3, 4, 5)
         todo = None
-        if self.mode == 5:
-            todo = "mode 5 (thermal vorticity, polarization): ROADMAP A8b"
-        elif self.dimension == 3:
-            if self.operation == 2:
+        if self.dimension == 3:
+            if self.mode == 5:
+                todo = ("mode 5 in dimension 3 (3+1d polarization): "
+                        "ROADMAP A7")
+            elif self.operation == 2:
                 todo = ("operation 2 in dimension 3 (the 3+1d sampler): "
                         "ROADMAP A7")
             elif self.operation == 0:

@@ -5,7 +5,8 @@ iS3D.cpp:81-282): load parameters, surface, PDG list, delta-f coefficient
 tables and quadrature grids, then on ``device`` compute the spacetime
 distributions dN/dX (operation 0) or the continuous spectra (operation 1),
 or sample hadrons (operation 2) into the test histograms or the OSCAR event
-files, and write the result files.
+files, then for a mode-5 surface the spin polarization, and write the
+result files.
 
 Library use (the JETSCAPE-style in-memory path, iS3D.cpp:33-78) is
 ``IS3D.load_surface_from_memory(...)`` followed by
@@ -24,6 +25,7 @@ import torch
 from .config import Config
 from .core.sampler import (ChunkCollector, compute_total_yield,
                            number_of_events, sample_particles)
+from .core.polarization import compute_polarization
 from .core.sampler_hist import ChunkBinner
 from .core.spacetime import compute_dN_dX
 from .core.spectra import compute_spectra
@@ -65,6 +67,7 @@ class IS3D:
         self.final_particles = None
         self.n_events = None
         self.sampler_diags = None
+        self.polarization = None
         self.report = RunReport()
 
     def load_surface_from_file(self, path: str | Path | None = None) -> None:
@@ -163,6 +166,8 @@ class IS3D:
                 self.stage_seconds["write"] = time.time() - tw
         else:
             self._sample(results, mcids, t_compute, write)
+        if cfg.mode == 5:
+            self._polarization(results, write)
         if report.reconstruction is not None:
             # part of compute: the famod prep (df 5)
             self.stage_seconds["famod_prep"] = report.reconstruction.seconds
@@ -229,6 +234,20 @@ class IS3D:
                   f"{overlap:.3f} s overlapped with sampling), "
                   f"{consumer.transfer_seconds:.3f} s waiting for "
                   "device->host copies", flush=True)
+
+    def _polarization(self, results: Path, write: bool) -> None:
+        """The spin polarization of a mode-5 surface, after any operation
+        (is3d2_tpu/driver.py:243-250): every chosen species, never grouped;
+        stage_seconds["polarization"] includes the write."""
+        print("computing spin polarization ...", flush=True)
+        t0 = time.time()
+        self.polarization = compute_polarization(
+            self.surface, self.species, self.chosen_idx, self.grids,
+            self.plasma, self.cfg, self.device)
+        if write:
+            output.write_polarization(results, *self.polarization,
+                                      self.grids, self.cfg.dimension)
+        self.stage_seconds["polarization"] = time.time() - t0
 
     def _mark_compute(self, t_start: float, what: str) -> None:
         if self.device.type == "cuda":

@@ -10,12 +10,14 @@ EmissionFunction.cpp:406-975:
   results/continuous/dN_dy_<mcid>.dat
   results/continuous/{dN_taudtaudy,dN_2pirdrdy,dN_dphidy}_<mcid>.dat
                                                     (operation 0)
+  results/{St,Sx,Sy,Sn}.dat                         (polarization, mode 5)
   results/sampled/<obs>/..._test.dat                (sampler tests)
   results/particle_list_osc_<n>.dat                 (OSCAR)
   results/particle_list_<n>.dat                     (CSV, write_csv = 1)
 
-The op-0 and op-1 block tables and the particle lists are formatted by the threaded
-native writer (io/fastio.py), which prints %.Ne as printf does.
+The op-0 and op-1 block tables, the polarization files and the particle
+lists are formatted by the threaded native writer (io/fastio.py), which
+prints %.Ne as printf does.
 """
 
 from __future__ import annotations
@@ -143,6 +145,33 @@ def write_dN_dX(results_dir: Path, mcids, dX, cfg: Config) -> None:
         write_blocks_fast(str(d / f"{name}_%lld.dat"), list(mcids), "", "\t",
                           6, np.arange(S + 1, dtype=np.int64) * n,
                           [np.tile(mid, S), np.asarray(vals).reshape(-1)])
+
+
+POLARIZATION_FILES = ("St", "Sx", "Sy", "Sn")
+
+
+def write_polarization(results_dir: Path, St, Sx, Sy, Sn, Snorm,
+                       grids: MomentumGrids, dimension: int) -> None:
+    """St/Sx/Sy/Sn.dat with S^mu / Snorm (EmissionFunction.cpp:561-609):
+    rows (y, phi, pT, value) in %.8e, species, y, phi and pT nested in that
+    order, a blank line after every NpT rows; no header.  One call of the
+    threaded native writer for the four files."""
+    S, NpT, Nphi, Ny = St.shape
+    y_vals = grids.y if dimension == 3 else np.zeros(1)
+    d = _ensure(Path(results_dir) / "x").parent
+    rows = S * Ny * Nphi * NpT
+    n = len(POLARIZATION_FILES)
+    key = [np.tile(np.repeat(y_vals, Nphi * NpT), S * n),
+           np.tile(np.repeat(grids.phi, NpT), Ny * S * n),
+           np.tile(grids.pT, Nphi * Ny * S * n)]
+    vals = np.concatenate([
+        (np.asarray(a) / np.asarray(Snorm)).transpose(0, 3, 2, 1).ravel()
+        for a in (St, Sx, Sy, Sn)])
+    write_blocks_fast(str(d / "polarization_%lld.tmp"), list(range(n)), "",
+                      "\t", 8, np.arange(n + 1, dtype=np.int64) * rows,
+                      [*key, vals], blank_every=NpT, blank_tail=1)
+    for i, name in enumerate(POLARIZATION_FILES):
+        (d / f"polarization_{i}.tmp").replace(d / f"{name}.dat")
 
 
 # ----------------------------------------------------------------------

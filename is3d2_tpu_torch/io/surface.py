@@ -1,4 +1,4 @@
-"""Freezeout-surface readers (modes 0-4, 6 and 7) and the in-memory surface.
+"""Freezeout-surface readers (modes 0-7) and the in-memory surface.
 
 Counterpart of is3d2_tpu/io/surface.py, which replaces the reference's
 FO_data_reader (src/cpp/readindata.cpp:122-729).  The reader produces a
@@ -14,6 +14,8 @@ Ported formats (``mode``), read with the threaded native parser
   0 : legacy GPU-VH with a u^t column and the full pi tensor
       (readindata.cu:147-318)
   1 : CPU VH, raw hbar=1 units (readindata.cpp:167-367)
+  5 : mode 1 plus the six thermal-vorticity columns wtx wty wtn wxy wxn
+      wyn, for the spin polarization (readindata.cpp:167-367)
   2 : legacy VAH P_L-matching, with (Lambda, a_L) inferred from the
       conformal factorization fit (readindata.cu:812-930)
   3 : legacy VAH (P_L, P_T)-matching with explicit (Lambda, a_T, a_L)
@@ -27,8 +29,7 @@ Ported formats (``mode``), read with the threaded native parser
       (readindata.cpp:570-729)
 Modes 2/3 fill the optional VAH fields (PL, PT, W^mu, Lambda, aT, aL,
 upsilonB), which the df-5 famod prep uses instead of reconstructing the
-anisotropic variables.  Mode 5 (thermal vorticity, for polarization) comes
-with ROADMAP A8b.  ``surface_from_memory`` is the JETSCAPE-style surface
+anisotropic variables.  ``surface_from_memory`` is the JETSCAPE-style surface
 handed over in memory (iS3D.cpp:33-78).
 """
 
@@ -456,12 +457,8 @@ def _read_hic_eventgen(cols: np.ndarray) -> SurfaceData:
 
 def read_surface(path: str | Path, mode: int, dimension: int,
                  include_baryon: bool) -> SurfaceData:
-    """Read input/surface.dat in the format of ``mode`` (0-4, 6 or 7)."""
-    if mode == 5:
-        raise NotImplementedError(
-            "surface mode 5 (thermal vorticity) is not ported yet "
-            "(ROADMAP A8b)")
-    if mode not in (0, 1, 2, 3, 4, 6, 7):
+    """Read input/surface.dat in the format of ``mode`` (0-7)."""
+    if mode not in (0, 1, 2, 3, 4, 5, 6, 7):
         raise ValueError(f"unknown surface mode {mode} (supported: 0-7)")
     if mode == 7:
         if dimension != 2:
@@ -473,7 +470,7 @@ def read_surface(path: str | Path, mode: int, dimension: int,
     cols = load_table_fast(path)
     if mode == 0:
         s = _read_vh_old(cols, include_baryon, include_baryon)
-    elif mode == 1:
+    elif mode in (1, 5):
         s = _read_cpu_vh(cols, mode, include_baryon)
     elif mode == 2:
         s = _read_vah_pl_match(cols)

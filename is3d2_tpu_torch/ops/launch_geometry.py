@@ -1,6 +1,7 @@
-"""Launch geometry of the Cooper-Frye kernels B1, B2 and B3, on the host.
+"""Launch geometry of the Cooper-Frye kernels B1, B2 and B3 and of the
+polarization kernel P1, on the host.
 
-The three kernels give a thread a register tile of ``r`` consecutive phi
+The four kernels give a thread a register tile of ``r`` consecutive phi
 of one (species, pT) row, walk the cells in shared-memory tiles, and split
 the cells across ``blockIdx.y`` so that the grid fills whole waves of the
 card.
@@ -29,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-THREADS = 256          # kThreads of the three CUDA sources
+THREADS = 256          # kThreads of the four CUDA sources
 BLOCKS_PER_SM = 2      # kMinBlocks: what __launch_bounds__ keeps resident
 MAX_SPLIT = 32         # (n_split, M) f64 partials: 32 x 7 MB at the full grid
 GOOD_FILL = 0.95       # take the smallest split that fills its waves this far

@@ -21,6 +21,12 @@ the plain versions on the same bins and to the f64 engines' binned
 per-cell sums, normalized, with the same bars; DX_DAN draws the 2+1d
 surface's dsigma_eta, which the spacetime convention weights.
 
+Kernel P1 (spin polarization, mode 5): ``check_polarization_case`` holds
+it to its plain version (POLZN_TOL_PLAIN) and to the f64 polarization
+engine at the JAX package's bars for its f32 route (POLZN_TOL_NORM on
+Snorm, POLZN_TOL_P on P^mu = S^mu / Snorm; ``polarization_errors``) on a
+surface with vorticity.
+
 Each kernel also has a ragged case (RAGGED: rows of 7 phi under a register
 tile of 4, fewer momenta than one block owns, a cell count that fills
 neither the last tile nor the last split), cut from a case's operands and
@@ -43,6 +49,7 @@ import torch
 
 from ..config import Config
 from ..core import spacetime
+from ..core.polarization import delta_eta, polarization_f64, polarization_state
 from ..core.spectra import PREFACTOR, df12_state, spectra_df12
 from ..core.spectra_famod import famod_state, spectra_famod
 from ..core.spectra_feqmod import feqmod_state, spectra_feqmod
@@ -52,6 +59,7 @@ from ..io.tables import GaussLaguerre
 from ..ops import cooper_frye_comp as ck
 from ..ops import cooper_frye_f32 as b2
 from ..ops import cooper_frye_feqmod as fk
+from ..ops import polarization_f32 as pz
 from ..ops.spectra_fast_common import comp_operands, f32_operands
 from .synthetic import add_dsigma_eta, make_eos_consistent, make_surface
 
@@ -63,11 +71,12 @@ F32_TOL_PLAIN = 1e-5      # kernel B2 vs its plain version
 F32_TOL_F64 = 2e-5        # kernel B2 vs the f64 engine (JAX's f32 paths: ~5e-6)
 
 # the kernel instantiation each full-size main path launches (df 1 with shear
-# and bulk; df 4; df 2), as a pattern of its mangled name
+# and bulk; df 4; df 2; P1 has one), as a pattern of its mangled name
 MAIN_PATH_KERNEL = {
     "cooper_frye_comp": r"cooper_frye_comp_kernelILb1ELb0ELb0ELb0ELb0EE",
     "cooper_frye_feqmod": r"cooper_frye_feqmod_kernelILi4ELb0ELb0ELb0EE",
     "cooper_frye_f32": r"cooper_frye_f32_kernelILb1ELb0ELb0ELb0ELb1EE",
+    "polarization_f32": r"polarization_f32_kernel",
 }
 
 # name -> (config fields, make_surface options); the workdir needs
@@ -491,3 +500,129 @@ def check_dX_case(workdir: str | Path, cfg: Config, n_cells: int, seed: int,
         breakdown_cells(state) if feqmod else 0,
         FEQMOD_TOL_PLAIN if feqmod else TOL,
         FEQMOD_TOL_F64 if feqmod else TOL)
+
+
+# ----------------------------------------------------------------------
+# kernel P1 (spin polarization, mode 5)
+# ----------------------------------------------------------------------
+
+# The JAX package's bars for its f32 polarization route against its f64
+# engine (tests/test_f32_paths.py::test_polarization_f32_matches_f64):
+# Snorm relative on bins >= POLZN_NORM_FLOOR of its max, and each
+# P^mu = S^mu / Snorm absolute, in units of max |P|, on bins whose Snorm
+# is >= POLZN_P_FLOOR of its max (the spin sums cancel across cells, so a
+# relative error of S^mu would measure rounding noise)
+POLZN_TOL_NORM = 2e-5
+POLZN_TOL_P = 1e-5
+POLZN_TOL_PLAIN = 1e-5    # kernel P1 vs its plain version, both metrics
+POLZN_NORM_FLOOR = 1e-6
+POLZN_P_FLOOR = 1e-3
+
+
+def polarization_errors(out: np.ndarray, ref: np.ndarray
+                        ) -> tuple[float, float]:
+    """(Snorm relative error, max |P^mu - P^mu_ref| / max |P_ref|) of the
+    (5, ...) sums ``out`` against ``ref``, on the bins above."""
+    out = np.asarray(out).reshape(5, -1)
+    ref = np.asarray(ref).reshape(5, -1)
+    n_out, n_ref = out[4], ref[4]
+    sig = n_ref > POLZN_NORM_FLOOR * n_ref.max()
+    norm_err = float((np.abs(n_out - n_ref)[sig] / n_ref[sig]).max())
+    good = n_ref > POLZN_P_FLOOR * n_ref.max()
+    p_err = 0.0
+    for k in range(4):
+        p_ref = ref[k][good] / n_ref[good]
+        p_out = out[k][good] / n_out[good]
+        p_err = max(p_err, float(np.abs(p_out - p_ref).max()
+                                 / max(np.abs(p_ref).max(), 1e-300)))
+    return norm_err, p_err
+
+
+def polarization_units(out: np.ndarray, ref: np.ndarray) -> float:
+    """max |P^mu - P^mu_ref| over the four components on the bins whose
+    Snorm is >= POLZN_P_FLOOR of its max: the error of the observable."""
+    out = np.asarray(out).reshape(5, -1)
+    ref = np.asarray(ref).reshape(5, -1)
+    good = ref[4] > POLZN_P_FLOOR * ref[4].max()
+    return float(max(np.abs(out[k][good] / out[4][good]
+                            - ref[k][good] / ref[4][good]).max()
+                     for k in range(4)))
+
+
+@dataclasses.dataclass
+class PolarizationCaseResult:
+    kernel: np.ndarray    # (5, M) sums
+    plain: np.ndarray
+    f64: np.ndarray
+    launches: int         # kernel launches of the checked call
+    repeats: bool         # a second call gave the same bits
+
+    @property
+    def vs_plain(self) -> tuple[float, float]:
+        return polarization_errors(self.kernel, self.plain)
+
+    @property
+    def vs_f64(self) -> tuple[float, float]:
+        return polarization_errors(self.kernel, self.f64)
+
+    @property
+    def plain_vs_f64(self) -> tuple[float, float]:
+        return polarization_errors(self.plain, self.f64)
+
+    @property
+    def ok(self) -> bool:
+        norm, p = self.vs_f64
+        return bool(np.isfinite(self.kernel).all() and self.repeats
+                    and max(self.vs_plain) <= POLZN_TOL_PLAIN
+                    and norm <= POLZN_TOL_NORM and p <= POLZN_TOL_P)
+
+
+def polarization_engine_state(workdir: str | Path, cfg: Config, surf,
+                              device):
+    """The polarization's inputs for ``surf`` with the workdir's tables:
+    (cells, species, grid, surface-averaged T, delta_eta)."""
+    run = IS3D(workdir, cfg=cfg, device=device)
+    run.surface = surf
+    run._setup()
+    return (*polarization_state(surf, run.species, run.chosen_idx, run.grids,
+                                cfg, device),
+            float(run.plasma.temperature), delta_eta(run.grids))
+
+
+def _polarization_result(state, args) -> PolarizationCaseResult:
+    out, plain, launches, repeats = _run(pz.polarization_f32,
+                                         pz.polarization_f32_plain, args)
+    return PolarizationCaseResult(
+        out.cpu().numpy(), plain.cpu().numpy(),
+        polarization_f64(*state).reshape(5, -1).cpu().numpy(), launches,
+        repeats)
+
+
+def check_polarization_case(workdir: str | Path, n_cells: int, seed: int,
+                            device, **cfg_fields) -> PolarizationCaseResult:
+    """Kernel P1 (its plain version on a CPU device), the plain version and
+    the f64 engine on make_surface(n_cells, seed, vorticity=True) with the
+    workdir's species and tables (mode 5, f32c)."""
+    cfg = Config(compute_dtype="f32c", mode=5, **cfg_fields)
+    surf = make_surface(n_cells, seed=seed, vorticity=True)
+    state = polarization_engine_state(workdir, cfg, surf, device)
+    return _polarization_result(state, pz.pack_inputs(*state).args())
+
+
+def check_polarization_ragged_case(workdir: str | Path, n_cells: int,
+                                   seed: int, device
+                                   ) -> PolarizationCaseResult:
+    """Kernel P1 against its plain version (which also stands in for f64)
+    on the operands cut to RAGGED."""
+    cfg = Config(compute_dtype="f32c", mode=5)
+    surf = make_surface(n_cells, seed=seed, vorticity=True)
+    state = polarization_engine_state(workdir, cfg, surf, device)
+    ops = pz.pack_inputs(*state)
+    n = RAGGED["cells"]
+    args = (ops.cell[:n].contiguous(), ops.eta, ops.eta_w,
+            _ragged_momenta(ops.mom, state[1], state[2]), ops.inv_T)
+    out, plain, launches, repeats = _run(pz.polarization_f32,
+                                         pz.polarization_f32_plain, args)
+    plain = plain.cpu().numpy()
+    return PolarizationCaseResult(out.cpu().numpy(), plain, plain, launches,
+                                  repeats)

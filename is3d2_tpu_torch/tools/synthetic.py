@@ -10,7 +10,7 @@ package's CLI) reads, with no data files from outside the repository:
   tables/spacetime_rapidity/eta_table.dat
   deltaf_coefficients/vh/smash_box/*.dat      from generate_deltaf_tables
   input/surface.dat                           mode-1 surface (or mode
-                                              0, 2, 3, 4, 6 or 7)
+                                              0, 2-7)
   iS3D_parameters.dat
 
 ``make_surface`` and ``write_mode1`` are copies of tests/surfgen.py, so the
@@ -28,12 +28,14 @@ mode 7 has none).
 Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]
 [--operation 0|1|2] [--df-mode 1-5] [--compute-dtype f32c|f32|f64]
 [--use-pallas -1|0|1] [--shear-scale X] [--bulk-scale X]
-[--test-sampler 1|0] [--surface-mode 0-4|6|7] [--dan-scale X]
+[--test-sampler 1|0] [--surface-mode 0-7] [--dan-scale X]
 [--group-particles 0|1]``.  ``--compute-dtype f64 --use-pallas 1``
 selects kernel B2 for df 1/2.  The feqmod breakdown branch (df 3/4) needs
 viscous corrections well above the defaults: ``--shear-scale 0.2
 --bulk-scale 0.1`` sends a few percent of the cells there.  ``--df-mode 5``
-writes an EOS-consistent surface.
+writes an EOS-consistent surface.  ``--surface-mode 5`` writes mode 1 with
+the thermal vorticity (``write_mode1(vorticity=True)``), and the run adds
+the spin polarization (results/{St,Sx,Sy,Sn}.dat).
 """
 
 from __future__ import annotations
@@ -404,7 +406,10 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
     ``eos_consistent`` replaces (E, P) by the HRG values (make_eos_consistent
     on ``device``), as a df-5 run needs.  ``surface_mode`` picks the
     surface file's format and sets ``mode`` in the parameters: 1 (default),
-    0, 4, 6 or 7 (modes 4 and 7 carry no baryon columns but muB), or 2 or 3,
+    5 (mode 1 with the thermal vorticity, drawn after every other field of
+    make_surface, so those keep mode 1's bits; the run adds the spin
+    polarization), 0, 4, 6 or 7 (modes 4 and 7 carry no baryon columns but
+    muB), or 2 or 3,
     a legacy VAH surface (write_vah_surface; mode 3 reconstructs on
     ``device``).  ``dan_scale`` draws dsigma_eta / tau uniform in
     [-dan_scale, dan_scale] (from the seed, after every other field) for a
@@ -428,14 +433,19 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
     write_df_tables(compute_tables(species, n_T=n_T, n_muB=n_muB),
                     root / "deltaf_coefficients/vh/smash_box")
 
+    vorticity = surface_mode == 5
     surf = make_surface(n_cells, seed=seed, include_baryon=include_baryon,
-                        shear_scale=shear_scale, bulk_scale=bulk_scale)
+                        shear_scale=shear_scale, bulk_scale=bulk_scale,
+                        vorticity=vorticity)
     if dan_scale:
         add_dsigma_eta(surf, seed, dan_scale)
     if eos_consistent:
         make_eos_consistent(surf, species, GaussLaguerre.from_file(
             root / "tables/gauss/gla_roots_weights.txt"), device)
-    if surface_mode in (0, 1, 6):
+    if surface_mode == 5:
+        write_mode1(surf, root / "input/surface.dat",
+                    include_baryon=include_baryon, vorticity=True)
+    elif surface_mode in (0, 1, 6):
         _WRITERS[surface_mode](surf, root / "input/surface.dat",
                                include_baryon=include_baryon)
     elif include_baryon:
@@ -478,8 +488,9 @@ def main(argv=None) -> int:
                     help="operation 2: 1 = test histograms, 0 = OSCAR "
                          "event files (default 1)")
     ap.add_argument("--surface-mode", type=int, default=1,
-                    choices=(0, 1, 2, 3, 4, 6, 7),
-                    help="format of input/surface.dat (default 1)")
+                    choices=(0, 1, 2, 3, 4, 5, 6, 7),
+                    help="format of input/surface.dat (default 1; 5 adds "
+                         "the thermal vorticity and the polarization)")
     ap.add_argument("--dan-scale", type=float, default=0.0,
                     help="dsigma_eta / tau drawn in [-X, X] (default 0)")
     ap.add_argument("--group-particles", type=int, default=0, choices=(0, 1),

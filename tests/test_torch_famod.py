@@ -426,8 +426,9 @@ def test_validate_slice_lets_df5_through(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mode": 5}, "A8b"), ({"mode": 2, "use_mesh": 1}, "A12"),
-    ({"dimension": 3}, "A7"), ({"operation": 2, "mode": 5}, "A8b"),
+    ({"mode": 5, "dimension": 3}, "A7"), ({"mode": 2, "use_mesh": 1}, "A12"),
+    ({"dimension": 3}, "A7"), ({"operation": 2, "mode": 5, "use_mesh": 1},
+                               "A12"),
     ({"compute_dtype": "f32c", "use_pallas": 0}, "A9"),
 ])
 def test_validate_slice_rejects_the_df5_corners(kw, item):

@@ -1,5 +1,5 @@
-"""The CUDA kernels B1, B2 and B3 on the card, against their plain torch
-versions and the port's f64 engines, through the shared harness
+"""The CUDA kernels B1, B2, B3 and P1 on the card, against their plain
+torch versions and the port's f64 engines, through the shared harness
 tools/kernel_check.py.
 
 Imports nothing of JAX, so it runs where only torch is installed:
@@ -23,6 +23,7 @@ from is3d2_tpu_torch.config import Config  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_comp as ck  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_f32 as b2  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
+from is3d2_tpu_torch.ops import polarization_f32 as pz  # noqa: E402
 from is3d2_tpu_torch.ops.launch_geometry import df12_flags  # noqa: E402
 from is3d2_tpu_torch.ops.spectra_fast_common import (  # noqa: E402
     comp_operands, f32_operands)
@@ -736,3 +737,98 @@ def test_grouped_equals_ungrouped_on_exact_multiplets(workdir, df_mode,
     # the representatives, pi-, 3 more Deltas and 2 more Sigma*s
     assert len(exact) == len(rep) + 6
     assert kc.max_rel_err(grouped[exact], plain_run[exact]) <= 1e-12
+
+
+# ----------------------------------------------------------------------
+# kernel P1 (spin polarization, mode 5)
+# ----------------------------------------------------------------------
+
+def _polarization_operands(workdir, n_surface=512, device="cuda"):
+    cfg = Config(compute_dtype="f32c", mode=5, cell_block=512)
+    state = kc.polarization_engine_state(
+        workdir, cfg, make_surface(n_surface, seed=5, vorticity=True),
+        device)
+    return pz.pack_inputs(*state)
+
+
+def _p1_agrees(args):
+    out = pz.polarization_f32(*args)
+    again = pz.polarization_f32(*args)
+    plain = pz.polarization_f32_plain(*args).cpu().numpy()
+    assert torch.equal(out, again)        # no atomics: the same bits
+    out = out.cpu().numpy()
+    assert np.isfinite(out).all()
+    assert max(kc.polarization_errors(out, plain)) <= kc.POLZN_TOL_PLAIN
+
+
+@pytest.mark.gpu
+def test_polarization_kernel_vs_plain_and_f64(workdir):
+    """P1 at 512 cells: <= 1e-5 against its plain version on both metrics,
+    Snorm <= 2e-5 and P <= 1e-5 of max |P| against the f64 engine, one
+    launch, the same bits twice."""
+    _needs_cuda()
+    r = kc.check_polarization_case(workdir, 512, 3, "cuda", cell_block=512)
+    assert r.launches == 1 and r.repeats
+    assert r.ok, (r.vs_plain, r.vs_f64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cells,n_mom", [(100, 168), (70, 100), (333, 165),
+                                           (1, 7), (512, 5)])
+def test_polarization_kernel_ragged_rows_and_splits(ragged_workdir, n_cells,
+                                                    n_mom):
+    """Rows of 7 phi under a register tile of 4, momentum counts that stop
+    inside a row, cell counts that fill neither the last tile nor the last
+    split."""
+    _needs_cuda()
+    ops = _polarization_operands(ragged_workdir)
+    g = pz.geometry(ops.mom[:, :n_mom].contiguous(), n_cells)
+    assert g.row_len == min(7, n_mom) and g.blocks == 1
+    _p1_agrees((ops.cell[:n_cells].contiguous(), ops.eta, ops.eta_w,
+                ops.mom[:, :n_mom].contiguous(), ops.inv_T))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_eta", [1, 32, 33, 80])
+def test_polarization_kernel_eta_counts(workdir, n_eta):
+    """One eta node, the most one launch takes, and more (the 24 nodes
+    repeated): one launch per chunk of at most 32 nodes."""
+    _needs_cuda()
+    ops = _polarization_operands(workdir)
+    reps = -(-n_eta // ops.eta.shape[0])
+    args = (ops.cell, ops.eta.repeat(reps, 1)[:n_eta].contiguous(),
+            ops.eta_w.repeat(reps)[:n_eta].contiguous(), ops.mom, ops.inv_T)
+    before = pz.polarization_f32.launches
+    _p1_agrees(args)
+    assert pz.polarization_f32.launches - before == 2 * -(-n_eta // 32)
+
+
+@pytest.mark.gpu
+def test_polarization_kernel_ragged_case(workdir):
+    """The operands cut to kc.RAGGED (rows of 7 phi, 105 momenta, 1,000
+    cells)."""
+    _needs_cuda()
+    r = kc.check_polarization_ragged_case(workdir, 2048, 7, "cuda")
+    assert r.launches == 1 and r.ok, r.vs_plain
+
+
+@pytest.mark.gpu
+def test_polarization_kernel_overflowing_exponential(workdir):
+    """A heavy species at high pT on a cold surface, where expf overflows:
+    f0 is 0 to f32's range, never NaN, and the sums stay finite."""
+    _needs_cuda()
+    ops = _polarization_operands(workdir)
+    args = (ops.cell, ops.eta, ops.eta_w, ops.mom, 1.0 / 0.002)
+    # u.p >= m, so expf(u.p / T) overflows (past 88.7) for these species
+    assert (0.25 / ops.mom[4] * args[-1] > 88.8).any()
+    assert torch.isfinite(pz.polarization_f32(*args)).all()
+    assert torch.isfinite(pz.polarization_f32_plain(*args)).all()
+
+
+def test_polarization_check_plain_on_cpu(workdir):
+    """The P1 harness on the CPU: the wrapper takes the plain version (no
+    launch), which meets the f64 engine at the JAX package's bars."""
+    r = kc.check_polarization_case(workdir, 512, 3, "cpu", cell_block=512)
+    assert r.launches == 0
+    assert r.vs_plain == (0.0, 0.0)
+    assert r.ok, (r.vs_f64, r.plain_vs_f64)

@@ -120,9 +120,17 @@ def test_mode1_surface_reader(workdir, tmp_path, include_baryon):
     b.write(tmp_path / "ref.dat")
     assert filecmp.cmp(tmp_path / "ours.dat", tmp_path / "ref.dat",
                        shallow=False)
-    # mode 5 (thermal vorticity) comes with polarization
-    with pytest.raises(NotImplementedError, match="A8b"):
-        surface.read_surface(path, 5, 2, include_baryon)
+    # mode 5: the same columns and the thermal vorticity after them (drawn
+    # last, so the other fields keep their bits)
+    path5 = tmp_path / "surface5.dat"
+    synthetic.write_mode1(synthetic.make_surface(
+        64, seed=5, include_baryon=include_baryon, vorticity=True), path5,
+        include_baryon=include_baryon, vorticity=True)
+    ours5 = surface.read_surface(path5, 5, 2, include_baryon)
+    _same_fields(ours5, j_surface.read_surface(path5, 5, 2, include_baryon),
+                 surface._FIELDS)
+    _same_fields(ours5, ours, [f for f in surface._FIELDS
+                               if not f.startswith("w")])
 
 
 @pytest.mark.parametrize("kw", [

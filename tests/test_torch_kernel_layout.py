@@ -1,5 +1,6 @@
-"""Launch geometry of kernels B1, B2 and B3 (ops/launch_geometry.py and the
-wrappers' ``geometry``): the host-side arithmetic the CUDA kernels repeat.
+"""Launch geometry of kernels B1, B2, B3 and P1 (ops/launch_geometry.py and
+the wrappers' ``geometry``): the host-side arithmetic the CUDA kernels
+repeat.
 
 Every momentum point must be owned by exactly one (block, thread, slot) and
 every cell by exactly one split, for ragged shapes too; the phi count must
@@ -16,6 +17,7 @@ from is3d2_tpu_torch.ops import _build  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_comp as ck  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_f32 as b2  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
+from is3d2_tpu_torch.ops import polarization_f32 as pz  # noqa: E402
 from is3d2_tpu_torch.ops.launch_geometry import (  # noqa: E402
     BLOCKS_PER_SM, H100_SMS, MAX_SPLIT, THREADS, cell_ranges, fill,
     launch_geometry, momentum_index, row_length)
@@ -171,6 +173,32 @@ def test_b2_geometry_covers_every_momentum_and_cell_once(
                               for a, b in cell_ranges(g, n_cells)])
     np.testing.assert_array_equal(covered, np.arange(n_cells))
     assert g.n_split * g.cells_per_split >= n_cells
+
+
+@pytest.mark.parametrize("n_cells", [1, 63, 64, 100, 2048, 102_400])
+@pytest.mark.parametrize("n_species,n_pT,n_phi,stop_short", [
+    (1, 1, 1, 0), (3, 5, 7, 0), (5, 3, 7, 2), (16, 51, 48, 0),
+    (371, 51, 48, 0), (371, 1, 5, 3)])
+def test_p1_geometry_covers_every_momentum_and_cell_once(
+        n_species, n_pT, n_phi, stop_short, n_cells):
+    """Kernel P1's geometry, read off its rows mT, sign and 1/(4m): every
+    momentum owned once, every cell in one split, on ragged shapes and on
+    the mode-5 main path's (371 x 51 x 48, 102,400 cells)."""
+    keys = _rows(n_species, n_pT, n_phi, stop_short)
+    mom = torch.zeros((len(pz.MOM_ROWS), keys.shape[1]))
+    mom[pz.MOM_ROWS.index("mT")] = keys[0]
+    mom[pz.MOM_ROWS.index("sgn")] = keys[3]
+    mom[pz.MOM_ROWS.index("inv4m")] = 0.25 / keys[1].sqrt()
+    M = mom.shape[1]
+    g = pz.geometry(mom, n_cells)
+    assert (g.row_len, g.r, g.tile_cells) == (min(n_phi, M), pz.R,
+                                              pz.TILE_CELLS)
+    assert pz.geometry(mom, n_cells, row_len=g.row_len) == g
+    owner = momentum_index(g)
+    np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
+    covered = np.concatenate([np.arange(a, b)
+                              for a, b in cell_ranges(g, n_cells)])
+    np.testing.assert_array_equal(covered, np.arange(n_cells))
 
 
 def test_wrappers_read_their_geometry_off_the_operands():

@@ -172,12 +172,12 @@ def test_config_parser_and_slice(workdir):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"operation": 0, "mode": 5}, "A8"),
+    ({"operation": 0, "mode": 5, "dimension": 3}, "A7"),
     ({"operation": 2, "dimension": 3}, "A7"),
     ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "dimension": 3}, "A9"),
     ({"df_mode": 5, "dimension": 3}, "A7"),
     ({"dimension": 3}, "A7"), ({"operation": 0, "dimension": 3}, "A7"),
-    ({"mode": 5}, "A8"),
+    ({"mode": 5, "use_mesh": 1}, "A12"),
     ({"compute_dtype": "f32", "use_pallas": 0}, "A7"),
     ({"compute_dtype": "f32c", "use_pallas": 0}, "A7"),
     # kernel B2 is 2+1d, as in the JAX package

@@ -248,7 +248,7 @@ def test_sampler_report_lines_match_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"df_mode": 5, "mode": 5}, "A8b"), ({"dimension": 3}, "A7"),
+    ({"df_mode": 5, "mode": 5, "dimension": 3}, "A7"), ({"dimension": 3}, "A7"),
     ({"use_mesh": 1}, "A12"), ({"mode": 6, "dimension": 3}, "A7"),
     ({"group_particles": 1, "use_mesh": 1}, "A12")])
 def test_validate_slice_operation2_names_its_item(kw, item):

@@ -109,12 +109,21 @@ def test_mode7_rejections_match_jax(tmp_path, dimension, include_baryon,
 
 
 def test_mode5_is_still_rejected(tmp_path):
+    """Mode 5 runs in 2+1d (its reader and polarization: tests/
+    test_torch_polarization.py); it is still rejected where the rest is:
+    in 3+1d (ROADMAP A7) and with use_mesh (A12)."""
     path = tmp_path / "surface.dat"
-    synthetic.write_mode1(synthetic.make_surface(8, seed=1), path)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        surface.read_surface(path, 5, 2, False)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        Config(mode=5, df_mode=1, compute_dtype="f32c").validate_slice()
+    s = synthetic.make_surface(8, seed=1, vorticity=True)
+    synthetic.write_mode1(s, path, vorticity=True)
+    np.testing.assert_array_equal(surface.read_surface(path, 5, 2, False).wyn,
+                                  s.wyn)
+    Config(mode=5, df_mode=1, compute_dtype="f32c").validate_slice()
+    with pytest.raises(NotImplementedError, match="A7"):
+        Config(mode=5, df_mode=1, compute_dtype="f32c",
+               dimension=3).validate_slice()
+    with pytest.raises(NotImplementedError, match="A12"):
+        Config(mode=5, df_mode=1, compute_dtype="f32c",
+               use_mesh=1).validate_slice()
 
 
 def _memory_fields(s) -> dict:
