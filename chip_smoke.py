@@ -6,7 +6,10 @@ Phases (any failure raises; nothing is caught):
   2. build the four kernels with nvcc (sm_90a), one nvcc per source,
      started together, and print ptxas' registers, static shared memory and
      spills of each (the most over a source's instantiations, and the
-     instantiation its main path launches);
+     instantiation its main path launches); for P1's two instantiations,
+     the special-function (MUFU) and conversion (F2F) instructions of its
+     eta loop per evaluation and of its per-cell step, from cuobjdump's
+     SASS (phase 22's sfu_floor_ms reads the MUFU count);
   3. kernel B1 (compensated, df 1/2) vs its plain torch version and the
      port's f64 engine at a reduced shape (2048 cells, 16 species, 51 pT x
      48 phi, 24 eta) for df 1 and df 2 with the clip/outflow/diffusion
@@ -100,29 +103,37 @@ Phases (any failure raises; nothing is caught):
      at 2,048 cells (df 4, and df 3 with outflow, where the convention
      decides the number) the route against its plain version (<= 1e-5) and
      the f64 engine (<= 1e-4);
- 20. kernel P1 (spin polarization, f32) vs its plain version (<= 1e-5 on
-     both metrics) and the f64 polarization engine at the JAX package's
-     bars for its f32 route (Snorm <= 2e-5 relative on bins >= 1e-6 of its
-     max; P^mu = S^mu / Snorm within 1e-5 of max |P| where Snorm >= 1e-3
-     of its max) at phase 3's shape on a surface with thermal vorticity;
-     on the 80-node table (three launches); the ragged case;
+ 20. kernel P1 (spin polarization, f32), both instantiations (eta-folded,
+     and general with eta_fold = 0 or with un != 0), vs its plain version
+     (<= 1e-5 on both metrics) and the f64 polarization engine (never
+     folded) at the JAX package's bars for its f32 route (Snorm <= 2e-5
+     relative on bins >= 1e-6 of its max; P^mu = S^mu / Snorm within 1e-5
+     of max |P| where Snorm >= 1e-3 of its max) at phase 3's shape (2,048
+     cells) on a surface with thermal vorticity; on the 80-node table
+     (40 folded nodes in two launches, 80 in three); the ragged case;
  21. the mode-5 main path at full size through the CLI: phase 5's surface
      with thermal vorticity, written in mode 5, df 1, f32c.  B1 (the
      spectra) and P1 (the polarization) must both launch and no other
-     kernel; the four files St, Sx, Sy, Sn hold S x 48 x 51 = 908,208
-     finite rows each; it prints the stage seconds (polarization
-     included);
- 22. P1 on phase 21's operands (102,400 padded cells x 24 eta, not folded,
-     x 908,208 momenta), timed at full size: evaluations/s and share of
-     the bound; every sum finite and Snorm > 0; two launches give equal
-     bits; held to its plain version (<= 1e-5 on both metrics) on the
-     first 4,096 cells at the full M, both timed there.
+     kernel, P1 once, folded, on 12 nodes; the four files St, Sx, Sy, Sn
+     hold S x 48 x 51 = 908,208 finite rows each; it prints the stage
+     seconds (polarization included);
+ 22. P1 on phase 21's operands (the 100,000 real cells x 12 folded eta x
+     908,208 momenta; and the general instantiation on all 24 nodes),
+     timed at full size between two samples of the SM clock: evaluations/s,
+     share of the bound and sfu_floor_ms (the MUFU operations over 16
+     lanes x 132 SMs x the card's clocks.max.sm); every sum finite and
+     Snorm > 0; two launches give equal bits; the folded and the general
+     sums within the JAX bars of each other; each held to its plain
+     version (<= 1e-5 on both metrics) on the first 4,096 cells at the
+     full M, both timed there.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
 12-13's and 16's numbers.  The line before the last is a JSON object with each
 kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
 "operation0", phase 19 under B3's "operation0", each with the launches of
-its own path; P1's launches from phase 21),
+its own path; P1's launches from phase 21, its folded instantiation's
+numbers at the top and the general one's under "general", each with its
+sfu_floor_ms beside the bound),
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
 (no single PyTorch call computes a Cooper-Frye or polarization sum), and
@@ -164,16 +175,18 @@ P1_COMPARE_CELLS = 4_096
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+H100_SMS = 132
 
 # Floating-point operations per (cell, eta, m) evaluation at the main paths'
 # settings (shear and bulk delta-f; no diffusion, regulation or outflow),
 # counted from the plain versions' arithmetic: each elementwise add,
 # multiply, divide, exp, sqrt, clamp or f32 -> f64 conversion on a
 # (cells, M) tensor counts one, and so does each term of the f64 sum; work
-# outside the eta loop counts once per 12 eta nodes (24 for P1, which
-# never folds); per-cell and per-momentum work is left out.  f64 operations
-# count at the FP32 rate, so the bound stays a lower bound.  B3's kernel
-# runs one branch per cell, so its two branches count apart.
+# outside the eta loop counts once per 12 eta nodes (P1's general
+# instantiation: 24); per-cell and per-momentum work is left out.  f64
+# operations count at the FP32 rate, so the bound stays a lower bound.
+# B3's kernel runs one branch per cell, so its two branches count apart;
+# P1's two instantiations count apart.
 OPS_PER_EVALUATION = {
     "cooper_frye_comp": 70 + 26 / 12,     # df 1
     "cooper_frye_f32": 34 + 12 / 12,      # df 2
@@ -185,10 +198,12 @@ OPS_PER_EVALUATION = {
                            # per-cell sum 11 outside the loop)
                            "famod_modified": 30 + 9 / 12,
                            "famod_breakdown": 14 + 11 / 12},
-    # the six contractions' mT parts 14, E and f0 6, w 2, g 5, the four
-    # spin sums 4 each, Snorm 2; the px/py parts 14 and the per-cell mask,
-    # conversion and f64 sum 15 outside the loop
-    "polarization_f32": 45 + 29 / 24,
+    # folded: e_m, d_m 2, the exponent, 2^x, + sign, clamp, 1 / x 5, w0 2,
+    # g 3, the sums G, H1, W 2 each; outside the loop the mT parts 5,
+    # exy and dxy 6, the spin values 18, the conversions and the f64 sum
+    # 10.  General: e_m and d_m 6 more, H4 2; outside, the H4 terms 9
+    "polarization_f32": {"folded": 18 + 39 / 12,
+                         "general": 26 + 48 / 24},
 }
 # What the kernels execute per evaluation, counted the same way from their
 # sources (a multiply-add counts two; work shared by a thread's 4 momenta
@@ -202,10 +217,13 @@ EXECUTED_OPS_PER_EVALUATION = {
                            # and pddb per row; gd, exy, the f64 add
                            "famod_breakdown": 11 + 2 / 4 + 9 / 12},
     "cooper_frye_f32": 30 + 21 / 4 + 20 / 12,    # df 2
-    # E 1, E / T 1, exp 1, + sign 1, clamp 1, reciprocal 5, w 2, g 4, the
-    # four spin sums 4 each, Snorm 2; per row m1, m4 and the mT parts 16;
-    # the px/py parts 14 and the per-cell mask, conversion and f64 add 15
-    "polarization_f32": 34 + 16 / 4 + 29 / 24,
+    # folded: the exponent 1, 2^x 1, + sign 1, clamp 1, reciprocal 5, w0 2,
+    # g 3, G, H1, W 2 each; per row e_m, d_m 2; per (cell, m) exy, dxy 6,
+    # the spin values 18, the conversions and the f64 adds 10, per (cell,
+    # row) the mT parts 5.  General: H4 2 more; per row e_m, d_m 6; per
+    # (cell, m) the H4 terms 6 more, per (cell, row) 10 mT parts
+    "polarization_f32": {"folded": 20 + 2 / 4 + (34 + 5 / 4) / 12,
+                         "general": 22 + 6 / 4 + (40 + 10 / 4) / 24},
 }
 
 
@@ -285,9 +303,11 @@ def phase_environment() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Returns P1's SASS counts per instantiation (kernel_bench.loop_nest)."""
     print("== 2. build (one nvcc per source, in parallel)")
     from is3d2_tpu_torch.ops import _build
+    from is3d2_tpu_torch.tools import kernel_bench as kb
     from is3d2_tpu_torch.tools.kernel_check import MAIN_PATH_KERNEL
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -306,6 +326,14 @@ def phase_build() -> None:
             if re.search(MAIN_PATH_KERNEL[name], k):
                 print(f"  main path's instantiation: {json.dumps(u)}")
     print(f"build+load {time.perf_counter() - t0:.2f} s")
+    code = kb.sass_functions(built["polarization_f32"][0])
+    p1 = {}
+    for which, pattern in (("folded", r"polarization_f32_kernelILb1EE"),
+                           ("general", r"polarization_f32_kernelILb0EE")):
+        [name] = [k for k in code if re.search(pattern, k)]
+        p1[which] = kb.loop_nest(code[name])
+        print(f"P1 {which} SASS: {json.dumps(p1[which])}")
+    return p1
 
 
 def parity_workdirs(tmp: Path) -> tuple[Path, Path]:
@@ -1266,41 +1294,62 @@ def phase_op0_b3(tmp: Path, wd_parity: Path) -> dict:
 
 
 def phase_p1_compare(wd: Path, wd_eta: Path) -> None:
-    print("== 20. P1 vs plain version vs f64 polarization engine (2048 cells, "
-          "16 species, 51 x 48, 24 eta; vorticity)")
+    print("== 20. P1, both instantiations, vs plain version vs f64 "
+          "polarization engine (2048 cells, 16 species, 51 x 48, 24 eta; "
+          "vorticity)")
     from is3d2_tpu_torch.ops import polarization_f32 as pz
     from is3d2_tpu_torch.tools import kernel_check as kc
-    chunks = -(-kc.ETA_NODES // pz.ETA_CHUNK)
+
+    def chunks(n):
+        return -(-n // pz.ETA_CHUNK)
+
+    def case(workdir, **kw):
+        return kc.check_polarization_case(workdir, 2048, 7, "cuda",
+                                          cell_block=512, **kw)
+
+    n = kc.ETA_NODES
+    # name -> (result, instantiation folded, launches)
     cases = {
-        "24 eta": (kc.check_polarization_case(wd, 2048, 7, "cuda",
-                                              cell_block=512), 1),
-        f"{kc.ETA_NODES} eta, unfolded": (kc.check_polarization_case(
-            wd_eta, 2048, 7, "cuda", cell_block=512), chunks),
-        "ragged " + json.dumps(kc.RAGGED): (
-            kc.check_polarization_ragged_case(wd, 2048, 7, "cuda"), 1)}
-    for name, (r, launches) in cases.items():
+        "24 eta, folded": (case(wd), True, 1),
+        "24 eta, general": (case(wd, eta_fold=0), False, 1),
+        "24 eta, general, un": (case(wd, un_scale=0.05), False, 1),
+        f"{n} eta, folded": (case(wd_eta), True, chunks(n // 2)),
+        f"{n} eta, general": (case(wd_eta, eta_fold=0), False, chunks(n)),
+        "ragged, folded": (
+            kc.check_polarization_ragged_case(wd, 2048, 7, "cuda"), True, 1),
+        "ragged, general": (kc.check_polarization_ragged_case(
+            wd, 2048, 7, "cuda", eta_fold=0), False, 1)}
+    for name, (r, folded, launches) in cases.items():
         print(f"{name:22s} ({r.launches} launches) kernel vs plain: Snorm "
               f"{r.vs_plain[0]:.3e}, P {r.vs_plain[1]:.3e}; kernel vs f64: "
               f"Snorm {r.vs_f64[0]:.3e}, P {r.vs_f64[1]:.3e}; plain vs f64: "
               f"Snorm {r.plain_vs_f64[0]:.3e}, P {r.plain_vs_f64[1]:.3e}")
-        if not (r.ok and r.launches == launches):
+        if not (r.ok and r.launches == launches and r.folded == folded):
             raise AssertionError(
-                f"P1 {name}: kernel disagrees, does not repeat or launched "
-                f"{r.launches} times, not {launches} ({r.vs_plain} vs plain,"
-                f" {r.vs_f64} vs f64; bars {kc.POLZN_TOL_PLAIN:g} plain, "
-                f"{kc.POLZN_TOL_NORM:g} / {kc.POLZN_TOL_P:g} f64)")
+                f"P1 {name}: kernel disagrees, does not repeat, launched "
+                f"{r.launches} times, not {launches}, or folded is "
+                f"{r.folded} ({r.vs_plain} vs plain, {r.vs_f64} vs f64; "
+                f"bars {kc.POLZN_TOL_PLAIN:g} plain, {kc.POLZN_TOL_NORM:g} "
+                f"/ {kc.POLZN_TOL_P:g} f64)")
 
 
 def phase_p1_main_path(tmp: Path) -> tuple[dict, dict, Path]:
     print(f"== 21. mode-5 main path: {MAIN_CELLS} cells with thermal "
           "vorticity, all species, 51 x 48 x 24, df 1, f32c: the spectra "
-          "on B1, the polarization on P1")
+          "on B1, the polarization on P1 (folded: 12 nodes)")
     from is3d2_tpu_torch.io.fastio import load_table_fast
     from is3d2_tpu_torch.io.output import POLARIZATION_FILES
+    from is3d2_tpu_torch.ops import polarization_f32 as pz
     launches, stages, wd, _ = run_main_path(
         tmp, "main_mode5", "cooper_frye_comp",
         {"df_mode": 1, "compute_dtype": "f32c"}, also=("polarization_f32",),
         surface_mode=5)
+    last = pz.polarization_f32.last_launch
+    print(f"P1's launch: {json.dumps(last)}")
+    if not (launches["polarization_f32"] == 1 and last["folded"]
+            and last["eta"] == 12 and last["cells"] == MAIN_CELLS):
+        raise AssertionError("the mode-5 main path did not launch P1 once, "
+                             f"folded, on 12 nodes and {MAIN_CELLS} cells")
     n_species = len(np.loadtxt(wd / "PDG/chosen_particles.dat"))
     rows = n_species * 48 * 51
     t0 = time.perf_counter()
@@ -1316,35 +1365,60 @@ def phase_p1_main_path(tmp: Path) -> tuple[dict, dict, Path]:
     return launches, stages, wd
 
 
-def phase_p1_full(wd: Path) -> dict:
-    print("== 22. P1 on the mode-5 main path's operands")
+def sm_clocks() -> tuple[int, int]:
+    """(clocks.sm, clocks.max.sm) of card 0, in MHz."""
+    line = sh("nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+              "--format=csv,noheader,nounits").splitlines()[0]
+    now, peak = (int(v) for v in line.split(","))
+    return now, peak
+
+
+# special-function lanes of one H100 SM (MUFU: EX2, RCP; the f32 -> f64
+# conversions take the same narrow pipe)
+SFU_LANES_PER_SM = 16
+
+
+def p1_timed(which: str, ops, sass: dict) -> dict:
+    """Phase 22 for one instantiation: P1 at full size on ``ops`` between
+    samples of the SM clock, then against its plain version on the first
+    P1_COMPARE_CELLS cells.  The full-size sums go back under "sums"."""
     from is3d2_tpu_torch.ops import polarization_f32 as pz
     from is3d2_tpu_torch.tools import kernel_check as kc
 
-    cfg, state = main_path_state(wd, kc.polarization_engine_state)
-    ops = pz.pack_inputs(*state)
     args = ops.args()
     kernel = functools.partial(pz.polarization_f32, row_len=ops.row_len)
     C, Ne, M = ops.cell.shape[0], ops.eta.shape[0], ops.mom.shape[1]
-    print(f"{C} padded cells x {Ne} eta x {M} momenta (M mod 256 = "
-          f"{M % 256}) = {ops.evaluations:.4g} evaluations")
+    print(f"-- {which}: {C} real cells x {Ne} eta x {M} momenta (M mod 256 "
+          f"= {M % 256}) = {ops.evaluations:.4g} evaluations")
     first = kernel(*args)
-    full_ms, second = cuda_ms(lambda: kernel(*args), warmup=lambda: None)
+    torch.cuda.synchronize()
+    before, clock_max = sm_clocks()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    second = kernel(*args)
+    end.record()
+    during, _ = sm_clocks()      # the kernel runs while this is read
+    torch.cuda.synchronize()
+    full_ms = start.elapsed_time(end)
+    after, _ = sm_clocks()
     print(f"kernel at full size {full_ms:.1f} ms, "
-          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
+          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s; clocks.sm "
+          f"{before} MHz before, {during} MHz during, {after} MHz after "
+          f"(clocks.max.sm {clock_max} MHz)")
     if not torch.equal(first, second):
-        raise AssertionError("two launches of P1 on the main path's operands "
-                             "gave different bits")
+        raise AssertionError(f"two launches of P1 ({which}) on the main "
+                             "path's operands gave different bits")
     print("two launches at full size gave equal bits")
     if not (torch.isfinite(first).all() and (first[4] > 0).all()):
-        raise AssertionError("P1 at full size: a sum not finite or an "
-                             "Snorm <= 0")
+        raise AssertionError(f"P1 ({which}) at full size: a sum not finite "
+                             "or an Snorm <= 0")
     print(f"every sum finite, Snorm > 0 on all {M} momenta")
+    sums = first.cpu().numpy()
     del first, second
     g = pz.polarization_f32.last_geometry
     print(f"launched with {g}")
-
-    per_eval = BOUND_OPS_PER_EVALUATION["polarization_f32"]
+    per_eval = BOUND_OPS_PER_EVALUATION["polarization_f32"][which]
 
     def cut(n):
         return (ops.cell[:n].contiguous(), *args[1:])
@@ -1364,22 +1438,59 @@ def phase_p1_full(wd: Path) -> dict:
           f"{max_abs:.3e}")
     if not (np.isfinite(out).all() and max(norm_err, p_err)
             <= kc.POLZN_TOL_PLAIN):
-        raise AssertionError("P1 disagrees with its plain version on the "
-                             "main path's operands")
+        raise AssertionError(f"P1 ({which}) disagrees with its plain version "
+                             "on the main path's operands")
     main_bound = bound(per_eval * ops.evaluations, args, 5 * M)["bound_ms"]
+    mufu = sass["eta_loop_per_evaluation"]["mufu"] * ops.evaluations
+    sfu_floor = mufu / (SFU_LANES_PER_SM * H100_SMS * clock_max * 1e6) * 1e3
     print(f"bound at full size {main_bound:.1f} ms: "
-          f"{100 * main_bound / full_ms:.1f} % of it")
+          f"{100 * main_bound / full_ms:.1f} % of it; sfu_floor_ms "
+          f"{sfu_floor:.1f} ({mufu:.4g} MUFU operations over "
+          f"{SFU_LANES_PER_SM} x {H100_SMS} lanes at {clock_max} MHz): "
+          f"{100 * sfu_floor / full_ms:.1f} % of it")
     return {"register_tile": g.r, "cell_split": g.n_split,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             **bound(per_eval * n * Ne * M, cut(n), 5 * M),
             "main_path_bound_ms": main_bound,
             "main_path_evaluations_per_s": ops.evaluations / full_ms * 1e3,
             "main_path_share_of_bound": main_bound / full_ms,
+            "sfu_floor_ms": sfu_floor,
+            "main_path_share_of_sfu_floor": sfu_floor / full_ms,
+            "clocks_sm_mhz": {"before": before, "during": during,
+                              "after": after, "max": clock_max},
             # no single PyTorch call computes a polarization sum
             "library_ms": None,
             "cells_compared": n, "snorm_rel_err": norm_err,
             "p_err": p_err, "main_path_ms": full_ms,
-            "main_path_evaluations": ops.evaluations}
+            "main_path_evaluations": ops.evaluations,
+            "eta_nodes": Ne, "sums": sums}
+
+
+def phase_p1_full(wd: Path, sass: dict) -> dict:
+    print("== 22. P1 on the mode-5 main path's operands, folded and general")
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    cfg, state = main_path_state(wd, kc.polarization_engine_state)
+    runs = {}
+    for which, eta_fold in (("folded", cfg.eta_fold), ("general", 0)):
+        ops = kc.polarization_operands(
+            state, dataclasses.replace(cfg, eta_fold=eta_fold))
+        if ops.folded != (which == "folded"):
+            raise AssertionError(f"the fold gate did not pick {which}")
+        runs[which] = p1_timed(which, ops, sass[which])
+        del ops
+    norm, p = kc.polarization_errors(runs["folded"].pop("sums"),
+                                     runs["general"].pop("sums"))
+    print(f"folded vs general at full size: Snorm {norm:.3e}, P {p:.3e} "
+          f"(bars {kc.POLZN_TOL_NORM:g} / {kc.POLZN_TOL_P:g})")
+    if not (norm <= kc.POLZN_TOL_NORM and p <= kc.POLZN_TOL_P):
+        raise AssertionError("P1 folded and general disagree at full size")
+    general = runs["general"]
+    print(f"folded {runs['folded']['main_path_ms']:.1f} ms against general "
+          f"{general['main_path_ms']:.1f} ms "
+          f"({general['main_path_ms'] / runs['folded']['main_path_ms']:.2f}x)")
+    return {**runs["folded"], "general": general,
+            "folded_vs_general": {"snorm_rel_err": norm, "p_err": p}}
 
 
 def main() -> int:
@@ -1391,7 +1502,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
+    p1_sass = phase_build()
     scratch = Path(__file__).resolve().parent / "build"
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
@@ -1416,7 +1527,7 @@ def main() -> int:
         op0_b3 = phase_op0_b3(tmp, wd)
         phase_p1_compare(wd, wd_eta)
         p1_launches, p1_stages, wd_m5 = phase_p1_main_path(tmp)
-        p1 = phase_p1_full(wd_m5)
+        p1 = phase_p1_full(wd_m5, p1_sass)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

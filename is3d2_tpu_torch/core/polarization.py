@@ -20,9 +20,10 @@ As in the JAX package:
 
 Routes: ``compute_dtype`` "f32" and "f32c" run kernel P1
 (ops/polarization_f32.py: CUDA on a GPU, its plain torch version on the
-CPU); "f64" runs ``polarization_f64``, the torch f64 engine on
-(cell block, species, pT, phi, eta) tensors.  2+1d only (ROADMAP A7 brings
-3+1d).
+CPU), on the eta >= 0 half of the nodes where ``fold_polarization_eta``
+allows it; "f64" runs ``polarization_f64``, the torch f64 engine on
+(cell block, species, pT, phi, eta) tensors, never folded: it is the
+yardstick.  2+1d only (ROADMAP A7 brings 3+1d).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..io.surface import ThermoAverages
 from ..io.tables import MomentumGrids
 from .cells import CellArrays, prepare_cells
 from .spectra import MomentumGridDevice, SpeciesArrays
+from .spectra_fast import fold_eta_table
 
 # elements of one (cells x species x pT x phi x eta) f64 block of the f64
 # engine, as the spectra's f64 engine bounds its working set
@@ -48,6 +50,32 @@ _F64_BLOCK_ELEMENTS = 1 << 22
 def delta_eta(grids: MomentumGrids) -> float:
     """The factor on the eta weights: eta[1] - eta[0] (1 for one node)."""
     return float(grids.eta[1] - grids.eta[0]) if len(grids.eta) > 1 else 1.0
+
+
+def fold_polarization_eta(cells: CellArrays, grid: MomentumGridDevice,
+                          cfg: Config) -> tuple[MomentumGridDevice, bool]:
+    """The polarization's eta fold: (the folded grid, True) where it is
+    exact, else (``grid``, False).
+
+    With un = 0 and dsigma_eta = 0, u.p, p.dsigma, f0 and the weight are
+    even in eta; so is S_n.  The only odd parts are the pn terms of S_t,
+    S_x and S_y (wxy pn, wty pn, wtx pn), which cancel over symmetric
+    nodes: the eta >= 0 half with doubled weights, and those terms
+    dropped, gives the full quadrature.  Gate: cfg.dimension == 2,
+    cfg.eta_fold != 0, at least 2 nodes, a symmetric node and weight
+    table, max |un| == 0 and max |dsigma_eta| == 0.  Unlike the spectra's
+    gate (core/spectra_fast.py::fold_eta_quadrature) the shear and
+    diffusion sources do not matter: the polarization takes f_eq only.
+    ``delta_eta`` is read off the unfolded table, before this call."""
+    if cfg.eta_fold == 0 or cfg.dimension != 2:
+        return grid, False
+    folded = fold_eta_table(grid)
+    if folded is None:
+        return grid, False
+    mx = torch.stack([cells.un.abs().max(), cells.dan.abs().max()])
+    if mx.cpu().tolist() != [0.0, 0.0]:
+        return grid, False
+    return folded, True
 
 
 def _cell_block_polzn(c: CellArrays, species: SpeciesArrays,
@@ -130,11 +158,13 @@ def compute_polarization(surf, species_table: SpeciesTable,
     cells, species, grid = polarization_state(surf, species_table,
                                               chosen_idx, grids, cfg, device)
     T = float(plasma.temperature)
+    d_eta = delta_eta(grids)   # of the unfolded table
     if cfg.compute_dtype in ("f32", "f32c"):
         from ..ops.polarization_f32 import compute_polarization_kernel
-        acc = compute_polarization_kernel(cells, species, grid, T,
-                                          delta_eta(grids))
+        grid, folded = fold_polarization_eta(cells, grid, cfg)
+        acc = compute_polarization_kernel(cells, species, grid, T, d_eta,
+                                          folded)
     else:
-        acc = polarization_f64(cells, species, grid, T, delta_eta(grids))
+        acc = polarization_f64(cells, species, grid, T, d_eta)
     out = acc.cpu().numpy()
     return out[0], out[1], out[2], out[3], out[4]

@@ -78,15 +78,8 @@ def fold_eta_quadrature(cells: CellArrays, grid: MomentumGridDevice,
     """
     if cfg.eta_fold == 0 or cfg.dimension != 2:
         return cells, grid, False
-    eta = grid.eta.cpu().numpy()
-    w = grid.eta_weight.cpu().numpy()
-    n = eta.shape[0]
-    if n < 2:
-        return cells, grid, False
-    order = np.argsort(eta)
-    es, ws = eta[order], w[order]
-    if not (np.allclose(es, -es[::-1], rtol=0.0, atol=1e-14)
-            and np.allclose(ws, ws[::-1], rtol=1e-14)):
+    folded = fold_eta_table(grid)
+    if folded is None:
         return cells, grid, False
 
     # one device->host read for all six maxima
@@ -112,20 +105,37 @@ def fold_eta_quadrature(cells: CellArrays, grid: MomentumGridDevice,
         if cfg.regulate_deltaf and odd_df != 0.0:
             return cells, grid, False
 
+    if not strict:  # strict mode checked that the odd sources are zero
+        zeros = torch.zeros_like(cells.dan)
+        cells = dataclasses.replace(cells, dan=zeros, pitn=zeros, pixn=zeros,
+                                    piyn=zeros, Vn=zeros)
+    return cells, folded, True
+
+
+def fold_eta_table(grid: MomentumGridDevice) -> MomentumGridDevice | None:
+    """The eta >= 0 half of a symmetric node and weight table with doubled
+    weights, or None for fewer than 2 nodes or a table that is not
+    symmetric.  The table half of every eta fold (the spectra's above, the
+    polarization's in core/polarization.py); what a fold may drop of the
+    integrand is each caller's own gate."""
+    eta = grid.eta.cpu().numpy()
+    w = grid.eta_weight.cpu().numpy()
+    n = eta.shape[0]
+    if n < 2:
+        return None
+    order = np.argsort(eta)
+    es, ws = eta[order], w[order]
+    if not (np.allclose(es, -es[::-1], rtol=0.0, atol=1e-14)
+            and np.allclose(ws, ws[::-1], rtol=1e-14)):
+        return None
     half = n // 2
     fold_eta = es[half + (n % 2):]
     fold_w = 2.0 * ws[half + (n % 2):]
     if n % 2:  # a zero node pairs with itself: keep its original weight
         fold_eta = np.concatenate([[0.0], fold_eta])
         fold_w = np.concatenate([[ws[half]], fold_w])
-
-    if not strict:  # strict mode checked that the odd sources are zero
-        zeros = torch.zeros_like(cells.dan)
-        cells = dataclasses.replace(cells, dan=zeros, pitn=zeros, pixn=zeros,
-                                    piyn=zeros, Vn=zeros)
     dev = grid.eta.device
-    grid = dataclasses.replace(
+    return dataclasses.replace(
         grid,
         eta=torch.as_tensor(fold_eta, dtype=torch.float64, device=dev),
         eta_weight=torch.as_tensor(fold_w, dtype=torch.float64, device=dev))
-    return cells, grid, True

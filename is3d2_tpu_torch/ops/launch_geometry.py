@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 THREADS = 256          # kThreads of the four CUDA sources
-BLOCKS_PER_SM = 2      # kMinBlocks: what __launch_bounds__ keeps resident
+BLOCKS_PER_SM = 2      # kMinBlocks of B1, B2, B3: what __launch_bounds__
+                       # keeps resident (P1 passes its own)
 MAX_SPLIT = 32         # (n_split, M) f64 partials: 32 x 7 MB at the full grid
 GOOD_FILL = 0.95       # take the smallest split that fills its waves this far
 H100_SMS = 132
@@ -76,11 +77,12 @@ def fill(blocks: int, resident: int) -> float:
 
 
 def launch_geometry(n_mom: int, row_len: int, n_cells: int, r: int,
-                    tile_cells: int, sm_count: int = H100_SMS) -> Geometry:
+                    tile_cells: int, sm_count: int = H100_SMS,
+                    blocks_per_sm: int = BLOCKS_PER_SM) -> Geometry:
     tiles_per_row = -(-row_len // r)
     rows = -(-n_mom // row_len)
     blocks = -(-rows * tiles_per_row // THREADS)
-    resident = BLOCKS_PER_SM * sm_count
+    resident = blocks_per_sm * sm_count
     n_tiles = -(-n_cells // tile_cells)
     # (split count, cell tiles per split): the smallest split that fills
     # its waves to GOOD_FILL, else the best-filling one
@@ -101,7 +103,8 @@ def launch_geometry(n_mom: int, row_len: int, n_cells: int, r: int,
 
 def operand_geometry(mom: torch.Tensor, keys: list[int], n_cells: int,
                      r: int, tile_cells: int, row_len: int | None = None,
-                     divides: int | None = None) -> Geometry:
+                     divides: int | None = None,
+                     blocks_per_sm: int = BLOCKS_PER_SM) -> Geometry:
     """The launch geometry for the momentum rows ``mom`` (k, M) on the card
     that holds them (an H100 for a tensor elsewhere).  ``row_len`` is the
     phi count of the momentum grid; a caller that does not know it leaves
@@ -112,7 +115,8 @@ def operand_geometry(mom: torch.Tensor, keys: list[int], n_cells: int,
         row_len = row_length(mom[keys], divides)
     sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
            if mom.device.type == "cuda" else H100_SMS)
-    return launch_geometry(mom.shape[1], row_len, n_cells, r, tile_cells, sms)
+    return launch_geometry(mom.shape[1], row_len, n_cells, r, tile_cells, sms,
+                           blocks_per_sm)
 
 
 def momentum_index(g: Geometry) -> np.ndarray:

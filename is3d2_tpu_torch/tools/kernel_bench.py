@@ -2,7 +2,7 @@
 call, and count what was compiled.
 
     python -m is3d2_tpu_torch.tools.kernel_bench [--tree NAME=DIR ...]
-        [--only b1,b3,b2,prep] [--cells 100000] [--compare-cells 8192]
+        [--only b1,b3,b2,p1,prep] [--cells 100000] [--compare-cells 8192]
         [--f64-species 4] [--few-species 3,16] [--out build/kernel_bench.json]
 
 The card's power limit may differ between calls, so two versions of a
@@ -31,6 +31,12 @@ script
     ``--few-species`` species (a chosen-particles list of a few hadrons:
     fewer blocks than the card holds), times the launch with the wrapper's
     cell split and with none;
+  * ``p1`` (listed in ``--only``): kernel P1 of every tree on the mode-5
+    main path's operands (df 1 f32c, a mode-5 surface of ``--cells``
+    cells), each tree packing them by its own route (the fold gate where
+    the tree has one), timed in the order trees, trees reversed, and held
+    to this tree's plain version on the first ``--compare-cells`` cells
+    at the JAX package's polarization bars (Snorm, P; kernel_check);
   * ``prep`` (listed in ``--only``): the df-5 famod prep, whose VAH
     reconstruction is the df-5 path's first cost, of every tree on one
     EOS-consistent surface of ``--cells`` cells (kernel_check.famod_surface),
@@ -118,30 +124,66 @@ def resources(text: str) -> dict[str, dict[str, int]]:
                                          text)}
 
 
-def inner_loops(code: list[tuple[int, str, str]]) -> list[dict]:
-    """Instruction counts by pipe of every innermost loop (a backward branch
-    with no other backward branch inside it) that holds a MUFU.EX2."""
+def _back_edges(code: list[tuple[int, str, str]]) -> list[tuple[int, int]]:
+    """(target, address) of every backward branch: the loops."""
     back = []
     for addr, op, args in code:
         m = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
         if m and int(m.group(1), 16) <= addr:
             back.append((int(m.group(1), 16), addr))
+    return back
+
+
+def _by_pipe(ops: list[str]) -> dict:
+    counts = {"instructions": len(ops)}
+    for pipe, pat in PIPES.items():
+        counts[pipe] = sum(bool(re.match(pat, op)) for op in ops)
+    counts["other"] = len(ops) - sum(counts[p] for p in PIPES)
+    return counts
+
+
+def inner_loops(code: list[tuple[int, str, str]]) -> list[dict]:
+    """Instruction counts by pipe of every innermost loop (a backward branch
+    with no other backward branch inside it) that holds a MUFU.EX2, and
+    its address range."""
+    back = _back_edges(code)
     loops = []
     for lo, hi in back:
         if any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in back):
             continue
-        body = [(op, args) for addr, op, args in code if lo <= addr <= hi]
-        n_exp = sum(op == "MUFU.EX2" for op, _ in body)
+        body = [op for addr, op, _ in code if lo <= addr <= hi]
+        n_exp = sum(op == "MUFU.EX2" for op in body)
         if n_exp == 0:
             continue
-        counts = {"instructions": len(body), "evaluations": n_exp}
-        for pipe, pat in PIPES.items():
-            counts[pipe] = sum(bool(re.match(pat, op)) for op, _ in body)
-        counts["other"] = len(body) - sum(counts[p] for p in PIPES)
-        counts["mufu kinds"] = sorted({op for op, _ in body
+        counts = {"evaluations": n_exp, **_by_pipe(body)}
+        counts["mufu kinds"] = sorted({op for op in body
                                        if op.startswith("MUFU")})
+        counts["range"] = (lo, hi)
         loops.append(counts)
     return loops
+
+
+def loop_nest(code: list[tuple[int, str, str]]) -> dict:
+    """The eta loop (the innermost loop with a MUFU.EX2) per evaluation and
+    what the loop around it runs outside it (a per-cell step): instruction
+    counts by pipe, with the MUFU and F2F (conversion) instructions of
+    each."""
+    eta = inner_loops(code)[0]
+    lo, hi = eta["range"]
+    outer = [(a, b) for a, b in _back_edges(code)
+             if a <= lo and hi <= b and (a, b) != (lo, hi)]
+    a, b = min(outer, key=lambda r: r[1] - r[0])
+    step_ops = [op for addr, op, _ in code
+                if a <= addr <= b and not lo <= addr <= hi]
+    step = _by_pipe(step_ops)
+    n = eta["evaluations"]
+    return {"eta_loop_per_evaluation": {
+                k: eta[k] / n for k in ("instructions", "fp32", "mufu",
+                                        "convert")},
+            "evaluations_per_eta_iteration": n,
+            "cell_step": {k: step[k] for k in ("instructions", "fp32",
+                                               "mufu", "convert", "fp64")},
+            "f2f_per_cell_step": sum(op.startswith("F2F") for op in step_ops)}
 
 
 def report_build(label: str, name: str, lib: Path) -> dict:
@@ -370,6 +412,64 @@ def race_split(kernel: Kernel, few, n_species: int) -> dict:
     return {"blocks": grid.blocks, "n_split": grid.n_split, **ms}
 
 
+def p1_tree_call(package: str, wd: Path, cfg: Config, surf):
+    """(call, args) of one tree's P1 on a mode-5 workdir's operands, packed
+    as that tree's route packs them."""
+    tkc = importlib.import_module(f"{package}.tools.kernel_check")
+    tpz = importlib.import_module(f"{package}.ops.polarization_f32")
+    state = tkc.polarization_engine_state(wd, cfg, surf, "cuda")
+    if hasattr(tkc, "polarization_operands"):
+        ops = tkc.polarization_operands(state, cfg)
+    else:                            # a tree from before P1's eta fold
+        ops = tpz.pack_inputs(*state)
+    return (functools.partial(tpz.polarization_f32, row_len=ops.row_len),
+            ops.args())
+
+
+def race_p1(packages: dict, wd: Path, n_compare: int) -> dict:
+    """Time every tree's P1 on the workdir's operands (twice, mirrored
+    order) and hold it to this tree's plain version on the first
+    ``n_compare`` cells (the same real cells in every tree: padding, where
+    a tree packs it, comes last)."""
+    cfg = Config.from_file(wd / "iS3D_parameters.dat")
+    surf = read_surface(wd / "input/surface.dat", 5, 2, False)
+    calls = {label: p1_tree_call(package, wd, cfg, surf)
+             for label, package in packages.items()}
+    mine = importlib.import_module(
+        f"{packages[THIS_TREE]}.ops.polarization_f32")
+
+    def cut(args):
+        return (args[0][:n_compare].contiguous(), *args[1:])
+
+    ref = mine.polarization_f32_plain(*cut(calls[THIS_TREE][1]))
+    ref = ref.cpu().numpy()
+    results = {}
+    for label, (call, args) in calls.items():
+        out = call(*cut(args))             # builds are done; this warms up
+        again = call(*cut(args))
+        results[label] = {
+            "ms": [], "cells": args[0].shape[0], "eta": args[1].shape[0],
+            "vs_plain": kc.polarization_errors(out.cpu().numpy(), ref),
+            "repeats": bool(torch.equal(out, again)),
+            "finite": bool(torch.isfinite(out).all())}
+    for label in list(calls) + list(reversed(calls)):
+        call, args = calls[label]
+        results[label]["ms"].append(cuda_ms(lambda: call(*args)))
+    mine_ms = min(results[THIS_TREE]["ms"])
+    for label, r in results.items():
+        note = ""
+        if label == THIS_TREE:
+            ok = (r["finite"] and r["repeats"]
+                  and max(r["vs_plain"]) <= kc.POLZN_TOL_PLAIN)
+            note = "  ok" if ok else "  MISSES ITS BAR"
+        print(f"p1 {label:20s} {r['ms'][0]:9.1f} {r['ms'][1]:9.1f} ms  "
+              f"{min(r['ms']) / mine_ms:.3f}x this tree's  ({r['cells']} "
+              f"cells x {r['eta']} eta)  vs this tree's plain version: Snorm"
+              f" {r['vs_plain'][0]:.3e}, P {r['vs_plain'][1]:.3e}  repeats "
+              f"{r['repeats']}{note}")
+    return results
+
+
 def race_prep(packages: dict, wd: Path, n_cells: int) -> dict:
     """Time every tree's prepare_famod on one famod surface (see the module
     docstring) and hold the others to this tree's result."""
@@ -432,7 +532,8 @@ def main(argv=None) -> int:
     for i, item in enumerate(a.tree):
         label, _, directory = item.partition("=")
         packages[label] = load_tree(i, Path(directory)).__name__
-    kernels = [k for k in KERNELS if k.key in a.only.split(",")]
+    only = a.only.split(",")
+    kernels = [k for k in KERNELS if k.key in only]
     few_species = [int(s) for s in a.few_species.split(",") if s]
 
     record = {"card": card, "cells": a.cells, "builds": {}, "kernels": {}}
@@ -440,6 +541,12 @@ def main(argv=None) -> int:
         for label, package in packages.items():
             record["builds"][f"{k.key} {label}"] = report_build(
                 f"{k.key} [{label}]", k.name, k.library(package))
+    if "p1" in only:
+        for label, package in packages.items():
+            build = importlib.import_module(f"{package}.ops._build")
+            record["builds"][f"p1 {label}"] = report_build(
+                f"p1 [{label}]", "polarization_f32",
+                build.build("polarization_f32")[0])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     scratch = Path("build")
@@ -483,7 +590,12 @@ def main(argv=None) -> int:
             record["kernels"][k.name] = rec
             del ops, args, cut, few, state, versions
             torch.cuda.empty_cache()
-        if "prep" in a.only.split(","):
+        if "p1" in only:
+            wd = write_workdir(Path(tmp) / "p1", n_cells=a.cells,
+                               params={"df_mode": 1, "compute_dtype": "f32c"},
+                               surface_mode=5)
+            record["p1"] = race_p1(packages, wd, a.compare_cells)
+        if "prep" in only:
             wd = write_workdir(Path(tmp) / "prep", n_cells=16)
             record["prep"] = race_prep(packages, wd, a.cells)
     a.out.parent.mkdir(parents=True, exist_ok=True)

@@ -23,9 +23,12 @@ surface's dsigma_eta, which the spacetime convention weights.
 
 Kernel P1 (spin polarization, mode 5): ``check_polarization_case`` holds
 it to its plain version (POLZN_TOL_PLAIN) and to the f64 polarization
-engine at the JAX package's bars for its f32 route (POLZN_TOL_NORM on
-Snorm, POLZN_TOL_P on P^mu = S^mu / Snorm; ``polarization_errors``) on a
-surface with vorticity.
+engine (never folded) at the JAX package's bars for its f32 route
+(POLZN_TOL_NORM on Snorm, POLZN_TOL_P on P^mu = S^mu / Snorm;
+``polarization_errors``) on a surface with vorticity, in the instantiation
+the route's fold gate picks (``polarization_operands``): folded with the
+default ``eta_fold``, general with ``eta_fold = 0`` or an odd source
+(``un_scale``, ``dan_scale``).
 
 Each kernel also has a ragged case (RAGGED: rows of 7 phi under a register
 tile of 4, fewer momenta than one block owns, a cell count that fills
@@ -49,7 +52,8 @@ import torch
 
 from ..config import Config
 from ..core import spacetime
-from ..core.polarization import delta_eta, polarization_f64, polarization_state
+from ..core.polarization import (delta_eta, fold_polarization_eta,
+                                 polarization_f64, polarization_state)
 from ..core.spectra import PREFACTOR, df12_state, spectra_df12
 from ..core.spectra_famod import famod_state, spectra_famod
 from ..core.spectra_feqmod import feqmod_state, spectra_feqmod
@@ -71,12 +75,12 @@ F32_TOL_PLAIN = 1e-5      # kernel B2 vs its plain version
 F32_TOL_F64 = 2e-5        # kernel B2 vs the f64 engine (JAX's f32 paths: ~5e-6)
 
 # the kernel instantiation each full-size main path launches (df 1 with shear
-# and bulk; df 4; df 2; P1 has one), as a pattern of its mangled name
+# and bulk; df 4; df 2; P1 folded), as a pattern of its mangled name
 MAIN_PATH_KERNEL = {
     "cooper_frye_comp": r"cooper_frye_comp_kernelILb1ELb0ELb0ELb0ELb0EE",
     "cooper_frye_feqmod": r"cooper_frye_feqmod_kernelILi4ELb0ELb0ELb0EE",
     "cooper_frye_f32": r"cooper_frye_f32_kernelILb1ELb0ELb0ELb0ELb1EE",
-    "polarization_f32": r"polarization_f32_kernel",
+    "polarization_f32": r"polarization_f32_kernelILb1EE",
 }
 
 # name -> (config fields, make_surface options); the workdir needs
@@ -556,6 +560,7 @@ class PolarizationCaseResult:
     f64: np.ndarray
     launches: int         # kernel launches of the checked call
     repeats: bool         # a second call gave the same bits
+    folded: bool          # the instantiation: eta-folded or general
 
     @property
     def vs_plain(self) -> tuple[float, float]:
@@ -589,40 +594,67 @@ def polarization_engine_state(workdir: str | Path, cfg: Config, surf,
             float(run.plasma.temperature), delta_eta(run.grids))
 
 
+def polarization_operands(state, cfg: Config) -> pz.PolarizationOperands:
+    """P1's operands for the engine state, as the f32/f32c route packs them:
+    on the folded grid where its gate allows (delta_eta stays the unfolded
+    table's, as the state carries it)."""
+    cells, species, grid, T, d_eta = state
+    grid, folded = fold_polarization_eta(cells, grid, cfg)
+    return pz.pack_inputs(cells, species, grid, T, d_eta, folded)
+
+
 def _polarization_result(state, args) -> PolarizationCaseResult:
     out, plain, launches, repeats = _run(pz.polarization_f32,
                                          pz.polarization_f32_plain, args)
     return PolarizationCaseResult(
         out.cpu().numpy(), plain.cpu().numpy(),
         polarization_f64(*state).reshape(5, -1).cpu().numpy(), launches,
-        repeats)
+        repeats, args[-1])
+
+
+def polarization_surface(n_cells: int, seed: int, un_scale: float = 0.0,
+                         dan_scale: float = 0.0):
+    """make_surface(n_cells, seed, vorticity=True), with un / 1 fm^-1 and
+    dsigma_eta / tau drawn uniform in +-un_scale and +-dan_scale from
+    streams of their own where these are not 0: sources odd in eta, which
+    the fold gate refuses."""
+    surf = make_surface(n_cells, seed=seed, vorticity=True)
+    if un_scale:
+        surf.un = np.random.default_rng([seed, 2]).uniform(
+            -un_scale, un_scale, n_cells)
+    if dan_scale:
+        add_dsigma_eta(surf, seed, dan_scale)
+    return surf
 
 
 def check_polarization_case(workdir: str | Path, n_cells: int, seed: int,
-                            device, **cfg_fields) -> PolarizationCaseResult:
+                            device, un_scale: float = 0.0,
+                            dan_scale: float = 0.0,
+                            **cfg_fields) -> PolarizationCaseResult:
     """Kernel P1 (its plain version on a CPU device), the plain version and
-    the f64 engine on make_surface(n_cells, seed, vorticity=True) with the
-    workdir's species and tables (mode 5, f32c)."""
+    the f64 engine on polarization_surface(n_cells, seed, un_scale,
+    dan_scale) with the workdir's species and tables (mode 5, f32c)."""
     cfg = Config(compute_dtype="f32c", mode=5, **cfg_fields)
-    surf = make_surface(n_cells, seed=seed, vorticity=True)
+    surf = polarization_surface(n_cells, seed, un_scale, dan_scale)
     state = polarization_engine_state(workdir, cfg, surf, device)
-    return _polarization_result(state, pz.pack_inputs(*state).args())
+    return _polarization_result(state,
+                                polarization_operands(state, cfg).args())
 
 
 def check_polarization_ragged_case(workdir: str | Path, n_cells: int,
-                                   seed: int, device
+                                   seed: int, device, **cfg_fields
                                    ) -> PolarizationCaseResult:
     """Kernel P1 against its plain version (which also stands in for f64)
     on the operands cut to RAGGED."""
-    cfg = Config(compute_dtype="f32c", mode=5)
+    cfg = Config(compute_dtype="f32c", mode=5, **cfg_fields)
     surf = make_surface(n_cells, seed=seed, vorticity=True)
     state = polarization_engine_state(workdir, cfg, surf, device)
-    ops = pz.pack_inputs(*state)
+    ops = polarization_operands(state, cfg)
     n = RAGGED["cells"]
-    args = (ops.cell[:n].contiguous(), ops.eta, ops.eta_w,
-            _ragged_momenta(ops.mom, state[1], state[2]), ops.inv_T)
+    args = (ops.cell[:n].contiguous(), ops.eta,
+            _ragged_momenta(ops.mom, state[1], state[2]), ops.folded)
     out, plain, launches, repeats = _run(pz.polarization_f32,
                                          pz.polarization_f32_plain, args)
     plain = plain.cpu().numpy()
     return PolarizationCaseResult(out.cpu().numpy(), plain, plain, launches,
-                                  repeats)
+                                  repeats, ops.folded)

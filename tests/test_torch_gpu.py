@@ -12,6 +12,7 @@ plain version.
 """
 
 import dataclasses
+import math
 import types
 
 import numpy as np
@@ -743,12 +744,24 @@ def test_grouped_equals_ungrouped_on_exact_multiplets(workdir, df_mode,
 # kernel P1 (spin polarization, mode 5)
 # ----------------------------------------------------------------------
 
-def _polarization_operands(workdir, n_surface=512, device="cuda"):
-    cfg = Config(compute_dtype="f32c", mode=5, cell_block=512)
+# the two instantiations: the route's fold gate picks the folded one with
+# the default eta_fold on a boost-invariant surface, the general one with
+# eta_fold = 0
+P1_FOLD = {"folded": -1, "general": 0}
+
+
+def _polarization_operands(workdir, which, n_surface=512, device="cuda",
+                           T=None):
+    cfg = Config(compute_dtype="f32c", mode=5, cell_block=512,
+                 eta_fold=P1_FOLD[which])
     state = kc.polarization_engine_state(
         workdir, cfg, make_surface(n_surface, seed=5, vorticity=True),
         device)
-    return pz.pack_inputs(*state)
+    if T is not None:
+        state = (*state[:3], T, state[4])
+    ops = kc.polarization_operands(state, cfg)
+    assert ops.folded == (which == "folded")
+    return ops
 
 
 def _p1_agrees(args):
@@ -761,68 +774,108 @@ def _p1_agrees(args):
     assert max(kc.polarization_errors(out, plain)) <= kc.POLZN_TOL_PLAIN
 
 
+# (fold gate settings and odd sources, the instantiation they give)
+P1_CASES = {"folded": ({}, True),
+            "general eta_fold 0": ({"eta_fold": 0}, False),
+            "general un": ({"un_scale": 0.05}, False),
+            "general dsigma_eta": ({"dan_scale": 0.05}, False)}
+
+
 @pytest.mark.gpu
-def test_polarization_kernel_vs_plain_and_f64(workdir):
-    """P1 at 512 cells: <= 1e-5 against its plain version on both metrics,
-    Snorm <= 2e-5 and P <= 1e-5 of max |P| against the f64 engine, one
-    launch, the same bits twice."""
+@pytest.mark.parametrize("case", list(P1_CASES))
+def test_polarization_kernel_vs_plain_and_f64(workdir, case):
+    """P1 at 512 cells, both instantiations: <= 1e-5 against its plain
+    version on both metrics, Snorm <= 2e-5 and P <= 1e-5 of max |P|
+    against the f64 engine (never folded), one launch, the same bits
+    twice."""
     _needs_cuda()
-    r = kc.check_polarization_case(workdir, 512, 3, "cuda", cell_block=512)
+    kw, folded = P1_CASES[case]
+    r = kc.check_polarization_case(workdir, 512, 3, "cuda", cell_block=512,
+                                   **kw)
+    assert r.folded == folded
     assert r.launches == 1 and r.repeats
     assert r.ok, (r.vs_plain, r.vs_f64)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("which", list(P1_FOLD))
 @pytest.mark.parametrize("n_cells,n_mom", [(100, 168), (70, 100), (333, 165),
                                            (1, 7), (512, 5)])
 def test_polarization_kernel_ragged_rows_and_splits(ragged_workdir, n_cells,
-                                                    n_mom):
+                                                    n_mom, which):
     """Rows of 7 phi under a register tile of 4, momentum counts that stop
     inside a row, cell counts that fill neither the last tile nor the last
     split."""
     _needs_cuda()
-    ops = _polarization_operands(ragged_workdir)
+    ops = _polarization_operands(ragged_workdir, which)
     g = pz.geometry(ops.mom[:, :n_mom].contiguous(), n_cells)
     assert g.row_len == min(7, n_mom) and g.blocks == 1
-    _p1_agrees((ops.cell[:n_cells].contiguous(), ops.eta, ops.eta_w,
-                ops.mom[:, :n_mom].contiguous(), ops.inv_T))
+    _p1_agrees((ops.cell[:n_cells].contiguous(), ops.eta,
+                ops.mom[:, :n_mom].contiguous(), ops.folded))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("which", list(P1_FOLD))
 @pytest.mark.parametrize("n_eta", [1, 32, 33, 80])
-def test_polarization_kernel_eta_counts(workdir, n_eta):
-    """One eta node, the most one launch takes, and more (the 24 nodes
+def test_polarization_kernel_eta_counts(workdir, n_eta, which):
+    """One eta node, the most one launch takes, and more (the table
     repeated): one launch per chunk of at most 32 nodes."""
     _needs_cuda()
-    ops = _polarization_operands(workdir)
+    ops = _polarization_operands(workdir, which)
     reps = -(-n_eta // ops.eta.shape[0])
     args = (ops.cell, ops.eta.repeat(reps, 1)[:n_eta].contiguous(),
-            ops.eta_w.repeat(reps)[:n_eta].contiguous(), ops.mom, ops.inv_T)
+            ops.mom, ops.folded)
     before = pz.polarization_f32.launches
     _p1_agrees(args)
     assert pz.polarization_f32.launches - before == 2 * -(-n_eta // 32)
 
 
 @pytest.mark.gpu
-def test_polarization_kernel_ragged_case(workdir):
+@pytest.mark.parametrize("which", list(P1_FOLD))
+def test_polarization_kernel_ragged_case(workdir, which):
     """The operands cut to kc.RAGGED (rows of 7 phi, 105 momenta, 1,000
     cells)."""
     _needs_cuda()
-    r = kc.check_polarization_ragged_case(workdir, 2048, 7, "cuda")
+    r = kc.check_polarization_ragged_case(workdir, 2048, 7, "cuda",
+                                          eta_fold=P1_FOLD[which])
+    assert r.folded == (which == "folded")
     assert r.launches == 1 and r.ok, r.vs_plain
 
 
 @pytest.mark.gpu
-def test_polarization_kernel_overflowing_exponential(workdir):
-    """A heavy species at high pT on a cold surface, where expf overflows:
+@pytest.mark.parametrize("which", list(P1_FOLD))
+def test_polarization_kernel_overflowing_exponential(workdir, which):
+    """A heavy species at high pT on a cold surface, where 2^x overflows:
     f0 is 0 to f32's range, never NaN, and the sums stay finite."""
     _needs_cuda()
-    ops = _polarization_operands(workdir)
-    args = (ops.cell, ops.eta, ops.eta_w, ops.mom, 1.0 / 0.002)
-    # u.p >= m, so expf(u.p / T) overflows (past 88.7) for these species
-    assert (0.25 / ops.mom[4] * args[-1] > 88.8).any()
-    assert torch.isfinite(pz.polarization_f32(*args)).all()
-    assert torch.isfinite(pz.polarization_f32_plain(*args)).all()
+    T = 0.002
+    ops = _polarization_operands(workdir, which, T=T)
+    # u.p >= m, so 2^(u.p log2(e) / T) overflows (past 128) for these
+    assert (0.25 / ops.mom[4] * math.log2(math.e) / T > 128.5).any()
+    assert torch.isfinite(pz.polarization_f32(*ops.args())).all()
+    assert torch.isfinite(pz.polarization_f32_plain(*ops.args())).all()
+
+
+@pytest.mark.gpu
+def test_polarization_kernel_takes_live_rows_only(workdir):
+    """The pack hands P1 the real cells only: 500 cells padded to 512 give
+    the bits of the same cells with no padding (cell_block 4), within the
+    bars of the f64 engine on the padded cells (pad_mask)."""
+    _needs_cuda()
+    surf = make_surface(500, seed=9, vorticity=True)
+    out = {}
+    for block in (512, 4):
+        cfg = Config(compute_dtype="f32c", mode=5, cell_block=block)
+        state = kc.polarization_engine_state(workdir, cfg, surf, "cuda")
+        assert state[0].tau.shape[0] == (512 if block == 512 else 500)
+        ops = kc.polarization_operands(state, cfg)
+        assert ops.cell.shape[0] == 500 and ops.folded
+        out[block] = pz.polarization_f32(*ops.args())
+        if block == 512:
+            ref = kc.polarization_f64(*state).reshape(5, -1).cpu().numpy()
+    assert torch.equal(out[512], out[4])
+    norm, p = kc.polarization_errors(out[512].cpu().numpy(), ref)
+    assert norm <= kc.POLZN_TOL_NORM and p <= kc.POLZN_TOL_P, (norm, p)
 
 
 def test_polarization_check_plain_on_cpu(workdir):

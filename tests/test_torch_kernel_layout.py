@@ -175,6 +175,19 @@ def test_b2_geometry_covers_every_momentum_and_cell_once(
     assert g.n_split * g.cells_per_split >= n_cells
 
 
+def test_p1_split_counts_its_three_blocks_a_sm():
+    """P1 keeps three blocks a SM resident (its kMinBlocks), B1-B3 two:
+    on the mode-5 main path (the 100,000 real cells, 908,208 momenta)
+    887 blocks are 2.24 waves of 396; three splits are 6.72 of 7."""
+    mom = torch.zeros((len(pz.MOM_ROWS), 908_208))
+    g = pz.geometry(mom, 100_000, row_len=48)
+    assert pz.BLOCKS_PER_SM == 3 != BLOCKS_PER_SM
+    assert (g.blocks, g.n_split, g.cells_per_split) == (887, 3, 33_344)
+    resident = pz.BLOCKS_PER_SM * H100_SMS
+    assert fill(g.blocks * g.n_split, resident) > 0.95
+    assert g != launch_geometry(908_208, 48, 100_000, 4, pz.TILE_CELLS)
+
+
 @pytest.mark.parametrize("n_cells", [1, 63, 64, 100, 2048, 102_400])
 @pytest.mark.parametrize("n_species,n_pT,n_phi,stop_short", [
     (1, 1, 1, 0), (3, 5, 7, 0), (5, 3, 7, 2), (16, 51, 48, 0),

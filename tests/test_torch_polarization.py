@@ -28,7 +28,7 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).parent))
 
 from torch_parity import (BLOCK, CHOSEN, N_CELLS, build_workdir,  # noqa: E402
-                          numpy_fields)
+                          max_rel_err, numpy_fields, run_drivers)
 
 from is3d2_tpu.config import Config as JConfig  # noqa: E402
 from is3d2_tpu.core.cells import prepare_cells as j_prepare_cells  # noqa: E402
@@ -44,12 +44,14 @@ from is3d2_tpu_torch import cli, interop  # noqa: E402
 from is3d2_tpu_torch.config import Config  # noqa: E402
 from is3d2_tpu_torch.core.cells import prepare_cells  # noqa: E402
 from is3d2_tpu_torch.core.polarization import (  # noqa: E402
-    compute_polarization, delta_eta, polarization_f64, polarization_state)
+    compute_polarization, delta_eta, fold_polarization_eta, polarization_f64,
+    polarization_state)
 from is3d2_tpu_torch.core.spectra import df12_state, spectra_df12  # noqa: E402
 from is3d2_tpu_torch.driver import IS3D  # noqa: E402
 from is3d2_tpu_torch.io import output, surface  # noqa: E402
 from is3d2_tpu_torch.io.pdg import read_pdg  # noqa: E402
 from is3d2_tpu_torch.io.tables import MomentumGrids  # noqa: E402
+from is3d2_tpu_torch.ops import polarization_f32 as pz  # noqa: E402
 from is3d2_tpu_torch.ops.spectra_fast_common import (  # noqa: E402
     compute_spectra_comp)
 from is3d2_tpu_torch.tools import kernel_check as kc  # noqa: E402
@@ -202,6 +204,189 @@ def test_p1_plain_on_80_eta_nodes(tmp_path):
     b = _jax(wd, _surface(), "f64")
     norm, p = kc.polarization_errors(a, b)
     assert norm <= kc.POLZN_TOL_NORM and p <= kc.POLZN_TOL_P, (norm, p)
+
+
+# ----------------------------------------------------------------------
+# kernel P1's eta fold and its operands
+# ----------------------------------------------------------------------
+
+def _state(workdir, surf, **cfg_fields):
+    """(cfg, host grids, the polarization's engine state) of the f32c
+    route on the CPU."""
+    cfg = Config(mode=5, cell_block=BLOCK, compute_dtype="f32c",
+                 **cfg_fields)
+    species = read_pdg(3, workdir / "PDG")
+    grids = MomentumGrids.from_dir(workdir / "tables")
+    state = polarization_state(surf, species, species.chosen_indices(CHOSEN),
+                               grids, cfg, "cpu")
+    return cfg, grids, (*state, surf.thermo_averages().temperature,
+                        delta_eta(grids))
+
+
+def _bars(out, ref):
+    norm, p = kc.polarization_errors(out, ref)
+    assert norm <= kc.POLZN_TOL_NORM and p <= kc.POLZN_TOL_P, (norm, p)
+
+
+# name -> (odd sources of the surface, config fields, eta table, folds)
+FOLD_GATE = {
+    "boost-invariant": ({}, {}, None, True),
+    "un": ({"un_scale": 0.05}, {}, None, False),
+    "dsigma_eta": ({"dan_scale": 0.05}, {}, None, False),
+    "asymmetric table": ({}, {}, "shifted", False),
+    "eta_fold 0": ({}, {"eta_fold": 0}, None, False),
+    "one node": ({}, {}, 1, False),
+}
+
+
+@pytest.mark.parametrize("case", list(FOLD_GATE))
+def test_p1_fold_gate(workdir, tmp_path, case):
+    """P1's fold gate folds a 2+1d surface with un = dsigma_eta = 0 on a
+    symmetric table and refuses each odd source, an asymmetric table,
+    eta_fold = 0 and one node; the instantiation it picks meets the f64
+    engine (never folded) at the JAX bars."""
+    odd, fields, table, folds = FOLD_GATE[case]
+    wd = workdir
+    if table is not None:
+        wd = shutil.copytree(workdir, tmp_path / "wd")
+        if table == 1:
+            synthetic.write_quadrature_tables(wd, 16, 8, 1)
+        else:
+            path = wd / "tables/spacetime_rapidity/eta_table.dat"
+            t = np.loadtxt(path)
+            t[:, 0] += 0.01
+            np.savetxt(path, t, fmt="%.16e")
+    cfg, grids, state = _state(wd, kc.polarization_surface(N_CELLS, 3, **odd),
+                               **fields)
+    grid, folded = fold_polarization_eta(state[0], state[2], cfg)
+    assert folded == folds
+    if folds:
+        assert grid.eta.shape[0] == len(grids.eta) // 2
+        assert (grid.eta > 0).all()
+        torch.testing.assert_close(grid.eta_weight.sum(),
+                                   state[2].eta_weight.sum())
+    else:
+        assert grid is state[2]
+    ops = kc.polarization_operands(state, cfg)
+    assert ops.folded == folds
+    assert ops.eta.shape[0] == grid.eta.shape[0]
+    _bars(pz.polarization_f32(*ops.args()).numpy(),
+          polarization_f64(*state).numpy())
+
+
+def test_p1_fold_keeps_the_zero_node_of_an_odd_table(tmp_path):
+    """25 nodes: the zero node pairs with itself and keeps its weight, the
+    12 above it take their mirror's; the folded route meets the JAX f64
+    engine and the unfolded one at the JAX bars."""
+    wd = build_workdir(tmp_path / "wd", n_eta=25, surface_mode=5)
+    surf = _surface()
+    cfg, grids, state = _state(wd, surf)
+    grid, folded = fold_polarization_eta(state[0], state[2], cfg)
+    w = state[2].eta_weight
+    assert folded and grid.eta.shape[0] == 13
+    assert grid.eta[0] == 0.0 and (grid.eta[1:] > 0).all()
+    assert grid.eta_weight[0] == w[12]
+    torch.testing.assert_close(grid.eta_weight[1:], 2.0 * w[13:], rtol=1e-14,
+                               atol=0.0)
+    ref = _jax(wd, surf, "f64")
+    _bars(_port(wd, surf, "f32c"), ref)
+    ops = kc.polarization_operands(state, dataclasses.replace(cfg, eta_fold=0))
+    assert not ops.folded and ops.eta.shape[0] == 25
+    _bars(pz.polarization_f32_plain(*ops.args()).numpy(), ref.reshape(5, -1))
+
+
+def test_p1_delta_eta_is_the_unfolded_tables(workdir):
+    """The eta weights carry eta[1] - eta[0] of the table as read
+    (Polarization.cpp:68), not of the folded half, whose first spacing
+    differs: the folded route meets the f64 engine, which the folded
+    spacing would miss by its ratio."""
+    surf = _surface()
+    cfg, grids, state = _state(workdir, surf)
+    grid, folded = fold_polarization_eta(state[0], state[2], cfg)
+    unfolded = float(grids.eta[1] - grids.eta[0])
+    folded_spacing = float(grid.eta[1] - grid.eta[0])
+    assert folded and state[4] == delta_eta(grids) == unfolded
+    assert abs(folded_spacing / unfolded - 1.0) > 100 * kc.POLZN_TOL_NORM
+    _bars(_port(workdir, surf, "f32c"), _port(workdir, surf, "f64"))
+
+
+@pytest.mark.parametrize("jax_dtype", ["f64", "f32"])
+def test_p1_folded_and_general_plain_agree_with_jax(workdir, jax_dtype):
+    """Kernel P1's plain version in both instantiations (the default fold,
+    eta_fold = 0) against each other and against the JAX package's f64
+    engine and its XLA f32 route (which never folds)."""
+    surf = _surface()
+    out = {}
+    for eta_fold in (-1, 0):
+        cfg, _, state = _state(workdir, surf, eta_fold=eta_fold)
+        ops = kc.polarization_operands(state, cfg)
+        out[ops.folded] = pz.polarization_f32_plain(*ops.args()).numpy()
+    assert set(out) == {True, False}
+    ref = _jax(workdir, surf, jax_dtype).reshape(5, -1)
+    for sums in out.values():
+        _bars(sums, ref)
+    _bars(out[True], out[False])
+
+
+def test_p1_pack_takes_the_real_cells_only(workdir):
+    """pack_inputs hands P1 the pad_mask > 0 rows: no padding, every
+    u.dsigma <= 0 cell kept (no mask column); the sums meet the f64
+    engine on the padded cells."""
+    n = N_CELLS - 12
+    cfg, _, state = _state(workdir, _surface(n))
+    cells = state[0]
+    assert cells.n_padded == N_CELLS
+    assert ((cells.mask == 0) & (cells.pad_mask == 1)).sum() > 0
+    ops = kc.polarization_operands(state, cfg)
+    assert ops.cell.shape == (n, len(pz.CELL_COLS))
+    assert "mask" not in pz.CELL_COLS
+    np.testing.assert_array_equal(
+        ops.cell[:, pz.CELL_COLS.index("qd0")].numpy(),
+        cells.dat[:n].to(torch.float32).numpy())
+    _bars(pz.polarization_f32(*ops.args()).numpy(),
+          polarization_f64(*state).numpy())
+
+
+# The re-anchor's mode-5 probes (ROADMAP C8): the port's driver against
+# the JAX driver's f64 route in memory.  name -> (workdir parameters,
+# build_workdir options, bar on the spectra (op 0: the normalized dN/dX),
+# bar on the polarization's Snorm and P).  The f32 routes are held to
+# their kernels' bars against f64, the f64 route to 1e-12.
+MODE5_PROBES = {
+    "df3-f32-shear0.2": ({"df_mode": 3, "compute_dtype": "f32"},
+                         {"shear_scale": 0.2}, kc.FEQMOD_TOL_F64, None),
+    "df2-f32c-baryons-diffusion": (
+        {"df_mode": 2, "compute_dtype": "f32c", "include_baryon": 1,
+         "include_baryondiff_deltaf": 1}, {"include_baryon": True}, kc.TOL,
+        None),
+    "one-eta-f64": ({"compute_dtype": "f64"}, {"n_eta": 1}, F64_TOL,
+                    F64_TOL),
+    "one-eta-f32c": ({"compute_dtype": "f32c"}, {"n_eta": 1}, kc.TOL, None),
+    "op0-df4-f32": ({"operation": 0, "df_mode": 4, "compute_dtype": "f32"},
+                    {}, kc.FEQMOD_TOL_F64, None),
+}
+
+
+@pytest.mark.parametrize("case", list(MODE5_PROBES))
+def test_mode5_probes_match_jax_f64(tmp_path, case):
+    params, kw, bar, polzn_bar = MODE5_PROBES[case]
+    wd = build_workdir(tmp_path / "wd", params={"cell_block": BLOCK,
+                                                **params},
+                       surface_mode=5, **kw)
+    ref, ours = run_drivers(wd)
+    if params.get("operation") == 0:
+        pairs = zip(ours.dN_dX.normalized(ours.cfg),
+                    ref.dN_dX.normalized(ref.cfg))
+        err = max(max_rel_err(a, b) for a, b in pairs)
+    else:
+        err = max_rel_err(np.asarray(ours.spectra), np.asarray(ref.spectra))
+    assert err <= bar, err
+    norm, p = kc.polarization_errors(np.stack(ours.polarization),
+                                     np.stack(ref.polarization))
+    if polzn_bar is None:
+        assert norm <= kc.POLZN_TOL_NORM and p <= kc.POLZN_TOL_P, (norm, p)
+    else:
+        assert norm <= polzn_bar and p <= polzn_bar, (norm, p)
 
 
 # ----------------------------------------------------------------------
