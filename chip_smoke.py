@@ -125,15 +125,45 @@ Phases (any failure raises; nothing is caught):
      Snorm > 0; two launches give equal bits; the folded and the general
      sums within the JAX bars of each other; each held to its plain
      version (<= 1e-5 on both metrics) on the first 4,096 cells at the
-     full M, both timed there.
+     full M, both timed there;
+ 23. kernel B1's 3+1d mode vs its plain version and the f64 engine at 2,048
+     cells of a 3+1d surface (make_surface(dimension=3): each cell's eta in
+     [-2, 2]), 16 species, 51 pT x 48 phi x 21 y (|y| <= 5): f32c over
+     kernel_check.CASES (df 1, df 2, clip + outflow, baryons + diffusion)
+     and f32 (df 1, df 2: the same kernel, the same bits): <= 1e-6
+     relative against the plain version on bins >= 1e-4 of each species'
+     peak; against the f64 engine the JAX package's 3+1d budget, <= 1e-6
+     on bins >= 1e-4 of the largest bin of all species and <= 2.5e-7 of
+     each species' peak on every bin (kernel_check.Case3dResult; the error
+     relative to each species' own peak is printed); and the ragged case;
+ 24. the 3+1d df-1 main path at full width through the CLI: 1e5 cells of a
+     3+1d surface, all species, 51 x 48 x 21 y, f32c (M = 19,072,368).
+     Only B1's 3+1d mode may launch; the files hold S x 51 x 48 x 21 rows,
+     finite, dN/dy pi+ > K+ > p > 0 at every |y| <= 3 and pi+ > 0 at
+     every y.  Then the 3+1d mode on that
+     path's operands (the live cells x M) timed at full size, launched
+     twice for equal bits, and held to its plain version (<= 1e-6) on the
+     first 1,024 live cells at the full M, both timed there;
+ 25. operation 0 on phase 24's surface cut to its first OP0_3D_CELLS
+     cells (all species, the full 51 x 48 x 21 grid): in 3+1d every dtype
+     runs the f64 engine (no kernel may launch), one cell per block; its
+     tau bins summed back to the y-summed dN/dy of B1's 3+1d mode on the
+     same cells (<= 1e-5);
+ 26. operation 2 on phase 24's workdir: test histograms, min_num_hadrons
+     1e7, a fixed seed, phase 12's bounds on the yield and the lanes, no
+     kernel launch; the sampled dN/dy of pi+ and K+ in every bin at
+     |y| < 1 within 5 sigma + 3 % of phase 24's dN/dy (the JAX package's
+     3+1d closure bar; p is printed, ROADMAP C9); then OSCAR files with
+     df 2 at min_num_hadrons 1e6, checked as phase 13's.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
-12-13's and 16's numbers.  The line before the last is a JSON object with each
+12-13's, 16's and 26's numbers.  The line before the last is a JSON object with each
 kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
 "operation0", phase 19 under B3's "operation0", each with the launches of
 its own path; P1's launches from phase 21, its folded instantiation's
 numbers at the top and the general one's under "general", each with its
-sfu_floor_ms beside the bound),
+sfu_floor_ms beside the bound; B1's 3+1d mode, an entry of its own, from
+phases 24-25),
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
 (no single PyTorch call computes a Cooper-Frye or polarization sum), and
@@ -167,10 +197,14 @@ import torch
 MAIN_CELLS = 100_000
 KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod", "cooper_frye_f32",
            "polarization_f32")
+# kernels that live in another kernel's source (name -> source)
+SOURCE_OF = {"cooper_frye_comp_3d": "cooper_frye_comp"}
 B1_COMPARE_CELLS = 16_384
 B2_COMPARE_CELLS = 8_192
 B3_COMPARE_CELLS = 8_192
 P1_COMPARE_CELLS = 4_096
+B1_3D_COMPARE_CELLS = 1_024
+OP0_3D_CELLS = 2_048
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_OPS = 67e12
@@ -204,6 +238,14 @@ OPS_PER_EVALUATION = {
     # 10.  General: e_m and d_m 6 more, H4 2; outside, the H4 terms 9
     "polarization_f32": {"folded": 18 + 39 / 12,
                          "general": 26 + 48 / 24},
+    # B1's 3+1d mode, one evaluation per (cell, m) and no eta loop: per
+    # (cell, row) 48 (the exact products q+ m+, q- m- and abf b 4, two
+    # TwoSums 12, the low terms 10, the m+/m- parts of p.dsigma and pi:pp
+    # 3 + 8 + 6, abl b, cE, c1, c0b, diffb 5), per evaluation 64 (qx px,
+    # qy py 2, three TwoSums 18, the low terms 10, f_eq 6, feqbar 2, E 2,
+    # p.dsigma 4, pi:pp 10, delta-f 5, the value 3, the conversion and
+    # the f64 sum 2)
+    "cooper_frye_comp_3d": 48 + 64,
 }
 # What the kernels execute per evaluation, counted the same way from their
 # sources (a multiply-add counts two; work shared by a thread's 4 momenta
@@ -224,6 +266,12 @@ EXECUTED_OPS_PER_EVALUATION = {
     # (cell, m) the H4 terms 6 more, per (cell, row) 10 mT parts
     "polarization_f32": {"folded": 20 + 2 / 4 + (34 + 5 / 4) / 12,
                          "general": 22 + 6 / 4 + (40 + 10 / 4) / 24},
+    # per evaluation 68: qx px, qy py 2, three TwoSums 18, the low terms
+    # 10, expf and its 1 + r and + sign 4, the clamp 1, the reciprocal 5,
+    # feqbar 2, E 2, p.dsigma 4, pi:pp 10, delta-f 5, the value 3, the
+    # conversion and the f64 add 2; per (cell, row), shared by the
+    # register tile's 4 momenta, 47 (diffb is dead without diffusion)
+    "cooper_frye_comp_3d": 68 + 47 / 4,
 }
 
 
@@ -261,14 +309,16 @@ def cuda_ms(fn, warmup=None):
 
 
 def launch_counters():
-    from is3d2_tpu_torch.ops.cooper_frye_comp import cooper_frye_comp
+    from is3d2_tpu_torch.ops.cooper_frye_comp import (cooper_frye_comp,
+                                                      cooper_frye_comp_3d)
     from is3d2_tpu_torch.ops.cooper_frye_f32 import cooper_frye_f32
     from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod
     from is3d2_tpu_torch.ops.polarization_f32 import polarization_f32
     return {"cooper_frye_comp": cooper_frye_comp,
             "cooper_frye_feqmod": cooper_frye_feqmod,
             "cooper_frye_f32": cooper_frye_f32,
-            "polarization_f32": polarization_f32}
+            "polarization_f32": polarization_f32,
+            "cooper_frye_comp_3d": cooper_frye_comp_3d}
 
 
 def bound(ops: float, args: tuple, n_mom: int) -> dict:
@@ -322,9 +372,13 @@ def phase_build() -> dict:
                              "spill_loads")}
         print(f"  {len(kernels)} instantiation(s); the most over them: "
               f"{json.dumps(worst)}")
-        for k, u in kernels.items():
-            if re.search(MAIN_PATH_KERNEL[name], k):
-                print(f"  main path's instantiation: {json.dumps(u)}")
+        for key, pattern in MAIN_PATH_KERNEL.items():
+            if SOURCE_OF.get(key, key) != name:
+                continue
+            for k, u in kernels.items():
+                if re.search(pattern, k):
+                    print(f"  {key} main path's instantiation: "
+                          f"{json.dumps(u)}")
     print(f"build+load {time.perf_counter() - t0:.2f} s")
     code = kb.sass_functions(built["polarization_f32"][0])
     p1 = {}
@@ -443,12 +497,12 @@ def run_main_path(tmp: Path, label: str, kernel: str, params: dict,
     return launches, stages, wd, out
 
 
-def run_cli(wd: Path, kernel: str, also: tuple = ()
+def run_cli(wd: Path, kernel: str | None, also: tuple = ()
             ) -> tuple[dict, dict, str]:
     """cli.main on a workdir with every launch count set to 0 just before
     and read just after.  Only ``kernel`` and the kernels ``also`` may
-    launch, and each must.  Returns every kernel's launches, the driver's
-    stage seconds and the log."""
+    launch, and each must (with ``kernel`` None, none may).  Returns every
+    kernel's launches, the driver's stage seconds and the log."""
     from is3d2_tpu_torch import cli
     counters = launch_counters()
     log = io.StringIO()
@@ -464,7 +518,7 @@ def run_cli(wd: Path, kernel: str, also: tuple = ()
     print(out, end="")
     print(f"cli.main returned {rc} after {wall:.2f} s; kernel launches "
           f"{launches}")
-    ours = (kernel, *also)
+    ours = (kernel, *also) if kernel else ()
     if rc != 0 or any(launches[k] < 1 for k in ours):
         raise AssertionError(f"the main path did not run through {ours}")
     if any(n for name, n in launches.items() if name not in ours):
@@ -879,6 +933,21 @@ def phase_sampler_oscar(tmp: Path, wd4: Path) -> dict:
         "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
         "sampler_seed": SAMPLER_SEED})
     r = run_op2(wd)
+    rows = check_oscar_files(wd, r)
+    st = r["stage_seconds"]
+    print(f"write {st['write']:.3f} s (of it {st['write_boost']:.3f} s the "
+          f"host boost, {st['write_overlapped']:.3f} s overlapped with "
+          f"compute; {st['write_exposed']:.3f} s exposed after compute), "
+          f"waiting for device->host copies "
+          f"{st['write_transfer']:.3f} s")
+    r["oscar_rows"] = rows
+    return r
+
+
+def check_oscar_files(wd: Path, r: dict) -> int:
+    """The OSCAR files of an operation-2 run (``r``: run_op2's): one per
+    event, each with the OSCAR header and 11 columns, rows summing to the
+    kept count.  Returns the rows."""
     files = sorted((wd / "results").glob("particle_list_osc_*.dat"))
     if len(files) != r["n_events"]:
         raise AssertionError(f"{len(files)} OSCAR files for "
@@ -899,14 +968,7 @@ def phase_sampler_oscar(tmp: Path, wd4: Path) -> dict:
           f"(counted in {time.perf_counter() - t0:.1f} s)")
     if rows != r["kept"]:
         raise AssertionError(f"{rows} OSCAR rows, {r['kept']} kept")
-    st = r["stage_seconds"]
-    print(f"write {st['write']:.3f} s (of it {st['write_boost']:.3f} s the "
-          f"host boost, {st['write_overlapped']:.3f} s overlapped with "
-          f"compute; {st['write_exposed']:.3f} s exposed after compute), "
-          f"waiting for device->host copies "
-          f"{st['write_transfer']:.3f} s")
-    r["oscar_rows"] = rows
-    return r
+    return rows
 
 
 def phase_famod_main_path(tmp: Path) -> tuple[int, dict, Path, dict]:
@@ -1215,8 +1277,9 @@ def check_dX_files(wd: Path, wd_op1: Path | None) -> None:
     for m in (211, 321, 2212):
         v = np.loadtxt(res / f"dN_taudtaudy_{m}.dat")
         total = float((v[:, 0] * v[:, 1]).sum() * tau_w)
-        op1 = float(np.loadtxt(wd_op1 / f"results/continuous/dN_dy_{m}.dat")
-                    [1])
+        # summed over the y table: in 3+1d operation 0 sums it unweighted
+        op1 = float(np.loadtxt(wd_op1 / f"results/continuous/dN_dy_{m}.dat",
+                               ndmin=2)[:, 1].sum())
         print(f"{m}: sum over tau bins {total:.8g} vs op-1 dN/dy {op1:.8g} "
               f"({(total - op1) / op1:+.2e})")
         if abs(total - op1) > 1e-5 * op1:
@@ -1493,6 +1556,218 @@ def phase_p1_full(wd: Path, sass: dict) -> dict:
             "folded_vs_general": {"snorm_rel_err": norm, "p_err": p}}
 
 
+def parity_workdir_3d(tmp: Path) -> Path:
+    """Phase 3's parity workdir in 3+1d: its 16 species and 51 x 48 grid,
+    and the 21-point y table over |y| <= 5."""
+    from is3d2_tpu_torch.tools.synthetic import write_workdir
+    return write_workdir(tmp / "compare_3d", n_cells=16,
+                         chosen_mcids=PARITY_CHOSEN, include_baryon=True,
+                         n_muB=9, dimension=3)
+
+
+def phase_b1_3d_compare(wd: Path) -> None:
+    print("== 23. B1's 3+1d mode vs plain version vs f64 engine (2048 cells "
+          "of a 3+1d surface, 16 species, 51 x 48 x 21 y)")
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cases = {f"{name} f32c": kc.check_3d_case(wd, name, 2048, 7, "cuda")
+             for name in kc.CASES}
+    for name in ("df1", "df2"):
+        r = kc.check_3d_case(wd, name, 2048, 7, "cuda", compute_dtype="f32")
+        if not np.array_equal(r.kernel, cases[f"{name} f32c"].kernel):
+            raise AssertionError(f"3+1d {name}: f32 and f32c differ")
+        cases[f"{name} f32"] = r
+    cases["ragged " + json.dumps(kc.RAGGED)] = kc.check_3d_ragged_case(
+        wd, 2048, 7, "cuda")
+    for name, r in cases.items():
+        print(f"{name:26s} kernel vs plain {r.vs_plain:.3e}; kernel vs f64 "
+              f"{r.vs_f64_global:.3e} (bins of the largest peak; "
+              f"{r.vs_f64:.3e} of each species' peak); plain vs f64 "
+              f"{r.plain_vs_f64:.3e}; of each peak: kernel vs plain "
+              f"{kc.peak_err(r.kernel, r.plain):.3e}, vs f64 "
+              f"{kc.peak_err(r.kernel, r.f64):.3e}")
+        if not (r.ok and r.launches == 1):
+            raise AssertionError(f"3+1d {name}: kernel disagrees or does "
+                                 f"not repeat ({r.vs_plain:.3e} vs plain, "
+                                 f"{r.vs_f64_global:.3e} vs f64)")
+
+
+def phase_b1_3d_main_path(tmp: Path) -> tuple[int, dict, Path]:
+    print(f"== 24. 3+1d df-1 main path: {MAIN_CELLS} cells of a 3+1d "
+          "surface, all species, 51 x 48 x 21 y, f32c")
+    from is3d2_tpu_torch.tools.synthetic import write_workdir
+    t0 = time.perf_counter()
+    wd = write_workdir(tmp / "main_3d", n_cells=MAIN_CELLS, dimension=3,
+                       params={"df_mode": 1, "compute_dtype": "f32c"})
+    print(f"workdir written in {time.perf_counter() - t0:.1f} s")
+    launches, stages, _ = run_cli(wd, "cooper_frye_comp_3d")
+    print(f"stage seconds: {json.dumps(stages)}")
+    from is3d2_tpu_torch.io.tables import MomentumGrids
+    g = MomentumGrids.from_dir(wd / "tables")
+    rows = len(g.pT) * len(g.phi) * len(g.y)
+    res = wd / "results/continuous"
+    mcids = [int(v) for v in np.loadtxt(wd / "PDG/chosen_particles.dat")]
+    t0 = time.perf_counter()
+    negative = 0
+    for m in (211, 321, 2212, mcids[-1]):
+        v = np.loadtxt(res / f"dN_pTdpTdphidy_{m}.dat", skiprows=1)
+        if v.shape != (rows, 4) or not np.isfinite(v).all():
+            raise AssertionError(f"3+1d spectra of {m}: shape {v.shape} or "
+                                 "a value not finite")
+        negative += int((v[:, 3] < 0).sum())
+    print(f"dN_pTdpTdphidy files of pi+, K+, p and {mcids[-1]}: {rows} "
+          f"rows each, finite, {negative} bins below zero (parsed in "
+          f"{time.perf_counter() - t0:.1f} s); {len(mcids)} species")
+    dndy = {m: np.loadtxt(res / f"dN_dy_{m}.dat") for m in (211, 321, 2212)}
+    print("dN/dy at y = " + ", ".join(
+        f"{y:g}: pi+ {a:.6g} K+ {b:.6g} p {c:.6g}" for y, a, b, c in zip(
+            dndy[211][::5, 0], dndy[211][::5, 1], dndy[321][::5, 1],
+            dndy[2212][::5, 1])))
+    # at |y| = 5, 3 units beyond the cells' eta, K+ and p print as 0 in
+    # the files' 8 decimals
+    inner = np.abs(g.y) <= 3.0
+    if not (np.array_equal(dndy[211][:, 0], np.round(g.y, 8))
+            and (dndy[211][:, 1] > 0).all() and (
+            (dndy[211][inner, 1] > dndy[321][inner, 1])
+            & (dndy[321][inner, 1] > dndy[2212][inner, 1])
+            & (dndy[2212][inner, 1] > 0)).all()):
+        raise AssertionError("3+1d dN/dy is not ordered pi+ > K+ > p > 0 "
+                             "at every |y| <= 3 of the table, or pi+ not "
+                             "positive at every y")
+    return launches["cooper_frye_comp_3d"], stages, wd
+
+
+def phase_b1_3d_full(wd: Path) -> dict:
+    print("== 24. (cont.) B1's 3+1d mode on the main path's operands")
+    from is3d2_tpu_torch.ops import cooper_frye_comp as ck
+    from is3d2_tpu_torch.ops.spectra_fast_common import comp_operands_3d
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    cfg, state = main_path_state(wd, kc.engine_state)
+    ops = comp_operands_3d(*state, cfg)
+    kernel = functools.partial(ck.cooper_frye_comp_3d, row_len=ops.row_len)
+    args = (*ops.args(), cfg)
+    C, M = ops.cell.shape[0], ops.mom.shape[1]
+    print(f"{C} live cells x {M} momenta (M mod 256 = {M % 256}) = "
+          f"{ops.evaluations:.4g} evaluations")
+    first = kernel(*args)
+    full_ms, second = cuda_ms(lambda: kernel(*args), warmup=lambda: None)
+    print(f"kernel at full size {full_ms:.1f} ms, "
+          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
+    if not torch.equal(first, second):
+        raise AssertionError("two launches of B1's 3+1d mode on the main "
+                             "path's operands gave different bits")
+    print("two launches at full size gave equal bits")
+    del first, second
+    g = ck.cooper_frye_comp_3d.last_geometry
+    print(f"launched with {g}")
+    per_eval = BOUND_OPS_PER_EVALUATION["cooper_frye_comp_3d"]
+
+    def cut(n):
+        return (ops.cell[:n].contiguous(), ops.mom, cfg)
+
+    n = B1_3D_COMPARE_CELLS
+    print(f"compared on the first {n} live cells at the full M")
+    ms, plain_ms, max_abs = compare_on_cut(
+        kernel, ck.cooper_frye_comp_3d_plain, cut(64), cut(n),
+        lambda flat: kc.spectra_units(state, flat), kc.TOL, "B1 3+1d")
+    main_bound = bound(per_eval * ops.evaluations, args, M)["bound_ms"]
+    print(f"bound at full size {main_bound:.1f} ms: "
+          f"{100 * main_bound / full_ms:.1f} % of it")
+    return {"register_tile": g.r, "cell_split": g.n_split,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            **bound(per_eval * n * M, cut(n), M),
+            "main_path_bound_ms": main_bound,
+            "main_path_evaluations_per_s": ops.evaluations / full_ms * 1e3,
+            "main_path_share_of_bound": main_bound / full_ms,
+            # no single PyTorch call computes a Cooper-Frye sum
+            "library_ms": None,
+            "cells_compared": n, "main_path_ms": full_ms,
+            "main_path_evaluations": ops.evaluations}
+
+
+def phase_op0_3d(tmp: Path, wd3: Path) -> dict:
+    print(f"== 25. operation 0 in 3+1d: phase 24's surface cut to its first "
+          f"{OP0_3D_CELLS} cells, all species, 51 x 48 x 21 y, through the "
+          "f64 engine")
+    from is3d2_tpu_torch.core.spectra import compute_spectra
+    from is3d2_tpu_torch.driver import IS3D
+    wd = derived_workdir(tmp, wd3, "op0_3d", {"operation": 0})
+    surface = wd / "input/surface.dat"
+    with open(surface) as fh:
+        head = [next(fh) for _ in range(OP0_3D_CELLS)]
+    surface.write_text("".join(head))
+    launches, stages, _ = run_cli(wd, None)
+    print(f"stage seconds: {json.dumps(stages)}; {OP0_3D_CELLS} cells: "
+          f"{stages['compute'] / OP0_3D_CELLS * 1e3:.2f} ms of compute a cell")
+    check_dX_files(wd, None)
+    # the same cells through B1's 3+1d mode (operation 1, f32c), summed over
+    # the y table as operation 0 sums it
+    run = IS3D(wd, device="cuda")
+    run.load_surface_from_file()
+    run._setup()
+    cfg = dataclasses.replace(run.cfg, operation=1)
+    spectra = compute_spectra(run.surface, run.species, run.chosen_idx,
+                              run.grids, run.df_data, cfg, "cuda")
+    g = run.grids
+    op1 = np.einsum("p,f,spfy->s", g.pT_weight, g.phi_weight, spectra)
+    mcids = [int(run.species.mc_id[i]) for i in run.chosen_idx]
+    res = wd / "results/continuous"
+    tau_w = (cfg.tau_max - cfg.tau_min) / cfg.tau_bins
+    errs = {}
+    for m in (211, 321, 2212):
+        v = np.loadtxt(res / f"dN_taudtaudy_{m}.dat")
+        total = float((v[:, 0] * v[:, 1]).sum() * tau_w)
+        ref = float(op1[mcids.index(m)])
+        errs[str(m)] = (total - ref) / ref
+        print(f"{m}: sum over tau bins {total:.8g} vs B1's 3+1d mode "
+              f"summed over y {ref:.8g} ({errs[str(m)]:+.2e})")
+    if max(abs(e) for e in errs.values()) > 1e-5:
+        raise AssertionError("3+1d operation 0 does not sum to B1's dN/dy")
+    return {"cells": OP0_3D_CELLS, "stage_seconds": stages,
+            "compute_ms_per_cell": stages["compute"] / OP0_3D_CELLS * 1e3,
+            "vs_b1_3d": errs}
+
+
+def phase_sampler_3d(tmp: Path, wd3: Path) -> dict:
+    print(f"== 26. op-2 histograms in 3+1d: phase 24's {MAIN_CELLS} cells, "
+          "all species, df 1, test_sampler 1, min_num_hadrons 1e7")
+    wd = derived_workdir(tmp, wd3, "op2_3d", {
+        "operation": 2, "test_sampler": 1, "fast": 1,
+        "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
+        "sampler_seed": SAMPLER_SEED})
+    r = run_op2(wd)
+    closure = {}
+    for m in (211, 321, 2212):
+        hist = np.loadtxt(wd / f"results/sampled/dN_dy/dN_dy_{m}_test.dat")
+        smooth = np.loadtxt(wd3 / f"results/continuous/dN_dy_{m}.dat")
+        y_mid, obs = hist[:, 0], hist[:, 1]
+        sel = np.abs(y_mid) < 1.0
+        y_w = y_mid[1] - y_mid[0]
+        counts = obs[sel] * y_w * r["n_events"]
+        sigma = np.sqrt(np.maximum(counts, 1.0)) / (y_w * r["n_events"])
+        ref = np.interp(y_mid[sel], smooth[:, 0], smooth[:, 1])
+        dev = (obs[sel] - ref) / ref
+        ok = bool((np.abs(obs[sel] - ref) < 5.0 * sigma + 0.03 * ref).all())
+        closure[str(m)] = {"counts": float(counts.sum()),
+                           "max_rel_dev": float(np.abs(dev).max()),
+                           "mean_rel_dev": float(dev.mean()), "ok": ok}
+        print(f"dN/dy {m} at |y| < 1 ({counts.sum():.0f} hadrons in "
+              f"{sel.sum()} bins): sampled vs op-1 mean {dev.mean():+.3e}, "
+              f"worst {np.abs(dev).max():.3e}; within 5 sigma + 3 %: {ok}")
+    if not (closure["211"]["ok"] and closure["321"]["ok"]):
+        raise AssertionError("3+1d dN/dy closure of pi+ or K+ fails")
+    r["closure"] = closure
+    print("-- OSCAR event files, df 2, min_num_hadrons 1e6")
+    wd = derived_workdir(tmp, wd3, "op2_3d_oscar", {
+        "operation": 2, "df_mode": 2, "test_sampler": 0, "fast": 1,
+        "min_num_hadrons": 1.0e6, "max_num_samples": 1000,
+        "sampler_seed": SAMPLER_SEED})
+    oscar = run_op2(wd)
+    oscar["oscar_rows"] = check_oscar_files(wd, oscar)
+    r["oscar_df2"] = oscar
+    return r
+
+
 def main() -> int:
     card = phase_environment()
     # the package is imported only now: a copy of this script alone, or a
@@ -1528,6 +1803,11 @@ def main() -> int:
         phase_p1_compare(wd, wd_eta)
         p1_launches, p1_stages, wd_m5 = phase_p1_main_path(tmp)
         p1 = phase_p1_full(wd_m5, p1_sass)
+        phase_b1_3d_compare(parity_workdir_3d(tmp))
+        b1_3d_launches, b1_3d_stages, wd3 = phase_b1_3d_main_path(tmp)
+        b1_3d = phase_b1_3d_full(wd3)
+        op0_3d = phase_op0_3d(tmp, wd3)
+        op2_3d = phase_sampler_3d(tmp, wd3)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1536,7 +1816,8 @@ def main() -> int:
           f"{json.dumps(EXECUTED_OPS_PER_EVALUATION)}; the bounds take the "
           f"smaller {json.dumps(BOUND_OPS_PER_EVALUATION)}")
     print(json.dumps({"sampler": {"card": card, "histograms": op2_hist,
-                                  "oscar": op2_oscar, "famod": op2_famod}}))
+                                  "oscar": op2_oscar, "famod": op2_famod,
+                                  "histograms_3d": op2_3d}}))
     print(card)
     print(json.dumps({"kernels": [
         {"name": "cooper_frye_comp", "route": "cuda",
@@ -1565,7 +1846,16 @@ def main() -> int:
          "launches": p1_launches["polarization_f32"], **p1,
          # phase 21: the mode-5 main path, B1 for its spectra beside P1
          "mode5_main_path": {"launches": p1_launches,
-                             "stage_seconds": p1_stages}}]}))
+                             "stage_seconds": p1_stages}},
+        {"name": "cooper_frye_comp_3d", "route": "cuda",
+         "source": "is3d2_tpu_torch/csrc/cooper_frye_comp.cu",
+         # an XLA program (and _block_fast_3d, :353, for f32): the JAX
+         # package has no Pallas kernel in 3+1d
+         "replaces": "is3d2_tpu/core/spectra_fast.py:461",
+         "launches": b1_3d_launches, **b1_3d,
+         "stage_seconds": b1_3d_stages,
+         # phase 25: operation 0 in 3+1d, the f64 engine on a cut
+         "operation0_f64_engine": op0_3d}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -143,7 +143,7 @@ def polarization_state(surf, species_table: SpeciesTable,
     """Cells, species and grid on ``device``: what both routes take."""
     return (prepare_cells(surf, cfg, device),
             SpeciesArrays.from_table(species_table, chosen_idx, device),
-            MomentumGridDevice.from_grids(grids, device))
+            MomentumGridDevice.from_grids(grids, cfg.dimension, device))
 
 
 def compute_polarization(surf, species_table: SpeciesTable,

@@ -1,4 +1,5 @@
-"""Spacetime distributions dN/dX (operation 0), 2+1d, df 1-4.
+"""Spacetime distributions dN/dX (operation 0): df 1-4 in 2+1d, df 1/2 in
+3+1d.
 
 Counterpart of is3d2_tpu/core/spacetime.py (calculate_dN_dX /
 calculate_dN_dX_feqmod, SpacetimeDistribution.cpp:31-1250): the momentum
@@ -13,13 +14,19 @@ Routes (the JAX package's operation 0 ignores use_pallas):
   * f64: the torch f64 engines (df12_weighted_value; feqmod_weighted_value
     with the spacetime distributions' p.dsigma, whose dan term carries the
     eta weight), dN/dy per cell, then binned;
-  * f32/f32c: kernel B1 (df 1/2) or kernel B3 in its dan-weighted
+  * f32/f32c in 2+1d: kernel B1 (df 1/2) or kernel B3 in its dan-weighted
     convention (df 3/4).  A kernel sums over the cells it is handed for
     every momentum point, so the cells of each axis are sorted by bin once
     (one gather of the packed operands) and the kernel runs on each
     non-empty bin's run of cells; its (S, pT, phi) result contracted with
     the (pT, phi) weights is the bin.  The JAX package runs its XLA fast
     paths there (ROADMAP C7).
+
+In 3+1d every dtype runs the f64 engine, as the JAX package does
+(is3d2_tpu/core/spacetime.py:159: its fast route needs dimension 2): a
+cell's dN/dy is its integrand summed over the y table with the (pT, phi)
+weights only, no y weight (the JAX package's sum, is3d2_tpu/core/
+spacetime.py:97,109-111).
 """
 
 from __future__ import annotations
@@ -210,10 +217,10 @@ def compute_dN_dX(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
                   grids: MomentumGrids, df_data: DeltafData, cfg: Config,
                   device, laguerre: GaussLaguerre | None = None,
                   report=None) -> SpacetimeDistributions:
-    """Operation 0 on ``device``: the f64 engines for compute_dtype f64,
-    kernel B1 (df 1/2) or B3 (df 3/4) for f32/f32c.  df 5 raises the
-    reference's ValueError (Config.validate_slice).  ``report`` collects
-    the skipped-cell and (df 3/4) breakdown counts."""
+    """Operation 0 on ``device``: the f64 engines for compute_dtype f64
+    and in 3+1d, kernel B1 (df 1/2) or B3 (df 3/4) for f32/f32c in 2+1d.
+    df 5 raises the reference's ValueError (Config.validate_slice).
+    ``report`` collects the skipped-cell and (df 3/4) breakdown counts."""
     cfg.validate_slice()
     if cfg.df_mode in (1, 2):
         cells, aux, species, grid = df12_state(
@@ -223,7 +230,7 @@ def compute_dN_dX(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
         cells, aux, species, grid = feqmod_state(
             surf, species_table, chosen_idx, grids, df_data, cfg, device,
             laguerre, report)
-    if cfg.compute_dtype == "f64":
+    if cfg.compute_dtype == "f64" or cfg.dimension == 3:
         acc = f64_bins(cells, aux, species, grid, cfg)
     else:
         acc = kernel_bins(cells, kernel_operands(cells, aux, species, grid,

@@ -9,7 +9,8 @@ MomentumSpectra.cpp:32-415) and its dispatcher over df modes.  For df 1/2:
     ``_spectra_df12_jit``;
   * the compensated-f32 kernel B1 (``compute_dtype`` "f32c" or "f32"):
     the hand-written CUDA kernel ops/cooper_frye_comp.py on a GPU, its
-    plain torch version on the CPU (ops/spectra_fast_common.py);
+    plain torch version on the CPU (ops/spectra_fast_common.py), in its
+    2+1d mode or, on a 3+1d surface, its 3+1d mode;
   * the plain-f32 kernel B2 (``use_pallas = 1`` with "f64"):
     ops/cooper_frye_f32.py, likewise.
 
@@ -65,7 +66,9 @@ class SpeciesArrays:
 
 @dataclasses.dataclass
 class MomentumGridDevice:
-    """Momentum and eta quadrature as f64 tensors (2+1d: y = 0)."""
+    """Momentum and eta quadrature as f64 tensors.  2+1d: y = 0 and the
+    eta table; 3+1d: y from the table, and one eta node of weight 1 (each
+    cell's own eta enters through the kinematics)."""
 
     pT: torch.Tensor
     pT_weight: torch.Tensor
@@ -77,13 +80,18 @@ class MomentumGridDevice:
     eta_weight: torch.Tensor
 
     @classmethod
-    def from_grids(cls, g: MomentumGrids, device) -> "MomentumGridDevice":
+    def from_grids(cls, g: MomentumGrids, dimension: int,
+                   device) -> "MomentumGridDevice":
         def t(a):
             return torch.as_tensor(np.asarray(a), dtype=f64, device=device)
+        if dimension == 2:
+            y, eta, eta_w = np.zeros(1), g.eta, g.eta_weight
+        else:
+            y, eta, eta_w = g.y, np.zeros(1), np.ones(1)
         return cls(pT=t(g.pT), pT_weight=t(g.pT_weight),
                    cos_phi=t(np.cos(g.phi)), sin_phi=t(np.sin(g.phi)),
-                   phi_weight=t(g.phi_weight), y=t(np.zeros(1)),
-                   eta=t(g.eta), eta_weight=t(g.eta_weight))
+                   phi_weight=t(g.phi_weight), y=t(y), eta=t(eta),
+                   eta_weight=t(eta_w))
 
 
 def df12_cell_coefficients(cells: CellArrays, df_data: DeltafData,
@@ -115,13 +123,17 @@ def df12_cell_coefficients(cells: CellArrays, df_data: DeltafData,
 
 
 def _momentum_tensors(c: CellArrays, grid: MomentumGridDevice,
-                      species: SpeciesArrays):
-    """2+1d kinematics for one cell block: pt[c,s,p,y,e], pn[c,s,p,y,e],
-    px[p,f], py[p,f] (y = 0, eta from the table)."""
+                      species: SpeciesArrays, dimension: int):
+    """Kinematics for one cell block: pt[c,s,p,y,e], pn[c,s,p,y,e],
+    px[p,f], py[p,f].  2+1d: y = 0, eta from the table; 3+1d: y from the
+    table, eta the cell's own (one node)."""
     mT = torch.sqrt(species.mass[:, None] ** 2 + grid.pT[None, :] ** 2)  # (s,p)
     px = grid.pT[:, None] * grid.cos_phi[None, :]                        # (p,f)
     py = grid.pT[:, None] * grid.sin_phi[None, :]
-    delta = -grid.eta[None, None, :]                                     # (c=1,y=1,e)
+    if dimension == 2:
+        delta = -grid.eta[None, None, :]                                 # (c=1,y=1,e)
+    else:
+        delta = grid.y[None, :, None] - c.eta[:, None, None]             # (c,y,e=1)
     sinh_d = torch.sinh(delta)
     cosh_d = torch.sqrt(1.0 + sinh_d * sinh_d)
     pt = mT[None, :, :, None, None] * cosh_d[:, None, None, :, :]
@@ -134,7 +146,7 @@ def df12_weighted_value(c: CellArrays, coeffs: dict, species: SpeciesArrays,
                         grid: MomentumGridDevice, cfg: Config):
     """eta_weight * (p.dsigma) * f on axes (c,s,p,f,y,e) for df modes 1/2
     (the hot loop of MomentumSpectra.cpp:250-377), in f64."""
-    pt5, pn5, px2, py2 = _momentum_tensors(c, grid, species)
+    pt5, pn5, px2, py2 = _momentum_tensors(c, grid, species, cfg.dimension)
 
     def C(a):  # cell scalar -> (c,1,1,1,1,1)
         return a[:, None, None, None, None, None]
@@ -223,7 +235,7 @@ def engine_inputs(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
         report.n_cells = surf.n_cells
         report.skipped_cells = surf.n_cells - int(cells.mask.sum().item())
     return (cells, SpeciesArrays.from_table(species_table, chosen_idx, device),
-            MomentumGridDevice.from_grids(grids, device))
+            MomentumGridDevice.from_grids(grids, cfg.dimension, device))
 
 
 def df12_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
@@ -250,9 +262,10 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     """Continuous spectra dN/(pT dpT dphi dy), shape (S, NpT, Nphi, Ny).
 
     df 1/2, routed as the JAX package routes one device
-    (is3d2_tpu/core/spectra.py:354-389): "f32" and "f32c" run the
-    compensated kernel B1; "f64" runs the plain-f32 kernel B2 with
-    use_pallas = 1 and the torch f64 engine otherwise.  df 3/4 (``laguerre``
+    (is3d2_tpu/core/spectra.py:354-420): "f32" and "f32c" run the
+    compensated kernel B1 (in 3+1d its 3+1d mode); "f64" runs the
+    plain-f32 kernel B2 with use_pallas = 1 in 2+1d and the torch f64
+    engine otherwise.  df 3/4 (``laguerre``
     needed): the feqmod prep,
     then kernel B3 (see uses_feqmod_kernel) or the torch f64 feqmod engine.
     df 5: the famod prep (the VAH reconstruction, or a mode-2/3 surface's
@@ -303,11 +316,14 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     # use_pallas = -1 means "the kernel" in the port on any device (on the
     # CPU, its plain version), where the JAX package runs its XLA fast
     # paths on the CPU backend; validate_slice rejects use_pallas = 0 with
-    # f32/f32c (those XLA paths are not ported)
+    # f32/f32c in 2+1d (those XLA paths are not ported).  In 3+1d f32 and
+    # f32c run B1's 3+1d mode whatever use_pallas says (the JAX package's
+    # XLA programs _block_fast_3d(_comp)), and f64 the f64 engine: B2 is
+    # 2+1d only, as the JAX package's _kernel is
     if cfg.compute_dtype in ("f32", "f32c"):
         from ..ops.spectra_fast_common import compute_spectra_comp
         out = compute_spectra_comp(*state, cfg)
-    elif cfg.use_pallas == 1:
+    elif cfg.use_pallas == 1 and cfg.dimension == 2:
         from ..ops.spectra_fast_common import compute_spectra_f32
         out = compute_spectra_f32(*state, cfg)
     else:

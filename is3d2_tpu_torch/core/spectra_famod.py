@@ -446,4 +446,4 @@ def famod_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
         report.reconstruction = stats
     return (cells, fm, SpeciesArrays.from_table(species_table, chosen_idx,
                                                 device),
-            MomentumGridDevice.from_grids(grids, device))
+            MomentumGridDevice.from_grids(grids, cfg.dimension, device))

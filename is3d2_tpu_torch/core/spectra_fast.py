@@ -2,7 +2,9 @@
 
 Counterpart of the f32c pieces of is3d2_tpu/core/spectra_fast.py: the eta
 quadrature fold with its exactness gates (df 1/2, and the strict one of the
-feqmod kernel), and the split-exact arithmetic.
+feqmod kernel), the split-exact arithmetic, and the 3+1d light-cone rows
+(``momentum_matrix_3d(_comp)``, ``_cell_Q_3d(_comp)``) that kernel B1's
+3+1d mode takes.
 
 The plain-f32 path is ~3e-6 relative: the exp amplifies the f32 rounding of
 its argument a = u.p/T - alphaB b.  The compensated path computes only that
@@ -25,7 +27,7 @@ import torch
 
 from ..config import Config
 from .cells import CellArrays
-from .spectra import MomentumGridDevice
+from .spectra import MomentumGridDevice, SpeciesArrays
 
 
 def _two_sum(x, y):
@@ -139,3 +141,102 @@ def fold_eta_table(grid: MomentumGridDevice) -> MomentumGridDevice | None:
         grid,
         eta=torch.as_tensor(fold_eta, dtype=torch.float64, device=dev),
         eta_weight=torch.as_tensor(fold_w, dtype=torch.float64, device=dev))
+
+
+# ----------------------------------------------------------------------
+# 3+1d rows (the port's copies of is3d2_tpu/core/spectra_fast.py:76-164
+# and :401-458), in f64; the pack of kernel B1's 3+1d mode casts them
+# ----------------------------------------------------------------------
+
+def momentum_matrix_3d(species: SpeciesArrays,
+                       grid: MomentumGridDevice) -> dict:
+    """3+1d f64 rows of the momenta m = (species, pT, y, phi): the
+    light-cone m+ = mT e^y and m- = mT e^-y, px, py, mass^2, baryon number
+    and sign.  In the light-cone basis p^tau = a m+ + b m- with the cell's
+    a = e^-eta / 2, b = e^eta / 2 is a sum of positives, where a cosh/sinh
+    basis cancels ~e^(|y| + |eta|) down to O(1) in f32.
+
+    The JAX package orders m as (species, pT, phi, y); here y comes before
+    phi, so that m+, m-, mass^2, b and sign are constant along each run of
+    Nphi momenta (kernel B1's register tile takes consecutive phi of one
+    row)."""
+    S, NpT = species.mass.shape[0], grid.pT.shape[0]
+    Ny, Nphi = grid.y.shape[0], grid.cos_phi.shape[0]
+    shape = (S, NpT, Ny, Nphi)
+    mT = torch.sqrt(species.mass[:, None] ** 2 + grid.pT[None, :] ** 2)
+
+    def flat(a):
+        return a.expand(shape).reshape(-1)
+
+    return {
+        "mp": flat((mT[:, :, None] * torch.exp(grid.y)[None, None, :])
+                   [:, :, :, None]),
+        "px": flat((grid.pT[:, None] * grid.cos_phi[None, :])[None, :, None]),
+        "py": flat((grid.pT[:, None] * grid.sin_phi[None, :])[None, :, None]),
+        "mm": flat((mT[:, :, None] * torch.exp(-grid.y)[None, None, :])
+                   [:, :, :, None]),
+        "mass2": flat((species.mass ** 2)[:, None, None, None]),
+        "b": flat(species.baryon[:, None, None, None]),
+        "sgn": flat(species.sign[:, None, None, None]),
+    }
+
+
+def momentum_matrix_3d_comp(species: SpeciesArrays,
+                            grid: MomentumGridDevice) -> dict:
+    """momentum_matrix_3d with the 12-bit splits (``<row>1``, ``<row>2``)
+    of m+, px, py and m- for the compensated argument, and their f64
+    values as ``<row>f``."""
+    rows = momentum_matrix_3d(species, grid)
+    out = {k: rows[k] for k in ("mass2", "b", "sgn")}
+    for name in ("mp", "px", "py", "mm"):
+        out[name + "1"], out[name + "2"] = _split12(rows[name])
+        out[name + "f"] = rows[name]
+    return out
+
+
+def _cell_Q_3d(cells: CellArrays, coeffs: dict) -> dict:
+    """Per-cell f64 contraction rows in the light-cone basis (m+, px, py,
+    m-): p^tau = a m+ + b m-, tau p^eta = a m+ - b m- with a = e^-eta / 2,
+    b = e^eta / 2 of the cell's eta.  Q_E (u.p), Q_d (p.dsigma), Q_pi
+    (pi^munu p_mu p_nu against m+m+, pxpx, pypy, m-m-, m+px, m+py, m+m-,
+    pxpy, px m-, py m-) and Q_V (V.p), then 1/T, alphaB, the mask and the
+    delta-f coefficients."""
+    c = cells
+    tau = c.tau
+    tau2 = tau * tau
+    a = 0.5 * torch.exp(-c.eta)
+    b = 0.5 * torch.exp(c.eta)
+    # u.p: the coefficient of m+ is a (ut - tau un), of m- b (ut + tau un),
+    # both sums of like-signed terms
+    tun = tau * c.un
+    Q_E = torch.stack([a * (c.ut - tun), -c.ux, -c.uy, b * (c.ut + tun)], 1)
+    dan_t = c.dan / tau
+    Q_d = torch.stack([a * (c.dat + dan_t), c.dax, c.day,
+                       b * (c.dat - dan_t)], 1)
+    # quadratic coefficients against (p^tau, px, py, tau p^eta) ...
+    k1, k2, k3, k4 = c.pitt, c.pixx, c.piyy, tau2 * c.pinn
+    k5, k6, k7 = -2.0 * c.pitx, -2.0 * c.pity, -2.0 * tau * c.pitn
+    k8, k9, k10 = 2.0 * c.pixy, 2.0 * tau * c.pixn, 2.0 * tau * c.piyn
+    # ... in the light-cone basis
+    Q_pi = torch.stack([a * a * (k1 + k4 + k7), k2, k3, b * b * (k1 + k4 - k7),
+                        a * (k5 + k9), a * (k6 + k10), 2.0 * a * b * (k1 - k4),
+                        k8, b * (k5 - k9), b * (k6 - k10)], 1)
+    tVn = tau * c.Vn
+    Q_V = torch.stack([a * (c.Vt - tVn), -c.Vx, -c.Vy, b * (c.Vt + tVn)], 1)
+    return {"Q_E": Q_E, "Q_d": Q_d, "Q_pi": Q_pi, "Q_V": Q_V,
+            "invT": 1.0 / c.T, "alphaB": c.alphaB, "mask": c.mask, **coeffs}
+
+
+def _cell_Q_3d_comp(cells: CellArrays, coeffs: dict) -> dict:
+    """_cell_Q_3d plus the 12-bit splits of the u.p / T light-cone
+    coefficients (qp: m+, qx, qy, qm: m-) and of alphaB (abf, abl), and T.
+    There is no eta loop to fold hyperbolics into: the cell's eta lives in
+    the rows, so the compensated argument is one TwoSum chain over four
+    exact products and -abf b."""
+    q = _cell_Q_3d(cells, coeffs)
+    invT = q["invT"]
+    for name, k in (("qp", 0), ("qx", 1), ("qy", 2), ("qm", 3)):
+        q[name + "1"], q[name + "2"] = _split12(q["Q_E"][:, k] * invT)
+    q["abf"], q["abl"] = _split12(cells.alphaB)
+    q["Tf"] = cells.T
+    return q

@@ -2,7 +2,9 @@
 
 Lets a caller hand the port exactly the state another implementation holds
 (for instance the JAX package's CellArrays converted with ``np.asarray``),
-so each stage can be compared in isolation.
+so each stage can be compared in isolation: from a surface and the
+momentum tables (2+1d or 3+1d, the y table included) to the per-cell
+tensors.
 """
 
 from __future__ import annotations
@@ -15,11 +17,28 @@ import torch
 from .core.cells import CellArrays
 from .core.feqmod import FeqmodCellData
 from .core.spectra import MomentumGridDevice, SpeciesArrays
+from .io.surface import SurfaceData
+from .io.tables import MomentumGrids
 
 
 def _tensors(d: dict, names, device) -> dict:
     return {n: torch.as_tensor(np.array(d[n], dtype=np.float64),
                                device=device) for n in names}
+
+
+def surface_from_numpy(d: dict) -> SurfaceData:
+    """SurfaceData (f64 host arrays) from a dict holding every per-cell
+    field of a VH surface; the VAH extras are left out."""
+    names = [f.name for f in dataclasses.fields(SurfaceData)
+             if f.default is dataclasses.MISSING]
+    return SurfaceData(**{n: np.array(d[n], dtype=np.float64) for n in names})
+
+
+def grids_from_numpy(d: dict) -> MomentumGrids:
+    """MomentumGrids (pT, phi, y and eta tables with their weights) from a
+    dict of its fields."""
+    return MomentumGrids(**{f.name: np.array(d[f.name], dtype=np.float64)
+                            for f in dataclasses.fields(MomentumGrids)})
 
 
 def cells_from_numpy(d: dict, device="cpu") -> CellArrays:

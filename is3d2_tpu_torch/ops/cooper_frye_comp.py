@@ -1,8 +1,12 @@
-"""Compensated-argument Cooper-Frye spectra kernel (df 1/2, 2+1d).
+"""Compensated-argument Cooper-Frye spectra kernel (df 1/2), 2+1d and
+3+1d modes.
 
-The port of is3d2_tpu/ops/cooper_frye_pallas.py::_kernel_comp: the CUDA C++
-kernel csrc/cooper_frye_comp.cu (built for sm_90a by ops/_build.py, bound
-with ctypes), and its plain torch version with the same f32c arithmetic.
+The port of is3d2_tpu/ops/cooper_frye_pallas.py::_kernel_comp (2+1d) and
+of the JAX package's XLA programs _block_fast_3d_comp / _block_fast_3d
+(is3d2_tpu/core/spectra_fast.py:461-582, 3+1d; no Pallas kernel there):
+the CUDA C++ kernels of csrc/cooper_frye_comp.cu (built for sm_90a by
+ops/_build.py, bound with ctypes), and their plain torch versions with the
+same f32c arithmetic.  The 3+1d mode is ``cooper_frye_comp_3d`` (below).
 
 ``cooper_frye_comp`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; ``cooper_frye_comp.launches`` counts kernel
@@ -236,3 +240,179 @@ def cooper_frye_comp(cell, qm, eta, eta_w, mom, cfg: Config,
 
 cooper_frye_comp.launches = 0
 cooper_frye_comp.last_geometry = None   # of the latest launch
+
+
+# ----------------------------------------------------------------------
+# the 3+1d mode
+# ----------------------------------------------------------------------
+#
+# Operand layout (contiguous; written by
+# ops/spectra_fast_common.py::pack_inputs_comp_3d from the light-cone rows
+# of core/spectra_fast.py):
+#
+#   cell  (C, 36) f32   columns CELL_COLS_3D of the live cells only (the
+#                       last two unused, zero): the 12-bit splits of the
+#                       u.p / T coefficients of m+, px, py, m-, of alphaB,
+#                       T, the delta-f coefficients, p.dsigma and V.p
+#                       against (m+, px, py, m-), and the shear
+#                       coefficient times the ten pi:pp coefficients
+#   mom   (15, M) f32   rows MOM_ROWS_3D, m = (species, pT, y, phi)
+#
+# and the result is the (M,) f64 sum over the cells of p.dsigma * f.  No
+# eta loop: the cell's eta lives in its light-cone rows.
+
+CELL_COLS_3D = ("qp1", "qp2", "qx1", "qx2", "qy1", "qy2", "qm1", "qm2",
+                "abf", "abl", "Tf", "bulk0", "bulk1", "bulk2", "diff0",
+                "diff1", "qd0", "qd1", "qd2", "qd3", "qv0", "qv1", "qv2",
+                "qv3", *(f"spi{k}" for k in range(10)), "unused0", "unused1")
+MOM_ROWS_3D = ("mp1", "mp2", "mpf", "mm1", "mm2", "mmf", "mass2", "b", "sgn",
+               "px1", "px2", "pxf", "py1", "py2", "pyf")
+TILE_CELLS_3D = 64   # kTileCells3
+# the rows constant along a (species, pT, y) row of the momentum grid
+_ROW_KEYS_3D = list(range(9))
+
+
+def cooper_frye_comp_3d_plain(cell, mom, cfg: Config):
+    """Plain torch version of the 3+1d mode: the kernel's f32 arithmetic
+    in its order on (cell block, M) tensors -- the pieces of (cell, species,
+    pT, y) formed apart from those of (cell, phi), the exact products
+    TwoSum-chained as (q+ m+, q- m-, -abf b) per row and (qx px, qy py) per
+    phi, df 2 through one reciprocal of E -- and every cell's term summed
+    in f64.  Runs on any device."""
+    C, M = cell.shape[0], mom.shape[1]
+    p = dict(zip(MOM_ROWS_3D, mom))
+    b, sgn, mass2 = p["b"], p["sgn"], p["mass2"]
+    mpf, mmf, pxf, pyf = p["mpf"], p["mmf"], p["pxf"], p["pyf"]
+    shear = bool(cfg.include_shear_deltaf)
+    diffusion = has_diffusion(cfg)
+    df2 = cfg.df_mode == 2
+    out = torch.zeros(M, dtype=torch.float64, device=mom.device)
+    blk = max(1, min(C, _PLAIN_BLOCK_ELEMENTS // M))
+    for c0 in range(0, C, blk):
+        q = {name: cell[c0:c0 + blk, i:i + 1]
+             for i, name in enumerate(CELL_COLS_3D)}
+        # once per (cell, row)
+        t1 = q["qp1"] * p["mp1"]
+        t4 = q["qm1"] * p["mm1"]
+        t5 = -(q["abf"] * b)
+        s_r, e_r = _two_sum(t1, t4)
+        s_m, e_m = _two_sum(s_r, t5)
+        ablb = q["abl"] * b
+        # u.p/T = A - t5 + abl b (+ r): the low part of alphaB b comes back
+        # (the JAX package's _block_fast_3d_comp drops it, ROADMAP C3)
+        cE = ablb - t5
+        d_m = (q["qp1"] * p["mp2"] + q["qp2"] * mpf + q["qm1"] * p["mm2"]
+               + q["qm2"] * mmf - ablb) + (e_r + e_m)
+        c1 = q["bulk1"] * b
+        c0b = 0.0 if df2 else q["bulk0"] * mass2
+        diffb = (q["diff1"] if df2 else q["diff0"]) * b
+        pdd_m = q["qd0"] * mpf + q["qd3"] * mmf
+        if shear:
+            sk = [q[f"spi{k}"] for k in range(10)]
+            sp_m = (mpf * (sk[0] * mpf + sk[6] * mmf) + sk[3] * (mmf * mmf)
+                    + c0b)
+            cx = sk[4] * mpf + sk[8] * mmf
+            cy = sk[5] * mpf + sk[9] * mmf
+        else:
+            sp_m = c0b
+        if diffusion:
+            vp_m = q["qv0"] * mpf + q["qv3"] * mmf
+        # per evaluation
+        t2 = q["qx1"] * p["px1"]
+        t3 = q["qy1"] * p["py1"]
+        s_a, e_a = _two_sum(t2, t3)
+        s, e_b = _two_sum(s_m, s_a)
+        dxy = (q["qx1"] * p["px2"] + q["qx2"] * pxf + q["qy1"] * p["py2"]
+               + q["qy2"] * pyf)
+        A, r = _two_sum(s, d_m + (dxy + (e_a + e_b)))
+        feq = 1.0 / torch.clamp(torch.exp(A) * (1.0 + r) + sgn, max=MAX_DEN)
+        feqbar = 1.0 - sgn * feq
+        E = (A + cE) * q["Tf"]
+        pdd = pdd_m + (q["qd1"] * pxf + q["qd2"] * pyf)
+        if shear:
+            sp = sp_m + (pxf * (sk[1] * pxf + sk[7] * pyf + cx)
+                         + pyf * (sk[2] * pyf + cy))
+        else:
+            sp = sp_m
+        if diffusion:
+            Vp = vp_m + (q["qv1"] * pxf + q["qv2"] * pyf)
+        if not df2:
+            df = sp + (c1 + q["bulk2"] * E) * E
+            if diffusion:
+                df = df + (diffb + q["diff1"] * E) * Vp
+        else:
+            rE = 1.0 / E
+            df = (sp * rE + (q["bulk0"] * E + c1)
+                  + q["bulk2"] * (E - mass2 * rE))
+            if diffusion:
+                df = df + (q["diff0"] - diffb * rE) * Vp
+        df = feqbar * df
+        if cfg.regulate_deltaf:
+            df = torch.clamp(df, -1.0, 1.0)
+        if cfg.outflow:
+            pdd = torch.where(pdd > 0.0, pdd, 0.0)
+        value = pdd * (feq * (1.0 + df))
+        out += value.to(torch.float64).sum(dim=0)
+    return out
+
+
+def _check_3d(cell, mom) -> None:
+    want = {"cell": (cell, (cell.shape[0], len(CELL_COLS_3D))),
+            "mom": (mom, (len(MOM_ROWS_3D), mom.shape[-1]))}
+    for name, (t, shape) in want.items():
+        if t.device != cell.device:
+            raise ValueError(f"{name} is on {t.device}, cell on {cell.device}")
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if mom.shape[1] < 1 or mom.shape[1] >= 2**31 or cell.shape[0] >= 2**31:
+        raise ValueError("momentum and cell counts must fit in int32")
+
+
+def geometry_3d(mom: torch.Tensor, n_cells: int, r: int = R,
+                row_len: int | None = None) -> Geometry:
+    """The launch geometry of the 3+1d mode; ``row_len``, the phi count of
+    the momentum grid, is read off the rows m+, m-, mass2, b and sign where
+    the caller leaves it out."""
+    return operand_geometry(mom, _ROW_KEYS_3D, n_cells, r, TILE_CELLS_3D,
+                            row_len)
+
+
+def cooper_frye_comp_3d(cell, mom, cfg: Config,
+                        row_len: int | None = None) -> torch.Tensor:
+    """Run the 3+1d mode on CUDA tensors (its plain version on CPU
+    tensors).  Returns the (M,) f64 sums; ``row_len``: the phi count of
+    the momentum grid, see ``geometry_3d``."""
+    _check_3d(cell, mom)
+    if cell.device.type == "cpu":
+        return cooper_frye_comp_3d_plain(cell, mom, cfg)
+    if cell.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cell.device}")
+    from . import _build
+    lib = _build.load("cooper_frye_comp")
+    g = geometry_3d(mom, cell.shape[0], lib.is3d2_cooper_frye_comp_3d_tile(),
+                    row_len)
+    fn = lib.is3d2_cooper_frye_comp_3d
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    M = mom.shape[1]
+    out = torch.empty(M, dtype=torch.float64, device=cell.device)
+    partial = out if g.n_split == 1 else torch.empty(
+        (g.n_split, M), dtype=torch.float64, device=cell.device)
+    with torch.cuda.device(cell.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cell.data_ptr(), mom.data_ptr(), partial.data_ptr(),
+                 out.data_ptr(), cell.shape[0], M, g.row_len, g.n_split,
+                 g.cells_per_split, df12_flags(cfg), stream)
+    if err != 0:
+        raise RuntimeError(f"cooper_frye_comp_3d launch failed: cudaError "
+                           f"{err}")
+    cooper_frye_comp_3d.launches += 1
+    cooper_frye_comp_3d.last_geometry = g
+    return out
+
+
+cooper_frye_comp_3d.launches = 0
+cooper_frye_comp_3d.last_geometry = None   # of the latest launch

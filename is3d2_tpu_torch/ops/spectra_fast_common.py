@@ -4,7 +4,10 @@ entry points.
 Counterparts of is3d2_tpu/ops/spectra_fast_common.py: ``pack_inputs_comp``
 and ``compute_spectra_comp`` for the compensated kernel B1
 (``compute_spectra_pallas(dot_impl="comp")``), ``pack_inputs`` and
-``compute_spectra_f32`` for the plain-f32 kernel B2 (its non-comp branch).
+``compute_spectra_f32`` for the plain-f32 kernel B2 (its non-comp branch);
+and ``pack_inputs_comp_3d`` for B1's 3+1d mode, which stands in for the
+JAX package's XLA programs ``_block_fast_3d(_comp)`` and takes the live
+cells only.
 Every column is prepared in f64 on the run's device with the same meanings
 as the JAX packs and cast once to f32; the layouts are the ones the CUDA
 kernels read (see ops/cooper_frye_comp.py and ops/cooper_frye_f32.py).
@@ -20,9 +23,11 @@ import torch
 from ..config import Config
 from ..core.cells import CellArrays
 from ..core.spectra import PREFACTOR, MomentumGridDevice, SpeciesArrays
-from ..core.spectra_fast import _split12, fold_eta_quadrature
+from ..core.spectra_fast import (_cell_Q_3d_comp, _split12,
+                                 fold_eta_quadrature, momentum_matrix_3d_comp)
 from . import cooper_frye_f32 as b2
-from .cooper_frye_comp import CELL_COLS, MOM_ROWS, cooper_frye_comp
+from .cooper_frye_comp import (CELL_COLS, CELL_COLS_3D, MOM_ROWS, MOM_ROWS_3D,
+                               cooper_frye_comp, cooper_frye_comp_3d)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -46,6 +51,23 @@ class CompOperands:
 
     def args(self) -> tuple:
         return self.cell, self.qm, self.eta, self.eta_w, self.mom
+
+
+@dataclasses.dataclass
+class CompOperands3d:
+    """Kernel B1's 3+1d operands (see ops/cooper_frye_comp.py)."""
+
+    cell: torch.Tensor    # (C, 36) f32, the live cells only
+    mom: torch.Tensor     # (15, M) f32, m = (species, pT, y, phi)
+    row_len: int          # Nphi: momenta per (species, pT, y) row of mom
+
+    @property
+    def evaluations(self) -> int:
+        """Integrand evaluations of one kernel call: cells x M."""
+        return self.cell.shape[0] * self.mom.shape[1]
+
+    def args(self) -> tuple:
+        return self.cell, self.mom
 
 
 @dataclasses.dataclass
@@ -142,6 +164,31 @@ def pack_inputs_comp(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
                         row_len=grid.cos_phi.shape[0])
 
 
+def pack_inputs_comp_3d(cells: CellArrays, coeffs: dict,
+                        species: SpeciesArrays, grid: MomentumGridDevice,
+                        cfg: Config) -> CompOperands3d:
+    """Kernel B1's 3+1d operands: the columns of the JAX package's
+    _cell_Q_3d_comp for the cells with mask > 0 (no mask column), the pi
+    coefficients times the shear coefficient (in f64), and the rows of
+    momentum_matrix_3d_comp in (species, pT, y, phi) order."""
+    live = torch.nonzero(cells.mask > 0.0).squeeze(1)
+    q = _cell_Q_3d_comp(cells, coeffs)
+    cols = {k: q[k] for k in ("qp1", "qp2", "qx1", "qx2", "qy1", "qy2", "qm1",
+                              "qm2", "abf", "abl", "Tf", "bulk0", "bulk1",
+                              "bulk2", "diff0", "diff1")}
+    for k in range(4):
+        cols[f"qd{k}"] = q["Q_d"][:, k]
+        cols[f"qv{k}"] = q["Q_V"][:, k]
+    for k in range(10):
+        cols[f"spi{k}"] = q["shear"] * q["Q_pi"][:, k]
+    cols["unused0"] = cols["unused1"] = torch.zeros_like(cells.tau)
+    cell = torch.stack([cols[k].to(f32) for k in CELL_COLS_3D], dim=1)
+    rows = momentum_matrix_3d_comp(species, grid)
+    mom = torch.stack([rows[k].to(f32) for k in MOM_ROWS_3D]).contiguous()
+    return CompOperands3d(cell=cell[live].contiguous(), mom=mom,
+                          row_len=grid.cos_phi.shape[0])
+
+
 def pack_inputs(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
                 grid: MomentumGridDevice, cfg: Config) -> F32Operands:
     """Kernel B2's operands: the columns of the JAX pack_inputs (Q_E, Q_d
@@ -175,6 +222,15 @@ def comp_operands(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
     return pack_inputs_comp(cells, coeffs, species, grid, cfg)
 
 
+def comp_operands_3d(cells: CellArrays, coeffs: dict,
+                     species: SpeciesArrays, grid: MomentumGridDevice,
+                     cfg: Config) -> CompOperands3d:
+    """Pack for kernel B1's 3+1d mode (no eta fold in 3+1d)."""
+    if cfg.dimension != 3 or cfg.df_mode not in (1, 2):
+        raise ValueError("B1's 3+1d mode implements 3+1d df 1/2")
+    return pack_inputs_comp_3d(cells, coeffs, species, grid, cfg)
+
+
 def f32_operands(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
                  grid: MomentumGridDevice, cfg: Config) -> F32Operands:
     """Fold the eta quadrature where exact, then pack for kernel B2."""
@@ -189,11 +245,26 @@ def _spectra(flat: torch.Tensor, species: SpeciesArrays,
     return PREFACTOR * species.degeneracy[:, None, None, None] * out
 
 
+def spectra_3d(flat: torch.Tensor, species: SpeciesArrays,
+               grid: MomentumGridDevice) -> torch.Tensor:
+    """B1's 3+1d (M,) sums, m = (species, pT, y, phi), as (S, NpT, Nphi, Ny)
+    spectra."""
+    out = flat.reshape(species.mass.shape[0], grid.pT.shape[0],
+                       grid.y.shape[0], grid.cos_phi.shape[0])
+    return (PREFACTOR * species.degeneracy[:, None, None, None]
+            * out.permute(0, 1, 3, 2))
+
+
 def compute_spectra_comp(cells: CellArrays, coeffs: dict,
                          species: SpeciesArrays, grid: MomentumGridDevice,
                          cfg: Config) -> torch.Tensor:
-    """f32c spectra through the compensated kernel B1: (S, NpT, Nphi, 1)
-    f64."""
+    """f32c spectra through the compensated kernel B1: (S, NpT, Nphi, Ny)
+    f64 (in 2+1d Ny = 1; in 3+1d B1's 3+1d mode)."""
+    if cfg.dimension == 3:
+        ops = comp_operands_3d(cells, coeffs, species, grid, cfg)
+        return spectra_3d(cooper_frye_comp_3d(*ops.args(), cfg,
+                                              row_len=ops.row_len),
+                          species, grid)
     ops = comp_operands(cells, coeffs, species, grid, cfg)
     return _spectra(cooper_frye_comp(*ops.args(), cfg, row_len=ops.row_len),
                     species, grid)

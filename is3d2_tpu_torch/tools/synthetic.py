@@ -29,7 +29,7 @@ Run as ``python -m is3d2_tpu_torch.tools.synthetic <workdir> [--cells N]
 [--operation 0|1|2] [--df-mode 1-5] [--compute-dtype f32c|f32|f64]
 [--use-pallas -1|0|1] [--shear-scale X] [--bulk-scale X]
 [--test-sampler 1|0] [--surface-mode 0-7] [--dan-scale X]
-[--group-particles 0|1]``.  ``--compute-dtype f64 --use-pallas 1``
+[--group-particles 0|1] [--dimension 2|3] [--n-y N]``.  ``--compute-dtype f64 --use-pallas 1``
 selects kernel B2 for df 1/2.  The feqmod breakdown branch (df 3/4) needs
 viscous corrections well above the defaults: ``--shear-scale 0.2
 --bulk-scale 0.1`` sends a few percent of the cells there.  ``--df-mode 5``
@@ -355,10 +355,24 @@ def _gauss_legendre(n: int, lo: float, hi: float):
     return 0.5 * (lo + hi) + half * x, half * w
 
 
+def y_table(n_y: int, y_max: float = 5.0) -> np.ndarray:
+    """(y, weight) rows: the single point y = 0 of weight 1 for ``n_y`` = 1
+    (2+1d), else the trapezoid rule on ``n_y`` equidistant points over
+    |y| <= y_max (the reference's bundled table: 21 points, y_max 5)."""
+    if n_y == 1:
+        return np.array([[0.0, 1.0]])
+    y = np.linspace(-y_max, y_max, n_y)
+    w = np.full(n_y, y[1] - y[0])
+    w[[0, -1]] *= 0.5
+    return np.column_stack([y, w])
+
+
 def write_quadrature_tables(root: Path, n_pT: int, n_phi: int, n_eta: int,
-                            pT_max: float = 3.0, eta_max: float = 4.0) -> None:
+                            pT_max: float = 3.0, eta_max: float = 4.0,
+                            n_y: int = 1) -> None:
     """Quadrature and momentum tables.  The pT weights carry the pT of
-    pT dpT, so sum(w_pT w_phi spectra) is dN/dy."""
+    pT dpT, so sum(w_pT w_phi spectra) is dN/dy; the y table is
+    ``y_table(n_y)``."""
     t = root / "tables"
     for sub in ("gauss", "momentum", "spacetime_rapidity", "thermodynamic"):
         (t / sub).mkdir(parents=True, exist_ok=True)
@@ -381,7 +395,7 @@ def write_quadrature_tables(root: Path, n_pT: int, n_phi: int, n_eta: int,
     phi, wphi = _gauss_legendre(n_phi, 0.0, 2.0 * np.pi)
     np.savetxt(t / "momentum/phi_table.dat", np.column_stack([phi, wphi]),
                fmt="%.16e")
-    np.savetxt(t / "momentum/y_table.dat", np.array([[0.0, 1.0]]), fmt="%.16e")
+    np.savetxt(t / "momentum/y_table.dat", y_table(n_y), fmt="%.16e")
     eta, weta = _gauss_legendre(n_eta, -eta_max, eta_max)
     np.savetxt(t / "spacetime_rapidity/eta_table.dat",
                np.column_stack([eta, weta]), fmt="%.16e")
@@ -394,7 +408,8 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
                   shear_scale: float = 0.02, bulk_scale: float = 0.01,
                   n_T: int = 101, n_muB: int | None = None,
                   eos_consistent: bool = False, surface_mode: int = 1,
-                  dan_scale: float = 0.0, device="cpu") -> Path:
+                  dan_scale: float = 0.0, dimension: int = 2,
+                  n_y: int | None = None, device="cpu") -> Path:
     """Write a complete working directory; returns its path.
 
     ``chosen_mcids`` defaults to every species of the list.  ``params``
@@ -413,7 +428,11 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
     a legacy VAH surface (write_vah_surface; mode 3 reconstructs on
     ``device``).  ``dan_scale`` draws dsigma_eta / tau uniform in
     [-dan_scale, dan_scale] (from the seed, after every other field) for a
-    2+1d surface whose p.dsigma has a dan term."""
+    2+1d surface whose p.dsigma has a dan term.  ``dimension`` 3 draws a
+    3+1d surface (make_surface(dimension=3): each cell's eta in [-2, 2],
+    with dsigma_eta, u^eta and the eta components of pi and V) and sets
+    ``dimension = 3``; its y table has ``n_y`` points (default 21, the
+    reference's table shape; 1 in 2+1d: y = 0)."""
     from ..io.pdg import SpeciesTable, read_pdg_smash_box
     from ..io.tables import GaussLaguerre
 
@@ -427,14 +446,17 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
     (root / "PDG/chosen_particles.dat").write_text(
         "\n".join(str(int(m)) for m in chosen_mcids) + "\n")
 
-    write_quadrature_tables(root, n_pT, n_phi, n_eta)
+    if n_y is None:
+        n_y = 21 if dimension == 3 else 1
+    write_quadrature_tables(root, n_pT, n_phi, n_eta, n_y=n_y)
     if n_muB is None:
         n_muB = 81 if include_baryon else 1
     write_df_tables(compute_tables(species, n_T=n_T, n_muB=n_muB),
                     root / "deltaf_coefficients/vh/smash_box")
 
     vorticity = surface_mode == 5
-    surf = make_surface(n_cells, seed=seed, include_baryon=include_baryon,
+    surf = make_surface(n_cells, seed=seed, dimension=dimension,
+                        include_baryon=include_baryon,
                         shear_scale=shear_scale, bulk_scale=bulk_scale,
                         vorticity=vorticity)
     if dan_scale:
@@ -457,7 +479,8 @@ def write_workdir(root: str | Path, n_cells: int = 512, seed: int = 3,
         write_vah_surface(surf, root / "input/surface.dat", surface_mode,
                           species, device)
 
-    p = {"operation": 1, "mode": surface_mode, "hrg_eos": 3, "dimension": 2,
+    p = {"operation": 1, "mode": surface_mode, "hrg_eos": 3,
+         "dimension": dimension,
          "df_mode": 1, "include_baryon": int(include_baryon),
          "include_bulk_deltaf": 1, "include_shear_deltaf": 1,
          "include_baryondiff_deltaf": int(include_baryon),
@@ -496,6 +519,11 @@ def main(argv=None) -> int:
     ap.add_argument("--group-particles", type=int, default=0, choices=(0, 1),
                     help="1 = species of near-equal mass share one spectra "
                          "evaluation (default 0)")
+    ap.add_argument("--dimension", type=int, default=2, choices=(2, 3),
+                    help="2 = boost-invariant surface, 3 = 3+1d (default 2)")
+    ap.add_argument("--n-y", type=int, default=None,
+                    help="points of the y table (default 21 in 3+1d, 1 in "
+                         "2+1d)")
     args = ap.parse_args(argv)
     write_workdir(args.workdir, n_cells=args.cells, seed=args.seed,
                   params={"operation": args.operation,
@@ -506,7 +534,8 @@ def main(argv=None) -> int:
                           "group_particles": args.group_particles},
                   shear_scale=args.shear_scale, bulk_scale=args.bulk_scale,
                   eos_consistent=args.df_mode == 5,
-                  surface_mode=args.surface_mode, dan_scale=args.dan_scale)
+                  surface_mode=args.surface_mode, dan_scale=args.dan_scale,
+                  dimension=args.dimension, n_y=args.n_y)
     print(f"wrote {args.workdir}")
     return 0
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels B1, B2, B3 and P1 on the card, against their plain
+"""The CUDA kernels B1 (both modes, 2+1d and 3+1d), B2, B3 and P1 on the card, against their plain
 torch versions and the port's f64 engines, through the shared harness
 tools/kernel_check.py.
 
@@ -27,7 +27,7 @@ from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
 from is3d2_tpu_torch.ops import polarization_f32 as pz  # noqa: E402
 from is3d2_tpu_torch.ops.launch_geometry import df12_flags  # noqa: E402
 from is3d2_tpu_torch.ops.spectra_fast_common import (  # noqa: E402
-    comp_operands, f32_operands)
+    comp_operands, comp_operands_3d, f32_operands)
 from is3d2_tpu_torch.tools import kernel_check as kc  # noqa: E402
 from is3d2_tpu_torch.tools.synthetic import make_surface, write_workdir  # noqa: E402
 
@@ -163,6 +163,118 @@ def test_kernel_check_plain_on_cpu(workdir, case):
     assert r.launches == 0
     assert r.vs_plain == 0.0
     assert r.ok, (r.vs_f64, r.plain_vs_f64)
+
+
+# ----------------------------------------------------------------------
+# kernel B1's 3+1d mode
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def workdir_3d(tmp_path_factory):
+    """A 3+1d workdir: 8 species, 16 pT x 8 phi x 9 y, baryons."""
+    return write_workdir(tmp_path_factory.mktemp("torch_gpu_3d"), n_cells=16,
+                         chosen_mcids=CHOSEN, n_pT=16, n_phi=8, n_y=9,
+                         dimension=3, include_baryon=True, n_T=21, n_muB=9)
+
+
+@pytest.fixture(scope="module")
+def ragged_workdir_3d(tmp_path_factory):
+    """3 pT x 7 phi x 3 y: rows of 7 phi no register tile divides."""
+    return write_workdir(tmp_path_factory.mktemp("torch_gpu_3d_ragged"),
+                         n_cells=16, chosen_mcids=CHOSEN, n_pT=3, n_phi=7,
+                         n_y=3, dimension=3, include_baryon=True, n_T=21,
+                         n_muB=9)
+
+
+def _b1_3d_operands(workdir, n_surface=512, device="cuda", **cfg_fields):
+    cfg = Config(compute_dtype="f32c", dimension=3, cell_block=512,
+                 **{"df_mode": 1, **cfg_fields})
+    surf = make_surface(n_surface, seed=5, dimension=3,
+                        include_baryon=bool(cfg.include_baryon))
+    return comp_operands_3d(*kc.engine_state(workdir, cfg, surf, device),
+                            cfg), cfg
+
+
+def _b1_3d_agrees(args):
+    out = ck.cooper_frye_comp_3d(*args)
+    again = ck.cooper_frye_comp_3d(*args)
+    plain = ck.cooper_frye_comp_3d_plain(*args).cpu().numpy()[None]
+    assert torch.equal(out, again)        # no atomics: the same bits
+    out = out.cpu().numpy()[None]
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, plain) <= kc.TOL
+    assert kc.peak_err(out, plain) <= kc.ABS_TOL_3D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(kc.CASES))
+def test_3d_kernel_vs_plain_and_f64(workdir_3d, case):
+    _needs_cuda()
+    r = kc.check_3d_case(workdir_3d, case, 512, 3, "cuda", cell_block=512)
+    assert r.launches == 1
+    assert r.ok, (r.vs_plain, r.vs_f64, kc.peak_err(r.kernel, r.f64))
+
+
+@pytest.mark.gpu
+def test_3d_kernel_runs_the_f32_route(workdir_3d):
+    """compute_dtype f32 in 3+1d runs the same kernel: the same bits."""
+    _needs_cuda()
+    a = kc.check_3d_case(workdir_3d, "df2", 512, 3, "cuda", cell_block=512)
+    b = kc.check_3d_case(workdir_3d, "df2", 512, 3, "cuda", cell_block=512,
+                         compute_dtype="f32")
+    np.testing.assert_array_equal(a.kernel, b.kernel)
+
+
+@pytest.mark.gpu
+def test_3d_kernel_ragged_case(workdir_3d):
+    _needs_cuda()
+    r = kc.check_3d_ragged_case(workdir_3d, 2048, 7, "cuda")
+    assert r.launches == 1 and r.ok, r.vs_plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cells,n_mom", [(100, 504), (70, 100), (333, 165),
+                                           (1, 7), (512, 5), (0, 21)])
+def test_3d_kernel_ragged_rows_and_splits(ragged_workdir_3d, n_cells, n_mom):
+    """Rows of 7 phi under a register tile of 4, momentum counts that stop
+    inside a row, cell counts that fill neither the last tile nor the last
+    split, and no cell at all."""
+    _needs_cuda()
+    ops, cfg = _b1_3d_operands(ragged_workdir_3d)
+    mom = ops.mom[:, :n_mom].contiguous()
+    g = ck.geometry_3d(mom, n_cells)
+    assert g.row_len == min(7, n_mom) and g.blocks <= 2
+    args = (ops.cell[:n_cells].contiguous(), mom, cfg)
+    if n_cells == 0:
+        assert not ck.cooper_frye_comp_3d(*args).any()
+        return
+    _b1_3d_agrees(args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", range(32))
+def test_3d_kernel_every_template_combination(workdir_3d, flags):
+    """Each of the 3+1d mode's 32 instantiations launches and agrees with
+    the plain version."""
+    _needs_cuda()
+    shear, diffusion, regulate, outflow, df2 = ((flags >> i) & 1
+                                                for i in range(5))
+    ops, cfg = _b1_3d_operands(
+        workdir_3d, 200, df_mode=2 if df2 else 1, include_shear_deltaf=shear,
+        include_baryon=1, include_baryondiff_deltaf=diffusion,
+        regulate_deltaf=regulate, outflow=outflow)
+    assert df12_flags(cfg) == flags
+    _b1_3d_agrees((*ops.args(), cfg))
+
+
+@pytest.mark.parametrize("case", list(kc.CASES))
+def test_kernel_check_3d_plain_on_cpu(workdir_3d, case):
+    """The 3+1d harness on the CPU: the wrapper takes the plain version (no
+    launch) and it meets the f64 engine within TOL and ABS_TOL_3D."""
+    r = kc.check_3d_case(workdir_3d, case, 512, 3, "cpu", cell_block=512)
+    assert r.launches == 0
+    assert r.vs_plain == 0.0
+    assert r.ok, (r.vs_f64, kc.peak_err(r.plain, r.f64))
 
 
 # ----------------------------------------------------------------------

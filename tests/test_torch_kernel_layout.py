@@ -356,3 +356,43 @@ def test_disagreeing_species_are_those_furthest_from_this_tree():
     spectra = {THIS_TREE: mine, "plain version": mine, "other": other}
     assert disagreeing_species(spectra, 2) == [2, 4]
     assert disagreeing_species(spectra, 3) == [1, 2, 4]
+
+
+@pytest.mark.parametrize("n_y", [1, 5, 21])
+@pytest.mark.parametrize("n_phi", [1, 7, 48])
+def test_3d_mode_reads_its_rows_off_the_light_cone_momenta(n_phi, n_y):
+    """B1's 3+1d mode: its momenta run (species, pT, y, phi), so m+, m-,
+    mass2, b and sign are constant along runs of n_phi; the geometry reads
+    that off the rows, and every momentum is owned exactly once by a thread
+    whose slots share those rows."""
+    from is3d2_tpu_torch.core.spectra import MomentumGridDevice, SpeciesArrays
+    from is3d2_tpu_torch.core.spectra_fast import momentum_matrix_3d_comp
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64))
+
+    phi = np.linspace(0.0, 2.0 * np.pi, n_phi, endpoint=False)
+    grid = MomentumGridDevice(
+        pT=t([0.1, 0.7, 2.0]), pT_weight=t([1.0, 1.0, 1.0]),
+        cos_phi=t(np.cos(phi)), sin_phi=t(np.sin(phi)),
+        phi_weight=t(np.ones(n_phi)), y=t(np.linspace(-5.0, 5.0, n_y)),
+        eta=t([0.0]), eta_weight=t([1.0]))
+    species = SpeciesArrays(mass=t([0.139, 0.139, 0.938]),
+                            sign=t([-1.0, -1.0, 1.0]),
+                            degeneracy=t([1.0, 1.0, 2.0]),
+                            baryon=t([0.0, 0.0, 1.0]))
+    rows = momentum_matrix_3d_comp(species, grid)
+    mom = torch.stack([rows[k].float() for k in ck.MOM_ROWS_3D]).contiguous()
+    M = mom.shape[1]
+    assert M == 3 * 3 * n_y * n_phi
+    g = ck.geometry_3d(mom, 1000)
+    # pi+ and pi- share their rows: one run may span both, as in 2+1d
+    assert g.row_len % n_phi == 0
+    g = ck.geometry_3d(mom, 1000, row_len=n_phi)
+    owner = momentum_index(g)
+    np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
+    keys = mom[:9].numpy()
+    for slots in owner.reshape(-1, g.r):
+        mine = slots[slots >= 0]
+        if mine.size:
+            assert (keys[:, mine] == keys[:, mine[:1]]).all()

@@ -173,15 +173,18 @@ def test_config_parser_and_slice(workdir):
 
 @pytest.mark.parametrize("kw,item", [
     ({"operation": 0, "mode": 5, "dimension": 3}, "A7"),
-    ({"operation": 2, "dimension": 3}, "A7"),
+    ({"operation": 2, "mode": 5, "dimension": 3}, "A7"),
     ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "dimension": 3}, "A9"),
-    ({"df_mode": 5, "dimension": 3}, "A7"),
-    ({"dimension": 3}, "A7"), ({"operation": 0, "dimension": 3}, "A7"),
+    ({"df_mode": 5, "dimension": 3}, "A9"),
+    # 3+1d df 1/2 runs every operation (tests/test_torch_3d.py): what is
+    # left there is mode 5 (A7), df 3-5 (A9) and the mesh (A12)
+    ({"mode": 5, "dimension": 3}, "A7"),
+    ({"operation": 0, "df_mode": 3, "dimension": 3}, "A9"),
     ({"mode": 5, "use_mesh": 1}, "A12"),
     ({"compute_dtype": "f32", "use_pallas": 0}, "A7"),
     ({"compute_dtype": "f32c", "use_pallas": 0}, "A7"),
-    # kernel B2 is 2+1d, as in the JAX package
-    ({"compute_dtype": "f64", "use_pallas": 1, "dimension": 3}, "B2"),
+    ({"compute_dtype": "f64", "use_pallas": 1, "dimension": 3,
+      "use_mesh": 1}, "A12"),
     ({"group_particles": 1, "use_mesh": 1}, "A12"), ({"use_mesh": 1}, "A12"),
 ])
 def test_validate_slice_rejects_the_rest(kw, item):

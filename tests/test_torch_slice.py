@@ -184,8 +184,9 @@ def test_port_takes_the_cpu_only_when_asked(tmp_path, monkeypatch):
 def test_port_runs_without_jax(tmp_path):
     """Full CPU runs of the slice in a fresh process -- df 2 through the
     f64 engine, df 1 with use_pallas = 1 through kernel B2's plain version,
-    then df 4 through kernel B3's plain version -- never import jax or the
-    JAX package, and give dN/dy in the physical order pi+ > K+ > p."""
+    df 4 through kernel B3's plain version, then df 1 on a 3+1d surface
+    through B1's 3+1d plain version -- never import jax or the JAX
+    package, and give dN/dy in the physical order pi+ > K+ > p."""
     wd2 = build_workdir(tmp_path / "df2", params={"compute_dtype": "f64",
                                                   "df_mode": 2})
     wd1 = build_workdir(tmp_path / "df1_b2", params={"compute_dtype": "f64",
@@ -194,6 +195,9 @@ def test_port_runs_without_jax(tmp_path):
     wd4 = build_workdir(tmp_path / "df4", params={"compute_dtype": "f32",
                                                   "df_mode": 4},
                         shear_scale=FEQMOD_SHEAR, bulk_scale=FEQMOD_BULK)
+    wd3 = build_workdir(tmp_path / "df1_3d", params={"compute_dtype": "f32c",
+                                                     "df_mode": 1},
+                        dimension=3, n_y=5)
     code = (
         "import sys\n"
         "import is3d2_tpu_torch\n"
@@ -207,6 +211,7 @@ def test_port_runs_without_jax(tmp_path):
         f"cli.main([{str(wd1)!r}, '--device', 'cpu'])\n"
         "assert calls == [1], calls\n"
         f"cli.main([{str(wd4)!r}, '--device', 'cpu'])\n"
+        f"cli.main([{str(wd3)!r}, '--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'is3d2_tpu' or m.startswith('is3d2_tpu.')]\n"
         "assert not bad, bad\n"
@@ -217,7 +222,11 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert "feqmod breaks down for" in proc.stdout
-    for wd in (wd2, wd1, wd4):
-        dndy = {m: float(np.loadtxt(wd / f"results/continuous/dN_dy_{m}.dat")[1])
+    def at_y0(path):
+        rows = np.loadtxt(path, ndmin=2)
+        return float(rows[rows[:, 0] == 0.0, 1][0])
+
+    for wd in (wd2, wd1, wd4, wd3):
+        dndy = {m: at_y0(wd / f"results/continuous/dN_dy_{m}.dat")
                 for m in (211, 321, 2212)}
         assert dndy[211] > dndy[321] > dndy[2212] > 0, wd.name

@@ -95,6 +95,15 @@ CASES = {
     "df4-f32-outflow-regulate": ({"df_mode": 4, "compute_dtype": "f32",
                                   "outflow": 1, "regulate_deltaf": 1}, 1e-4,
                                  FEQMOD_SURFACE),
+    # the re-anchor's probes of operation 0 (ROADMAP C8)
+    "df1-f32c-outflow-regulate": ({"df_mode": 1, "compute_dtype": "f32c",
+                                   "outflow": 1, "regulate_deltaf": 1}, 1e-6,
+                                  {}),
+    "df3-f32-baryons": ({"df_mode": 3, "compute_dtype": "f32",
+                         "include_baryon": 1,
+                         "include_baryondiff_deltaf": 1}, 1e-4,
+                        {"include_baryon": True, "n_muB": 9,
+                         **FEQMOD_SURFACE}),
 }
 
 

@@ -104,20 +104,23 @@ def numpy_fields(obj) -> dict:
 
 
 def case_state(workdir: Path, df_mode: int, include_baryon: bool = False,
-               shear_scale: float = 0.02, **cfg_kw) -> CaseState:
-    cfg = jax_config(df_mode, include_baryon, **cfg_kw)
+               shear_scale: float = 0.02, dimension: int = 2,
+               **cfg_kw) -> CaseState:
+    """``dimension`` 3 takes a make_surface(dimension=3) surface and the
+    workdir's y table."""
+    cfg = jax_config(df_mode, include_baryon, dimension=dimension, **cfg_kw)
     species_t = j_read_pdg(3, workdir / "PDG")
     chosen = species_t.chosen_indices(
         j_load_table(workdir / "PDG/chosen_particles.dat")[:, 0].astype(int))
     grids = JGrids.from_dir(workdir / "tables")
     tables = JTables.load(3, include_baryon, workdir / "deltaf_coefficients/vh")
     df_data = JDeltafData(tables, df_mode, include_baryon)
-    surf = make_surface(N_CELLS, seed=3, include_baryon=include_baryon,
-                        shear_scale=shear_scale)
+    surf = make_surface(N_CELLS, seed=3, dimension=dimension,
+                        include_baryon=include_baryon, shear_scale=shear_scale)
     j_cells = j_prepare_cells(surf, cfg, block=BLOCK)
     j_coeffs = j_coefficients(j_cells, df_data, cfg)
     j_species = JSpecies.from_table(species_t, chosen)
-    j_grid = JGrid.from_grids(grids, 2)
+    j_grid = JGrid.from_grids(grids, dimension)
     return CaseState(
         cfg=cfg, j_cells=j_cells, j_coeffs=j_coeffs, j_species=j_species,
         j_grid=j_grid,
@@ -297,14 +300,15 @@ def famod_state(workdir: Path, shear_scale: float = FAMOD_SHEAR,
 def run_drivers(workdir: Path, **fields):
     """The JAX driver's f64 route and the port's driver (on the CPU), in
     memory (write=False) on one workdir whose parameters ``fields``
-    update; their logs are swallowed.  Returns (JAX run, port run)."""
+    update (a ``compute_dtype`` among them the port's only); their logs
+    are swallowed.  Returns (JAX run, port run)."""
     from is3d2_tpu.driver import IS3D as JIS3D
 
     from is3d2_tpu_torch.config import Config
     from is3d2_tpu_torch.driver import IS3D
     path = workdir / "iS3D_parameters.dat"
-    jcfg = dataclasses.replace(JConfig.from_file(path), compute_dtype="f64",
-                               **fields)
+    jcfg = dataclasses.replace(JConfig.from_file(path), **{
+        **fields, "compute_dtype": "f64"})
     cfg = dataclasses.replace(Config.from_file(path), **fields)
     with contextlib.redirect_stdout(io.StringIO()):
         ref = JIS3D(workdir, cfg=jcfg)
@@ -345,7 +349,8 @@ class SamplerInputs:
 
 
 def sampler_inputs(workdir: Path, df_mode: int, jax_side: bool,
-                   include_baryon: bool = False) -> SamplerInputs:
+                   include_baryon: bool = False,
+                   dimension: int = 2) -> SamplerInputs:
     """Read ``workdir`` with the JAX package or the port, build the df
     interpolators (with the Jonah splines when muB = 0) and cache the
     per-species densities on the species table, as each driver does."""
@@ -367,7 +372,8 @@ def sampler_inputs(workdir: Path, df_mode: int, jax_side: bool,
     chosen = species.chosen_indices(
         tabs(workdir / "PDG/chosen_particles.dat")[:, 0].astype(int))
     laguerre = Lag.from_file(workdir / "tables/gauss/gla_roots_weights.txt")
-    surf = read_surface(workdir / "input/surface.dat", 1, 2, include_baryon)
+    surf = read_surface(workdir / "input/surface.dat", 1, dimension,
+                        include_baryon)
     plasma = surf.thermo_averages()
     df_data = DD(Tables.load(3, include_baryon,
                              workdir / "deltaf_coefficients/vh"),
