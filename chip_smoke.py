@@ -9,7 +9,10 @@ Phases (any failure raises; nothing is caught):
      instantiation its main path launches); for P1's two instantiations,
      the special-function (MUFU) and conversion (F2F) instructions of its
      eta loop per evaluation and of its per-cell step, from cuobjdump's
-     SASS (phase 22's sfu_floor_ms reads the MUFU count);
+     SASS (phase 22's sfu_floor_ms reads the MUFU count); the same counts
+     by pipe for B1's main-path instantiation and for its 3+1d mode's
+     (the cell loop per evaluation; phases 6 and 24's fp32_issue_floor_ms
+     read the FP32 count);
   3. kernel B1 (compensated, df 1/2) vs its plain torch version and the
      port's f64 engine at a reduced shape (2048 cells, 16 species, 51 pT x
      48 phi, 24 eta) for df 1 and df 2 with the clip/outflow/diffusion
@@ -35,7 +38,8 @@ Phases (any failure raises; nothing is caught):
      ~9.1e5 momenta, not a multiple of the block) timed at full size, and
      held to its plain version (<= 1e-6) on the first 16,384 cells at the
      full M, both timed there; two launches at full size must give equal
-     bits;
+     bits; fp32_issue_floor_ms (its FP32 instructions an evaluation from
+     phase 2 over 128 lanes x 132 SMs x the card's clocks.max.sm);
   7. the df-4 main path at full size through the CLI: as phase 5 with df 4,
      f32, shear 0.2 and bulk 0.1: B3's launch count must move and cells
      must break down;
@@ -135,15 +139,19 @@ Phases (any failure raises; nothing is caught):
      peak; against the f64 engine the JAX package's 3+1d budget, <= 1e-6
      on bins >= 1e-4 of the largest bin of all species and <= 2.5e-7 of
      each species' peak on every bin (kernel_check.Case3dResult; the error
-     relative to each species' own peak is printed); and the ragged case;
+     relative to each species' own peak is printed); and the ragged case
+     on 3, 5 and 1 rapidities (kernel_check.RAGGED_Y: y counts the y tile
+     does not divide, and fewer than one tile);
  24. the 3+1d df-1 main path at full width through the CLI: 1e5 cells of a
      3+1d surface, all species, 51 x 48 x 21 y, f32c (M = 19,072,368).
      Only B1's 3+1d mode may launch; the files hold S x 51 x 48 x 21 rows,
      finite, dN/dy pi+ > K+ > p > 0 at every |y| <= 3 and pi+ > 0 at
      every y.  Then the 3+1d mode on that
-     path's operands (the live cells x M) timed at full size, launched
-     twice for equal bits, and held to its plain version (<= 1e-6) on the
-     first 1,024 live cells at the full M, both timed there;
+     path's operands (the live cells x M) timed at full size between two
+     samples of the SM clock, launched twice for equal bits, and held to
+     its plain version (<= 1e-6) on the first 1,024 live cells at the full
+     M, both timed there; evaluations/s, share of the bound and
+     fp32_issue_floor_ms (as phase 6's);
  25. operation 0 on phase 24's surface cut to its first OP0_3D_CELLS
      cells (all species, the full 51 x 48 x 21 grid): in 3+1d every dtype
      runs the f64 engine (no kernel may launch), one cell per block; its
@@ -162,8 +170,8 @@ kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
 "operation0", phase 19 under B3's "operation0", each with the launches of
 its own path; P1's launches from phase 21, its folded instantiation's
 numbers at the top and the general one's under "general", each with its
-sfu_floor_ms beside the bound; B1's 3+1d mode, an entry of its own, from
-phases 24-25),
+sfu_floor_ms beside the bound; B1 and B1's 3+1d mode, an entry of its
+own from phases 24-25, with fp32_issue_floor_ms beside it),
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
 (no single PyTorch call computes a Cooper-Frye or polarization sum), and
@@ -210,6 +218,8 @@ OP0_3D_CELLS = 2_048
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 H100_SMS = 132
+# FP32 lanes of one SM: one FP32 instruction a lane and clock at most
+FP32_LANES_PER_SM = 128
 
 # Floating-point operations per (cell, eta, m) evaluation at the main paths'
 # settings (shear and bulk delta-f; no diffusion, regulation or outflow),
@@ -266,12 +276,14 @@ EXECUTED_OPS_PER_EVALUATION = {
     # (cell, m) the H4 terms 6 more, per (cell, row) 10 mT parts
     "polarization_f32": {"folded": 20 + 2 / 4 + (34 + 5 / 4) / 12,
                          "general": 22 + 6 / 4 + (40 + 10 / 4) / 24},
-    # per evaluation 68: qx px, qy py 2, three TwoSums 18, the low terms
-    # 10, expf and its 1 + r and + sign 4, the clamp 1, the reciprocal 5,
-    # feqbar 2, E 2, p.dsigma 4, pi:pp 10, delta-f 5, the value 3, the
-    # conversion and the f64 add 2; per (cell, row), shared by the
-    # register tile's 4 momenta, 47 (diffb is dead without diffusion)
-    "cooper_frye_comp_3d": 68 + 47 / 4,
+    # per evaluation 46: two TwoSums 12, the low terms' three adds 3, expf
+    # and its 1 + r and + sign 4, the clamp 1, the reciprocal 5, feqbar 2,
+    # E 2, p.dsigma 1, pi:pp 6, delta-f 5, the value 3, the conversion and
+    # the f64 add 2; per (cell, phi), shared by the register tile's 7 y
+    # rows, 22 (qx px, qy py 2, their TwoSum 6, the low terms dxy 7, the
+    # px/py parts of p.dsigma 3 and of pi:pp 4); per (cell, row), shared
+    # by its 4 phi, 47 (diffb is dead without diffusion)
+    "cooper_frye_comp_3d": 46 + 22 / 7 + 47 / 4,
 }
 
 
@@ -353,8 +365,19 @@ def phase_environment() -> str:
     return card
 
 
+def fp32_issue_floor_ms(fp32_per_evaluation: float, evaluations: float,
+                        clock_max_mhz: int) -> float:
+    """The least time the card could take to issue the FP32 instructions
+    of ``evaluations`` evaluations: FP32_LANES_PER_SM x H100_SMS lanes at
+    ``clock_max_mhz``."""
+    return (fp32_per_evaluation * evaluations
+            / (FP32_LANES_PER_SM * H100_SMS * clock_max_mhz * 1e6) * 1e3)
+
+
 def phase_build() -> dict:
-    """Returns P1's SASS counts per instantiation (kernel_bench.loop_nest)."""
+    """Returns the SASS counts of P1 per instantiation and of B1's main
+    path (kernel_bench.loop_nest) and of B1's 3+1d mode (its cell loop per
+    evaluation, kernel_bench.per_evaluation)."""
     print("== 2. build (one nvcc per source, in parallel)")
     from is3d2_tpu_torch.ops import _build
     from is3d2_tpu_torch.tools import kernel_bench as kb
@@ -375,6 +398,13 @@ def phase_build() -> dict:
         for key, pattern in MAIN_PATH_KERNEL.items():
             if SOURCE_OF.get(key, key) != name:
                 continue
+            if key in SOURCE_OF.values() or key in SOURCE_OF:
+                # a source of two kernels: each one's own worst
+                own = [u for k, u in kernels.items() if f"{key}_kernel" in k]
+                print(f"  {key}: {len(own)} instantiation(s); the most over "
+                      f"them: " + json.dumps(
+                          {field: max(u.get(field, 0) for u in own)
+                           for field in worst}))
             for k, u in kernels.items():
                 if re.search(pattern, k):
                     print(f"  {key} main path's instantiation: "
@@ -387,7 +417,19 @@ def phase_build() -> dict:
         [name] = [k for k in code if re.search(pattern, k)]
         p1[which] = kb.loop_nest(code[name])
         print(f"P1 {which} SASS: {json.dumps(p1[which])}")
-    return p1
+    code = kb.sass_functions(built["cooper_frye_comp"][0])
+    [b1] = [k for k in code if re.search(MAIN_PATH_KERNEL["cooper_frye_comp"],
+                                         k)]
+    b1 = kb.loop_nest(code[b1])
+    print(f"B1 SASS: {json.dumps(b1)}")
+    [b1_3d] = [k for k in code
+               if re.search(MAIN_PATH_KERNEL["cooper_frye_comp_3d"], k)]
+    # the cell loop: the innermost loop with an expf
+    loop = kb.inner_loops(code[b1_3d])[0]
+    b1_3d = kb.per_evaluation(loop)
+    print(f"B1 3+1d SASS: the cell loop of {loop['evaluations']} "
+          f"evaluations, per evaluation {json.dumps(b1_3d)}")
+    return {"p1": p1, "b1": b1, "b1_3d": b1_3d}
 
 
 def parity_workdirs(tmp: Path) -> tuple[Path, Path]:
@@ -615,7 +657,7 @@ def time_on_main_path(name, kernel, plain, ops, args, cut, n_cut, state, tol,
             "main_path_evaluations": ops.evaluations}
 
 
-def phase_b1_full(wd: Path, stages: dict) -> dict:
+def phase_b1_full(wd: Path, stages: dict, sass: dict) -> dict:
     print("== 6. B1 on the df-1 main path's operands")
     from is3d2_tpu_torch.ops import cooper_frye_comp as ck
     from is3d2_tpu_torch.ops.spectra_fast_common import comp_operands
@@ -627,13 +669,25 @@ def phase_b1_full(wd: Path, stages: dict) -> dict:
     args = (*ops.args(), cfg)
     per_cell = (BOUND_OPS_PER_EVALUATION["cooper_frye_comp"] * ops.evaluations
                 / ops.cell.shape[0])
-    return time_on_main_path(
+    r = time_on_main_path(
         "B1", functools.partial(ck.cooper_frye_comp, row_len=ops.row_len),
         ck.cooper_frye_comp_plain, ops, args,
         lambda n: (ops.cell[:n].contiguous(), ops.qm[:n].contiguous(),
                    *args[2:]),
         B1_COMPARE_CELLS, state, kc.TOL, lambda n: per_cell * n,
         lambda: ck.cooper_frye_comp.last_geometry)
+    # the eta loop's FP32 instructions, and the cell step's shared by the
+    # register tile's momenta and the eta nodes
+    fp32 = (sass["eta_loop_per_evaluation"]["fp32"]
+            + sass["cell_step"]["fp32"]
+            / (sass["evaluations_per_eta_iteration"] * ops.eta.shape[0]))
+    _, clock_max = sm_clocks()
+    floor = fp32_issue_floor_ms(fp32, ops.evaluations, clock_max)
+    print(f"fp32_issue_floor_ms {floor:.1f} ({fp32:.2f} FP32 instructions an "
+          f"evaluation over {FP32_LANES_PER_SM} x {H100_SMS} lanes at "
+          f"{clock_max} MHz): {100 * floor / r['main_path_ms']:.1f} % of it")
+    return {**r, "fp32_per_evaluation": fp32, "fp32_issue_floor_ms": floor,
+            "main_path_share_of_fp32_floor": floor / r["main_path_ms"]}
 
 
 def phase_b3_main_path(tmp: Path) -> tuple[int, dict, Path]:
@@ -1576,8 +1630,9 @@ def phase_b1_3d_compare(wd: Path) -> None:
         if not np.array_equal(r.kernel, cases[f"{name} f32c"].kernel):
             raise AssertionError(f"3+1d {name}: f32 and f32c differ")
         cases[f"{name} f32"] = r
-    cases["ragged " + json.dumps(kc.RAGGED)] = kc.check_3d_ragged_case(
-        wd, 2048, 7, "cuda")
+    for n_y in kc.RAGGED_Y:
+        cases[f"ragged {json.dumps(kc.RAGGED)} x {n_y} y"] = \
+            kc.check_3d_ragged_case(wd, 2048, 7, "cuda", n_y=n_y)
     for name, r in cases.items():
         print(f"{name:26s} kernel vs plain {r.vs_plain:.3e}; kernel vs f64 "
               f"{r.vs_f64_global:.3e} (bins of the largest peak; "
@@ -1636,7 +1691,7 @@ def phase_b1_3d_main_path(tmp: Path) -> tuple[int, dict, Path]:
     return launches["cooper_frye_comp_3d"], stages, wd
 
 
-def phase_b1_3d_full(wd: Path) -> dict:
+def phase_b1_3d_full(wd: Path, sass: dict) -> dict:
     print("== 24. (cont.) B1's 3+1d mode on the main path's operands")
     from is3d2_tpu_torch.ops import cooper_frye_comp as ck
     from is3d2_tpu_torch.ops.spectra_fast_common import comp_operands_3d
@@ -1644,15 +1699,27 @@ def phase_b1_3d_full(wd: Path) -> dict:
 
     cfg, state = main_path_state(wd, kc.engine_state)
     ops = comp_operands_3d(*state, cfg)
-    kernel = functools.partial(ck.cooper_frye_comp_3d, row_len=ops.row_len)
+    kernel = functools.partial(ck.cooper_frye_comp_3d, **ops.layout())
     args = (*ops.args(), cfg)
     C, M = ops.cell.shape[0], ops.mom.shape[1]
     print(f"{C} live cells x {M} momenta (M mod 256 = {M % 256}) = "
           f"{ops.evaluations:.4g} evaluations")
     first = kernel(*args)
-    full_ms, second = cuda_ms(lambda: kernel(*args), warmup=lambda: None)
+    torch.cuda.synchronize()
+    before, clock_max = sm_clocks()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    second = kernel(*args)
+    end.record()
+    during, _ = sm_clocks()      # the kernel runs while this is read
+    torch.cuda.synchronize()
+    full_ms = start.elapsed_time(end)
+    after, _ = sm_clocks()
     print(f"kernel at full size {full_ms:.1f} ms, "
-          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s")
+          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s; clocks.sm "
+          f"{before} MHz before, {during} MHz during, {after} MHz after "
+          f"(clocks.max.sm {clock_max} MHz)")
     if not torch.equal(first, second):
         raise AssertionError("two launches of B1's 3+1d mode on the main "
                              "path's operands gave different bits")
@@ -1671,14 +1738,24 @@ def phase_b1_3d_full(wd: Path) -> dict:
         kernel, ck.cooper_frye_comp_3d_plain, cut(64), cut(n),
         lambda flat: kc.spectra_units(state, flat), kc.TOL, "B1 3+1d")
     main_bound = bound(per_eval * ops.evaluations, args, M)["bound_ms"]
+    floor = fp32_issue_floor_ms(sass["fp32"], ops.evaluations, clock_max)
     print(f"bound at full size {main_bound:.1f} ms: "
-          f"{100 * main_bound / full_ms:.1f} % of it")
-    return {"register_tile": g.r, "cell_split": g.n_split,
+          f"{100 * main_bound / full_ms:.1f} % of it; fp32_issue_floor_ms "
+          f"{floor:.1f} ({sass['fp32']:.2f} FP32 instructions an evaluation "
+          f"over {FP32_LANES_PER_SM} x {H100_SMS} lanes at {clock_max} MHz):"
+          f" {100 * floor / full_ms:.1f} % of it")
+    return {"register_tile": g.r, "register_tile_y": g.ty,
+            "threads": g.threads, "cell_split": g.n_split,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             **bound(per_eval * n * M, cut(n), M),
             "main_path_bound_ms": main_bound,
             "main_path_evaluations_per_s": ops.evaluations / full_ms * 1e3,
             "main_path_share_of_bound": main_bound / full_ms,
+            "fp32_per_evaluation": sass["fp32"],
+            "fp32_issue_floor_ms": floor,
+            "main_path_share_of_fp32_floor": floor / full_ms,
+            "clocks_sm_mhz": {"before": before, "during": during,
+                              "after": after, "max": clock_max},
             # no single PyTorch call computes a Cooper-Frye sum
             "library_ms": None,
             "cells_compared": n, "main_path_ms": full_ms,
@@ -1777,7 +1854,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    p1_sass = phase_build()
+    sass = phase_build()
     scratch = Path(__file__).resolve().parent / "build"
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
@@ -1786,7 +1863,7 @@ def main() -> int:
         phase_b1_compare(wd, wd_eta)
         phase_b3_compare(wd, wd_eta)
         b1_launches, b1_stages, wd1 = phase_b1_main_path(tmp)
-        b1 = phase_b1_full(wd1, b1_stages)
+        b1 = phase_b1_full(wd1, b1_stages, sass["b1"])
         b3_launches, _, wd4 = phase_b3_main_path(tmp)
         b3 = phase_b3_full(wd4)
         phase_b2_compare(wd, wd_eta)
@@ -1802,10 +1879,10 @@ def main() -> int:
         op0_b3 = phase_op0_b3(tmp, wd)
         phase_p1_compare(wd, wd_eta)
         p1_launches, p1_stages, wd_m5 = phase_p1_main_path(tmp)
-        p1 = phase_p1_full(wd_m5, p1_sass)
+        p1 = phase_p1_full(wd_m5, sass["p1"])
         phase_b1_3d_compare(parity_workdir_3d(tmp))
         b1_3d_launches, b1_3d_stages, wd3 = phase_b1_3d_main_path(tmp)
-        b1_3d = phase_b1_3d_full(wd3)
+        b1_3d = phase_b1_3d_full(wd3, sass["b1_3d"])
         op0_3d = phase_op0_3d(tmp, wd3)
         op2_3d = phase_sampler_3d(tmp, wd3)
     if "jax" in sys.modules:

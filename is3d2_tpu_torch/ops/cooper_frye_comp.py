@@ -33,12 +33,14 @@ and the result is the (M,) f64 sum over cells and eta of w * p.dsigma * f.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from ..config import Config
-from .launch_geometry import (Geometry, df12_flags, has_diffusion,
-                              operand_geometry, over_eta_chunks)
+from .launch_geometry import (H100_SMS, Geometry, Geometry3d, df12_flags,
+                              has_diffusion, launch_geometry_3d,
+                              operand_geometry, over_eta_chunks, row_length)
 
 CELL_COLS = ("qx1", "qx2", "qy1", "qy2", "abf", "abl", "Tf",
              "shear", "bulk0", "bulk1", "bulk2", "diff0", "diff1",
@@ -268,6 +270,31 @@ CELL_COLS_3D = ("qp1", "qp2", "qx1", "qx2", "qy1", "qy2", "qm1", "qm2",
 MOM_ROWS_3D = ("mp1", "mp2", "mpf", "mm1", "mm2", "mmf", "mass2", "b", "sgn",
                "px1", "px2", "pxf", "py1", "py2", "pyf")
 TILE_CELLS_3D = 64   # kTileCells3
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile3d:
+    """The 3+1d mode's register tile and launch: ``r`` phi x ``ty`` y
+    momenta a thread, ``threads`` a block, ``blocks_per_sm`` resident (its
+    __launch_bounds__)."""
+
+    r: int
+    ty: int
+    threads: int
+    blocks_per_sm: int
+
+    @classmethod
+    def of(cls, lib) -> "Tile3d":
+        """The tile a built library launches (its extern "C" getters)."""
+        return cls(lib.is3d2_cooper_frye_comp_3d_tile(),
+                   lib.is3d2_cooper_frye_comp_3d_tile_y(),
+                   lib.is3d2_cooper_frye_comp_3d_threads(),
+                   lib.is3d2_cooper_frye_comp_3d_blocks_per_sm())
+
+
+# kP3, kY3, kThreads3, kMinBlocks3 of csrc/cooper_frye_comp.cu: the geometry
+# of a tensor that lies off the card
+TILE_3D = Tile3d(r=4, ty=7, threads=128, blocks_per_sm=3)
 # the rows constant along a (species, pT, y) row of the momentum grid
 _ROW_KEYS_3D = list(range(9))
 
@@ -371,31 +398,31 @@ def _check_3d(cell, mom) -> None:
         raise ValueError("momentum and cell counts must fit in int32")
 
 
-def geometry_3d(mom: torch.Tensor, n_cells: int, r: int = R,
-                row_len: int | None = None) -> Geometry:
-    """The launch geometry of the 3+1d mode; ``row_len``, the phi count of
-    the momentum grid, is read off the rows m+, m-, mass2, b and sign where
-    the caller leaves it out."""
-    return operand_geometry(mom, _ROW_KEYS_3D, n_cells, r, TILE_CELLS_3D,
-                            row_len)
+def geometry_3d(mom: torch.Tensor, n_cells: int, n_y: int,
+                tile: Tile3d = TILE_3D,
+                row_len: int | None = None) -> Geometry3d:
+    """The launch geometry of the 3+1d mode: its momenta run (species, pT,
+    y, phi), ``n_y`` rows of ``row_len`` phi a (species, pT) group.
+    ``row_len``, the phi count of the grid, is read off the rows m+, m-,
+    mass2, b and sign where the caller leaves it out; ``n_y`` cannot be
+    (pi+ and pi- rows of equal keys may merge), so the caller names it."""
+    if row_len is None:
+        row_len = row_length(mom[_ROW_KEYS_3D])
+    sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
+           if mom.device.type == "cuda" else H100_SMS)
+    return launch_geometry_3d(mom.shape[1], row_len, n_y, n_cells, tile.r,
+                              tile.ty, TILE_CELLS_3D, tile.threads,
+                              tile.blocks_per_sm, sms)
 
 
-def cooper_frye_comp_3d(cell, mom, cfg: Config,
-                        row_len: int | None = None) -> torch.Tensor:
-    """Run the 3+1d mode on CUDA tensors (its plain version on CPU
-    tensors).  Returns the (M,) f64 sums; ``row_len``: the phi count of
-    the momentum grid, see ``geometry_3d``."""
-    _check_3d(cell, mom)
-    if cell.device.type == "cpu":
-        return cooper_frye_comp_3d_plain(cell, mom, cfg)
-    if cell.device.type != "cuda":
-        raise ValueError(f"no kernel for device {cell.device}")
-    from . import _build
-    lib = _build.load("cooper_frye_comp")
-    g = geometry_3d(mom, cell.shape[0], lib.is3d2_cooper_frye_comp_3d_tile(),
-                    row_len)
+def launch_3d(cell, mom, cfg: Config, g: Geometry3d, lib=None) -> torch.Tensor:
+    """Launch the 3+1d mode of ``lib`` (default: this package's build) on
+    checked CUDA operands with the geometry ``g``."""
+    if lib is None:
+        from . import _build
+        lib = _build.load("cooper_frye_comp")
     fn = lib.is3d2_cooper_frye_comp_3d
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     M = mom.shape[1]
     out = torch.empty(M, dtype=torch.float64, device=cell.device)
@@ -404,14 +431,34 @@ def cooper_frye_comp_3d(cell, mom, cfg: Config,
     with torch.cuda.device(cell.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(cell.data_ptr(), mom.data_ptr(), partial.data_ptr(),
-                 out.data_ptr(), cell.shape[0], M, g.row_len, g.n_split,
-                 g.cells_per_split, df12_flags(cfg), stream)
+                 out.data_ptr(), cell.shape[0], M, g.row_len, g.n_y,
+                 g.n_split, g.cells_per_split, df12_flags(cfg), stream)
     if err != 0:
         raise RuntimeError(f"cooper_frye_comp_3d launch failed: cudaError "
                            f"{err}")
     cooper_frye_comp_3d.launches += 1
     cooper_frye_comp_3d.last_geometry = g
     return out
+
+
+def cooper_frye_comp_3d(cell, mom, cfg: Config, row_len: int | None = None,
+                        n_y: int | None = None) -> torch.Tensor:
+    """Run the 3+1d mode on CUDA tensors (its plain version on CPU
+    tensors).  Returns the (M,) f64 sums.  ``n_y``: the rapidities of the
+    momentum grid, which the caller must name; ``row_len``: its phi count,
+    see ``geometry_3d``."""
+    if n_y is None or n_y < 1:
+        raise ValueError("cooper_frye_comp_3d needs n_y, the rapidity count "
+                         "of the momentum grid")
+    _check_3d(cell, mom)
+    if cell.device.type == "cpu":
+        return cooper_frye_comp_3d_plain(cell, mom, cfg)
+    if cell.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cell.device}")
+    from . import _build
+    lib = _build.load("cooper_frye_comp")
+    g = geometry_3d(mom, cell.shape[0], n_y, Tile3d.of(lib), row_len)
+    return launch_3d(cell, mom, cfg, g, lib)
 
 
 cooper_frye_comp_3d.launches = 0

@@ -16,6 +16,9 @@ give the same bits.
     card that holds them;
   * ``momentum_index``: the map (block, thread, j) -> m that the kernels
     compute, for the tests;
+  * ``launch_geometry_3d`` and ``momentum_index_3d``: the same for B1's
+    3+1d mode, whose thread owns a tile of phi x y of one (species, pT)
+    group, launched with its own threads a block and blocks an SM;
   * ``over_eta_chunks``: a table of more eta nodes than one launch takes,
     run chunk by chunk;
   * ``df12_flags``: the flag bits that pick the template instantiation of
@@ -30,9 +33,11 @@ import math
 import numpy as np
 import torch
 
-THREADS = 256          # kThreads of the four CUDA sources
+THREADS = 256          # kThreads of the four CUDA sources (B1's 3+1d mode
+                       # launches its own, Geometry3d.threads)
 BLOCKS_PER_SM = 2      # kMinBlocks of B1, B2, B3: what __launch_bounds__
-                       # keeps resident (P1 passes its own)
+                       # keeps resident (P1 and B1's 3+1d mode pass their
+                       # own)
 MAX_SPLIT = 32         # (n_split, M) f64 partials: 32 x 7 MB at the full grid
 GOOD_FILL = 0.95       # take the smallest split that fills its waves this far
 H100_SMS = 132
@@ -57,6 +62,22 @@ class Geometry:
         return -(-self.n_mom // self.row_len)
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry3d(Geometry):
+    """B1's 3+1d mode: a thread owns ``r`` phi (``tiles_per_row`` tiles
+    a row) x ``ty`` y (``y_tiles`` tiles a group) of one (species, pT)
+    group of ``n_y`` rows of ``row_len`` phi; ``threads`` a block."""
+
+    n_y: int
+    ty: int
+    y_tiles: int
+    threads: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.n_mom // (self.n_y * self.row_len))
+
+
 def row_length(keys: torch.Tensor, divides: int | None = None) -> int:
     """The largest L such that every row of ``keys`` (k, M) is constant on
     each run [i L, (i + 1) L) of momenta (the last run may stop short); with
@@ -76,16 +97,13 @@ def fill(blocks: int, resident: int) -> float:
     return blocks / (-(-blocks // resident) * resident)
 
 
-def launch_geometry(n_mom: int, row_len: int, n_cells: int, r: int,
-                    tile_cells: int, sm_count: int = H100_SMS,
-                    blocks_per_sm: int = BLOCKS_PER_SM) -> Geometry:
-    tiles_per_row = -(-row_len // r)
-    rows = -(-n_mom // row_len)
-    blocks = -(-rows * tiles_per_row // THREADS)
-    resident = blocks_per_sm * sm_count
+def split_cells(blocks: int, n_cells: int, tile_cells: int,
+                resident: int) -> tuple[int, int]:
+    """(n_split, cells_per_split) for a grid of ``blocks`` blocks a split,
+    ``resident`` of which the card holds at once: the smallest split that
+    fills its waves to GOOD_FILL, else the best-filling one."""
     n_tiles = -(-n_cells // tile_cells)
-    # (split count, cell tiles per split): the smallest split that fills
-    # its waves to GOOD_FILL, else the best-filling one
+    # (split count, cell tiles per split)
     best, best_fill = (1, n_tiles), fill(blocks, resident)
     for s in range(2, min(MAX_SPLIT, n_tiles) + 1):
         if best_fill >= GOOD_FILL:
@@ -96,9 +114,36 @@ def launch_geometry(n_mom: int, row_len: int, n_cells: int, r: int,
         if f > best_fill:
             best, best_fill = (actual, per), f
     n_split, per = best
-    cells_per_split = n_cells if n_split == 1 else per * tile_cells
+    return n_split, (n_cells if n_split == 1 else per * tile_cells)
+
+
+def launch_geometry(n_mom: int, row_len: int, n_cells: int, r: int,
+                    tile_cells: int, sm_count: int = H100_SMS,
+                    blocks_per_sm: int = BLOCKS_PER_SM) -> Geometry:
+    tiles_per_row = -(-row_len // r)
+    rows = -(-n_mom // row_len)
+    blocks = -(-rows * tiles_per_row // THREADS)
+    n_split, cells_per_split = split_cells(blocks, n_cells, tile_cells,
+                                           blocks_per_sm * sm_count)
     return Geometry(n_mom, row_len, r, tiles_per_row, blocks, n_split,
                     cells_per_split, tile_cells)
+
+
+def launch_geometry_3d(n_mom: int, row_len: int, n_y: int, n_cells: int,
+                       r: int, ty: int, tile_cells: int, threads: int,
+                       blocks_per_sm: int,
+                       sm_count: int = H100_SMS) -> Geometry3d:
+    """B1's 3+1d mode: momenta m = (group, y, phi), a (species, pT) group
+    of ``n_y`` rows of ``row_len`` phi (the last group may stop short); a
+    thread owns ``r`` phi x ``ty`` y of one group."""
+    tiles_per_row = -(-row_len // r)
+    y_tiles = -(-n_y // ty)
+    groups = -(-n_mom // (row_len * n_y))
+    blocks = -(-groups * y_tiles * tiles_per_row // threads)
+    n_split, cells_per_split = split_cells(blocks, n_cells, tile_cells,
+                                           blocks_per_sm * sm_count)
+    return Geometry3d(n_mom, row_len, r, tiles_per_row, blocks, n_split,
+                      cells_per_split, tile_cells, n_y, ty, y_tiles, threads)
 
 
 def operand_geometry(mom: torch.Tensor, keys: list[int], n_cells: int,
@@ -129,6 +174,21 @@ def momentum_index(g: Geometry) -> np.ndarray:
     m = row[:, None] * g.row_len + phi
     m = np.where((phi < g.row_len) & (m < g.n_mom), m, -1)
     return m.reshape(g.blocks, THREADS, g.r)
+
+
+def momentum_index_3d(g: Geometry3d) -> np.ndarray:
+    """(blocks, threads, ty, r) int64: the momentum point m that thread
+    ``thread`` of block ``block`` owns in slot (i, j) -- y ``i``, phi ``j``
+    of its tile -- or -1 where the slot is masked.  The same arithmetic as
+    B1's 3+1d mode."""
+    gid = np.arange(g.blocks * g.threads, dtype=np.int64)
+    tiles = g.tiles_per_row * g.y_tiles
+    group, t = gid // tiles, gid % tiles
+    y = (t // g.tiles_per_row * g.ty)[:, None, None] + np.arange(g.ty)[:, None]
+    phi = (t % g.tiles_per_row * g.r)[:, None, None] + np.arange(g.r)
+    m = (group[:, None, None] * g.n_y + y) * g.row_len + phi
+    m = np.where((y < g.n_y) & (phi < g.row_len) & (m < g.n_mom), m, -1)
+    return m.reshape(g.blocks, g.threads, g.ty, g.r)
 
 
 def cell_ranges(g: Geometry, n_cells: int) -> list[tuple[int, int]]:

@@ -60,6 +60,7 @@ class CompOperands3d:
     cell: torch.Tensor    # (C, 36) f32, the live cells only
     mom: torch.Tensor     # (15, M) f32, m = (species, pT, y, phi)
     row_len: int          # Nphi: momenta per (species, pT, y) row of mom
+    n_y: int              # Ny: rows per (species, pT) group of mom
 
     @property
     def evaluations(self) -> int:
@@ -68,6 +69,10 @@ class CompOperands3d:
 
     def args(self) -> tuple:
         return self.cell, self.mom
+
+    def layout(self) -> dict:
+        """The grid's shape as the wrapper takes it (``row_len``, ``n_y``)."""
+        return {"row_len": self.row_len, "n_y": self.n_y}
 
 
 @dataclasses.dataclass
@@ -186,7 +191,8 @@ def pack_inputs_comp_3d(cells: CellArrays, coeffs: dict,
     rows = momentum_matrix_3d_comp(species, grid)
     mom = torch.stack([rows[k].to(f32) for k in MOM_ROWS_3D]).contiguous()
     return CompOperands3d(cell=cell[live].contiguous(), mom=mom,
-                          row_len=grid.cos_phi.shape[0])
+                          row_len=grid.cos_phi.shape[0],
+                          n_y=grid.y.shape[0])
 
 
 def pack_inputs(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
@@ -263,7 +269,7 @@ def compute_spectra_comp(cells: CellArrays, coeffs: dict,
     if cfg.dimension == 3:
         ops = comp_operands_3d(cells, coeffs, species, grid, cfg)
         return spectra_3d(cooper_frye_comp_3d(*ops.args(), cfg,
-                                              row_len=ops.row_len),
+                                              **ops.layout()),
                           species, grid)
     ops = comp_operands(cells, coeffs, species, grid, cfg)
     return _spectra(cooper_frye_comp(*ops.args(), cfg, row_len=ops.row_len),

@@ -2,8 +2,9 @@
 call, and count what was compiled.
 
     python -m is3d2_tpu_torch.tools.kernel_bench [--tree NAME=DIR ...]
-        [--only b1,b3,b2,p1,prep] [--cells 100000] [--compare-cells 8192]
-        [--f64-species 4] [--few-species 3,16] [--out build/kernel_bench.json]
+        [--only b1,b3,b2,b1_3d,p1,prep] [--tile3d PxYxTxB ...]
+        [--cells 100000] [--compare-cells 8192] [--f64-species 4]
+        [--few-species 3,16] [--out build/kernel_bench.json]
 
 The card's power limit may differ between calls, so two versions of a
 kernel are only ever compared inside one run of this script.  ``--tree
@@ -20,10 +21,19 @@ script
     instructions by pipe per evaluation (an evaluation is one MUFU.EX2 of
     the loop: every evaluation takes one expf);
   * makes the main paths' operands (df 1 f32c for B1; df 4 f32 with shear
-    0.2 and bulk 0.1 for B3; df 2 f64 with use_pallas 1 for B2) at
-    ``--cells`` cells with the full species list, times every tree there
-    with CUDA events in the order trees, trees reversed, and holds each to
-    this tree's plain version on the first ``--compare-cells`` cells;
+    0.2 and bulk 0.1 for B3; df 2 f64 with use_pallas 1 for B2; ``b1_3d``,
+    listed in ``--only``: df 1 f32c on a 3+1d surface, 21 y, for B1's 3+1d
+    mode) at ``--cells`` cells with the full species list, times every
+    tree there with CUDA events in the order trees, trees reversed, and
+    holds each to this tree's plain version on the first
+    ``--compare-cells`` cells;
+  * ``b1_3d``: every tree's result at full size must equal this tree's bit
+    for bit at the same cell split (the 3+1d mode's tile moves no
+    rounding; the script exits 1 where one does not); ``--tile3d PxYxTxB``
+    (repeatable) adds a copy
+    of this tree whose 3+1d mode launches a tile of P phi x Y y, T threads
+    a block and B blocks an SM (``tile_tree``), so tile shapes race in
+    one call;
   * B3: takes the ``--f64-species`` species on which the trees disagree
     most at that cut and holds every tree, and the plain version, to the
     f64 feqmod engine there, at the cut and at the full cell count;
@@ -51,6 +61,7 @@ Needs a CUDA device, nvcc and cuobjdump; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import functools
 import importlib
@@ -72,7 +83,9 @@ from ..config import Config
 from ..core.spectra_feqmod import spectra_feqmod
 from ..io.pdg import read_pdg
 from ..io.surface import read_surface
-from ..ops.spectra_fast_common import comp_operands, f32_operands
+from ..ops import _build
+from ..ops.spectra_fast_common import (comp_operands, comp_operands_3d,
+                                       f32_operands)
 from . import kernel_check as kc
 from .synthetic import write_workdir
 
@@ -163,6 +176,14 @@ def inner_loops(code: list[tuple[int, str, str]]) -> list[dict]:
     return loops
 
 
+def per_evaluation(loop: dict) -> dict:
+    """An ``inner_loops`` record's instruction counts by pipe per
+    evaluation."""
+    n = loop["evaluations"]
+    return {key: v / n for key, v in loop.items()
+            if isinstance(v, int) and key != "evaluations"}
+
+
 def loop_nest(code: list[tuple[int, str, str]]) -> dict:
     """The eta loop (the innermost loop with a MUFU.EX2) per evaluation and
     what the loop around it runs outside it (a per-cell step): instruction
@@ -194,19 +215,22 @@ def report_build(label: str, name: str, lib: Path) -> dict:
     pat = kc.MAIN_PATH_KERNEL[name]
     names = [k for k in code if re.search(pat, k)] or list(code)
     usage = resources(_cuobjdump("-res-usage", str(lib)))
+    ptxas = (_build.resource_usage(lib) if lib.with_suffix(".ptxas").exists()
+             else {})
     record = {}
     for k in names:
         loops = inner_loops(code[k])
         if not loops:
             continue
-        record[k] = {"resources": usage.get(k), "loops": loops}
-        print(f"{label}: {usage.get(k)}  [{k[:70]}]")
+        spills = {key: ptxas.get(k, {}).get(key)
+                  for key in ("spill_stores", "spill_loads")}
+        record[k] = {"resources": usage.get(k), "spills": spills,
+                     "loops": loops}
+        print(f"{label}: {usage.get(k)} {spills}  [{k[:70]}]")
         for lp in loops:
-            n = lp["evaluations"]
-            per = {key: round(v / n, 2) for key, v in lp.items()
-                   if isinstance(v, int) and key != "evaluations"}
-            print(f"{label}: eta loop of {n} evaluation(s); per evaluation "
-                  f"{per}; {lp['mufu kinds']}")
+            per = {key: round(v, 2) for key, v in per_evaluation(lp).items()}
+            print(f"{label}: innermost loop of {lp['evaluations']} "
+                  f"evaluation(s); per evaluation {per}; {lp['mufu kinds']}")
     return record
 
 
@@ -231,19 +255,25 @@ def load_tree(index: int, directory: Path):
 class Kernel:
     """One kernel's main path: how to make its operands and call it."""
 
-    key: str              # b1, b3, b2
-    name: str             # module and source name
+    key: str              # b1, b3, b2, b1_3d
+    name: str             # wrapper name (and module and source, but below)
     params: dict          # iS3D parameters of the main path
-    surface: dict         # make_surface options
+    surface: dict         # write_workdir options
     tol: float            # kernel vs plain version
+    source: str = ""      # module and source name, where not ``name``
+    launch: str = "launch"   # the module's launcher on a given geometry
+
+    @property
+    def module(self) -> str:
+        return self.source or self.name
 
     def wrapper(self, package_name: str):
-        mod = importlib.import_module(f"{package_name}.ops.{self.name}")
+        mod = importlib.import_module(f"{package_name}.ops.{self.module}")
         return getattr(mod, self.name)
 
     def library(self, package_name: str) -> Path:
         build = importlib.import_module(f"{package_name}.ops._build")
-        return build.build(self.name)[0]
+        return build.build(self.module)[0]
 
 
 KERNELS = [
@@ -254,7 +284,35 @@ KERNELS = [
     Kernel("b2", "cooper_frye_f32",
            {"df_mode": 2, "compute_dtype": "f64", "use_pallas": 1}, {},
            kc.F32_TOL_PLAIN),
+    Kernel("b1_3d", "cooper_frye_comp_3d",
+           {"df_mode": 1, "compute_dtype": "f32c"}, {"dimension": 3}, kc.TOL,
+           source="cooper_frye_comp", launch="launch_3d"),
 ]
+
+# the 3+1d mode's tile shapes raced for its redesign: phi x y momenta a
+# thread, threads a block, blocks an SM (--tile3d)
+TILES_3D = ("4x3x128x3", "4x3x256x2", "4x7x128x3", "4x7x128x2", "8x3x128x2")
+# the line of csrc/cooper_frye_comp.cu that fixes the 3+1d mode's tile
+TILE_LINE_3D = (r"constexpr int kP3 = \d+, kY3 = \d+, kThreads3 = \d+, "
+                r"kMinBlocks3 = \d+;")
+
+
+def tile_tree(spec: str, root: Path) -> Path:
+    """A copy of this tree under ``root`` whose 3+1d mode launches the tile
+    ``spec`` = "PxYxTxB" (see TILES_3D); returns the copy's directory."""
+    p, y, t, b = (int(v) for v in spec.split("x"))
+    here = Path(__file__).resolve().parent.parent
+    dst = root / f"tile3d_{spec}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(here, dst / here.name,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = dst / here.name / "csrc" / "cooper_frye_comp.cu"
+    text, n = re.subn(TILE_LINE_3D, f"constexpr int kP3 = {p}, kY3 = {y}, "
+                      f"kThreads3 = {t}, kMinBlocks3 = {b};", src.read_text())
+    if n != 1:
+        raise RuntimeError(f"{src}: no single line {TILE_LINE_3D!r}")
+    src.write_text(text)
+    return dst
 
 
 def operands(kernel: Kernel, wd: Path):
@@ -262,7 +320,7 @@ def operands(kernel: Kernel, wd: Path):
     and kernel arguments; ``cut(n)`` the arguments on the first n cells;
     ``few(s)`` on the first s species."""
     cfg = Config.from_file(wd / "iS3D_parameters.dat")
-    surf = read_surface(wd / "input/surface.dat", 1, 2, False)
+    surf = read_surface(wd / "input/surface.dat", 1, cfg.dimension, False)
     if kernel.key == "b3":
         from ..ops import cooper_frye_feqmod as fk
         state = kc.feqmod_engine_state(wd, cfg, surf, "cuda")
@@ -280,6 +338,16 @@ def operands(kernel: Kernel, wd: Path):
                     cfg, ops.kind)
         return cfg, state, ops, (*ops.args(), cfg, ops.kind), cut, few
     state = kc.engine_state(wd, cfg, surf, "cuda")
+    if kernel.key == "b1_3d":
+        ops = comp_operands_3d(*state, cfg)
+
+        def cut(n):
+            return ops.cell[:n].contiguous(), ops.mom, cfg
+
+        def few(s):
+            per = ops.mom.shape[1] // state[2].mass.shape[0]
+            return ops.cell, ops.mom[:, :s * per].contiguous(), cfg
+        return cfg, state, ops, (*ops.args(), cfg), cut, few
     if kernel.key == "b1":
         ops = comp_operands(*state, cfg)
 
@@ -343,6 +411,34 @@ def race(kernel: Kernel, versions: dict, args: tuple, cut: tuple, plain,
     return results, spectra
 
 
+def equal_bits(kernel: Kernel, versions: dict, packages: dict,
+               args: tuple) -> dict:
+    """Every tree's result on ``args`` against this tree's at the same cell
+    split: where a tree split the cells otherwise, this tree launches again
+    with that tree's split.  Returns, per other tree, its split and
+    whether the bits are equal."""
+    mod = importlib.import_module(f"..ops.{kernel.module}", __package__)
+    mine = versions[THIS_TREE](*args)
+    g = getattr(mod, kernel.name).last_geometry
+    record = {}
+    for label in versions:
+        if label == THIS_TREE:
+            continue
+        out = versions[label](*args)
+        theirs = kernel.wrapper(packages[label]).last_geometry
+        split = (theirs.n_split, theirs.cells_per_split)
+        ref = mine if split == (g.n_split, g.cells_per_split) else \
+            getattr(mod, kernel.launch)(*args, dataclasses.replace(
+                g, n_split=split[0], cells_per_split=split[1]))
+        same = bool(torch.equal(out, ref))
+        record[label] = {"split": split, "equal_bits": same}
+        print(f"{kernel.key} {label:20s} vs this tree at full size, cell "
+              f"split {split} (this tree's {(g.n_split, g.cells_per_split)})"
+              f": equal bits {same}")
+        del out, ref
+    return record
+
+
 def disagreeing_species(spectra: dict, n: int) -> list[int]:
     """The ``n`` species on which the other trees differ most from this
     one (relative, on bins >= FLOOR of the species' peak)."""
@@ -385,25 +481,27 @@ def hold_to_f64(label: str, spectra: dict, ref: np.ndarray,
     return record
 
 
-def race_split(kernel: Kernel, few, n_species: int) -> dict:
+def race_split(kernel: Kernel, few, n_species: int, layout: dict) -> dict:
     """This tree's launch on the first ``n_species`` species, with the
-    wrapper's cell split and with none."""
-    mod = importlib.import_module(f"..ops.{kernel.name}", __package__)
+    wrapper's cell split and with none; ``layout``: what the wrapper must
+    be told of the grid (B1's 3+1d mode: its rapidity count)."""
+    mod = importlib.import_module(f"..ops.{kernel.module}", __package__)
     wrapper = getattr(mod, kernel.name)
+    launch = getattr(mod, kernel.launch)
     args = few(n_species)
-    # the momentum rows: argument 4 of B1, 3 of B2, 1 of B3
-    n_mom = args[{"b1": 4, "b2": 3, "b3": 1}[kernel.key]].shape[1]
-    out = wrapper(*args)
+    # the momentum rows: argument 4 of B1, 3 of B2, 1 of B3 and B1 3+1d
+    n_mom = args[{"b1": 4, "b2": 3, "b3": 1, "b1_3d": 1}[kernel.key]].shape[1]
+    out = wrapper(*args, **layout)
     g = wrapper.last_geometry
     grid = g.grid if kernel.key == "b3" else g
     one = dataclasses.replace(grid, n_split=1,
                               cells_per_split=args[0].shape[0])
     unsplit = dataclasses.replace(g, grid=one) if kernel.key == "b3" else one
-    same = torch.equal(out, mod.launch(*args, g))
+    same = torch.equal(out, launch(*args, g))
     ms = {"split": [], "no split": []}
     for which, geom in (("split", g), ("no split", unsplit),
                         ("no split", unsplit), ("split", g)):
-        ms[which].append(cuda_ms(lambda: mod.launch(*args, geom)))
+        ms[which].append(cuda_ms(lambda: launch(*args, geom)))
     print(f"{kernel.key} first {n_species} species ({n_mom} momenta, "
           f"{grid.blocks} blocks): split in {grid.n_split} "
           f"{ms['split'][0]:.1f} {ms['split'][1]:.1f} ms, no split "
@@ -515,6 +613,10 @@ def main(argv=None) -> int:
                     help="another version of the package to time beside "
                          "this one (repeatable)")
     ap.add_argument("--only", default="b1,b3,b2")
+    ap.add_argument("--tile3d", action="append", default=[],
+                    metavar="PxYxTxB",
+                    help="a copy of this tree whose 3+1d mode launches this "
+                         "tile (repeatable; TILES_3D lists the raced ones)")
     ap.add_argument("--cells", type=int, default=100_000)
     ap.add_argument("--compare-cells", type=int, default=8192)
     ap.add_argument("--f64-species", type=int, default=4)
@@ -529,14 +631,22 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print("card:", card)
     packages = {THIS_TREE: __package__.rsplit(".", 1)[0]}
-    for i, item in enumerate(a.tree):
-        label, _, directory = item.partition("=")
+    trees = [item.partition("=")[::2] for item in a.tree]
+    trees += [(f"tile {spec}", tile_tree(spec, Path("build/tile3d")))
+              for spec in a.tile3d]
+    for i, (label, directory) in enumerate(trees):
         packages[label] = load_tree(i, Path(directory)).__name__
     only = a.only.split(",")
     kernels = [k for k in KERNELS if k.key in only]
     few_species = [int(s) for s in a.few_species.split(",") if s]
 
+    # every tree's sources, one nvcc each, all at once
+    builds = {(k.module, package): (k, package) for k in kernels
+              for package in packages.values()}
+    with concurrent.futures.ThreadPoolExecutor(len(builds) or 1) as pool:
+        list(pool.map(lambda kp: kp[0].library(kp[1]), builds.values()))
     record = {"card": card, "cells": a.cells, "builds": {}, "kernels": {}}
+    failed = []
     for k in kernels:
         for label, package in packages.items():
             record["builds"][f"{k.key} {label}"] = report_build(
@@ -556,22 +666,30 @@ def main(argv=None) -> int:
             wd = write_workdir(Path(tmp) / k.key, n_cells=a.cells,
                                params=k.params, **k.surface)
             cfg, state, ops, args, cut, few = operands(k, wd)
-            print(f"{k.key}: {args[0].shape[0]} cells x {ops.eta.shape[0]} "
-                  f"eta x {ops.mom.shape[1]} momenta")
-            # as the main path calls them: with the phi count, where a
-            # tree's wrapper takes it
+            eta = f"{ops.eta.shape[0]} eta x " if hasattr(ops, "eta") else ""
+            print(f"{k.key}: {args[0].shape[0]} cells x {eta}"
+                  f"{ops.mom.shape[1]} momenta = {ops.evaluations:.4g} "
+                  "evaluations")
+            # as the main path calls them: with the phi count (and the y
+            # count), where a tree's wrapper takes it
+            layout = {"row_len": ops.row_len, "n_y": getattr(ops, "n_y", 1)}
             versions = {}
             for label, package in packages.items():
                 call = k.wrapper(package)
-                if "row_len" in inspect.signature(call).parameters:
-                    call = functools.partial(call, row_len=ops.row_len)
-                versions[label] = call
+                given = {key: v for key, v in layout.items()
+                         if key in inspect.signature(call).parameters}
+                versions[label] = functools.partial(call, **given)
             mine = importlib.import_module(
-                f"{packages[THIS_TREE]}.ops.{k.name}")
+                f"{packages[THIS_TREE]}.ops.{k.module}")
             plain = getattr(mine, f"{k.name}_plain")
             rec, spectra = race(k, versions, args, cut(a.compare_cells),
                                 plain, state)
             print(f"{k.key}: geometry {getattr(mine, k.name).last_geometry}")
+            if k.key == "b1_3d":
+                rec["vs_this_tree"] = equal_bits(k, versions, packages, args)
+                failed += [f"{k.key} {label}: bits differ"
+                           for label, r in rec["vs_this_tree"].items()
+                           if not r["equal_bits"]]
             if k.key == "b3" and a.f64_species:
                 species = disagreeing_species(spectra, a.f64_species) \
                     if len(spectra) > 2 else list(range(a.f64_species))
@@ -585,8 +703,10 @@ def main(argv=None) -> int:
                 rec["vs_f64_full"] = hold_to_f64(
                     f"all {args[0].shape[0]} cells", full,
                     feqmod_f64(state, cfg, args[0].shape[0], species), species)
-            rec["few_species"] = {s: race_split(k, few, s)
-                                  for s in few_species}
+            rec["few_species"] = {
+                s: race_split(k, few, s,
+                              {"n_y": ops.n_y} if k.key == "b1_3d" else {})
+                for s in few_species}
             record["kernels"][k.name] = rec
             del ops, args, cut, few, state, versions
             torch.cuda.empty_cache()
@@ -601,7 +721,9 @@ def main(argv=None) -> int:
     a.out.parent.mkdir(parents=True, exist_ok=True)
     a.out.write_text(json.dumps(record, indent=1))
     print(card)
-    return 0
+    for line in failed:
+        print("FAILED:", line)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

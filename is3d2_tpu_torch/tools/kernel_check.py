@@ -24,7 +24,8 @@ surface's dsigma_eta, which the spacetime convention weights.
 Kernel B1's 3+1d mode (df 1/2 on a 3+1d surface): ``check_3d_case`` runs
 the CASES on a make_surface(dimension=3) surface against its plain version
 (TOL) and the f64 engine, the latter at the JAX package's 3+1d budget
-(Case3dResult).
+(Case3dResult); its ragged case also runs on RAGGED_Y's rapidity counts,
+which its y tile does not divide.
 
 Kernel P1 (spin polarization, mode 5): ``check_polarization_case`` holds
 it to its plain version (POLZN_TOL_PLAIN) and to the f64 polarization
@@ -50,6 +51,7 @@ with the f64 engine says something.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -87,7 +89,9 @@ MAIN_PATH_KERNEL = {
     "cooper_frye_feqmod": r"cooper_frye_feqmod_kernelILi4ELb0ELb0ELb0EE",
     "cooper_frye_f32": r"cooper_frye_f32_kernelILb1ELb0ELb0ELb0ELb1EE",
     "polarization_f32": r"polarization_f32_kernelILb1EE",
-    "cooper_frye_comp_3d": r"cooper_frye_comp_3d_kernelILb1ELb0ELb0ELb0ELb0EE",
+    # the 3+1d mode's tile shape comes first among its template parameters
+    "cooper_frye_comp_3d":
+        r"cooper_frye_comp_3d_kernelI(?:Li\d+E)*Lb1ELb0ELb0ELb0ELb0EE",
 }
 
 # name -> (config fields, make_surface options); the workdir needs
@@ -177,10 +181,12 @@ class CaseResult:
 
 
 def _run(kernel, plain, args: tuple):
-    """Kernel (twice: launches, repeatability) and plain version."""
-    before = kernel.launches
+    """Kernel (twice: launches, repeatability) and plain version; a
+    ``functools.partial`` of a wrapper counts the wrapper's launches."""
+    counter = getattr(kernel, "func", kernel)
+    before = counter.launches
     out = kernel(*args)
-    launches = kernel.launches - before
+    launches = counter.launches - before
     repeats = torch.equal(kernel(*args), out)
     return out, plain(*args), launches, repeats
 
@@ -350,17 +356,24 @@ def check_3d_case(workdir: str | Path, case: str, n_cells: int, seed: int,
     surf = make_surface(n_cells, seed=seed, dimension=3, **CASES[case][1])
     state = engine_state(workdir, cfg, surf, device)
     ops = comp_operands_3d(*state, cfg)
-    out, pl, launches, repeats = _run(ck.cooper_frye_comp_3d,
-                                      ck.cooper_frye_comp_3d_plain,
-                                      (*ops.args(), cfg))
+    out, pl, launches, repeats = _run(
+        functools.partial(ck.cooper_frye_comp_3d, **ops.layout()),
+        ck.cooper_frye_comp_3d_plain, (*ops.args(), cfg))
     return Case3dResult(spectra_units(state, out), spectra_units(state, pl),
                         f64_in_kernel_order(state, cfg), launches, repeats)
 
 
+# rapidities of the 3+1d ragged cases: 3 (the cut of RAGGED's grid), and y
+# counts that the y tiles (3 and 7 rows) do not divide: 5, and 1, fewer
+# than a tile
+RAGGED_Y = (3, 5, 1)
+
+
 def check_3d_ragged_case(workdir: str | Path, n_cells: int, seed: int,
-                         device) -> Case3dResult:
+                         device, n_y: int = 3) -> Case3dResult:
     """B1's 3+1d mode against its plain version (which also stands in for
-    f64) on the df-1 operands cut to RAGGED (and to 3 rapidities)."""
+    f64) on the df-1 operands cut to RAGGED and to the first ``n_y``
+    rapidities."""
     cfg = Config(compute_dtype="f32c", df_mode=1, dimension=3)
     state = engine_state(workdir, cfg, make_surface(n_cells, seed=seed,
                                                     dimension=3), device)
@@ -369,11 +382,13 @@ def check_3d_ragged_case(workdir: str | Path, n_cells: int, seed: int,
     full = ops.mom.reshape(ops.mom.shape[0], species.mass.shape[0],
                            grid.pT.shape[0], grid.y.shape[0],
                            grid.cos_phi.shape[0])
-    mom = full[:, :RAGGED["species"], :RAGGED["pT"], :3, :RAGGED["phi"]]
+    mom = full[:, :RAGGED["species"], :RAGGED["pT"], :n_y, :RAGGED["phi"]]
     args = (ops.cell[:RAGGED["cells"]].contiguous(),
             mom.reshape(mom.shape[0], -1).contiguous(), cfg)
-    return _ragged_result(ck.cooper_frye_comp_3d,
-                          ck.cooper_frye_comp_3d_plain, args, Case3dResult)
+    return _ragged_result(
+        functools.partial(ck.cooper_frye_comp_3d, row_len=RAGGED["phi"],
+                          n_y=n_y),
+        ck.cooper_frye_comp_3d_plain, args, Case3dResult)
 
 
 # ----------------------------------------------------------------------

@@ -195,9 +195,9 @@ def _b1_3d_operands(workdir, n_surface=512, device="cuda", **cfg_fields):
                             cfg), cfg
 
 
-def _b1_3d_agrees(args):
-    out = ck.cooper_frye_comp_3d(*args)
-    again = ck.cooper_frye_comp_3d(*args)
+def _b1_3d_agrees(args, **layout):
+    out = ck.cooper_frye_comp_3d(*args, **layout)
+    again = ck.cooper_frye_comp_3d(*args, **layout)
     plain = ck.cooper_frye_comp_3d_plain(*args).cpu().numpy()[None]
     assert torch.equal(out, again)        # no atomics: the same bits
     out = out.cpu().numpy()[None]
@@ -233,6 +233,36 @@ def test_3d_kernel_ragged_case(workdir_3d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_y", [5, 1])
+def test_3d_kernel_ragged_y(workdir_3d, n_y):
+    """The ragged case on rapidity counts that the y tile does not divide
+    (5), and fewer than one tile (1)."""
+    _needs_cuda()
+    r = kc.check_3d_ragged_case(workdir_3d, 2048, 7, "cuda", n_y=n_y)
+    g = ck.cooper_frye_comp_3d.last_geometry
+    assert (g.n_y, g.row_len) == (n_y, kc.RAGGED["phi"])
+    assert r.launches == 1 and r.ok, r.vs_plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_y", [5, 1])
+@pytest.mark.parametrize("n_cells,stop_short", [(100, 0), (333, 3), (1, 9)])
+def test_3d_kernel_ragged_y_groups_and_splits(workdir_3d, n_y, n_cells,
+                                              stop_short):
+    """2 species x 3 pT x n_y y x 7 phi: y tiles cut short by the group's
+    end, a last group that stops inside a row, cells that fill neither the
+    last tile nor the last split."""
+    _needs_cuda()
+    ops, cfg = _b1_3d_operands(workdir_3d)
+    full = ops.mom.reshape(ops.mom.shape[0], len(CHOSEN), 16, 9, 8)
+    mom = full[:, :2, :3, :n_y, :7].reshape(ops.mom.shape[0], -1)
+    mom = mom[:, :mom.shape[1] - stop_short].contiguous()
+    _b1_3d_agrees((ops.cell[:n_cells].contiguous(), mom, cfg), row_len=7,
+                  n_y=n_y)
+    assert ck.cooper_frye_comp_3d.last_geometry.n_y == n_y
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_cells,n_mom", [(100, 504), (70, 100), (333, 165),
                                            (1, 7), (512, 5), (0, 21)])
 def test_3d_kernel_ragged_rows_and_splits(ragged_workdir_3d, n_cells, n_mom):
@@ -242,13 +272,13 @@ def test_3d_kernel_ragged_rows_and_splits(ragged_workdir_3d, n_cells, n_mom):
     _needs_cuda()
     ops, cfg = _b1_3d_operands(ragged_workdir_3d)
     mom = ops.mom[:, :n_mom].contiguous()
-    g = ck.geometry_3d(mom, n_cells)
+    g = ck.geometry_3d(mom, n_cells, 3)
     assert g.row_len == min(7, n_mom) and g.blocks <= 2
     args = (ops.cell[:n_cells].contiguous(), mom, cfg)
     if n_cells == 0:
-        assert not ck.cooper_frye_comp_3d(*args).any()
+        assert not ck.cooper_frye_comp_3d(*args, n_y=3).any()
         return
-    _b1_3d_agrees(args)
+    _b1_3d_agrees(args, n_y=3)
 
 
 @pytest.mark.gpu
@@ -264,7 +294,7 @@ def test_3d_kernel_every_template_combination(workdir_3d, flags):
         include_baryon=1, include_baryondiff_deltaf=diffusion,
         regulate_deltaf=regulate, outflow=outflow)
     assert df12_flags(cfg) == flags
-    _b1_3d_agrees((*ops.args(), cfg))
+    _b1_3d_agrees((*ops.args(), cfg), **ops.layout())
 
 
 @pytest.mark.parametrize("case", list(kc.CASES))

@@ -8,6 +8,9 @@ be read off the momentum rows; the split must depend on the shapes alone;
 and a block of B3 must never span more species than it stages renorms for.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -20,7 +23,12 @@ from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
 from is3d2_tpu_torch.ops import polarization_f32 as pz  # noqa: E402
 from is3d2_tpu_torch.ops.launch_geometry import (  # noqa: E402
     BLOCKS_PER_SM, H100_SMS, MAX_SPLIT, THREADS, cell_ranges, fill,
-    launch_geometry, momentum_index, row_length)
+    launch_geometry, launch_geometry_3d, momentum_index, momentum_index_3d,
+    row_length)
+
+
+_B1_SOURCE = (Path(ck.__file__).resolve().parent.parent / "csrc"
+              / "cooper_frye_comp.cu")
 
 
 def _rows(n_species, n_pT, n_phi, stop_short=0):
@@ -328,8 +336,6 @@ def test_resources_reads_the_cuobjdump_report():
 def test_another_tree_loads_under_a_name_of_its_own():
     """kernel_bench times another version of the package beside this one:
     its modules are its own, not this tree's."""
-    from pathlib import Path
-
     import is3d2_tpu_torch
     from is3d2_tpu_torch.tools.kernel_bench import KERNELS, load_tree
     root = Path(is3d2_tpu_torch.__file__).resolve().parent.parent
@@ -358,13 +364,9 @@ def test_disagreeing_species_are_those_furthest_from_this_tree():
     assert disagreeing_species(spectra, 3) == [1, 2, 4]
 
 
-@pytest.mark.parametrize("n_y", [1, 5, 21])
-@pytest.mark.parametrize("n_phi", [1, 7, 48])
-def test_3d_mode_reads_its_rows_off_the_light_cone_momenta(n_phi, n_y):
-    """B1's 3+1d mode: its momenta run (species, pT, y, phi), so m+, m-,
-    mass2, b and sign are constant along runs of n_phi; the geometry reads
-    that off the rows, and every momentum is owned exactly once by a thread
-    whose slots share those rows."""
+def _light_cone_momenta(n_phi, n_y):
+    """B1's 3+1d momentum rows of 3 species (pi+, pi-, p) x 3 pT x n_y y x
+    n_phi phi, from the port's own momentum_matrix_3d_comp."""
     from is3d2_tpu_torch.core.spectra import MomentumGridDevice, SpeciesArrays
     from is3d2_tpu_torch.core.spectra_fast import momentum_matrix_3d_comp
 
@@ -383,16 +385,130 @@ def test_3d_mode_reads_its_rows_off_the_light_cone_momenta(n_phi, n_y):
                             baryon=t([0.0, 0.0, 1.0]))
     rows = momentum_matrix_3d_comp(species, grid)
     mom = torch.stack([rows[k].float() for k in ck.MOM_ROWS_3D]).contiguous()
+    assert mom.shape[1] == 3 * 3 * n_y * n_phi
+    return mom
+
+
+@pytest.mark.parametrize("n_y", [1, 5, 21])
+@pytest.mark.parametrize("n_phi", [1, 7, 48])
+def test_3d_mode_reads_its_rows_off_the_light_cone_momenta(n_phi, n_y):
+    """B1's 3+1d mode: its momenta run (species, pT, y, phi), so m+, m-,
+    mass2, b and sign are constant along runs of n_phi; the geometry reads
+    that off the rows, and every momentum is owned exactly once by a thread
+    whose slots of one y row share those rows."""
+    mom = _light_cone_momenta(n_phi, n_y)
     M = mom.shape[1]
-    assert M == 3 * 3 * n_y * n_phi
-    g = ck.geometry_3d(mom, 1000)
+    g = ck.geometry_3d(mom, 1000, n_y)
     # pi+ and pi- share their rows: one run may span both, as in 2+1d
     assert g.row_len % n_phi == 0
-    g = ck.geometry_3d(mom, 1000, row_len=n_phi)
-    owner = momentum_index(g)
+    g = ck.geometry_3d(mom, 1000, n_y, row_len=n_phi)
+    assert (g.n_y, g.r, g.ty, g.threads) == (n_y, ck.TILE_3D.r,
+                                             ck.TILE_3D.ty,
+                                             ck.TILE_3D.threads)
+    owner = momentum_index_3d(g)
     np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
     keys = mom[:9].numpy()
-    for slots in owner.reshape(-1, g.r):
-        mine = slots[slots >= 0]
+    for row in owner.reshape(-1, g.r):
+        mine = row[row >= 0]
         if mine.size:
             assert (keys[:, mine] == keys[:, mine[:1]]).all()
+
+
+def _tiles():
+    from is3d2_tpu_torch.tools.kernel_bench import TILES_3D
+    return [ck.Tile3d(*(int(v) for v in spec.split("x")))
+            for spec in TILES_3D]
+
+
+@pytest.mark.parametrize("tile", _tiles(), ids=str)
+@pytest.mark.parametrize("n_phi", [1, 7, 48])
+@pytest.mark.parametrize("n_y", [1, 2, 3, 5, 7, 21])
+def test_3d_tile_stays_in_one_group_and_shares_its_columns(n_y, n_phi, tile):
+    """The 2-D register tile of B1's 3+1d mode (r phi x ty y), for every
+    tile the source may build and y counts the tile divides, does not
+    divide, or exceeds: every momentum is owned once; a thread's slots
+    never leave one (species, pT) group, so mass2, b and sign are equal
+    across them; and the slots of one phi column share px and py across
+    y, which the kernel forms once per (cell, phi)."""
+    mom = _light_cone_momenta(n_phi, n_y)
+    M = mom.shape[1]
+    g = ck.geometry_3d(mom, 300, n_y, tile, row_len=n_phi)
+    owner = momentum_index_3d(g)
+    assert owner.shape == (g.blocks, tile.threads, tile.ty, tile.r)
+    np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
+    rows = dict(zip(ck.MOM_ROWS_3D, mom.numpy()))
+    group = np.arange(M) // (n_y * n_phi)
+    for slots in owner.reshape(-1, tile.ty, tile.r):
+        mine = slots[slots >= 0]
+        if not mine.size:
+            continue
+        assert slots[0, 0] >= 0           # the kernel reads slot 0's rows
+        assert (group[mine] == group[mine[0]]).all()
+        for key in ("mass2", "b", "sgn"):
+            assert (rows[key][mine] == rows[key][mine[0]]).all()
+        for col in slots.T:               # one phi column, its y rows
+            col = col[col >= 0]
+            for key in ("px1", "px2", "pxf", "py1", "py2", "pyf"):
+                assert (rows[key][col] == rows[key][col[:1]]).all()
+    assert g.blocks == -(-g.groups * g.y_tiles * g.tiles_per_row
+                         // tile.threads)
+
+
+def test_3d_wrapper_refuses_a_call_without_n_y():
+    """The y tile cannot be read off the rows (pi+ and pi- may merge), so
+    the caller names the rapidity count; without it the wrapper raises
+    rather than take a tile of one y."""
+    from is3d2_tpu_torch.config import Config
+    mom = _light_cone_momenta(7, 5)
+    cell = torch.zeros((3, len(ck.CELL_COLS_3D)))
+    cfg = Config(compute_dtype="f32c", dimension=3)
+    with pytest.raises(ValueError, match="n_y"):
+        ck.cooper_frye_comp_3d(cell, mom, cfg)
+    with pytest.raises(ValueError, match="n_y"):
+        ck.cooper_frye_comp_3d(cell, mom, cfg, row_len=7)
+    out = ck.cooper_frye_comp_3d(cell, mom, cfg, row_len=7, n_y=5)
+    assert out.shape == (mom.shape[1],) and out.dtype == torch.float64
+
+
+def test_3d_tile_of_the_source_is_the_default_and_fits_shared_memory():
+    """TILE_3D is the source's kP3, kY3, kThreads3, kMinBlocks3; every
+    raced tile keeps the mode's static shared memory (the cell tile and
+    its rows' m+ and m-) under 48 KB and its threads a whole number of
+    warps."""
+    from is3d2_tpu_torch.tools.kernel_bench import TILE_LINE_3D, TILES_3D
+    src = _B1_SOURCE.read_text()
+    [line] = re.findall(TILE_LINE_3D, src)
+    assert ck.Tile3d(*map(int, re.findall(r"\d+", line)[1::2])) == ck.TILE_3D
+    assert "x".join(map(str, (ck.TILE_3D.r, ck.TILE_3D.ty, ck.TILE_3D.threads,
+                              ck.TILE_3D.blocks_per_sm))) in TILES_3D
+    for tile in _tiles():
+        rows = 8 * 3 * tile.ty * tile.threads
+        assert 4 * ck.TILE_CELLS_3D * len(ck.CELL_COLS_3D) + rows <= 48 * 1024
+        assert tile.threads % 32 == 0
+
+
+def test_3d_main_path_fills_the_card_without_a_split():
+    """Phase 24's shape, 99,753 live cells x 371 x 51 x 21 y x 48 phi:
+    18,921 groups of 7 y tiles x 12 phi tiles, whole waves of the card
+    without a cell split, for the tile the source builds."""
+    t = ck.TILE_3D
+    g = launch_geometry_3d(19_072_368, 48, 21, 99_753, t.r, t.ty,
+                           ck.TILE_CELLS_3D, t.threads, t.blocks_per_sm)
+    assert (g.groups, g.tiles_per_row) == (18_921, 12)
+    assert g.y_tiles == -(-21 // t.ty)
+    assert g.n_split == 1 and g.cells_per_split == 99_753
+    assert fill(g.blocks, t.blocks_per_sm * H100_SMS) > 0.95
+
+
+def test_tile_tree_rewrites_only_the_3d_tile(tmp_path):
+    """kernel_bench --tile3d races a copy of this tree whose source differs
+    in the 3+1d mode's tile line alone."""
+    from is3d2_tpu_torch.tools.kernel_bench import tile_tree
+    root = tile_tree("4x7x128x2", tmp_path)
+    new = (root / "is3d2_tpu_torch/csrc/cooper_frye_comp.cu").read_text()
+    old = _B1_SOURCE.read_text()
+    diff = [(a, b) for a, b in zip(old.splitlines(), new.splitlines())
+            if a != b]
+    assert diff == [(diff[0][0], "constexpr int kP3 = 4, kY3 = 7, "
+                                 "kThreads3 = 128, kMinBlocks3 = 2;")]
+    assert len(old.splitlines()) == len(new.splitlines())
