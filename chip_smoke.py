@@ -162,16 +162,46 @@ Phases (any failure raises; nothing is caught):
      kernel launch; the sampled dN/dy of pi+ and K+ in every bin at
      |y| < 1 within 5 sigma + 3 % of phase 24's dN/dy (the JAX package's
      3+1d closure bar; p is printed, ROADMAP C9); then OSCAR files with
-     df 2 at min_num_hadrons 1e6, checked as phase 13's.
+     df 2 at min_num_hadrons 1e6, checked as phase 13's;
+ 27. the multi-surface ensemble's spectra (core/ensemble.py) on the JAX
+     package's ensemble record (scripts/northstar.py:180-191): 64 surfaces
+     make_surface(4096, seed=1000 + i, shear 0.03, bulk 0.015), phase 5's
+     species and tables, df 1, f32c, cell_block 4096, surface_chunk 16.
+     One surface's route is queued under torch's sync debug mode "error"
+     (nothing synchronizes); then, in turns, the pipeline, the loop of 64
+     compute_spectra calls a user would otherwise write, the loop, the
+     pipeline: each with its wall, the kernel ms summed over its 64 B1
+     launches (CUDA events around each launch), the busy share (kernel /
+     wall) and the device's gap between one launch's end and the next one's
+     start.  The first pipeline run must launch B1 64 times and nothing
+     else; every surface equals its single run bit for bit, the two
+     pipeline runs equal each other, and surface_chunk None on the first 8
+     surfaces gives the same bits;
+ 28. the ensemble sampler on phase 27's surfaces: df 1, fast, y_cut 3, 10
+     events a surface into the test histograms, seed 5; no kernel may
+     launch; surface_chunk 16 and None equal on all 64 surfaces, and
+     surfaces 0 and 63 equal to sample_particles + ChunkBinner with
+     surface_seed(5, i); kept, drawn and seconds printed;
+ 29. the ensemble on the other routes, every surface bit-equal to its
+     single run and one launch of the route's kernel a surface: df 4 f32
+     (B3; 8 surfaces, shear 0.2, bulk 0.1), df 5 f32 (B3's famod mode and
+     the VAH reconstruction; 4 of phase 27's surfaces made EOS-consistent),
+     df 2 f64 with use_pallas 1 (B2; 4 surfaces), 3+1d df 1 f32c (B1's
+     3+1d mode; 4 surfaces make_surface(4096, dimension=3), phase 24's
+     tables, 21 y); then OSCAR particle lists, df 1, 8 surfaces x 10
+     events: one file an event, rows = kept = rows_written.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
-12-13's, 16's and 26's numbers.  The line before the last is a JSON object with each
+12-13's, 16's and 26's numbers, and one {"ensemble": {...}} phases
+27-29's.  The line before the last is a JSON object with each
 kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
 "operation0", phase 19 under B3's "operation0", each with the launches of
 its own path; P1's launches from phase 21, its folded instantiation's
 numbers at the top and the general one's under "general", each with its
 sfu_floor_ms beside the bound; B1 and B1's 3+1d mode, an entry of its
-own from phases 24-25, with fp32_issue_floor_ms beside it),
+own from phases 24-25, with fp32_issue_floor_ms beside it; each of B1,
+B2, B3 and B1's 3+1d mode with the launches and times of its ensemble
+runs in phases 27 and 29 under "ensemble"),
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
 (no single PyTorch call computes a Cooper-Frye or polarization sum), and
@@ -1845,6 +1875,371 @@ def phase_sampler_3d(tmp: Path, wd3: Path) -> dict:
     return r
 
 
+# ----------------------------------------------------------------------
+# phases 27-29: the multi-surface ensemble (core/ensemble.py)
+# ----------------------------------------------------------------------
+
+# the JAX package's ensemble record, scripts/northstar.py:180-191: 64
+# surfaces make_surface(4096, seed=1000 + i, shear 0.03, bulk 0.015), df 1,
+# cell_block 4096, surface_chunk 16; 10 events a surface at y_cut 3, seed 5
+ENSEMBLE_SURFACES = 64
+ENSEMBLE_CELLS = 4096
+ENSEMBLE_SEED0 = 1000
+ENSEMBLE_CHUNK = 16
+ENSEMBLE_SURFACE = {"shear_scale": 0.03, "bulk_scale": 0.015}
+ENSEMBLE_EVENTS = 10
+ENSEMBLE_SAMPLER_SEED = 5
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """A CUDA event before and after every launch of B1 (both modes), B2
+    and B3 while the block runs: yields the list of (kernel, start, end)
+    it fills.  The wrappers call their module's launch functions by name,
+    so wrapping those times each launch and nothing else."""
+    from is3d2_tpu_torch.ops import cooper_frye_comp as ck
+    from is3d2_tpu_torch.ops import cooper_frye_f32 as b2
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    spans = []
+    targets = [(ck, "launch", "cooper_frye_comp"),
+               (ck, "launch_3d", "cooper_frye_comp_3d"),
+               (b2, "launch", "cooper_frye_f32"),
+               (fk, "launch", "cooper_frye_feqmod")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return run
+
+    for (mod, attr, fn), (_, _, name) in zip(saved, targets):
+        setattr(mod, attr, timed(name, fn))
+    try:
+        yield spans
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def span_stats(spans, wall_s: float) -> dict:
+    """Kernel ms summed over ``spans``, the busy share of ``wall_s``, and
+    the device's gaps between one launch's end and the next one's start."""
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for _, s, e in spans]
+    gaps = [spans[k][2].elapsed_time(spans[k + 1][1])
+            for k in range(len(spans) - 1)]
+    return {"wall_s": wall_s, "launches": len(spans),
+            "kernel_ms": float(sum(ms)),
+            "kernel_ms_each": {"min": float(min(ms)), "max": float(max(ms)),
+                               "median": float(np.median(ms))},
+            "busy_share": float(sum(ms)) / (wall_s * 1e3),
+            "gap_ms": {"median": float(np.median(gaps)) if gaps else 0.0,
+                       "max": float(max(gaps)) if gaps else 0.0}}
+
+
+def ensemble_inputs(wd: Path, df_mode: int, plasma_surface):
+    """The species (all of them chosen), grids, Gauss-Laguerre table and
+    delta-f data of a workdir, as the driver builds them (the Jonah splines
+    at ``plasma_surface``'s averages)."""
+    from is3d2_tpu_torch.io.deltaf_tables import DeltafTables
+    from is3d2_tpu_torch.io.pdg import read_pdg
+    from is3d2_tpu_torch.io.tables import (GaussLaguerre, MomentumGrids,
+                                           load_table)
+    from is3d2_tpu_torch.physics.deltaf import DeltafData
+    species = read_pdg(3, wd / "PDG")
+    chosen = species.chosen_indices(load_table(
+        wd / "PDG/chosen_particles.dat")[:, 0].astype(int))
+    laguerre = GaussLaguerre.from_file(
+        wd / "tables/gauss/gla_roots_weights.txt")
+    df_data = DeltafData(DeltafTables.load(3, False,
+                                           wd / "deltaf_coefficients/vh"),
+                         df_mode, False)
+    df_data.compute_jonah_coefficients(species, laguerre,
+                                       plasma_surface.thermo_averages())
+    return species, chosen, MomentumGrids.from_dir(wd / "tables"), \
+        laguerre, df_data
+
+
+def counted(fn, kernel: str | None, n: int):
+    """fn() with every launch count set to 0 just before and read just
+    after: ``kernel`` must launch ``n`` times and no other kernel (with
+    ``kernel`` None, none).  Returns (fn's result, launches, wall s)."""
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    want = {name: (n if name == kernel else 0) for name in counters}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return out, launches, wall
+
+
+def phase_ensemble_spectra(wd1: Path) -> dict:
+    print(f"== 27. ensemble spectra: {ENSEMBLE_SURFACES} surfaces x "
+          f"{ENSEMBLE_CELLS} cells, all species, 51 x 48 x 24, df 1, f32c "
+          f"(B1), cell_block {ENSEMBLE_CELLS}, surface_chunk "
+          f"{ENSEMBLE_CHUNK}")
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.core.ensemble import compute_spectra_ensemble
+    from is3d2_tpu_torch.core.spectra import compute_spectra, spectra_on_device
+    from is3d2_tpu_torch.tools.synthetic import make_ensemble
+    surfs = make_ensemble(ENSEMBLE_SURFACES, ENSEMBLE_CELLS, ENSEMBLE_SEED0,
+                          **ENSEMBLE_SURFACE)
+    species, chosen, grids, laguerre, df_data = ensemble_inputs(
+        wd1, 1, surfs[0])
+    cfg = Config.from_file(wd1 / "iS3D_parameters.dat")
+    cfg = dataclasses.replace(cfg, df_mode=1, compute_dtype="f32c",
+                              cell_block=ENSEMBLE_CELLS)
+    args = (species, chosen, grids, df_data, cfg)
+
+    # one surface's enqueue at full width synchronizes nothing
+    spectra_on_device(surfs[0], *args, "cuda")
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spectra_on_device(surfs[0], *args, "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    print("one surface's route queued under sync debug mode 'error': no "
+          "synchronizing operation")
+
+    def pipeline():
+        return compute_spectra_ensemble(surfs, *args,
+                                        surface_chunk=ENSEMBLE_CHUNK)
+
+    def plain_loop():
+        return [compute_spectra(s, *args, "cuda") for s in surfs]
+
+    # in turns, pipeline, loop, loop, pipeline, each timed by its wall and
+    # by CUDA events around every launch; the launch count of the first
+    torch.cuda.reset_peak_memory_stats()
+    with timed_launches() as spans:
+        out, launches, wall = counted(pipeline, "cooper_frye_comp",
+                                      ENSEMBLE_SURFACES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runs = {"pipeline": [span_stats(spans, wall)], "plain_loop": []}
+    for name, fn in (("plain_loop", plain_loop), ("plain_loop", plain_loop),
+                     ("pipeline", pipeline)):
+        with timed_launches() as spans:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[name].append(span_stats(spans, wall))
+        if name == "plain_loop":
+            # every surface equals its single run, bit for bit
+            for i, one in enumerate(res):
+                if not np.array_equal(out[i], one):
+                    raise AssertionError(f"ensemble surface {i} differs "
+                                         "from its single run")
+        elif not np.array_equal(res, out):
+            raise AssertionError("two ensemble runs gave different bits")
+        del res
+    if out.shape != (ENSEMBLE_SURFACES, len(chosen), 51, 48, 1) \
+            or not np.isfinite(out).all() or (out < 0).any():
+        raise AssertionError(f"ensemble spectra: shape {out.shape}, or a "
+                             "value not finite or negative")
+    print(f"spectra {out.shape} f64, {out.nbytes / 1e6:.1f} MB on the host; "
+          f"all {ENSEMBLE_SURFACES} surfaces bit-equal to single "
+          f"compute_spectra runs; peak device memory {peak_gb:.3f} GB")
+    first = compute_spectra_ensemble(surfs[:8], *args)
+    if not np.array_equal(first, out[:8]):
+        raise AssertionError("surface_chunk None differs on the first 8")
+    print("surface_chunk None on the first 8 surfaces: equal bits")
+    for name, rs in runs.items():
+        for r in rs:
+            print(f"{name}: wall {r['wall_s']:.3f} s, {r['launches']} "
+                  f"launches, kernel {r['kernel_ms']:.1f} ms (median "
+                  f"{r['kernel_ms_each']['median']:.2f} ms a surface), busy "
+                  f"{100 * r['busy_share']:.1f} %, gap between launches "
+                  f"median {r['gap_ms']['median']:.3f} ms, max "
+                  f"{r['gap_ms']['max']:.3f} ms")
+    ratio = (np.mean([r["wall_s"] for r in runs["pipeline"]])
+             / np.mean([r["wall_s"] for r in runs["plain_loop"]]))
+    print(f"pipeline wall / plain loop wall: {ratio:.4f}")
+    return {"surfaces": ENSEMBLE_SURFACES, "cells": ENSEMBLE_CELLS,
+            "launches": launches["cooper_frye_comp"], **runs,
+            "pipeline_over_plain_loop_wall": float(ratio),
+            "peak_device_memory_gb": peak_gb,
+            "evaluations_per_surface": ENSEMBLE_CELLS * 12 * out[0].size}
+
+
+def phase_ensemble_sampler(wd1: Path) -> dict:
+    print(f"== 28. ensemble sampler: phase 27's {ENSEMBLE_SURFACES} "
+          f"surfaces, df 1, {ENSEMBLE_EVENTS} events a surface into the test "
+          f"histograms, y_cut 3, seed {ENSEMBLE_SAMPLER_SEED}")
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.core import ensemble as ens
+    from is3d2_tpu_torch.core.sampler import sample_particles, surface_seed
+    from is3d2_tpu_torch.core.sampler_hist import ChunkBinner
+    from is3d2_tpu_torch.physics.deltaf import compute_particle_densities
+    from is3d2_tpu_torch.tools.synthetic import make_ensemble
+    surfs = make_ensemble(ENSEMBLE_SURFACES, ENSEMBLE_CELLS, ENSEMBLE_SEED0,
+                          **ENSEMBLE_SURFACE)
+    species, chosen, _, laguerre, df_data = ensemble_inputs(wd1, 1, surfs[0])
+    cfg = dataclasses.replace(Config.from_file(wd1 / "iS3D_parameters.dat"),
+                              operation=2, df_mode=1, y_cut=3.0, fast=1,
+                              cell_block=ENSEMBLE_CELLS)
+    args = (surfs, species, chosen, df_data, cfg, laguerre, ENSEMBLE_EVENTS,
+            1 << 19)
+    diags = []
+    inner = ens.sample_particles
+
+    def kept_and_drawn(*a, **kw):
+        d = inner(*a, **kw)
+        diags.append(d)
+        return d
+
+    ens.sample_particles = kept_and_drawn
+    try:
+        (hists, overflow), _, wall = counted(
+            lambda: ens.sample_ensemble_histograms(
+                *args, seed=ENSEMBLE_SAMPLER_SEED,
+                surface_chunk=ENSEMBLE_CHUNK), None, 0)
+    finally:
+        ens.sample_particles = inner
+    kept = sum(d["kept"] for d in diags)
+    drawn = sum(d["drawn"] for d in diags)
+    print(f"{len(diags)} surfaces sampled in {wall:.3f} s: {kept} kept / "
+          f"{drawn} drawn hadrons ({drawn / kept:.3f} drawn a kept one); "
+          f"overflow {int(overflow.sum())}")
+    if overflow.any() or kept < ENSEMBLE_SURFACES * ENSEMBLE_EVENTS:
+        raise AssertionError("ensemble sampler: overflow or no hadrons")
+    again, _ = ens.sample_ensemble_histograms(*args,
+                                              seed=ENSEMBLE_SAMPLER_SEED)
+    for k in hists:
+        if not np.array_equal(hists[k], again[k]):
+            raise AssertionError(f"{k}: surface_chunk None differs")
+    print("surface_chunk 16 and None: equal bits on all 64 surfaces")
+    for i in (0, ENSEMBLE_SURFACES - 1):
+        table = dataclasses.replace(species)
+        compute_particle_densities(table, df_data, laguerre,
+                                   surfs[i].thermo_averages())
+        binner = ChunkBinner(len(chosen), cfg)
+        sample_particles(surfs[i], table, chosen, df_data, cfg, laguerre,
+                         ENSEMBLE_EVENTS, "cuda",
+                         seed=surface_seed(ENSEMBLE_SAMPLER_SEED, i),
+                         chunk_consumer=binner)
+        one = binner.result(ENSEMBLE_EVENTS)
+        for k in hists:
+            if not np.array_equal(hists[k][i], getattr(one, k)):
+                raise AssertionError(f"surface {i}, {k}: differs from its "
+                                     "single run")
+    print("surfaces 0 and 63 bit-equal to sample_particles + ChunkBinner "
+          "with surface_seed(5, i)")
+    return {"surfaces": ENSEMBLE_SURFACES, "events_per_surface":
+            ENSEMBLE_EVENTS, "kept": kept, "drawn": drawn,
+            "compute_s": wall, "dN_dy_shape": list(hists["dN_dy"].shape)}
+
+
+def check_single_runs(label, surfs, inputs, cfg, kernel):
+    """The ensemble of ``surfs`` (``kernel`` launches once a surface, no
+    other) against single compute_spectra runs, bit for bit."""
+    from is3d2_tpu_torch.core.ensemble import compute_spectra_ensemble
+    from is3d2_tpu_torch.core.spectra import compute_spectra
+    species, chosen, grids, laguerre, df_data = inputs
+    args = (species, chosen, grids, df_data, cfg)
+    with timed_launches() as spans:
+        out, launches, wall = counted(
+            lambda: compute_spectra_ensemble(surfs, *args, laguerre,
+                                             surface_chunk=ENSEMBLE_CHUNK),
+            kernel, len(surfs))
+    stats = span_stats(spans, wall)
+    for i, s in enumerate(surfs):
+        if not np.array_equal(out[i], compute_spectra(s, *args, "cuda",
+                                                      laguerre)):
+            raise AssertionError(f"{label}: surface {i} differs from its "
+                                 "single run")
+    if not np.isfinite(out).all():
+        raise AssertionError(f"{label}: spectra not finite")
+    print(f"{label}: {len(surfs)} surfaces, {launches[kernel]} launches of "
+          f"{kernel}, wall {wall:.3f} s, kernel {stats['kernel_ms']:.1f} ms, "
+          f"busy {100 * stats['busy_share']:.1f} %; every surface bit-equal "
+          "to its single run")
+    return stats
+
+
+def phase_ensemble_routes(tmp: Path, wd1: Path, wd3: Path) -> dict:
+    print("== 29. ensemble routes: B3 (df 4, df 5), B2, B1's 3+1d mode, "
+          "each surface against its single run; OSCAR particle lists")
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.core.ensemble import sample_ensemble_particle_lists
+    from is3d2_tpu_torch.tools.synthetic import (make_ensemble,
+                                                 make_eos_consistent,
+                                                 make_surface)
+    base = dataclasses.replace(Config.from_file(wd1 / "iS3D_parameters.dat"),
+                               cell_block=ENSEMBLE_CELLS)
+    r = {}
+    surfs = make_ensemble(8, ENSEMBLE_CELLS, ENSEMBLE_SEED0, shear_scale=0.2,
+                          bulk_scale=0.1)
+    r["df4"] = check_single_runs(
+        "df 4, f32, shear 0.2, bulk 0.1", surfs,
+        ensemble_inputs(wd1, 4, surfs[0]),
+        dataclasses.replace(base, df_mode=4, compute_dtype="f32"),
+        "cooper_frye_feqmod")
+    surfs = make_ensemble(4, ENSEMBLE_CELLS, ENSEMBLE_SEED0,
+                          **ENSEMBLE_SURFACE)
+    inputs = ensemble_inputs(wd1, 5, surfs[0])
+    surfs = [make_eos_consistent(s, inputs[0], inputs[3], "cuda")
+             for s in surfs]
+    r["df5"] = check_single_runs(
+        "df 5, f32, EOS-consistent", surfs, inputs,
+        dataclasses.replace(base, df_mode=5, compute_dtype="f32"),
+        "cooper_frye_feqmod")
+    surfs = make_ensemble(4, ENSEMBLE_CELLS, ENSEMBLE_SEED0,
+                          **ENSEMBLE_SURFACE)
+    r["df2_use_pallas"] = check_single_runs(
+        "df 2, f64, use_pallas 1", surfs, ensemble_inputs(wd1, 2, surfs[0]),
+        dataclasses.replace(base, df_mode=2, compute_dtype="f64",
+                            use_pallas=1), "cooper_frye_f32")
+    surfs = [make_surface(ENSEMBLE_CELLS, seed=ENSEMBLE_SEED0 + i,
+                          dimension=3) for i in range(4)]
+    cfg3 = dataclasses.replace(Config.from_file(wd3 / "iS3D_parameters.dat"),
+                               df_mode=1, compute_dtype="f32c",
+                               cell_block=ENSEMBLE_CELLS)
+    r["3d"] = check_single_runs("3+1d df 1, f32c, 21 y", surfs,
+                                ensemble_inputs(wd3, 1, surfs[0]), cfg3,
+                                "cooper_frye_comp_3d")
+
+    surfs = make_ensemble(8, ENSEMBLE_CELLS, ENSEMBLE_SEED0,
+                          **ENSEMBLE_SURFACE)
+    species, chosen, _, laguerre, df_data = ensemble_inputs(wd1, 1, surfs[0])
+    cfg = dataclasses.replace(base, operation=2, df_mode=1, y_cut=3.0,
+                              fast=1)
+    root = tmp / "ensemble_lists"
+    stats, _, wall = counted(lambda: sample_ensemble_particle_lists(
+        surfs, species, chosen, df_data, cfg, laguerre, ENSEMBLE_EVENTS,
+        1 << 19, root, seed=ENSEMBLE_SAMPLER_SEED,
+        surface_chunk=ENSEMBLE_CHUNK), None, 0)
+    rows_all = 0
+    for i, st in enumerate(stats):
+        files = sorted((root / f"surface_{i}").glob("particle_list_osc_*"))
+        rows = sum(f.read_bytes().partition(b"\n")[2].count(b"\n")
+                   for f in files)
+        if not (len(files) == ENSEMBLE_EVENTS == st["events_written"]
+                and rows == st["kept"] == st["rows_written"] > 0):
+            raise AssertionError(f"surface {i}: {len(files)} files, {rows} "
+                                 f"rows, stats {st}")
+        rows_all += rows
+    print(f"OSCAR particle lists: {len(stats)} surfaces x {ENSEMBLE_EVENTS} "
+          f"files, {rows_all} rows = kept = rows_written, {wall:.3f} s")
+    r["particle_lists"] = {"surfaces": len(stats), "rows": rows_all,
+                           "wall_s": wall}
+    return r
+
+
 def main() -> int:
     card = phase_environment()
     # the package is imported only now: a copy of this script alone, or a
@@ -1885,6 +2280,9 @@ def main() -> int:
         b1_3d = phase_b1_3d_full(wd3, sass["b1_3d"])
         op0_3d = phase_op0_3d(tmp, wd3)
         op2_3d = phase_sampler_3d(tmp, wd3)
+        ens_spectra = phase_ensemble_spectra(wd1)
+        ens_sampler = phase_ensemble_sampler(wd1)
+        ens_routes = phase_ensemble_routes(tmp, wd1, wd3)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1895,6 +2293,9 @@ def main() -> int:
     print(json.dumps({"sampler": {"card": card, "histograms": op2_hist,
                                   "oscar": op2_oscar, "famod": op2_famod,
                                   "histograms_3d": op2_3d}}))
+    print(json.dumps({"ensemble": {"card": card, "spectra": ens_spectra,
+                                   "sampler": ens_sampler,
+                                   "routes": ens_routes}}))
     print(card)
     print(json.dumps({"kernels": [
         {"name": "cooper_frye_comp", "route": "cuda",
@@ -1903,7 +2304,11 @@ def main() -> int:
          "launches": b1_launches, **b1,
          # phase 17: the grouped mode-6 main path; phase 18: operation 0,
          # one launch per non-empty bin
-         "grouped_mode6": grouped, "operation0": op0_b1},
+         "grouped_mode6": grouped, "operation0": op0_b1,
+         # phase 27: the 64-surface ensemble, one launch a surface
+         "ensemble": {"launches": ens_spectra["launches"],
+                      "pipeline": ens_spectra["pipeline"],
+                      "plain_loop": ens_spectra["plain_loop"]}},
         {"name": "cooper_frye_feqmod", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_feqmod_pallas.py:68",
@@ -1911,11 +2316,16 @@ def main() -> int:
          # the famod mode (df 5) on its own main path, phases 14-15
          "famod": {"launches": b3f_launches, **b3f, **famod},
          # phase 19: operation 0, dan-weighted, one launch per bin
-         "operation0": op0_b3},
+         "operation0": op0_b3,
+         # phase 29: ensembles of 8 df-4 and 4 df-5 surfaces
+         "ensemble": {"df4": ens_routes["df4"],
+                      "famod": ens_routes["df5"]}},
         {"name": "cooper_frye_f32", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_f32.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:83",
-         "launches": b2_launches, **b2},
+         "launches": b2_launches, **b2,
+         # phase 29: an ensemble of 4 surfaces
+         "ensemble": ens_routes["df2_use_pallas"]},
         {"name": "polarization_f32", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/polarization_f32.cu",
          # an XLA program: the JAX package has no Pallas kernel for it
@@ -1932,7 +2342,9 @@ def main() -> int:
          "launches": b1_3d_launches, **b1_3d,
          "stage_seconds": b1_3d_stages,
          # phase 25: operation 0 in 3+1d, the f64 engine on a cut
-         "operation0_f64_engine": op0_3d}]}))
+         "operation0_f64_engine": op0_3d,
+         # phase 29: an ensemble of 4 surfaces
+         "ensemble": ens_routes["3d"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,6 +17,18 @@ from ..config import Config
 from ..io.surface import SurfaceData
 from ..physics import lrf
 from ..physics.deltaf import DeltafCoefficients, DeltafData
+from ..transfer import to_device
+
+
+@dataclasses.dataclass(frozen=True)
+class HostFacts:
+    """What the host knows of the padded columns it uploaded, so that no
+    route reads them back from the device: the fold gate's six maxima
+    (max |un|, |dan|, |pitn|, |pixn|, |piyn|, |Vn|) and the indices of the
+    cells with mask > 0."""
+
+    odd_max: tuple
+    live: np.ndarray
 
 
 @dataclasses.dataclass
@@ -74,6 +86,10 @@ class CellArrays:
     wxn: torch.Tensor
     wyn: torch.Tensor
 
+    # HostFacts of the columns, set by prepare_cells; None on cells built
+    # otherwise (interop, slices).  Not a field: it is no per-cell tensor
+    host = None
+
     @property
     def n_padded(self) -> int:
         return self.tau.shape[0]
@@ -94,6 +110,9 @@ def prepare_cells(surf: SurfaceData, cfg: Config, device,
 
     The padding is host numpy (as in the JAX package); the shear completion
     runs in torch f64 on the host, so its bits do not depend on the device.
+    The columns go to a CUDA device through pinned memory without waiting
+    for the kernels already queued (transfer.to_device), and the result
+    carries the HostFacts of the columns.
     """
     n = surf.n_cells
     block = block or cfg.cell_block
@@ -157,10 +176,9 @@ def prepare_cells(surf: SurfaceData, cfg: Config, device,
         Vt = Vx = Vy = Vn = ratio = zeros
 
     def j(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
-                               device=device)
+        return to_device(np.ascontiguousarray(a), device)
 
-    return CellArrays(
+    cells = CellArrays(
         mask=j(mask), pad_mask=j(pad_mask), tau=j(tau), x=j(_pad(surf.x, pad)),
         y_pos=j(_pad(surf.y, pad)), eta=j(_pad(surf.eta, pad)), dat=j(dat), dax=j(dax), day=j(day),
         dan=j(dan), ux=j(ux), uy=j(uy), un=j(un), ut=j(ut), T=j(T), P=j(P),
@@ -170,6 +188,11 @@ def prepare_cells(surf: SurfaceData, cfg: Config, device,
         Vt=j(Vt), Vx=j(Vx), Vy=j(Vy), Vn=j(Vn), baryon_enthalpy_ratio=j(ratio),
         **{f: j(_pad(getattr(surf, f), pad)) for f in _VORTICITY},
     )
+    cells.host = HostFacts(
+        odd_max=tuple(float(np.abs(a).max())
+                      for a in (un, dan, pitn, pixn, piyn, Vn)),
+        live=np.flatnonzero(mask > 0.0))
+    return cells
 
 
 def evaluate_cell_deltaf(cells: CellArrays, df_data: DeltafData,

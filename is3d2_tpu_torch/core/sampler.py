@@ -975,6 +975,17 @@ def chunk_plan(mean_1ev: float, n_events: int, cfg: Config) -> int:
     return n_events
 
 
+def surface_seed(seed: int, i: int) -> int:
+    """The campaign seed of surface ``i`` of a multi-surface run seeded
+    with ``seed`` (core/ensemble.py): a 31-bit draw of
+    np.random.SeedSequence([seed, i]), so that each surface's stream is
+    keyed by its index in the whole ensemble and not by how the ensemble
+    is split (the JAX package folds the index into its key,
+    jax.random.fold_in(PRNGKey(seed), i))."""
+    state = np.random.SeedSequence([int(seed), int(i)]).generate_state(1)
+    return int(state[0]) & 0x7FFFFFFF
+
+
 def campaign_seed(cfg: Config, seed: int | None) -> int:
     if seed is not None:
         return int(seed)

@@ -127,3 +127,13 @@ class ChunkBinner:
 
     def result(self, n_events: int) -> SampledHistograms:
         return _result(self._acc, n_events)
+
+
+def stack_histograms(hists: list) -> dict:
+    """Per-surface SampledHistograms as the JAX ensemble's dict: each key
+    of is3d2_tpu/core/sampler_hist.py::bin_histograms_device (the raw
+    counts and v_n sums, pT_count included) with a leading surface axis,
+    (n_surfaces, S, bins) and (n_surfaces, K_MAX, S, pT_bins) for v_n.
+    Counts stay int64, the v_n sums f64."""
+    names = (*_COUNTS, "pT_count", "vn_real", "vn_imag")
+    return {k: np.stack([getattr(h, k) for h in hists]) for k in names}

@@ -35,6 +35,7 @@ from ..constants import hbarC
 from ..io.pdg import SpeciesTable
 from ..io.tables import MomentumGrids
 from ..physics.deltaf import DeltafData
+from ..transfer import to_device
 from .cells import CellArrays, evaluate_cell_deltaf, prepare_cells
 
 PREFACTOR = (2.0 * math.pi * hbarC) ** -3  # CF prefactor (MomentumSpectra.cpp:38)
@@ -59,7 +60,7 @@ class SpeciesArrays:
     def from_table(cls, table: SpeciesTable, indices: np.ndarray,
                    device) -> "SpeciesArrays":
         def t(a):
-            return torch.as_tensor(a[indices], dtype=f64, device=device)
+            return to_device(a[indices], device)
         return cls(mass=t(table.mass), sign=t(table.sign),
                    degeneracy=t(table.gspin), baryon=t(table.baryon))
 
@@ -79,19 +80,26 @@ class MomentumGridDevice:
     eta: torch.Tensor
     eta_weight: torch.Tensor
 
+    # host (eta, eta_weight) f64 arrays, set where the grid is built from
+    # host tables, so that the eta fold reads nothing back; not a field
+    host_eta = None
+
     @classmethod
     def from_grids(cls, g: MomentumGrids, dimension: int,
                    device) -> "MomentumGridDevice":
         def t(a):
-            return torch.as_tensor(np.asarray(a), dtype=f64, device=device)
+            return to_device(np.asarray(a), device)
         if dimension == 2:
             y, eta, eta_w = np.zeros(1), g.eta, g.eta_weight
         else:
             y, eta, eta_w = g.y, np.zeros(1), np.ones(1)
-        return cls(pT=t(g.pT), pT_weight=t(g.pT_weight),
+        grid = cls(pT=t(g.pT), pT_weight=t(g.pT_weight),
                    cos_phi=t(np.cos(g.phi)), sin_phi=t(np.sin(g.phi)),
                    phi_weight=t(g.phi_weight), y=t(y), eta=t(eta),
                    eta_weight=t(eta_w))
+        grid.host_eta = (np.asarray(eta, dtype=np.float64),
+                         np.asarray(eta_w, dtype=np.float64))
+        return grid
 
 
 def df12_cell_coefficients(cells: CellArrays, df_data: DeltafData,
@@ -229,11 +237,12 @@ def spectra_df12(cells: CellArrays, coeffs: dict, species: SpeciesArrays,
 def engine_inputs(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
                   grids: MomentumGrids, cfg: Config, device, report=None):
     """Per-cell tensors, species and grid on ``device``.  ``report`` (a
-    report.RunReport) collects the skipped-cell count."""
+    report.RunReport) collects the skipped-cell count, counted on the
+    host."""
     cells = prepare_cells(surf, cfg, device)
     if report is not None:
         report.n_cells = surf.n_cells
-        report.skipped_cells = surf.n_cells - int(cells.mask.sum().item())
+        report.skipped_cells = surf.n_cells - len(cells.host.live)
     return (cells, SpeciesArrays.from_table(species_table, chosen_idx, device),
             MomentumGridDevice.from_grids(grids, cfg.dimension, device))
 
@@ -259,19 +268,8 @@ def uses_feqmod_kernel(cfg: Config) -> bool:
 def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
                     grids: MomentumGrids, df_data: DeltafData, cfg: Config,
                     device, laguerre=None, report=None) -> np.ndarray:
-    """Continuous spectra dN/(pT dpT dphi dy), shape (S, NpT, Nphi, Ny).
-
-    df 1/2, routed as the JAX package routes one device
-    (is3d2_tpu/core/spectra.py:354-420): "f32" and "f32c" run the
-    compensated kernel B1 (in 3+1d its 3+1d mode); "f64" runs the
-    plain-f32 kernel B2 with use_pallas = 1 in 2+1d and the torch f64
-    engine otherwise.  df 3/4 (``laguerre``
-    needed): the feqmod prep,
-    then kernel B3 (see uses_feqmod_kernel) or the torch f64 feqmod engine.
-    df 5: the famod prep (the VAH reconstruction, or a mode-2/3 surface's
-    own variables), then kernel B3's famod mode (the same routes) or the
-    torch f64 famod engine.  A kernel runs as CUDA on a GPU device and as
-    its plain version on the CPU.
+    """Continuous spectra dN/(pT dpT dphi dy), shape (S, NpT, Nphi, Ny):
+    spectra_on_device's result, brought to the host.
 
     With cfg.group_particles, species within particle_diff_tolerance in
     mass (same sign, and baryon number with baryons on) share one spectra
@@ -291,26 +289,51 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
             deg = species_table.gspin[chosen_idx]
             scale = deg / deg[rep_pos][group_of]
             return rep_out[group_of] * scale[:, None, None, None]
+    return spectra_on_device(surf, species_table, chosen_idx, grids, df_data,
+                             cfg, device, laguerre, report).cpu().numpy()
+
+
+def spectra_on_device(surf, species_table: SpeciesTable,
+                      chosen_idx: np.ndarray, grids: MomentumGrids,
+                      df_data: DeltafData, cfg: Config, device,
+                      laguerre=None, report=None) -> torch.Tensor:
+    """The spectra of the chosen species, one evaluation each (no
+    grouping), as an (S, NpT, Nphi, Ny) f64 tensor on ``device``.
+
+    df 1/2, routed as the JAX package routes one device
+    (is3d2_tpu/core/spectra.py:354-420): "f32" and "f32c" run the
+    compensated kernel B1 (in 3+1d its 3+1d mode); "f64" runs the
+    plain-f32 kernel B2 with use_pallas = 1 in 2+1d and the torch f64
+    engine otherwise.  df 3/4 (``laguerre``
+    needed): the feqmod prep,
+    then kernel B3 (see uses_feqmod_kernel) or the torch f64 feqmod engine.
+    df 5: the famod prep (the VAH reconstruction, or a mode-2/3 surface's
+    own variables), then kernel B3's famod mode (the same routes) or the
+    torch f64 famod engine.  A kernel runs as CUDA on a GPU device and as
+    its plain version on the CPU.
+
+    On a GPU, df 1-4 queue their work without waiting for the device: the
+    uploads are asynchronous and the gates and counts come from the host
+    columns (cells.HostFacts), so the host can prepare the next surface
+    while this one computes (core/ensemble.py).  df 5's reconstruction
+    reads its Newton's convergence back, and waits.
+    """
     if cfg.df_mode == 5:
         from .spectra_famod import famod_state, spectra_famod
         state = famod_state(surf, species_table, chosen_idx, grids, cfg,
                             device, report)
         if uses_feqmod_kernel(cfg):
             from ..ops.cooper_frye_feqmod import compute_spectra_famod_kernel
-            out = compute_spectra_famod_kernel(*state, cfg)
-        else:
-            out = spectra_famod(*state, cfg)
-        return out.cpu().numpy()
+            return compute_spectra_famod_kernel(*state, cfg)
+        return spectra_famod(*state, cfg)
     if cfg.df_mode in (3, 4):
         from .spectra_feqmod import feqmod_state, spectra_feqmod
         state = feqmod_state(surf, species_table, chosen_idx, grids, df_data,
                              cfg, device, laguerre, report)
         if uses_feqmod_kernel(cfg):
             from ..ops.cooper_frye_feqmod import compute_spectra_feqmod_kernel
-            out = compute_spectra_feqmod_kernel(*state, cfg)
-        else:
-            out = spectra_feqmod(*state, cfg)
-        return out.cpu().numpy()
+            return compute_spectra_feqmod_kernel(*state, cfg)
+        return spectra_feqmod(*state, cfg)
     state = df12_state(surf, species_table, chosen_idx, grids, df_data, cfg,
                        device, report)
     # use_pallas = -1 means "the kernel" in the port on any device (on the
@@ -322,10 +345,8 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     # 2+1d only, as the JAX package's _kernel is
     if cfg.compute_dtype in ("f32", "f32c"):
         from ..ops.spectra_fast_common import compute_spectra_comp
-        out = compute_spectra_comp(*state, cfg)
-    elif cfg.use_pallas == 1 and cfg.dimension == 2:
+        return compute_spectra_comp(*state, cfg)
+    if cfg.use_pallas == 1 and cfg.dimension == 2:
         from ..ops.spectra_fast_common import compute_spectra_f32
-        out = compute_spectra_f32(*state, cfg)
-    else:
-        out = spectra_df12(*state, cfg)
-    return out.cpu().numpy()
+        return compute_spectra_f32(*state, cfg)
+    return spectra_df12(*state, cfg)

@@ -29,6 +29,7 @@ from ..io.tables import MomentumGrids
 from ..physics import lrf
 from ..physics.aniso import (compute_famod_coefficients,
                              find_anisotropic_variables)
+from ..transfer import to_device
 from .cells import CellArrays, prepare_cells
 from .spectra import (_F64_BLOCK_ELEMENTS, PREFACTOR, MomentumGridDevice,
                       SpeciesArrays)
@@ -93,7 +94,7 @@ def reconstruction_species(table: SpeciesTable, device):
     n = min(MAX_RECON_SPECIES, len(table))
 
     def t(a):
-        return torch.as_tensor(np.asarray(a[:n]), dtype=f64, device=device)
+        return to_device(np.asarray(a[:n]), device)
     return t(table.mass), t(table.sign), t(table.gspin)
 
 
@@ -111,7 +112,7 @@ def solver_species(table: SpeciesTable, device):
     mass, sign = zip(*merged)
 
     def t(a):
-        return torch.as_tensor(a, dtype=f64, device=device)
+        return to_device(a, device)
     return t(mass), t(sign), t(list(merged.values()))
 
 
@@ -127,7 +128,7 @@ def vah_from_surface(surf, n_padded: int, device):
     def pad(a, fill):
         out = np.full(n_padded, fill, dtype=np.float64)
         out[:n] = a
-        return torch.as_tensor(out, device=device)
+        return to_device(out, device)
 
     lam = np.asarray(surf.Lambda, dtype=np.float64)
     ups = np.zeros(n) if surf.upsilonB is None else np.asarray(surf.upsilonB)
@@ -435,7 +436,7 @@ def famod_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     cells = famod_cells(surf, cfg, device)
     if report is not None:
         report.n_cells = surf.n_cells
-        report.skipped_cells = surf.n_cells - int(cells.mask.sum().item())
+        report.skipped_cells = surf.n_cells - len(cells.host.live)
     stats = Reconstruction()
     fm = prepare_famod(cells, species_table, cfg,
                        vah_from_surface(surf, cells.n_padded, device), stats)

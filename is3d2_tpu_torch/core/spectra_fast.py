@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..transfer import to_device
 from .cells import CellArrays
 from .spectra import MomentumGridDevice, SpeciesArrays
 
@@ -69,6 +70,8 @@ def fold_eta_quadrature(cells: CellArrays, grid: MomentumGridDevice,
       * delta-f regulation off OR all active odd delta-f sources zero.
     The even part is selected by zeroing dan/pitn/pixn/piyn/Vn on the copy
     of ``cells`` used for this engine call; un is exactly zero by the gate.
+    The six maxima come from the host columns where ``cells`` carries them
+    (cells.HostFacts: the same values, nothing read back from the device).
 
     ``strict=True`` is the gate for the nonlinear feqmod integrand
     (feq(|A^-1 p_LRF|/T_mod) is not linear in the odd sources, so they
@@ -84,10 +87,12 @@ def fold_eta_quadrature(cells: CellArrays, grid: MomentumGridDevice,
     if folded is None:
         return cells, grid, False
 
-    # one device->host read for all six maxima
-    mx = torch.stack([f.abs().max() for f in
-                      (cells.un, cells.dan, cells.pitn, cells.pixn,
-                       cells.piyn, cells.Vn)]).cpu().tolist()
+    if cells.host is not None:
+        mx = list(cells.host.odd_max)
+    else:   # one device->host read for all six maxima
+        mx = torch.stack([f.abs().max() for f in
+                          (cells.un, cells.dan, cells.pitn, cells.pixn,
+                           cells.piyn, cells.Vn)]).cpu().tolist()
     un_mx, dan_mx, pitn_mx, pixn_mx, piyn_mx, vn_mx = mx
     if strict:
         if max(mx) != 0.0:
@@ -119,9 +124,13 @@ def fold_eta_table(grid: MomentumGridDevice) -> MomentumGridDevice | None:
     weights, or None for fewer than 2 nodes or a table that is not
     symmetric.  The table half of every eta fold (the spectra's above, the
     polarization's in core/polarization.py); what a fold may drop of the
-    integrand is each caller's own gate."""
-    eta = grid.eta.cpu().numpy()
-    w = grid.eta_weight.cpu().numpy()
+    integrand is each caller's own gate.  It reads the grid's host copy of
+    the table where it has one."""
+    if grid.host_eta is not None:
+        eta, w = grid.host_eta
+    else:
+        eta = grid.eta.cpu().numpy()
+        w = grid.eta_weight.cpu().numpy()
     n = eta.shape[0]
     if n < 2:
         return None
@@ -137,10 +146,10 @@ def fold_eta_table(grid: MomentumGridDevice) -> MomentumGridDevice | None:
         fold_eta = np.concatenate([[0.0], fold_eta])
         fold_w = np.concatenate([[ws[half]], fold_w])
     dev = grid.eta.device
-    return dataclasses.replace(
-        grid,
-        eta=torch.as_tensor(fold_eta, dtype=torch.float64, device=dev),
-        eta_weight=torch.as_tensor(fold_w, dtype=torch.float64, device=dev))
+    out = dataclasses.replace(grid, eta=to_device(fold_eta, dev),
+                              eta_weight=to_device(fold_w, dev))
+    out.host_eta = (fold_eta, fold_w)
+    return out
 
 
 # ----------------------------------------------------------------------

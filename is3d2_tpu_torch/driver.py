@@ -36,6 +36,7 @@ from .io.surface import SurfaceData, read_surface, surface_from_memory
 from .io.tables import GaussLaguerre, GaussLegendre, MomentumGrids, load_table
 from .physics.deltaf import DeltafData, compute_particle_densities
 from .report import RunReport, check_invariants
+from .transfer import run_device
 
 
 class IS3D:
@@ -56,10 +57,7 @@ class IS3D:
             cfg = Config.from_file(self.workdir / "iS3D_parameters.dat")
         cfg.validate_slice()
         self.cfg = cfg
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("torch sees no CUDA device; pass "
-                               "device='cpu' (--device cpu) to run on the CPU")
+        self.device = run_device(device)
         self.surface: SurfaceData | None = None
         self.spectra = None
         self.dN_dX = None

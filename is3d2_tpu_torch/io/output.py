@@ -296,12 +296,16 @@ class StreamingEventWriter:
     in the queue.  ``close()`` drains the queue and re-raises
     a writer error.  The kept host rows stay in a ChunkCollector, so
     ``particle_list()`` also returns the campaign's ParticleList (the
-    library path)."""
+    library path).  ``oscar`` and ``csv`` choose the files: OSCAR
+    (particle_list_osc_<event>.dat), CSV (particle_list_<event>.dat), both
+    or neither; ``rows_written`` counts the rows of every file written."""
 
-    def __init__(self, results_dir: Path, csv: bool = False):
+    def __init__(self, results_dir: Path, oscar: bool = True,
+                 csv: bool = False):
         from ..core.sampler import ChunkCollector
         self._collector = ChunkCollector()
         self.results_dir = Path(results_dir)
+        self.oscar = oscar
         self.csv = csv
         self.transfer_seconds = 0.0   # writer thread waiting for the copies
         self.write_seconds = 0.0      # host boost + sort + format + writes
@@ -344,11 +348,12 @@ class StreamingEventWriter:
         offsets = np.searchsorted(part["event"][order],
                                   np.arange(ev0, ev0 + n_ev + 1))
         mcid = self._collector._mcid_table[part["sp_idx"][order]]
-        raw = [part[c] for c in _OSCAR_COLS]
-        self.rows_written += write_events_fast(
-            str(self.results_dir / "particle_list_osc_%lld.dat"),
-            _OSCAR_HEADER, " ", _auto_precision(raw), True, offsets, mcid,
-            [r[order] for r in raw], event_base=ev0)
+        if self.oscar:
+            raw = [part[c] for c in _OSCAR_COLS]
+            self.rows_written += write_events_fast(
+                str(self.results_dir / "particle_list_osc_%lld.dat"),
+                _OSCAR_HEADER, " ", _auto_precision(raw), True, offsets,
+                mcid, [r[order] for r in raw], event_base=ev0)
         if self.csv:
             self.rows_written += write_events_fast(
                 str(self.results_dir / "particle_list_%lld.dat"),

@@ -22,6 +22,7 @@ from ..io.deltaf_tables import DeltafTables
 from ..io.pdg import SpeciesTable
 from ..io.surface import ThermoAverages
 from ..io.tables import GaussLaguerre
+from ..transfer import to_device
 from . import thermal
 from .spline import CubicSpline
 
@@ -134,7 +135,7 @@ class DeltafData:
         """Bilinear interpolation in (T, muB) on the uniform grid
         (DeltafData.cpp:404-441)."""
         def t(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=T.device)
+            return to_device(a, T.device)
 
         grid = t(grid)
         iT = torch.clamp(torch.floor((T - self._T_min) / self._dT).to(torch.int64),

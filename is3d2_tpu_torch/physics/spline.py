@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..transfer import to_device
+
 
 class CubicSpline:
     def __init__(self, x: np.ndarray, y: np.ndarray):
@@ -62,7 +64,7 @@ class CubicSpline:
         beforehand as the reference does for bulkPi,
         MomentumSpectra.cpp:601-615)."""
         def t(a):
-            return torch.as_tensor(a, dtype=torch.float64, device=xq.device)
+            return to_device(a, xq.device)
 
         x, y, b, c, d = t(self.x), t(self.y), t(self.b), t(self.c), t(self.d)
         i = torch.clamp(torch.searchsorted(x, xq, right=True) - 1,

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from ..transfer import to_device
+
 f64 = torch.float64
 
 
@@ -39,7 +41,7 @@ def _bcast(roots, weights, *args):
     dtype = next((a.dtype for a in tensors if a.is_floating_point()), f64)
 
     def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return to_device(a, device, dtype)
 
     return (t(roots), t(weights), *(t(a)[..., None] for a in args))
 

@@ -103,6 +103,15 @@ def make_surface(n_cells: int, seed: int = 0, dimension: int = 2,
     return s
 
 
+def make_ensemble(n_surfaces: int, n_cells: int, seed0: int = 1000,
+                  **surface_kw) -> list[SurfaceData]:
+    """``n_surfaces`` surfaces of ``n_cells`` cells, surface i drawn by
+    make_surface(n_cells, seed=seed0 + i, **surface_kw): the ensemble of
+    the JAX package's ensemble record (scripts/northstar.py:180-181)."""
+    return [make_surface(n_cells, seed=seed0 + i, **surface_kw)
+            for i in range(n_surfaces)]
+
+
 def add_dsigma_eta(s: SurfaceData, seed: int, scale: float) -> SurfaceData:
     """Give a 2+1d surface a dsigma_eta: dsigma_eta / tau uniform in
     [-scale, scale], drawn from its own stream of ``seed`` (the other

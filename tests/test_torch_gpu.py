@@ -1027,3 +1027,108 @@ def test_polarization_check_plain_on_cpu(workdir):
     assert r.launches == 0
     assert r.vs_plain == (0.0, 0.0)
     assert r.ok, (r.vs_f64, r.plain_vs_f64)
+
+
+# ----------------------------------------------------------------------
+# the multi-surface ensemble (core/ensemble.py) on the card
+# ----------------------------------------------------------------------
+
+ENSEMBLE_CELLS = (2048, 2048, 1500, 2048)    # the third: a ragged block
+# route -> (cfg fields, surfaces, bar against the f64 engine's ensemble)
+ENSEMBLE_ROUTES = {
+    "B1": ({"df_mode": 1, "compute_dtype": "f32c"}, "mild", kc.TOL),
+    "B2": ({"df_mode": 2, "compute_dtype": "f64", "use_pallas": 1}, "mild",
+           kc.F32_TOL_F64),
+    "B3": ({"df_mode": 4, "compute_dtype": "f32"}, "feqmod",
+           kc.FEQMOD_TOL_F64),
+    "B3-famod": ({"df_mode": 5, "compute_dtype": "f32"}, "eos",
+                 kc.FEQMOD_TOL_F64),
+    # the JAX package's 3+1d budget (kernel_check.Case3dResult)
+    "B1-3d": ({"df_mode": 1, "compute_dtype": "f32c", "dimension": 3},
+              "3d", kc.TOL),
+}
+
+
+def _ensemble_run(tmp_path, route):
+    """The route's config, surfaces and a driver whose setup (species,
+    grids, delta-f data with the Jonah splines of surface 0) they share."""
+    from is3d2_tpu_torch.driver import IS3D
+    from is3d2_tpu_torch.io.pdg import read_pdg
+    from is3d2_tpu_torch.io.tables import GaussLaguerre
+    from is3d2_tpu_torch.tools.synthetic import make_eos_consistent
+    fields, kind, _ = ENSEMBLE_ROUTES[route]
+    dim = fields.get("dimension", 2)
+    wd = write_workdir(tmp_path / route, n_cells=16, chosen_mcids=CHOSEN,
+                       n_pT=16, n_phi=8, n_eta=24, n_T=21, dimension=dim)
+    cfg = Config(cell_block=512, **fields)
+    kw = {"feqmod": kc.FEQMOD_SURFACE, "eos": kc.FAMOD_SURFACE}.get(kind, {})
+    surfs = [make_surface(n, seed=70 + i, dimension=dim, **kw)
+             for i, n in enumerate(ENSEMBLE_CELLS)]
+    if kind == "eos":
+        species = read_pdg(3, wd / "PDG")
+        lag = GaussLaguerre.from_file(wd / "tables/gauss/gla_roots_weights.txt")
+        surfs = [make_eos_consistent(s, species, lag, "cuda") for s in surfs]
+    run = IS3D(wd, cfg=cfg, device="cuda")
+    run.surface = surfs[0]
+    run._setup()
+    return cfg, surfs, run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(ENSEMBLE_ROUTES))
+def test_ensemble_equals_single_runs_and_the_f64_engine(tmp_path, route):
+    """Each route's ensemble on the card: every surface bit-equal to its
+    single compute_spectra run, with one launch of the route's kernel per
+    surface, and within the kernel's bar of the f64 engine's ensemble."""
+    _needs_cuda()
+    from is3d2_tpu_torch.core.ensemble import compute_spectra_ensemble
+    from is3d2_tpu_torch.core.spectra import compute_spectra
+    cfg, surfs, run = _ensemble_run(tmp_path, route)
+    args = (run.species, run.chosen_idx, run.grids, run.df_data)
+    kernel = {"B1": ck.cooper_frye_comp, "B2": b2.cooper_frye_f32,
+              "B3": fk.cooper_frye_feqmod, "B3-famod": fk.cooper_frye_feqmod,
+              "B1-3d": ck.cooper_frye_comp_3d}[route]
+    before = kernel.launches
+    out = compute_spectra_ensemble(surfs, *args, cfg, run.laguerre,
+                                   surface_chunk=3)
+    assert kernel.launches - before == len(surfs)
+    assert out.shape == (len(surfs), len(CHOSEN), 16, 8,
+                         21 if cfg.dimension == 3 else 1)
+    assert np.isfinite(out).all()
+    for i, surf in enumerate(surfs):
+        one = compute_spectra(surf, *args, cfg, "cuda", run.laguerre)
+        np.testing.assert_array_equal(out[i], one, err_msg=str(i))
+    f64 = compute_spectra_ensemble(
+        surfs, *args, dataclasses.replace(cfg, compute_dtype="f64",
+                                          use_pallas=-1), run.laguerre)
+    bar = ENSEMBLE_ROUTES[route][2]
+    for i in range(len(surfs)):
+        if cfg.dimension == 3:
+            assert kc.global_rel_err(out[i], f64[i]) <= bar
+            assert kc.peak_err(out[i], f64[i]) <= kc.ABS_TOL_3D
+        else:
+            assert kc.max_rel_err(out[i], f64[i]) <= bar, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["B1", "B2", "B3", "B1-3d"])
+def test_device_route_queues_no_synchronization(tmp_path, route):
+    """spectra_on_device on df 1-4 (3+1d: df 1/2) queues a surface's work
+    without waiting for the card: the uploads go through pinned memory and
+    the fold gate, the skipped count and the 3+1d live cells come from the
+    host columns.  Under torch's sync debug mode "error" any synchronizing
+    operation raises."""
+    _needs_cuda()
+    from is3d2_tpu_torch.core.spectra import spectra_on_device
+    cfg, surfs, run = _ensemble_run(tmp_path, route)
+    args = (run.species, run.chosen_idx, run.grids, run.df_data, cfg,
+            "cuda", run.laguerre)
+    want = spectra_on_device(surfs[0], *args)      # builds and loads
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = spectra_on_device(surfs[0], *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert torch.equal(got, want)
