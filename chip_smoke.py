@@ -188,8 +188,40 @@ Phases (any failure raises; nothing is caught):
      the VAH reconstruction; 4 of phase 27's surfaces made EOS-consistent),
      df 2 f64 with use_pallas 1 (B2; 4 surfaces), 3+1d df 1 f32c (B1's
      3+1d mode; 4 surfaces make_surface(4096, dimension=3), phase 24's
-     tables, 21 y); then OSCAR particle lists, df 1, 8 surfaces x 10
-     events: one file an event, rows = kept = rows_written.
+     tables, 21 y), 3+1d df 4 f32 (B3's 3+1d mode; 4 surfaces, shear
+     0.2, bulk 0.1) and 3+1d df 5 f32 (its famod instantiation; 4
+     EOS-consistent surfaces); then OSCAR particle lists, df 1, 8 surfaces
+     x 10 events: one file an event, rows = kept = rows_written;
+ 30. kernel B3's 3+1d mode vs its plain version (<= 1e-5) and the f64
+     feqmod / famod engines (<= 1e-4 of each species' peak bins) at 2048
+     cells of 3+1d surfaces (shear 0.2, bulk 0.1; famod EOS-consistent),
+     16 species, 51 x 48 x 21 y, over kernel_check.FEQMOD_3D_CASES (df 3,
+     df 4, outflow, regulation, famod), a narrow-window case (cells with
+     detA < 0.01 moved within detA of a y node; it fails without a (cell,
+     y) pair in the window) and the ragged case on 3, 5 and 1 rapidities;
+     every case needs breakdown cells;
+ 31. the 3+1d df-4 main path at full width through the CLI: phase 24's
+     size (1e5 cells, 99,753 live, 371 species, 51 x 48 x 21 y), f32,
+     shear 0.2, bulk 0.1 (1.903e12 evaluations); only B3's 3+1d mode may
+     launch, once; the files checked as phase 24's;
+ 32. B3's 3+1d mode on phase 31's operands timed by CUDA events between
+     samples of the SM clock, launched twice for equal bits, and held to
+     its plain version (<= 1e-5) on the first 1,024 live cells at the full
+     M (breakdown cells among them), both timed there; evaluations/s and
+     the share of the bound (BOUND_OPS_PER_EVALUATION, the linearised
+     branch counted on the breakdown cells and the window's rows);
+ 33. the 3+1d df-5 main path through the CLI on an EOS-consistent surface
+     of phase 31's size: the VAH reconstruction, then B3's 3+1d famod
+     instantiation, which alone may launch, once; then that instantiation
+     on the path's operands, timed as phase 32's;
+ 34. operation 0 in 3+1d, df 4, on phase 31's surface cut to its first
+     OP0_3D_DF4_CELLS cells (a cell block of 512, so no padding cell is
+     evaluated) through the f64 engine (no kernel may launch; the engine
+     takes ~17 ms a cell), its
+     tau bins summed back to B3's 3+1d dN/dy summed over y (<= 1e-4); then
+     operation 2 with df 4 and df 5 on the workdirs of phases 31 and 33 into
+     histograms (1e6 hadrons), each with phase 26's closure against its own
+     op-1 dN/dy files.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
 12-13's, 16's and 26's numbers, and one {"ensemble": {...}} phases
@@ -199,9 +231,11 @@ kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
 its own path; P1's launches from phase 21, its folded instantiation's
 numbers at the top and the general one's under "general", each with its
 sfu_floor_ms beside the bound; B1 and B1's 3+1d mode, an entry of its
-own from phases 24-25, with fp32_issue_floor_ms beside it; each of B1,
-B2, B3 and B1's 3+1d mode with the launches and times of its ensemble
-runs in phases 27 and 29 under "ensemble"),
+own from phases 24-25, with fp32_issue_floor_ms beside it; B3's 3+1d
+mode, an entry of its own from phases 30-34 (its famod instantiation
+under "famod", operations 0 and 2 under "operations"); each of B1, B2, B3
+and the two 3+1d modes with the launches and times of its ensemble runs in
+phases 27 and 29 under "ensemble"),
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
 (no single PyTorch call computes a Cooper-Frye or polarization sum), and
@@ -236,13 +270,20 @@ MAIN_CELLS = 100_000
 KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod", "cooper_frye_f32",
            "polarization_f32")
 # kernels that live in another kernel's source (name -> source)
-SOURCE_OF = {"cooper_frye_comp_3d": "cooper_frye_comp"}
+SOURCE_OF = {"cooper_frye_comp_3d": "cooper_frye_comp",
+             "cooper_frye_feqmod_3d": "cooper_frye_feqmod"}
 B1_COMPARE_CELLS = 16_384
 B2_COMPARE_CELLS = 8_192
 B3_COMPARE_CELLS = 8_192
 P1_COMPARE_CELLS = 4_096
 B1_3D_COMPARE_CELLS = 1_024
+B3_3D_COMPARE_CELLS = 1_024
 OP0_3D_CELLS = 2_048
+# phase 34's op 0 cut, with a cell block of its size (the f64 engines
+# evaluate the padding cells too): the f64 feqmod engine takes ~17 ms a
+# cell in 3+1d at full width, so phase 25's 2,048 cells would take 35 s of
+# the script's time limit
+OP0_3D_DF4_CELLS = 512
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_OPS = 67e12
@@ -286,6 +327,16 @@ OPS_PER_EVALUATION = {
     # p.dsigma 4, pi:pp 10, delta-f 5, the value 3, the conversion and
     # the f64 sum 2)
     "cooper_frye_comp_3d": 48 + 64,
+    # B3's 3+1d mode, one evaluation per (cell, m), one branch per (cell,
+    # y).  Modified (df 4 and famod): p' 21, E_mod^2 7, E_mod 2, the
+    # exponent and f 7, p.dsigma 7, the value with renorm and red 5, the
+    # window 4, the select and the sum 2.  Linearised, f64: u.p and
+    # p.dsigma 7 each, pi:pp 23, 1 / E 1, f_eq and feqbar 6, PTB delta-f
+    # 10, the value 3, red, the window, the select and the sum 7; famod:
+    # u.p and p.dsigma 14, f_eq and the value 7, red, window, select and
+    # sum 7
+    "cooper_frye_feqmod_3d": {"modified": 55, "breakdown": 64,
+                              "famod_modified": 55, "famod_breakdown": 28},
 }
 # What the kernels execute per evaluation, counted the same way from their
 # sources (a multiply-add counts two; work shared by a thread's 4 momenta
@@ -314,6 +365,18 @@ EXECUTED_OPS_PER_EVALUATION = {
     # px/py parts of p.dsigma 3 and of pi:pp 4); per (cell, row), shared
     # by its 4 phi, 47 (diffb is dead without diffusion)
     "cooper_frye_comp_3d": 46 + 22 / 7 + 47 / 4,
+    # B3's 3+1d mode (a multiply-add counts two).  Modified per evaluation
+    # 34: p' 3, E_mod^2 6, the conversions 2, fmax 1, the square root 7,
+    # the exponent 2, exp 1, + sign 1, the clamp 1, the reciprocal 5,
+    # p.dsigma 1, the value, renorm and red 3, the f64 add 1; per (cell,
+    # row), shared by the tile's 4 phi, 15 (U's m+/m- columns 9, p.dsigma's
+    # 3, the window 3); per (cell, phi), shared by its 3 y rows, 12 (U's
+    # px/py columns 9, p.dsigma's 3).  Linearised in f64, per evaluation
+    # (nothing shared): df 4 60, famod 24, the window per (cell, row) 3 / 4
+    "cooper_frye_feqmod_3d": {"modified": 34 + 15 / 4 + 12 / 3,
+                              "breakdown": 60 + 3 / 4,
+                              "famod_modified": 34 + 15 / 4 + 12 / 3,
+                              "famod_breakdown": 24 + 3 / 4},
 }
 
 
@@ -356,11 +419,13 @@ def launch_counters():
     from is3d2_tpu_torch.ops.cooper_frye_f32 import cooper_frye_f32
     from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod
     from is3d2_tpu_torch.ops.polarization_f32 import polarization_f32
+    from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod_3d
     return {"cooper_frye_comp": cooper_frye_comp,
             "cooper_frye_feqmod": cooper_frye_feqmod,
             "cooper_frye_f32": cooper_frye_f32,
             "polarization_f32": polarization_f32,
-            "cooper_frye_comp_3d": cooper_frye_comp_3d}
+            "cooper_frye_comp_3d": cooper_frye_comp_3d,
+            "cooper_frye_feqmod_3d": cooper_frye_feqmod_3d}
 
 
 def bound(ops: float, args: tuple, n_mom: int) -> dict:
@@ -1520,6 +1585,35 @@ def sm_clocks() -> tuple[int, int]:
     return now, peak
 
 
+def timed_3d(kernel, args, evaluations: int) -> dict:
+    """A 3+1d mode at full size: one launch, then one between samples of
+    the SM clock timed by CUDA events; the two must give equal bits."""
+    first = kernel(*args)
+    torch.cuda.synchronize()
+    before, clock_max = sm_clocks()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    second = kernel(*args)
+    end.record()
+    during, _ = sm_clocks()      # the kernel runs while this is read
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    after, _ = sm_clocks()
+    print(f"kernel at full size {ms:.1f} ms, {evaluations / ms * 1e3:.4g} "
+          f"evaluations/s; clocks.sm {before} MHz before, {during} MHz "
+          f"during, {after} MHz after (clocks.max.sm {clock_max} MHz)")
+    if not torch.equal(first, second):
+        raise AssertionError("two launches on the main path's operands gave "
+                             "different bits")
+    print("two launches at full size gave equal bits")
+    return {"main_path_ms": ms,
+            "main_path_evaluations_per_s": evaluations / ms * 1e3,
+            "main_path_evaluations": evaluations,
+            "clocks_sm_mhz": {"before": before, "during": during,
+                              "after": after, "max": clock_max}}
+
+
 # special-function lanes of one H100 SM (MUFU: EX2, RCP; the f32 -> f64
 # conversions take the same narrow pipe)
 SFU_LANES_PER_SM = 16
@@ -1686,6 +1780,14 @@ def phase_b1_3d_main_path(tmp: Path) -> tuple[int, dict, Path]:
     print(f"workdir written in {time.perf_counter() - t0:.1f} s")
     launches, stages, _ = run_cli(wd, "cooper_frye_comp_3d")
     print(f"stage seconds: {json.dumps(stages)}")
+    check_3d_spectra_files(wd)
+    return launches["cooper_frye_comp_3d"], stages, wd
+
+
+def check_3d_spectra_files(wd: Path) -> None:
+    """A 3+1d operation-1 run's files: S x NpT x Nphi x Ny rows, finite,
+    dN/dy pi+ > K+ > p > 0 at every |y| <= 3 of the table and pi+ > 0 at
+    every y."""
     from is3d2_tpu_torch.io.tables import MomentumGrids
     g = MomentumGrids.from_dir(wd / "tables")
     rows = len(g.pT) * len(g.phi) * len(g.y)
@@ -1718,7 +1820,6 @@ def phase_b1_3d_main_path(tmp: Path) -> tuple[int, dict, Path]:
         raise AssertionError("3+1d dN/dy is not ordered pi+ > K+ > p > 0 "
                              "at every |y| <= 3 of the table, or pi+ not "
                              "positive at every y")
-    return launches["cooper_frye_comp_3d"], stages, wd
 
 
 def phase_b1_3d_full(wd: Path, sass: dict) -> dict:
@@ -1734,27 +1835,8 @@ def phase_b1_3d_full(wd: Path, sass: dict) -> dict:
     C, M = ops.cell.shape[0], ops.mom.shape[1]
     print(f"{C} live cells x {M} momenta (M mod 256 = {M % 256}) = "
           f"{ops.evaluations:.4g} evaluations")
-    first = kernel(*args)
-    torch.cuda.synchronize()
-    before, clock_max = sm_clocks()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    second = kernel(*args)
-    end.record()
-    during, _ = sm_clocks()      # the kernel runs while this is read
-    torch.cuda.synchronize()
-    full_ms = start.elapsed_time(end)
-    after, _ = sm_clocks()
-    print(f"kernel at full size {full_ms:.1f} ms, "
-          f"{ops.evaluations / full_ms * 1e3:.4g} evaluations/s; clocks.sm "
-          f"{before} MHz before, {during} MHz during, {after} MHz after "
-          f"(clocks.max.sm {clock_max} MHz)")
-    if not torch.equal(first, second):
-        raise AssertionError("two launches of B1's 3+1d mode on the main "
-                             "path's operands gave different bits")
-    print("two launches at full size gave equal bits")
-    del first, second
+    r = timed_3d(kernel, args, ops.evaluations)
+    full_ms, clock_max = r["main_path_ms"], r["clocks_sm_mhz"]["max"]
     g = ck.cooper_frye_comp_3d.last_geometry
     print(f"launched with {g}")
     per_eval = BOUND_OPS_PER_EVALUATION["cooper_frye_comp_3d"]
@@ -1779,17 +1861,12 @@ def phase_b1_3d_full(wd: Path, sass: dict) -> dict:
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             **bound(per_eval * n * M, cut(n), M),
             "main_path_bound_ms": main_bound,
-            "main_path_evaluations_per_s": ops.evaluations / full_ms * 1e3,
             "main_path_share_of_bound": main_bound / full_ms,
             "fp32_per_evaluation": sass["fp32"],
             "fp32_issue_floor_ms": floor,
-            "main_path_share_of_fp32_floor": floor / full_ms,
-            "clocks_sm_mhz": {"before": before, "during": during,
-                              "after": after, "max": clock_max},
+            "main_path_share_of_fp32_floor": floor / full_ms, **r,
             # no single PyTorch call computes a Cooper-Frye sum
-            "library_ms": None,
-            "cells_compared": n, "main_path_ms": full_ms,
-            "main_path_evaluations": ops.evaluations}
+            "library_ms": None, "cells_compared": n}
 
 
 def phase_op0_3d(tmp: Path, wd3: Path) -> dict:
@@ -1843,15 +1920,31 @@ def phase_sampler_3d(tmp: Path, wd3: Path) -> dict:
         "min_num_hadrons": 1.0e7, "max_num_samples": 1000,
         "sampler_seed": SAMPLER_SEED})
     r = run_op2(wd)
+    r["closure"] = closure_3d(wd, wd3, r["n_events"])
+    print("-- OSCAR event files, df 2, min_num_hadrons 1e6")
+    wd = derived_workdir(tmp, wd3, "op2_3d_oscar", {
+        "operation": 2, "df_mode": 2, "test_sampler": 0, "fast": 1,
+        "min_num_hadrons": 1.0e6, "max_num_samples": 1000,
+        "sampler_seed": SAMPLER_SEED})
+    oscar = run_op2(wd)
+    oscar["oscar_rows"] = check_oscar_files(wd, oscar)
+    r["oscar_df2"] = oscar
+    return r
+
+
+def closure_3d(wd: Path, wd_op1: Path, n_events: int) -> dict:
+    """The sampled dN/dy of a 3+1d operation-2 run against the op-1 dN/dy
+    files of the same surface: pi+ and K+ in every bin at |y| < 1 within
+    5 sigma + 3 % (the JAX package's 3+1d closure bar; p printed)."""
     closure = {}
     for m in (211, 321, 2212):
         hist = np.loadtxt(wd / f"results/sampled/dN_dy/dN_dy_{m}_test.dat")
-        smooth = np.loadtxt(wd3 / f"results/continuous/dN_dy_{m}.dat")
+        smooth = np.loadtxt(wd_op1 / f"results/continuous/dN_dy_{m}.dat")
         y_mid, obs = hist[:, 0], hist[:, 1]
         sel = np.abs(y_mid) < 1.0
         y_w = y_mid[1] - y_mid[0]
-        counts = obs[sel] * y_w * r["n_events"]
-        sigma = np.sqrt(np.maximum(counts, 1.0)) / (y_w * r["n_events"])
+        counts = obs[sel] * y_w * n_events
+        sigma = np.sqrt(np.maximum(counts, 1.0)) / (y_w * n_events)
         ref = np.interp(y_mid[sel], smooth[:, 0], smooth[:, 1])
         dev = (obs[sel] - ref) / ref
         ok = bool((np.abs(obs[sel] - ref) < 5.0 * sigma + 0.03 * ref).all())
@@ -1863,16 +1956,7 @@ def phase_sampler_3d(tmp: Path, wd3: Path) -> dict:
               f"worst {np.abs(dev).max():.3e}; within 5 sigma + 3 %: {ok}")
     if not (closure["211"]["ok"] and closure["321"]["ok"]):
         raise AssertionError("3+1d dN/dy closure of pi+ or K+ fails")
-    r["closure"] = closure
-    print("-- OSCAR event files, df 2, min_num_hadrons 1e6")
-    wd = derived_workdir(tmp, wd3, "op2_3d_oscar", {
-        "operation": 2, "df_mode": 2, "test_sampler": 0, "fast": 1,
-        "min_num_hadrons": 1.0e6, "max_num_samples": 1000,
-        "sampler_seed": SAMPLER_SEED})
-    oscar = run_op2(wd)
-    oscar["oscar_rows"] = check_oscar_files(wd, oscar)
-    r["oscar_df2"] = oscar
-    return r
+    return closure
 
 
 # ----------------------------------------------------------------------
@@ -1904,7 +1988,8 @@ def timed_launches():
     targets = [(ck, "launch", "cooper_frye_comp"),
                (ck, "launch_3d", "cooper_frye_comp_3d"),
                (b2, "launch", "cooper_frye_f32"),
-               (fk, "launch", "cooper_frye_feqmod")]
+               (fk, "launch", "cooper_frye_feqmod"),
+               (fk, "launch_3d", "cooper_frye_feqmod_3d")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
 
     def timed(name, fn):
@@ -2172,8 +2257,9 @@ def check_single_runs(label, surfs, inputs, cfg, kernel):
 
 
 def phase_ensemble_routes(tmp: Path, wd1: Path, wd3: Path) -> dict:
-    print("== 29. ensemble routes: B3 (df 4, df 5), B2, B1's 3+1d mode, "
-          "each surface against its single run; OSCAR particle lists")
+    print("== 29. ensemble routes: B3 (df 4, df 5), B2, B1's and B3's 3+1d "
+          "modes, each surface against its single run; OSCAR particle "
+          "lists")
     from is3d2_tpu_torch.config import Config
     from is3d2_tpu_torch.core.ensemble import sample_ensemble_particle_lists
     from is3d2_tpu_torch.tools.synthetic import (make_ensemble,
@@ -2212,6 +2298,23 @@ def phase_ensemble_routes(tmp: Path, wd1: Path, wd3: Path) -> dict:
     r["3d"] = check_single_runs("3+1d df 1, f32c, 21 y", surfs,
                                 ensemble_inputs(wd3, 1, surfs[0]), cfg3,
                                 "cooper_frye_comp_3d")
+    surfs = [make_surface(ENSEMBLE_CELLS, seed=ENSEMBLE_SEED0 + i,
+                          dimension=3, shear_scale=0.2, bulk_scale=0.1)
+             for i in range(4)]
+    r["3d_df4"] = check_single_runs(
+        "3+1d df 4, f32, shear 0.2, bulk 0.1", surfs,
+        ensemble_inputs(wd3, 4, surfs[0]),
+        dataclasses.replace(cfg3, df_mode=4, compute_dtype="f32"),
+        "cooper_frye_feqmod_3d")
+    surfs = [make_surface(ENSEMBLE_CELLS, seed=ENSEMBLE_SEED0 + i,
+                          dimension=3, **ENSEMBLE_SURFACE) for i in range(4)]
+    inputs = ensemble_inputs(wd3, 5, surfs[0])
+    surfs = [make_eos_consistent(s, inputs[0], inputs[3], "cuda")
+             for s in surfs]
+    r["3d_df5"] = check_single_runs(
+        "3+1d df 5, f32, EOS-consistent", surfs, inputs,
+        dataclasses.replace(cfg3, df_mode=5, compute_dtype="f32"),
+        "cooper_frye_feqmod_3d")
 
     surfs = make_ensemble(8, ENSEMBLE_CELLS, ENSEMBLE_SEED0,
                           **ENSEMBLE_SURFACE)
@@ -2237,6 +2340,227 @@ def phase_ensemble_routes(tmp: Path, wd1: Path, wd3: Path) -> dict:
           f"files, {rows_all} rows = kept = rows_written, {wall:.3f} s")
     r["particle_lists"] = {"surfaces": len(stats), "rows": rows_all,
                            "wall_s": wall}
+    return r
+
+
+# ----------------------------------------------------------------------
+# phases 30-34: 3+1d df 3/4/5 (B3's 3+1d mode, the f64 engines, op 0, op 2)
+# ----------------------------------------------------------------------
+
+def phase_b3_3d_compare(wd: Path) -> dict:
+    print("== 30. B3's 3+1d mode vs plain version vs f64 engines (2048 "
+          "cells of a 3+1d surface, 16 species, 51 x 48 x 21 y; shear 0.2, "
+          "bulk 0.1; famod on an EOS-consistent surface)")
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cases = {name: kc.check_feqmod_3d_case(wd, name, 2048, 7, "cuda",
+                                           cell_block=512)
+             for name in kc.FEQMOD_3D_CASES}
+    cases["df4 narrow window"] = kc.check_feqmod_3d_case(
+        wd, "df4", 2048, 7, "cuda", narrow=True, cell_block=512)
+    for n_y in kc.RAGGED_Y:
+        cases[f"ragged {json.dumps(kc.RAGGED)} x {n_y} y"] = \
+            kc.check_feqmod_3d_ragged_case(wd, 2048, 7, "cuda", n_y=n_y)
+    out = {}
+    for name, r in cases.items():
+        print(f"{name:26s} breakdown cells {r.breakdown_cells:4d}  narrow "
+              f"pairs {r.narrow_pairs:3d}  kernel vs plain {r.vs_plain:.3e}"
+              f"  kernel vs f64 {r.vs_f64:.3e}  plain vs f64 "
+              f"{r.plain_vs_f64:.3e}  max |kernel - plain| "
+              f"{np.abs(r.kernel - r.plain).max():.3e}")
+        if not (r.ok and r.launches == 1):
+            raise AssertionError(f"3+1d {name}: kernel disagrees, does not "
+                                 f"repeat or no cell breaks down "
+                                 f"({r.vs_plain:.3e} vs plain, "
+                                 f"{r.vs_f64:.3e} vs f64)")
+        out[name] = {"vs_plain": r.vs_plain, "vs_f64": r.vs_f64,
+                     "breakdown_cells": r.breakdown_cells,
+                     "narrow_pairs": r.narrow_pairs}
+    if cases["df4 narrow window"].narrow_pairs < 1:
+        raise AssertionError("no (cell, y) pair in the narrow window")
+    return out
+
+
+def parse_breakdown(out: str, kind: str) -> int:
+    return int(re.search(rf"^{kind} breaks down for (\d+) /", out,
+                         re.M).group(1))
+
+
+def phase_b3_3d_main_path(tmp: Path) -> tuple[int, dict, Path]:
+    print(f"== 31. 3+1d df-4 main path: {MAIN_CELLS} cells of a 3+1d "
+          "surface, all species, 51 x 48 x 21 y, f32, shear 0.2, bulk 0.1")
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    from is3d2_tpu_torch.tools.synthetic import write_workdir
+    t0 = time.perf_counter()
+    wd = write_workdir(tmp / "main_3d_df4", n_cells=MAIN_CELLS, dimension=3,
+                       params={"df_mode": 4, "compute_dtype": "f32"},
+                       **kc.FEQMOD_SURFACE)
+    print(f"workdir written in {time.perf_counter() - t0:.1f} s")
+    launches, stages, out = run_cli(wd, "cooper_frye_feqmod_3d")
+    if launches["cooper_frye_feqmod_3d"] != 1:
+        raise AssertionError("the 3+1d df-4 path did not launch B3's 3+1d "
+                             "mode once")
+    n_break = parse_breakdown(out, "feqmod")
+    print(f"stage seconds: {json.dumps(stages)}; breakdown cells {n_break}")
+    if n_break < 1:
+        raise AssertionError("no cell of the 3+1d df-4 path broke down")
+    check_3d_spectra_files(wd)
+    return launches["cooper_frye_feqmod_3d"], stages, wd
+
+
+def b3_3d_ops(ops, n: int) -> float:
+    """Operations of B3's 3+1d mode on the first n operand cells: the
+    linearised branch on the breakdown cells and on the window's (cell, y)
+    rows, the modified branch on the rest (BOUND_OPS_PER_EVALUATION)."""
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    per = BOUND_OPS_PER_EVALUATION["cooper_frye_feqmod_3d"]
+    pre = "famod_" if ops.kind == "famod" else ""
+    M = ops.mom.shape[1]
+    brk = ops.cols[:n, fk.BREAKS_3] != 0
+    n_b = (int(brk.sum()) * M
+           + int((ops.window()[:n] & ~brk[:, None]).sum()) * (M // ops.n_y))
+    return per[pre + "breakdown"] * n_b + per[pre + "modified"] * (n * M - n_b)
+
+
+def phase_b3_3d_full(wd: Path) -> dict:
+    print("== 32. B3's 3+1d mode on the 3+1d df-4 main path's operands")
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    cfg, state = main_path_state(wd, kc.feqmod_engine_state)
+    ops = fk.feqmod_operands_3d(*state, cfg)
+    kernel = functools.partial(fk.cooper_frye_feqmod_3d, **ops.layout())
+    plain = functools.partial(fk.cooper_frye_feqmod_3d_plain, **ops.layout())
+    args = (*ops.args(), cfg, ops.kind)
+    C, M = ops.cols.shape[0], ops.mom.shape[1]
+    brk = int((ops.cols[:, fk.BREAKS_3] != 0).sum())
+    pairs = kc.narrow_pairs(ops)
+    print(f"{C} live cells x {M} momenta (M mod 256 = {M % 256}) = "
+          f"{ops.evaluations:.4g} evaluations; {brk} breakdown cells, "
+          f"{pairs} (cell, y) pairs in the narrow window")
+    r = timed_3d(kernel, args, ops.evaluations)
+    g = fk.cooper_frye_feqmod_3d.last_geometry
+    print(f"launched with {g}")
+
+    def cut(n):
+        return (ops.cols[:n].contiguous(), ops.cold[:n].contiguous(),
+                ops.mom, ops.y, ops.renorm[:n].contiguous(),
+                ops.red[:n].contiguous(), ops.n_per_species, cfg, ops.kind)
+
+    n = B3_3D_COMPARE_CELLS
+    n_brk = int((ops.cols[:n, fk.BREAKS_3] != 0).sum())
+    print(f"compared on the first {n} live cells at the full M ({n_brk} "
+          "breakdown cells among them)")
+    if n_brk < 1:
+        raise AssertionError("no breakdown cell among the compared cells")
+    ms, plain_ms, max_abs = compare_on_cut(
+        kernel, plain, cut(64), cut(n),
+        lambda flat: kc.spectra_units(state, flat), kc.FEQMOD_TOL_PLAIN,
+        "B3 3+1d")
+    main_bound = bound(b3_3d_ops(ops, C), args, M)["bound_ms"]
+    print(f"bound at full size {main_bound:.1f} ms: "
+          f"{100 * main_bound / r['main_path_ms']:.1f} % of it")
+    return {"register_tile": g.r, "register_tile_y": g.ty,
+            "threads": g.threads, "cell_split": g.n_split,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            **bound(b3_3d_ops(ops, n), cut(n), M),
+            "main_path_bound_ms": main_bound,
+            "main_path_share_of_bound": main_bound / r["main_path_ms"],
+            **r, "breakdown_cells": brk, "narrow_pairs": pairs,
+            # no single PyTorch call computes a Cooper-Frye sum
+            "library_ms": None, "cells_compared": n}
+
+
+def phase_famod_3d(tmp: Path) -> tuple[int, dict, Path, dict]:
+    print(f"== 33. 3+1d df-5 main path: {MAIN_CELLS} cells of an "
+          "EOS-consistent 3+1d surface, all species, 51 x 48 x 21 y, f32")
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    from is3d2_tpu_torch.tools.synthetic import write_workdir
+    t0 = time.perf_counter()
+    wd = write_workdir(tmp / "main_3d_df5", n_cells=MAIN_CELLS, dimension=3,
+                       eos_consistent=True, device="cuda",
+                       params={"df_mode": 5, "compute_dtype": "f32"},
+                       **kc.FAMOD_SURFACE)
+    print(f"workdir written in {time.perf_counter() - t0:.1f} s")
+    launches, stages, out = run_cli(wd, "cooper_frye_feqmod_3d")
+    if launches["cooper_frye_feqmod_3d"] != 1:
+        raise AssertionError("the 3+1d df-5 path did not launch B3's 3+1d "
+                             "famod mode once")
+    n_break = parse_breakdown(out, "famod")
+    print(f"stage seconds: {json.dumps(stages)}; breakdown cells {n_break}")
+    check_3d_spectra_files(wd)
+    cfg, state = main_path_state(wd, kc.famod_engine_state)
+    ops = fk.famod_operands_3d(*state, cfg)
+    args = (*ops.args(), cfg, ops.kind)
+    r = timed_3d(functools.partial(fk.cooper_frye_feqmod_3d, **ops.layout()),
+                 args, ops.evaluations)
+    main_bound = bound(b3_3d_ops(ops, ops.cols.shape[0]), args,
+                       ops.mom.shape[1])
+    print(f"bound at full size {main_bound['bound_ms']:.1f} ms: "
+          f"{100 * main_bound['bound_ms'] / r['main_path_ms']:.1f} % of it")
+    return launches["cooper_frye_feqmod_3d"], stages, wd, {
+        **r, "main_path_bound_ms": main_bound["bound_ms"],
+        "main_path_share_of_bound": main_bound["bound_ms"]
+        / r["main_path_ms"], "breakdown_cells": n_break,
+        "narrow_pairs": kc.narrow_pairs(ops), "stage_seconds": stages}
+
+
+def phase_3d_df345_operations(tmp: Path, wd4: Path, wd5: Path) -> dict:
+    print(f"== 34. 3+1d operation 0 (df 4, phase 31's surface cut to its "
+          f"first {OP0_3D_DF4_CELLS} cells, the f64 engine) and operation 2 "
+          "(df 4 and df 5 into histograms)")
+    from is3d2_tpu_torch.core.spectra import compute_spectra
+    from is3d2_tpu_torch.driver import IS3D
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    wd = derived_workdir(tmp, wd4, "op0_3d_df4",
+                         {"operation": 0, "cell_block": OP0_3D_DF4_CELLS})
+    surface = wd / "input/surface.dat"
+    with open(surface) as fh:
+        head = [next(fh) for _ in range(OP0_3D_DF4_CELLS)]
+    surface.write_text("".join(head))
+    launches, stages, _ = run_cli(wd, None)
+    print(f"stage seconds: {json.dumps(stages)}; {OP0_3D_DF4_CELLS} cells: "
+          f"{stages['compute'] / OP0_3D_DF4_CELLS * 1e3:.2f} ms of compute a "
+          "cell")
+    check_dX_files(wd, None)
+    # the same cells through B3's 3+1d mode (operation 1, f32), summed over
+    # the y table as operation 0 sums it
+    run = IS3D(wd, device="cuda")
+    run.load_surface_from_file()
+    run._setup()
+    cfg = dataclasses.replace(run.cfg, operation=1)
+    spectra = compute_spectra(run.surface, run.species, run.chosen_idx,
+                              run.grids, run.df_data, cfg, "cuda",
+                              run.laguerre)
+    g = run.grids
+    op1 = np.einsum("p,f,spfy->s", g.pT_weight, g.phi_weight, spectra)
+    mcids = [int(run.species.mc_id[i]) for i in run.chosen_idx]
+    tau_w = (cfg.tau_max - cfg.tau_min) / cfg.tau_bins
+    errs = {}
+    for m in (211, 321, 2212):
+        v = np.loadtxt(wd / f"results/continuous/dN_taudtaudy_{m}.dat")
+        total = float((v[:, 0] * v[:, 1]).sum() * tau_w)
+        ref = float(op1[mcids.index(m)])
+        errs[str(m)] = (total - ref) / ref
+        print(f"{m}: sum over tau bins {total:.8g} vs B3's 3+1d mode "
+              f"summed over y {ref:.8g} ({errs[str(m)]:+.2e})")
+    if max(abs(e) for e in errs.values()) > kc.FEQMOD_TOL_F64:
+        raise AssertionError("3+1d df-4 operation 0 does not sum to B3's "
+                             "dN/dy")
+    r = {"operation0": {"cells": OP0_3D_DF4_CELLS, "stage_seconds": stages,
+                        "compute_ms_per_cell":
+                            stages["compute"] / OP0_3D_DF4_CELLS * 1e3,
+                        "vs_b3_3d": errs}}
+    for label, src in (("df4", wd4), ("df5", wd5)):
+        print(f"-- operation 2, {label}: test histograms, min_num_hadrons "
+              "1e6")
+        wd = derived_workdir(tmp, src, f"op2_3d_{label}", {
+            "operation": 2, "test_sampler": 1, "fast": 1,
+            "min_num_hadrons": 1.0e6, "max_num_samples": 1000,
+            "sampler_seed": SAMPLER_SEED})
+        op2 = run_op2(wd)
+        op2["closure"] = closure_3d(wd, src, op2["n_events"])
+        r[f"operation2_{label}"] = op2
     return r
 
 
@@ -2283,6 +2607,11 @@ def main() -> int:
         ens_spectra = phase_ensemble_spectra(wd1)
         ens_sampler = phase_ensemble_sampler(wd1)
         ens_routes = phase_ensemble_routes(tmp, wd1, wd3)
+        b3_3d_parity = phase_b3_3d_compare(parity_workdir_3d(tmp))
+        b3_3d_launches, b3_3d_stages, wd3_df4 = phase_b3_3d_main_path(tmp)
+        b3_3d = phase_b3_3d_full(wd3_df4)
+        b3_3d_famod_launches, _, wd3_df5, b3_3d_famod = phase_famod_3d(tmp)
+        ops_3d = phase_3d_df345_operations(tmp, wd3_df4, wd3_df5)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2344,7 +2673,22 @@ def main() -> int:
          # phase 25: operation 0 in 3+1d, the f64 engine on a cut
          "operation0_f64_engine": op0_3d,
          # phase 29: an ensemble of 4 surfaces
-         "ensemble": ens_routes["3d"]}]}))
+         "ensemble": ens_routes["3d"]},
+        {"name": "cooper_frye_feqmod_3d", "route": "cuda",
+         "source": "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu",
+         # an XLA program: the JAX package has no Pallas kernel in 3+1d
+         "replaces": "is3d2_tpu/core/spectra_feqmod_fast.py:480",
+         "launches": b3_3d_launches, **b3_3d,
+         "stage_seconds": b3_3d_stages,
+         # phase 30: parity at 2,048 cells over the modes and flags
+         "parity": b3_3d_parity,
+         # phase 33: the famod mode on its own main path
+         "famod": {"launches": b3_3d_famod_launches, **b3_3d_famod},
+         # phase 34: operation 0 on the f64 engine, operation 2
+         "operations": ops_3d,
+         # phase 29: ensembles of 4 df-4 and 4 df-5 3+1d surfaces
+         "ensemble": {"df4": ens_routes["3d_df4"],
+                      "famod": ens_routes["3d_df5"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

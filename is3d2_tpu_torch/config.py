@@ -187,18 +187,16 @@ class Config:
         feqmod = self.df_mode in (3, 4, 5)
         todo = None
         if self.dimension == 3:
-            # df 1/2 run every operation in 3+1d: f32/f32c through kernel
-            # B1's 3+1d mode (operation 1; the JAX package's XLA programs
+            # df 1-5 run every operation in 3+1d (df 5 no operation 0):
+            # f32/f32c through kernel B1's 3+1d mode (df 1/2) or B3's
+            # (df 3-5) in operation 1 (the JAX package's XLA programs
             # there, which use_pallas does not select), f64 through the
-            # torch f64 engine (use_pallas 1 too: B2 is 2+1d only, as in
-            # the JAX package), operation 0 through the f64 engine on
-            # every dtype
+            # torch f64 engines (use_pallas 1 too: B2 and the JAX
+            # package's feqmod kernel are 2+1d only), operation 0 through
+            # the f64 engines on every dtype
             if self.mode == 5:
                 todo = ("mode 5 in dimension 3 (3+1d polarization): "
                         "ROADMAP A7")
-            elif feqmod:
-                todo = ("dimension 3 (3+1d feqmod and famod engines): "
-                        "ROADMAP A9")
         elif self.operation in (0, 2):
             # the sampler has no kernel; the JAX package's operation 0
             # ignores use_pallas (f64 runs the f64 engines, f32/f32c the

@@ -195,6 +195,15 @@ def prepare_cells(surf: SurfaceData, cfg: Config, device,
     return cells
 
 
+def live_index(cells: CellArrays) -> torch.Tensor:
+    """The indices of the cells with mask > 0, an int64 tensor on the
+    cells' device: from the host columns where ``cells`` carries them
+    (HostFacts: nothing is read back), else from the mask on the device."""
+    if cells.host is not None:
+        return to_device(cells.host.live, cells.tau.device, torch.int64)
+    return torch.nonzero(cells.mask > 0.0).squeeze(1)
+
+
 def evaluate_cell_deltaf(cells: CellArrays, df_data: DeltafData,
                          cfg: Config) -> DeltafCoefficients:
     """Per-cell delta-f coefficients (with PTB bulk clamping where needed)."""

@@ -154,10 +154,12 @@ def _renorm_ptm(c: CellArrays, species: SpeciesArrays, T_mod, alphaB_mod,
 def prepare_feqmod(cells: CellArrays, species: SpeciesArrays,
                    df_data: DeltafData, cfg: Config,
                    laguerre: GaussLaguerre) -> FeqmodCellData:
-    """The per-cell feqmod state of a 2+1d df 3/4 run, in f64 on the
-    cells' device."""
-    if cfg.dimension != 2 or cfg.df_mode not in (3, 4):
-        raise ValueError("prepare_feqmod implements 2+1d df 3/4")
+    """The per-cell feqmod state of a df 3/4 run, in f64 on the cells'
+    device.  2+1d rescales eta by detA / (1 + bulk_mod)^2 and divides the
+    renormalisation by (1 + bulk_mod)^2; 3+1d has no eta rescale and
+    divides it by detA (MomentumSpectra.cpp:766-773, 826)."""
+    if cfg.df_mode not in (3, 4):
+        raise ValueError("prepare_feqmod implements df 3/4")
     c = cells
     df = evaluate_cell_deltaf(c, df_data, cfg)   # bulkPi clamped for PTB
     bulkPi = c.bulkPi
@@ -199,9 +201,13 @@ def prepare_feqmod(cells: CellArrays, species: SpeciesArrays,
         breaks = (detA <= cfg.deta_min) | (df.z < 0.0)
 
     # eta rescaling (2+1d narrow (y-eta) trick, MomentumSpectra.cpp:766-773)
-    eta_scale = torch.where(detA > cfg.deta_min, detA / detA_bulk_23, 1.0)
+    if cfg.dimension == 2:
+        eta_scale = torch.where(detA > cfg.deta_min, detA / detA_bulk_23, 1.0)
+    else:
+        eta_scale = torch.ones_like(detA)
 
-    # guard detA for the inverse on broken-down cells (branch is masked out)
+    # guard detA for the inverse (and the 3+1d renorm) on broken-down cells
+    # (their branch is masked out)
     detA_safe = torch.where(detA.abs() > 1e-300, detA, 1.0)
     Ainv = _sym3_inverse(Axx, Axy, Axz, Ayy, Ayz, Azz, detA_safe)
 
@@ -214,7 +220,10 @@ def prepare_feqmod(cells: CellArrays, species: SpeciesArrays,
                              laguerre)
     else:
         renorm = df.z[:, None].expand(c.n_padded, S)
-    renorm = renorm / detA_bulk_23[:, None]
+    if cfg.dimension == 2:
+        renorm = renorm / detA_bulk_23[:, None]
+    else:
+        renorm = renorm / detA_safe[:, None]
 
     # linearised-df columns for the breakdown branch (MomentumSpectra.cpp:676-680)
     shear_coeff = 0.5 / (df.betapi * c.T)

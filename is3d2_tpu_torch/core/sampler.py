@@ -1,4 +1,4 @@
-"""Monte-Carlo particle sampler (operation 2), df modes 1-5, 2+1d.
+"""Monte-Carlo particle sampler (operation 2), df modes 1-5, 2+1d and 3+1d.
 
 Counterpart of is3d2_tpu/core/sampler.py (the reference's
 ParticleSampler.cpp:25-1134) in eager torch on the run's device.  One event

@@ -1,5 +1,4 @@
-"""Spacetime distributions dN/dX (operation 0): df 1-4 in 2+1d, df 1/2 in
-3+1d.
+"""Spacetime distributions dN/dX (operation 0): df 1-4 in 2+1d and 3+1d.
 
 Counterpart of is3d2_tpu/core/spacetime.py (calculate_dN_dX /
 calculate_dN_dX_feqmod, SpacetimeDistribution.cpp:31-1250): the momentum
@@ -22,7 +21,8 @@ Routes (the JAX package's operation 0 ignores use_pallas):
     the (pT, phi) weights is the bin.  The JAX package runs its XLA fast
     paths there (ROADMAP C7).
 
-In 3+1d every dtype runs the f64 engine, as the JAX package does
+In 3+1d every dtype runs the f64 engines (df 3/4: the dan-weighted feqmod
+integrand, with the narrow window), as the JAX package does
 (is3d2_tpu/core/spacetime.py:159: its fast route needs dimension 2): a
 cell's dN/dy is its integrand summed over the y table with the (pT, phi)
 weights only, no y weight (the JAX package's sum, is3d2_tpu/core/

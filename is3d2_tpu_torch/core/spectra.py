@@ -15,8 +15,9 @@ MomentumSpectra.cpp:32-415) and its dispatcher over df modes.  For df 1/2:
     ops/cooper_frye_f32.py, likewise.
 
 df 3/4 (feqmod) run the torch f64 engine of core/spectra_feqmod.py or
-kernel B3 (ops/cooper_frye_feqmod.py); df 5 (famod) the torch f64 engine of
-core/spectra_famod.py or kernel B3's famod mode.
+kernel B3 (ops/cooper_frye_feqmod.py; on a 3+1d surface its 3+1d mode);
+df 5 (famod) the torch f64 engine of core/spectra_famod.py or kernel B3's
+famod mode.
 
 All data-dependent per-cell branches of the reference (u.dsigma <= 0 skip,
 outflow Theta, |df| <= 1 regulation) are masks and where's.
@@ -259,10 +260,15 @@ def df12_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
 
 def uses_feqmod_kernel(cfg: Config) -> bool:
     """df 3/4/5 through kernel B3 (as is3d2_tpu/core/spectra.py:428-442 and
-    :449-465 choose its Pallas kernel or XLA fast path): always with
-    use_pallas = 1, and for f32/f32c unless use_pallas = 0."""
-    return cfg.use_pallas == 1 or (cfg.compute_dtype in ("f32", "f32c")
-                                   and cfg.use_pallas != 0)
+    :449-465 choose its Pallas kernel or XLA fast path).  2+1d: always
+    with use_pallas = 1, and for f32/f32c unless use_pallas = 0.  3+1d:
+    f32/f32c whatever use_pallas says (B3's 3+1d mode stands in for the
+    JAX XLA program _feqmod_fast_3d_jit), never f64 (the JAX Pallas kernel
+    is 2+1d only: f64 with use_pallas = 1 runs the f64 engine)."""
+    fast = cfg.compute_dtype in ("f32", "f32c")
+    if cfg.dimension == 3:
+        return fast
+    return cfg.use_pallas == 1 or (fast and cfg.use_pallas != 0)
 
 
 def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
@@ -304,19 +310,19 @@ def spectra_on_device(surf, species_table: SpeciesTable,
     (is3d2_tpu/core/spectra.py:354-420): "f32" and "f32c" run the
     compensated kernel B1 (in 3+1d its 3+1d mode); "f64" runs the
     plain-f32 kernel B2 with use_pallas = 1 in 2+1d and the torch f64
-    engine otherwise.  df 3/4 (``laguerre``
-    needed): the feqmod prep,
-    then kernel B3 (see uses_feqmod_kernel) or the torch f64 feqmod engine.
+    engine otherwise.  df 3/4 (``laguerre`` needed): the feqmod prep,
+    then kernel B3 (in 3+1d its 3+1d mode; see uses_feqmod_kernel) or the
+    torch f64 feqmod engine.
     df 5: the famod prep (the VAH reconstruction, or a mode-2/3 surface's
     own variables), then kernel B3's famod mode (the same routes) or the
     torch f64 famod engine.  A kernel runs as CUDA on a GPU device and as
     its plain version on the CPU.
 
-    On a GPU, df 1-4 queue their work without waiting for the device: the
-    uploads are asynchronous and the gates and counts come from the host
-    columns (cells.HostFacts), so the host can prepare the next surface
-    while this one computes (core/ensemble.py).  df 5's reconstruction
-    reads its Newton's convergence back, and waits.
+    On a GPU, df 1-4 (2+1d and 3+1d) queue their work without waiting for
+    the device: the uploads are asynchronous and the gates, counts and live
+    cells come from the host columns (cells.HostFacts), so the host can
+    prepare the next surface while this one computes (core/ensemble.py).
+    df 5's reconstruction reads its Newton's convergence back, and waits.
     """
     if cfg.df_mode == 5:
         from .spectra_famod import famod_state, spectra_famod

@@ -1,5 +1,5 @@
 """Continuous spectra with the modified anisotropic distribution (df 5,
-famod), 2+1d.
+famod), 2+1d and 3+1d.
 
 Counterpart of is3d2_tpu/core/spectra_famod.py
 (calculate_dN_pTdpTdphidy_famod, MomentumSpectra.cpp:1049-1682): the
@@ -33,6 +33,7 @@ from ..transfer import to_device
 from .cells import CellArrays, prepare_cells
 from .spectra import (_F64_BLOCK_ELEMENTS, PREFACTOR, MomentumGridDevice,
                       SpeciesArrays)
+from .spectra_feqmod import narrow_window
 
 f64 = torch.float64
 
@@ -334,10 +335,12 @@ def _solve_pmod_B(fm: FamodCellData, px_lrf, py_lrf, pz_lrf,
 def famod_weighted_value(c: CellArrays, fm: FamodCellData,
                          species: SpeciesArrays, grid: MomentumGridDevice,
                          cfg: Config):
-    """Weighted integrand on axes (c,s,p,f,y,e) for df 5, 2+1d: the famod
+    """Weighted integrand on axes (c,s,p,f,y,e) for df 5: the famod
     branch (MomentumSpectra.cpp:1556-1615) at eta_scale * eta and the f_eq
     fallback at (T, alphaB) with no delta-f (:1538-1554), where-selected per
-    cell.  Every term of p.dsigma carries the eta weight."""
+    cell.  Every term of p.dsigma carries the eta weight.  In 3+1d both
+    branches take delta = y - eta_cell with no eta weight, and a cell with
+    detB < 0.01 takes the fallback at every y within detB of its eta."""
     def S(a):
         return a[None, :, None, None, None, None]
 
@@ -347,11 +350,16 @@ def famod_weighted_value(c: CellArrays, fm: FamodCellData,
     px = (grid.pT[:, None] * grid.cos_phi[None, :])[None, None, :, :, None, None]
     py = (grid.pT[:, None] * grid.sin_phi[None, :])[None, None, :, :, None, None]
 
-    eta = grid.eta[None, :]
-    d_break = -eta.expand(c.tau.shape[0], eta.shape[1])[:, None, None, None,
-                                                          None, :]
-    d_mod = -(fm.eta_scale[:, None] * eta)[:, None, None, None, None, :]
-    w_eta = grid.eta_weight[None, None, None, None, None, :]
+    if cfg.dimension == 2:
+        eta = grid.eta[None, :]
+        d_break = -eta.expand(c.tau.shape[0], eta.shape[1])[:, None, None,
+                                                              None, None, :]
+        d_mod = -(fm.eta_scale[:, None] * eta)[:, None, None, None, None, :]
+        w_eta = grid.eta_weight[None, None, None, None, None, :]
+    else:
+        delta = grid.y[None, :, None] - c.eta[:, None, None]  # (c,y,e=1)
+        d_break = d_mod = delta[:, None, None, None, :, :]
+        w_eta = torch.ones((1, 1, 1, 1, 1, 1), dtype=f64, device=c.tau.device)
 
     sgn = S(species.sign)
     b_s = S(species.baryon)
@@ -391,17 +399,18 @@ def famod_weighted_value(c: CellArrays, fm: FamodCellData,
         pdd_m = torch.where(pdd_m > 0.0, pdd_m, 0.0)
     value_mod = pdd_m * f_mod
 
-    return w_eta * torch.where(_C(fm.breaks_down), value_break, value_mod)
+    use_break = _C(fm.breaks_down)
+    if cfg.dimension == 3:
+        use_break = use_break | narrow_window(fm.detB, d_break)
+    return w_eta * torch.where(use_break, value_break, value_mod)
 
 
 def spectra_famod(cells: CellArrays, fm: FamodCellData,
                   species: SpeciesArrays, grid: MomentumGridDevice,
                   cfg: Config) -> torch.Tensor:
     """The torch f64 famod engine (the JAX package's _spectra_famod_jit):
-    (S, NpT, Nphi, 1) spectra, summed over cell blocks of at most
+    (S, NpT, Nphi, Ny) spectra, summed over cell blocks of at most
     _F64_BLOCK_ELEMENTS integrand points."""
-    if cfg.dimension != 2:
-        raise ValueError("the famod engine implements 2+1d")
     S = species.mass.shape[0]
     shape = (S, grid.pT.shape[0], grid.cos_phi.shape[0], grid.y.shape[0])
     per_cell = math.prod(shape) * grid.eta.shape[0]

@@ -1,12 +1,13 @@
 """Continuous spectra with modified equilibrium distributions (df 3 PTM /
-4 PTB), 2+1d: the torch f64 engine.
+4 PTB), 2+1d and 3+1d: the torch f64 engine.
 
 Counterpart of is3d2_tpu/core/spectra_feqmod.py
 (calculate_dN_pTdpTdphidy_feqmod, MomentumSpectra.cpp:419-1044).  Both the
 feqmod branch and the linearised-df breakdown fallback are computed for
-every point and where-selected by the per-cell breakdown mask, the
-reference's data-dependent branch (MomentumSpectra.cpp:877-929).  It is the
-port's f64 yardstick for kernel B3 (ops/cooper_frye_feqmod.py).
+every point and where-selected by the per-cell breakdown mask (in 3+1d
+also by the narrow |y - eta| < detA window), the reference's
+data-dependent branch (MomentumSpectra.cpp:863-929).  It is the port's
+f64 yardstick for kernel B3 (ops/cooper_frye_feqmod.py).
 """
 
 from __future__ import annotations
@@ -60,13 +61,17 @@ def _solve_pmod(fq: FeqmodCellData, px_lrf, py_lrf, pz_lrf, n_refine: int = 2):
 def feqmod_weighted_value(c: CellArrays, fq: FeqmodCellData,
                           species: SpeciesArrays, grid: MomentumGridDevice,
                           cfg: Config, dan_weighted: bool = False):
-    """Weighted integrand on axes (c,s,p,f,y,e) for df modes 3/4, 2+1d.
+    """Weighted integrand on axes (c,s,p,f,y,e) for df modes 3/4.
 
     ``dan_weighted`` selects the convention of p.dsigma: the momentum
     spectra's w_eta (pt dat + px dax + py day) + pn dan, where the dan term
     carries no eta weight (MomentumSpectra.cpp:883/936), or the spacetime
     distributions', where w_eta multiplies all four terms
-    (SpacetimeDistribution.cpp:1022/1075)."""
+    (SpacetimeDistribution.cpp:1022/1075).  In 3+1d both branches take
+    delta = y - eta_cell, with no eta rescale and no eta weight (so the
+    two conventions agree), and a cell with detA < 0.01 takes the
+    breakdown branch at every y within detA of its eta
+    (MomentumSpectra.cpp:863-871)."""
 
     def S(a):
         return a[None, :, None, None, None, None]
@@ -77,12 +82,17 @@ def feqmod_weighted_value(c: CellArrays, fq: FeqmodCellData,
     px = (grid.pT[:, None] * grid.cos_phi[None, :])[None, None, :, :, None, None]
     py = (grid.pT[:, None] * grid.sin_phi[None, :])[None, None, :, :, None, None]
 
-    eta = grid.eta[None, :]                                   # (1,e)
-    delta_break = -eta.expand(c.tau.shape[0], eta.shape[1])
-    delta_mod = -(fq.eta_scale[:, None] * eta)                # (c,e)
-    d_break = delta_break[:, None, None, None, None, :]
-    d_mod = delta_mod[:, None, None, None, None, :]
-    w_eta = grid.eta_weight[None, None, None, None, None, :]
+    if cfg.dimension == 2:
+        eta = grid.eta[None, :]                               # (1,e)
+        delta_break = -eta.expand(c.tau.shape[0], eta.shape[1])
+        delta_mod = -(fq.eta_scale[:, None] * eta)            # (c,e)
+        d_break = delta_break[:, None, None, None, None, :]
+        d_mod = delta_mod[:, None, None, None, None, :]
+        w_eta = grid.eta_weight[None, None, None, None, None, :]
+    else:
+        delta = grid.y[None, :, None] - c.eta[:, None, None]  # (c,y,e=1)
+        d_break = d_mod = delta[:, None, None, None, :, :]
+        w_eta = torch.ones((1, 1, 1, 1, 1, 1), dtype=f64, device=c.tau.device)
 
     sgn = S(species.sign)
     b_s = S(species.baryon)
@@ -165,10 +175,22 @@ def feqmod_weighted_value(c: CellArrays, fq: FeqmodCellData,
     value_mod = pdd_m * f_mod
 
     # ---------------- branch selection -----------------------------------
+    use_break = _C(fq.breaks_down)
+    if cfg.dimension == 3:
+        use_break = use_break | narrow_window(fq.detA, d_break)
     # a nan/inf renorm makes the reference skip the species entirely
     # (MomentumSpectra.cpp:828-832), so both branches are zeroed there
     finite = torch.isfinite(fq.renorm)[:, :, None, None, None, None]
-    return torch.where(_C(fq.breaks_down), value_break, value_mod) * finite
+    return torch.where(use_break, value_break, value_mod) * finite
+
+
+def narrow_window(det: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """The 3+1d fallback of a nearly singular transformation
+    (MomentumSpectra.cpp:863-871): det < 0.01 and |y - eta| < det, in f64,
+    for the cells' ``det`` (detA, famod's detB) and ``delta`` = y - eta on
+    (c, ...) axes."""
+    d = det.reshape(-1, *([1] * (delta.dim() - 1)))
+    return (d < 0.01) & (delta.abs() < d)
 
 
 def spectra_feqmod(cells: CellArrays, fq: FeqmodCellData,

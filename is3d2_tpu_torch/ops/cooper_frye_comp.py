@@ -284,12 +284,12 @@ class Tile3d:
     blocks_per_sm: int
 
     @classmethod
-    def of(cls, lib) -> "Tile3d":
-        """The tile a built library launches (its extern "C" getters)."""
-        return cls(lib.is3d2_cooper_frye_comp_3d_tile(),
-                   lib.is3d2_cooper_frye_comp_3d_tile_y(),
-                   lib.is3d2_cooper_frye_comp_3d_threads(),
-                   lib.is3d2_cooper_frye_comp_3d_blocks_per_sm())
+    def of(cls, lib, name: str = "cooper_frye_comp_3d") -> "Tile3d":
+        """The tile a built library launches (the extern "C" getters of
+        its 3+1d mode ``name``)."""
+        return cls(*(getattr(lib, f"is3d2_{name}_{what}")()
+                     for what in ("tile", "tile_y", "threads",
+                                  "blocks_per_sm")))
 
 
 # kP3, kY3, kThreads3, kMinBlocks3 of csrc/cooper_frye_comp.cu: the geometry

@@ -1,5 +1,5 @@
 """Modified-equilibrium Cooper-Frye spectra kernel B3 (df 3/4 feqmod and
-df 5 famod, 2+1d).
+df 5 famod), 2+1d and 3+1d modes.
 
 The port of is3d2_tpu/ops/cooper_frye_feqmod_pallas.py::_kernel ("vpu"
 arithmetic): the CUDA C++ kernel csrc/cooper_frye_feqmod.cu (built for
@@ -28,6 +28,10 @@ Operand layout (all contiguous, nothing padded):
   eta    (Ne, 4) f32   eta, weight, cosh(eta), sinh(eta)
 
 and the result is the (M,) f64 sum over cells and eta of red * value.
+
+The 3+1d mode (``cooper_frye_feqmod_3d``, below) stands in for the JAX
+package's XLA program _feqmod_fast_3d_jit (is3d2_tpu/core/
+spectra_feqmod_fast.py:480), which has no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -38,11 +42,14 @@ import dataclasses
 import torch
 
 from ..config import Config
-from ..core.cells import CellArrays
+from ..core.cells import CellArrays, live_index
 from ..core.spectra import PREFACTOR, MomentumGridDevice, SpeciesArrays
-from ..core.spectra_fast import fold_eta_quadrature
-from .launch_geometry import (THREADS, Geometry, operand_geometry,
-                              over_eta_chunks)
+from ..core.spectra_fast import (_cell_Q_3d, fold_eta_quadrature,
+                                 momentum_matrix_3d)
+from .cooper_frye_comp import Tile3d
+from .launch_geometry import (H100_SMS, THREADS, Geometry, Geometry3d,
+                              launch_geometry_3d, operand_geometry,
+                              over_eta_chunks, row_length)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -518,7 +525,11 @@ def compute_spectra_feqmod_kernel(cells: CellArrays, fq,
                                   species: SpeciesArrays,
                                   grid: MomentumGridDevice,
                                   cfg: Config) -> torch.Tensor:
-    """df 3/4 spectra through kernel B3: (S, NpT, Nphi, 1) f64."""
+    """df 3/4 spectra through kernel B3: (S, NpT, Nphi, Ny) f64 (in 2+1d
+    Ny = 1; in 3+1d its 3+1d mode)."""
+    if cfg.dimension == 3:
+        return _spectra_3d(feqmod_operands_3d(cells, fq, species, grid, cfg),
+                           species, grid, cfg)
     return _spectra(feqmod_operands(cells, fq, species, grid, cfg), species,
                     grid, cfg)
 
@@ -527,6 +538,427 @@ def compute_spectra_famod_kernel(cells: CellArrays, fm,
                                  species: SpeciesArrays,
                                  grid: MomentumGridDevice,
                                  cfg: Config) -> torch.Tensor:
-    """df 5 spectra through kernel B3's famod mode: (S, NpT, Nphi, 1) f64."""
+    """df 5 spectra through kernel B3's famod mode: (S, NpT, Nphi, Ny) f64
+    (in 3+1d its 3+1d mode)."""
+    if cfg.dimension == 3:
+        return _spectra_3d(famod_operands_3d(cells, fm, species, grid, cfg),
+                           species, grid, cfg)
     return _spectra(famod_operands(cells, fm, species, grid, cfg), species,
                     grid, cfg)
+
+
+# ----------------------------------------------------------------------
+# the 3+1d mode
+# ----------------------------------------------------------------------
+#
+# Operand layout (contiguous; written by pack_feqmod_3d / pack_famod_3d,
+# the live cells only):
+#
+#   cols   (C, 8) f32    the modified branch's columns COLS_3D: 1/T_eff,
+#                        alphaB_eff, breaks, p.dsigma against the
+#                        light-cone momenta (m+, px, py, m-) with the
+#                        cell's a = e^-eta / 2, b = e^eta / 2 folded in
+#   cold   (C, 48) f64   U = M^-1 L row-major (3 x 4 against m+, px, py,
+#                        m-), the cell's eta, the narrow window (detA, or
+#                        famod's detB, where it is below 0.01, else 0);
+#                        the linearised branch's columns: 1/T, alphaB,
+#                        p.dsigma, u.p and V.p against the light-cone
+#                        momenta, pi:pp against their ten products, the
+#                        delta-f coefficients of the 2+1d mode
+#   mom    (7, M) f64    the rows MOM_ROWS_3D of core/spectra_fast.py::
+#                        momentum_matrix_3d, m = (species, pT, y, phi)
+#   y      (Ny,) f64     the y table
+#   renorm (C, S) f32    |renorm|, 0 where it is not finite
+#   red    (C, S) f32    mask * (renorm finite)
+#
+# and the result is the (M,) f64 sum over the cells of red * value.  A
+# cell takes the linearised branch, in f64, where it breaks down, and at
+# every y with |y - eta_cell| < window (MomentumSpectra.cpp:863-871),
+# decided in f64 as the f64 engine decides it.
+
+INVTEFF_3, ALPHAB_EFF_3, BREAKS_3 = 0, 1, 2
+QDF_3 = 3                          # 3..6: p.dsigma in f32
+N_COLS_3D = 8
+U_3, ETA_3, WINDOW_3, INVT_3, ALPHAB_3 = 0, 12, 13, 14, 15   # cold (U: 0..11)
+QD_3, QE_3, QV_3 = 16, 20, 24      # four columns each: m+, px, py, m-
+K_3 = 28                           # 28..37: the pi:pp coefficients
+SHEARC_3, BULK0_3, BULK1_3, BULK2_3, BULKPI_3 = 38, 39, 40, 41, 42
+RATIO_3, INVBETAV_3, DZM3DL_3, DL_3 = 43, 44, 45, 46
+N_COLD_3D = 48
+MOM_ROWS_3D = ("mp", "px", "py", "mm", "mass2", "b", "sgn")
+TILE_CELLS_3D = 32   # kTileCells3
+# kP3, kY3, kThreads3, kMinBlocks3 of the CUDA source: the geometry of a
+# tensor that lies off the card
+TILE_3D = Tile3d(r=4, ty=3, threads=256, blocks_per_sm=2)
+# the rows constant along a (species, pT, y) row of the momentum grid
+_ROW_KEYS_3D = [MOM_ROWS_3D.index(k) for k in ("mp", "mm", "mass2", "b",
+                                                "sgn")]
+# the window's width: detA below this takes the narrow fallback
+NARROW_DET = 0.01
+
+
+@dataclasses.dataclass
+class FeqmodOperands3d:
+    """The 3+1d mode's operands (see the layout above)."""
+
+    cols: torch.Tensor
+    cold: torch.Tensor
+    mom: torch.Tensor
+    y: torch.Tensor
+    renorm: torch.Tensor
+    red: torch.Tensor
+    n_per_species: int    # NpT * Ny * Nphi
+    row_len: int          # Nphi: momenta per (species, pT, y) row of mom
+    n_y: int              # Ny: rows per (species, pT) group of mom
+    kind: str             # "feqmod" or "famod"
+
+    @property
+    def evaluations(self) -> int:
+        """Integrand evaluations of one kernel call: cells x M."""
+        return self.cols.shape[0] * self.mom.shape[1]
+
+    def args(self) -> tuple:
+        """The tensor and shape arguments of cooper_frye_feqmod_3d."""
+        return (self.cols, self.cold, self.mom, self.y, self.renorm,
+                self.red, self.n_per_species)
+
+    def layout(self) -> dict:
+        """The grid's shape as the wrapper takes it (``row_len``, ``n_y``)."""
+        return {"row_len": self.row_len, "n_y": self.n_y}
+
+    def window(self) -> torch.Tensor:
+        """(C, Ny) bool: the (cell, y) pairs inside the narrow window,
+        |y - eta_cell| < window, the predicate of the mode and of the f64
+        engines."""
+        return ((self.y[None, :] - self.cold[:, ETA_3:ETA_3 + 1]).abs()
+                < self.cold[:, WINDOW_3:WINDOW_3 + 1])
+
+
+def cooper_frye_feqmod_3d_plain(cols, cold, mom, y, renorm, red,
+                                n_per_species: int, cfg: Config, kind: str,
+                                row_len: int, n_y: int) -> torch.Tensor:
+    """Plain torch version of the 3+1d mode: the kernel's arithmetic in
+    its order on (cell block, M) tensors -- the modified branch in f32 but
+    p' = U (m+, px, py, m-) and E_mod^2 in f64 from the f64 rows, the
+    (m+, m-) parts formed apart from the (px, py) parts, the renorm applied
+    to it alone; the linearised branch in f64; the window in f64; both
+    branches where-selected per (cell, y), every cell's term summed in f64.
+    Runs on any device."""
+    mode = _mode(cfg, kind)
+    C, M = cols.shape[0], mom.shape[1]
+    mp64, px64, py64, mm64, mass2_64, b64, sgn64 = mom
+    mpf, pxf, pyf, mmf, bm, sgn = (t.to(f32) for t in (mp64, px64, py64,
+                                                       mm64, b64, sgn64))
+    m = torch.arange(M, device=mom.device)
+    species_of_m = m // n_per_species
+    y_of_m = y[(m // row_len) % n_y]
+    out = torch.zeros(M, dtype=f64, device=mom.device)
+    blk = max(1, min(C, _PLAIN_BLOCK_ELEMENTS // M))
+    for c0 in range(0, C, blk):
+        q = cols[c0:c0 + blk]
+        u = cold[c0:c0 + blk]
+
+        def col(i):
+            return q[:, i:i + 1]                          # (b, 1)
+
+        def d(i):
+            return u[:, i:i + 1]
+
+        rn = renorm[c0:c0 + blk][:, species_of_m]         # (b, M)
+        rd = red[c0:c0 + blk][:, species_of_m]
+        narrow = (y_of_m[None, :] - d(ETA_3)).abs() < d(WINDOW_3)
+        use_break = (col(BREAKS_3) != 0.0) | narrow
+
+        # ---------------- modified branch, f32 ----------------
+        p = [(d(U_3 + 4 * i) * mp64 + d(U_3 + 4 * i + 3) * mm64)
+             + (d(U_3 + 4 * i + 1) * px64 + d(U_3 + 4 * i + 2) * py64)
+             for i in range(3)]
+        E2 = (mass2_64 + (p[0] * p[0] + p[1] * p[1] + p[2] * p[2])).to(f32)
+        E_mod = torch.sqrt(torch.clamp(E2, min=1e-30))
+        nchem = -(bm * col(ALPHAB_EFF_3))
+        den = torch.clamp(torch.exp(E_mod * col(INVTEFF_3) + nchem) + sgn,
+                          max=MAX_DEN)
+        pdd = ((col(QDF_3) * mpf + col(QDF_3 + 3) * mmf)
+               + (col(QDF_3 + 1) * pxf + col(QDF_3 + 2) * pyf))
+        if cfg.outflow:
+            pdd = torch.clamp(pdd, min=0.0)
+        value_mod = (rd * (rn * (pdd * (1.0 / den)))).to(f64)
+
+        # ---------------- linearised branch, f64 ----------------
+        def lc(k):   # a light-cone row against (m+, px, py, m-)
+            return ((d(k) * mp64 + d(k + 3) * mm64)
+                    + (d(k + 1) * px64 + d(k + 2) * py64))
+
+        E = lc(QE_3)
+        pdd = lc(QD_3)
+        if cfg.outflow:
+            pdd = torch.where(pdd > 0.0, pdd, 0.0)
+        invT = d(INVT_3)
+        if mode == 0:
+            value_b = pdd * (1.0 / (torch.exp(E * invT - b64 * d(ALPHAB_3))
+                                    + sgn64))
+        else:
+            k = [d(K_3 + i) for i in range(10)]
+            sp_m = mp64 * (k[0] * mp64 + k[6] * mm64) + k[3] * (mm64 * mm64)
+            cx = k[4] * mp64 + k[8] * mm64
+            cy = k[5] * mp64 + k[9] * mm64
+            pim = sp_m + (px64 * ((k[1] * px64 + k[7] * py64) + cx)
+                          + py64 * (k[2] * py64 + cy))
+            rE = 1.0 / E
+            if mode == 3:
+                Vp = lc(QV_3)
+                feq = 1.0 / (torch.exp(E * invT - b64 * d(ALPHAB_3))
+                             + sgn64)
+                feqbar = 1.0 - sgn64 * feq
+                df = feqbar * (
+                    d(SHEARC_3) * pim * rE
+                    + (d(BULK0_3) * E + d(BULK1_3) * b64
+                       + d(BULK2_3) * (E - mass2_64 * rE)) * d(BULKPI_3)
+                    + (d(RATIO_3) - b64 * rE) * Vp * d(INVBETAV_3))
+            else:  # PTB linearised: f_eq with no chemical potential
+                feq = 1.0 / (torch.exp(E * invT) + sgn64)
+                feqbar = 1.0 - sgn64 * feq
+                df = (feqbar * d(SHEARC_3) * pim * rE + d(DZM3DL_3)
+                      + feqbar * d(DL_3) * (E - mass2_64 * rE) * invT)
+            if cfg.regulate_deltaf:
+                df = torch.clamp(df, -1.0, 1.0)
+            value_b = pdd * feq * (1.0 + df)
+
+        out += torch.where(use_break, rd.to(f64) * value_b,
+                           value_mod).sum(dim=0)
+    return out
+
+
+def _check_3d(cols, cold, mom, y, renorm, red, n_per_species: int,
+              row_len: int | None, n_y: int) -> None:
+    C, S = renorm.shape
+    M = mom.shape[1]
+    want = {"cols": (cols, f32, (C, N_COLS_3D)),
+            "cold": (cold, f64, (C, N_COLD_3D)),
+            "mom": (mom, f64, (len(MOM_ROWS_3D), M)), "y": (y, f64, (n_y,)),
+            "renorm": (renorm, f32, (C, S)), "red": (red, f32, (C, S))}
+    for name, (t, dtype, shape) in want.items():
+        if t.device != cols.device:
+            raise ValueError(f"{name} is on {t.device}, cols on {cols.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if S < 1 or M < 1 or M >= 2**31 or C * S >= 2**31:
+        raise ValueError("species and momentum counts must be >= 1 and the "
+                         "tables fit in int32")
+    if n_per_species < 1 or S * n_per_species < M:
+        raise ValueError(f"{M} momenta do not fit {S} species x "
+                         f"{n_per_species} momenta")
+    if row_len is not None and n_per_species % (row_len * n_y):
+        raise ValueError(f"{n_per_species} momenta a species are no whole "
+                         f"number of groups of {n_y} rows of {row_len}")
+
+
+def geometry_3d(mom: torch.Tensor, n_cells: int, n_y: int,
+                tile: Tile3d = TILE_3D,
+                row_len: int | None = None) -> Geometry3d:
+    """The launch geometry of the 3+1d mode: its momenta run (species, pT,
+    y, phi), ``n_y`` rows of ``row_len`` phi a (species, pT) group.
+    ``row_len``, the phi count of the grid, is read off the rows m+, m-,
+    mass2, b and sign where the caller leaves it out (a device-to-host
+    copy); ``n_y`` cannot be, so the caller names it."""
+    if row_len is None:
+        row_len = row_length(mom[_ROW_KEYS_3D])
+    sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
+           if mom.device.type == "cuda" else H100_SMS)
+    return launch_geometry_3d(mom.shape[1], row_len, n_y, n_cells, tile.r,
+                              tile.ty, TILE_CELLS_3D, tile.threads,
+                              tile.blocks_per_sm, sms)
+
+
+def launch_3d(cols, cold, mom, y, renorm, red, n_per_species: int,
+              cfg: Config, kind: str, g: Geometry3d, lib=None) -> torch.Tensor:
+    """Launch the 3+1d mode of ``lib`` (default: this package's build) on
+    checked CUDA operands with the geometry ``g``."""
+    if lib is None:
+        from . import _build
+        lib = _build.load("cooper_frye_feqmod")
+    fn = lib.is3d2_cooper_frye_feqmod_3d
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    C, S = renorm.shape
+    M = mom.shape[1]
+    out = torch.empty(M, dtype=f64, device=cols.device)
+    partial = out if g.n_split == 1 else torch.empty(
+        (g.n_split, M), dtype=f64, device=cols.device)
+    with torch.cuda.device(cols.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cols.data_ptr(), cold.data_ptr(), mom.data_ptr(),
+                 y.data_ptr(), renorm.data_ptr(), red.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), C, M, S, n_per_species,
+                 g.row_len, g.n_y, g.n_split, g.cells_per_split,
+                 _mode(cfg, kind), _flags(cfg, kind, False), stream)
+    if err != 0:
+        raise RuntimeError(f"cooper_frye_feqmod_3d launch failed: cudaError "
+                           f"{err}")
+    cooper_frye_feqmod_3d.launches += 1
+    cooper_frye_feqmod_3d.last_geometry = g
+    return out
+
+
+def cooper_frye_feqmod_3d(cols, cold, mom, y, renorm, red,
+                          n_per_species: int, cfg: Config, kind: str,
+                          row_len: int | None = None,
+                          n_y: int | None = None) -> torch.Tensor:
+    """Run B3's 3+1d mode on CUDA tensors (its plain version on CPU
+    tensors).  Returns the (M,) f64 sums, prefactor and degeneracy not
+    applied.  ``n_y``: the rapidities of the momentum grid, which the
+    caller must name; ``row_len``: its phi count, see ``geometry_3d``."""
+    if n_y is None or n_y < 1:
+        raise ValueError("cooper_frye_feqmod_3d needs n_y, the rapidity "
+                         "count of the momentum grid")
+    _check_3d(cols, cold, mom, y, renorm, red, n_per_species, row_len, n_y)
+    _mode(cfg, kind)
+    if cols.device.type == "cpu":
+        if row_len is None:
+            row_len = row_length(mom[_ROW_KEYS_3D])
+        return cooper_frye_feqmod_3d_plain(cols, cold, mom, y, renorm, red,
+                                           n_per_species, cfg, kind,
+                                           row_len, n_y)
+    if cols.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cols.device}")
+    from . import _build
+    lib = _build.load("cooper_frye_feqmod")
+    g = geometry_3d(mom, cols.shape[0], n_y,
+                    Tile3d.of(lib, "cooper_frye_feqmod_3d"), row_len)
+    return launch_3d(cols, cold, mom, y, renorm, red, n_per_species, cfg,
+                     kind, g, lib)
+
+
+cooper_frye_feqmod_3d.launches = 0
+cooper_frye_feqmod_3d.last_geometry = None   # of the latest launch
+
+
+def _lrf_matrix_3d(cells: CellArrays, basis, Minv) -> torch.Tensor:
+    """U = M^-1 L (C, 3, 4) in f64: L projects (m+, px, py, m-) onto the
+    LRF axes, with p^tau = a m+ + b m- and tau p^eta = a m+ - b m-
+    (a = e^-eta / 2, b = e^eta / 2 of the cell)."""
+    a = 0.5 * torch.exp(-cells.eta)
+    b = 0.5 * torch.exp(cells.eta)
+    Xnt, Znt = cells.tau * basis.Xn, cells.tau * basis.Zn
+    zero = torch.zeros_like(a)
+    L = torch.stack([
+        torch.stack([a * (Xnt - basis.Xt), basis.Xx, basis.Xy,
+                     -b * (basis.Xt + Xnt)], dim=1),
+        torch.stack([zero, basis.Yx, basis.Yy, zero], dim=1),
+        torch.stack([a * (Znt - basis.Zt), zero, zero,
+                     -b * (basis.Zt + Znt)], dim=1)], dim=1)
+    return (Minv[:, :, :, None] * L[:, None, :, :]).sum(dim=2)
+
+
+def _pack_3d(cells: CellArrays, modified: tuple, columns: dict, U, det,
+             renorm, red, species: SpeciesArrays, grid: MomentumGridDevice,
+             kind: str) -> FeqmodOperands3d:
+    """Lay out the modified branch's (1/T_eff, alphaB_eff, breaks), the
+    linearised branch's f64 ``columns`` (cold's indices; p.dsigma and u.p
+    against the light-cone momenta are added here), U (C, 3, 4), the
+    window's determinant and the (C, S) renorm / red tables of the live
+    cells as the 3+1d mode's operands, and the momentum rows and y table
+    from ``grid``."""
+    c = cells
+    live = live_index(c)
+    dev = c.tau.device
+    q = _cell_Q_3d(c, {})
+    cold = torch.zeros((c.n_padded, N_COLD_3D), dtype=f64, device=dev)
+    for i, v in columns.items():
+        cold[:, i] = v
+    cold[:, U_3:U_3 + 12] = U.reshape(-1, 12)
+    cold[:, ETA_3] = c.eta
+    cold[:, WINDOW_3] = torch.where(det < NARROW_DET, det, 0.0)
+    cold[:, INVT_3] = 1.0 / c.T
+    cold[:, ALPHAB_3] = c.alphaB
+    cold[:, QD_3:QD_3 + 4] = q["Q_d"]
+    cold[:, QE_3:QE_3 + 4] = q["Q_E"]
+    cols = torch.zeros((c.n_padded, N_COLS_3D), dtype=f64, device=dev)
+    cols[:, INVTEFF_3], cols[:, ALPHAB_EFF_3], cols[:, BREAKS_3] = modified
+    cols[:, QDF_3:QDF_3 + 4] = q["Q_d"]
+    rows = momentum_matrix_3d(species, grid)
+    mom = torch.stack([rows[k] for k in MOM_ROWS_3D]).contiguous()
+    NpT, Nphi, Ny = (grid.pT.shape[0], grid.cos_phi.shape[0],
+                     grid.y.shape[0])
+    return FeqmodOperands3d(
+        cols=cols[live].to(f32).contiguous(), cold=cold[live].contiguous(),
+        mom=mom, y=grid.y.to(f64).contiguous(),
+        renorm=renorm[live].to(f32).contiguous(),
+        red=red[live].to(f32).contiguous(), n_per_species=NpT * Ny * Nphi,
+        row_len=Nphi, n_y=Ny, kind=kind)
+
+
+def pack_feqmod_3d(cells: CellArrays, fq, species: SpeciesArrays,
+                   grid: MomentumGridDevice) -> FeqmodOperands3d:
+    """The 3+1d mode's operands of the feqmod (df 3/4) prep
+    (core/feqmod.py::FeqmodCellData) on a 3+1d surface."""
+    c = cells
+    q = _cell_Q_3d(c, {})
+    columns = {
+        SHEARC_3: fq.shear_coeff, BULK0_3: fq.bulk0, BULK1_3: fq.bulk1,
+        BULK2_3: fq.bulk2, BULKPI_3: fq.bulkPi,
+        RATIO_3: c.baryon_enthalpy_ratio, INVBETAV_3: 1.0 / fq.betaV,
+        DZM3DL_3: fq.delta_z - 3.0 * fq.delta_lambda, DL_3: fq.delta_lambda,
+        **{QV_3 + k: q["Q_V"][:, k] for k in range(4)},
+        **{K_3 + k: q["Q_pi"][:, k] for k in range(10)},
+    }
+    # the nan/inf species skip (MomentumSpectra.cpp:828-832) folded in
+    finite = torch.isfinite(fq.renorm)
+    renorm = torch.where(finite, fq.renorm.abs(), 0.0)
+    red = c.mask[:, None] * finite
+    return _pack_3d(c, (1.0 / fq.T_mod, fq.alphaB_mod,
+                        fq.breaks_down.to(f64)), columns,
+                    _lrf_matrix_3d(c, fq, fq.Ainv), fq.detA, renorm, red,
+                    species, grid, "feqmod")
+
+
+def pack_famod_3d(cells: CellArrays, fm, species: SpeciesArrays,
+                  grid: MomentumGridDevice) -> FeqmodOperands3d:
+    """The 3+1d mode's operands of the famod (df 5) prep
+    (core/spectra_famod.py::FamodCellData) on a 3+1d surface; the delta-f
+    columns stay zero, the window is famod's detB."""
+    c = cells
+    C = c.n_padded
+    S = species.mass.shape[0]
+    renorm = fm.renorm.abs()[:, None].expand(C, S)
+    renorm = torch.where(torch.isfinite(renorm), renorm, 0.0)
+    red = c.mask[:, None].expand(C, S)
+    return _pack_3d(c, (1.0 / fm.lam, fm.upsilonB, fm.breaks_down.to(f64)),
+                    {}, _lrf_matrix_3d(c, fm, fm.Binv), fm.detB, renorm, red,
+                    species, grid, "famod")
+
+
+def feqmod_operands_3d(cells: CellArrays, fq, species: SpeciesArrays,
+                       grid: MomentumGridDevice,
+                       cfg: Config) -> FeqmodOperands3d:
+    """Pack for B3's 3+1d mode, df 3/4 (no eta fold in 3+1d)."""
+    if cfg.dimension != 3 or cfg.df_mode not in (3, 4):
+        raise ValueError("B3's 3+1d feqmod mode implements 3+1d df 3/4")
+    return pack_feqmod_3d(cells, fq, species, grid)
+
+
+def famod_operands_3d(cells: CellArrays, fm, species: SpeciesArrays,
+                      grid: MomentumGridDevice,
+                      cfg: Config) -> FeqmodOperands3d:
+    """Pack for B3's 3+1d famod mode, df 5."""
+    if cfg.dimension != 3 or cfg.df_mode != 5:
+        raise ValueError("B3's 3+1d famod mode implements 3+1d df 5")
+    return pack_famod_3d(cells, fm, species, grid)
+
+
+def run_3d(ops: FeqmodOperands3d, cfg: Config) -> torch.Tensor:
+    """The 3+1d mode on ``ops``: the (M,) f64 sums, m = (species, pT, y,
+    phi)."""
+    return cooper_frye_feqmod_3d(*ops.args(), cfg, ops.kind, **ops.layout())
+
+
+def _spectra_3d(ops: FeqmodOperands3d, species: SpeciesArrays,
+                grid: MomentumGridDevice, cfg: Config) -> torch.Tensor:
+    out = run_3d(ops, cfg).reshape(species.mass.shape[0], grid.pT.shape[0],
+                                   grid.y.shape[0], grid.cos_phi.shape[0])
+    return (PREFACTOR * species.degeneracy[:, None, None, None]
+            * out.permute(0, 1, 3, 2))

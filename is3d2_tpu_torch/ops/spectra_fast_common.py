@@ -21,11 +21,10 @@ import dataclasses
 import torch
 
 from ..config import Config
-from ..core.cells import CellArrays
+from ..core.cells import CellArrays, live_index
 from ..core.spectra import PREFACTOR, MomentumGridDevice, SpeciesArrays
 from ..core.spectra_fast import (_cell_Q_3d_comp, _split12,
                                  fold_eta_quadrature, momentum_matrix_3d_comp)
-from ..transfer import to_device
 from . import cooper_frye_f32 as b2
 from .cooper_frye_comp import (CELL_COLS, CELL_COLS_3D, MOM_ROWS, MOM_ROWS_3D,
                                cooper_frye_comp, cooper_frye_comp_3d)
@@ -179,10 +178,7 @@ def pack_inputs_comp_3d(cells: CellArrays, coeffs: dict,
     momentum_matrix_3d_comp in (species, pT, y, phi) order.  The live
     cells' indices come from the host columns where ``cells`` carries them
     (cells.HostFacts), else from the mask on the device."""
-    if cells.host is not None:
-        live = to_device(cells.host.live, cells.tau.device, torch.int64)
-    else:
-        live = torch.nonzero(cells.mask > 0.0).squeeze(1)
+    live = live_index(cells)
     q = _cell_Q_3d_comp(cells, coeffs)
     cols = {k: q[k] for k in ("qp1", "qp2", "qx1", "qx2", "qy1", "qy2", "qm1",
                               "qm2", "abf", "abl", "Tf", "bulk0", "bulk1",

@@ -2,7 +2,8 @@
 call, and count what was compiled.
 
     python -m is3d2_tpu_torch.tools.kernel_bench [--tree NAME=DIR ...]
-        [--only b1,b3,b2,b1_3d,p1,prep] [--tile3d PxYxTxB ...]
+        [--only b1,b3,b2,b1_3d,b3_3d,p1,prep] [--tile3d PxYxTxB ...]
+        [--tile3d-b3 PxYxTxB ...]
         [--cells 100000] [--compare-cells 8192] [--f64-species 4]
         [--few-species 3,16] [--out build/kernel_bench.json]
 
@@ -27,13 +28,14 @@ script
     tree there with CUDA events in the order trees, trees reversed, and
     holds each to this tree's plain version on the first
     ``--compare-cells`` cells;
-  * ``b1_3d``: every tree's result at full size must equal this tree's bit
-    for bit at the same cell split (the 3+1d mode's tile moves no
-    rounding; the script exits 1 where one does not); ``--tile3d PxYxTxB``
-    (repeatable) adds a copy
-    of this tree whose 3+1d mode launches a tile of P phi x Y y, T threads
-    a block and B blocks an SM (``tile_tree``), so tile shapes race in
-    one call;
+  * ``b1_3d`` and ``b3_3d`` (B3's 3+1d mode: df 4 f32 on a 3+1d surface,
+    shear 0.2, bulk 0.1): every tree's result at full size must equal
+    this tree's bit for bit at the same cell split (a 3+1d mode's tile
+    moves no rounding; the script exits 1 where one does not);
+    ``--tile3d PxYxTxB`` (repeatable) adds a copy of this tree whose B1
+    3+1d mode launches a tile of P phi x Y y, T threads a block and B
+    blocks an SM (``tile_tree``), ``--tile3d-b3`` one whose B3 3+1d mode
+    does, so tile shapes race in one call;
   * B3: takes the ``--f64-species`` species on which the trees disagree
     most at that cut and holds every tree, and the plain version, to the
     f64 feqmod engine there, at the cut and at the full cell count;
@@ -287,26 +289,38 @@ KERNELS = [
     Kernel("b1_3d", "cooper_frye_comp_3d",
            {"df_mode": 1, "compute_dtype": "f32c"}, {"dimension": 3}, kc.TOL,
            source="cooper_frye_comp", launch="launch_3d"),
+    Kernel("b3_3d", "cooper_frye_feqmod_3d",
+           {"df_mode": 4, "compute_dtype": "f32"},
+           {"dimension": 3, **kc.FEQMOD_SURFACE}, kc.FEQMOD_TOL_PLAIN,
+           source="cooper_frye_feqmod", launch="launch_3d"),
 ]
+# the 3+1d modes, whose tile moves no rounding
+MODES_3D = ("b1_3d", "b3_3d")
 
-# the 3+1d mode's tile shapes raced for its redesign: phi x y momenta a
+# B1's 3+1d mode's tile shapes raced for its redesign: phi x y momenta a
 # thread, threads a block, blocks an SM (--tile3d)
 TILES_3D = ("4x3x128x3", "4x3x256x2", "4x7x128x3", "4x7x128x2", "8x3x128x2")
-# the line of csrc/cooper_frye_comp.cu that fixes the 3+1d mode's tile
+# B3's 3+1d mode's, raced for its choice (--tile3d-b3)
+TILES_3D_B3 = ("4x3x128x3", "4x3x256x2", "4x3x128x2", "4x1x128x4",
+               "2x3x128x4", "4x7x128x2", "2x7x128x3", "2x1x128x4")
+# the line of csrc/cooper_frye_comp.cu (and of csrc/cooper_frye_feqmod.cu)
+# that fixes the 3+1d mode's tile
 TILE_LINE_3D = (r"constexpr int kP3 = \d+, kY3 = \d+, kThreads3 = \d+, "
                 r"kMinBlocks3 = \d+;")
 
 
-def tile_tree(spec: str, root: Path) -> Path:
-    """A copy of this tree under ``root`` whose 3+1d mode launches the tile
-    ``spec`` = "PxYxTxB" (see TILES_3D); returns the copy's directory."""
+def tile_tree(spec: str, root: Path,
+              source: str = "cooper_frye_comp") -> Path:
+    """A copy of this tree under ``root`` whose 3+1d mode in ``source``
+    launches the tile ``spec`` = "PxYxTxB" (see TILES_3D); returns the
+    copy's directory."""
     p, y, t, b = (int(v) for v in spec.split("x"))
     here = Path(__file__).resolve().parent.parent
-    dst = root / f"tile3d_{spec}"
+    dst = root / f"tile3d_{source}_{spec}"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(here, dst / here.name,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = dst / here.name / "csrc" / "cooper_frye_comp.cu"
+    src = dst / here.name / "csrc" / f"{source}.cu"
     text, n = re.subn(TILE_LINE_3D, f"constexpr int kP3 = {p}, kY3 = {y}, "
                       f"kThreads3 = {t}, kMinBlocks3 = {b};", src.read_text())
     if n != 1:
@@ -321,6 +335,24 @@ def operands(kernel: Kernel, wd: Path):
     ``few(s)`` on the first s species."""
     cfg = Config.from_file(wd / "iS3D_parameters.dat")
     surf = read_surface(wd / "input/surface.dat", 1, cfg.dimension, False)
+    if kernel.key == "b3_3d":
+        from ..ops import cooper_frye_feqmod as fk
+        state = kc.feqmod_engine_state(wd, cfg, surf, "cuda")
+        ops = fk.feqmod_operands_3d(*state, cfg)
+
+        def cut(n):
+            return (ops.cols[:n].contiguous(), ops.cold[:n].contiguous(),
+                    ops.mom, ops.y, ops.renorm[:n].contiguous(),
+                    ops.red[:n].contiguous(), ops.n_per_species, cfg,
+                    ops.kind)
+
+        def few(s):
+            return (ops.cols, ops.cold,
+                    ops.mom[:, :s * ops.n_per_species].contiguous(), ops.y,
+                    ops.renorm[:, :s].contiguous(),
+                    ops.red[:, :s].contiguous(), ops.n_per_species, cfg,
+                    ops.kind)
+        return cfg, state, ops, (*ops.args(), cfg, ops.kind), cut, few
     if kernel.key == "b3":
         from ..ops import cooper_frye_feqmod as fk
         state = kc.feqmod_engine_state(wd, cfg, surf, "cuda")
@@ -489,8 +521,10 @@ def race_split(kernel: Kernel, few, n_species: int, layout: dict) -> dict:
     wrapper = getattr(mod, kernel.name)
     launch = getattr(mod, kernel.launch)
     args = few(n_species)
-    # the momentum rows: argument 4 of B1, 3 of B2, 1 of B3 and B1 3+1d
-    n_mom = args[{"b1": 4, "b2": 3, "b3": 1, "b1_3d": 1}[kernel.key]].shape[1]
+    # the momentum rows: argument 4 of B1, 3 of B2, 1 of B3 and B1 3+1d,
+    # 2 of B3 3+1d
+    n_mom = args[{"b1": 4, "b2": 3, "b3": 1, "b1_3d": 1,
+                  "b3_3d": 2}[kernel.key]].shape[1]
     out = wrapper(*args, **layout)
     g = wrapper.last_geometry
     grid = g.grid if kernel.key == "b3" else g
@@ -617,6 +651,9 @@ def main(argv=None) -> int:
                     metavar="PxYxTxB",
                     help="a copy of this tree whose 3+1d mode launches this "
                          "tile (repeatable; TILES_3D lists the raced ones)")
+    ap.add_argument("--tile3d-b3", action="append", default=[],
+                    metavar="PxYxTxB",
+                    help="the same for B3's 3+1d mode (TILES_3D_B3)")
     ap.add_argument("--cells", type=int, default=100_000)
     ap.add_argument("--compare-cells", type=int, default=8192)
     ap.add_argument("--f64-species", type=int, default=4)
@@ -634,6 +671,9 @@ def main(argv=None) -> int:
     trees = [item.partition("=")[::2] for item in a.tree]
     trees += [(f"tile {spec}", tile_tree(spec, Path("build/tile3d")))
               for spec in a.tile3d]
+    trees += [(f"b3 tile {spec}", tile_tree(spec, Path("build/tile3d"),
+                                            "cooper_frye_feqmod"))
+              for spec in a.tile3d_b3]
     for i, (label, directory) in enumerate(trees):
         packages[label] = load_tree(i, Path(directory)).__name__
     only = a.only.split(",")
@@ -682,10 +722,13 @@ def main(argv=None) -> int:
             mine = importlib.import_module(
                 f"{packages[THIS_TREE]}.ops.{k.module}")
             plain = getattr(mine, f"{k.name}_plain")
+            plain = functools.partial(plain, **{
+                key: v for key, v in layout.items()
+                if key in inspect.signature(plain).parameters})
             rec, spectra = race(k, versions, args, cut(a.compare_cells),
                                 plain, state)
             print(f"{k.key}: geometry {getattr(mine, k.name).last_geometry}")
-            if k.key == "b1_3d":
+            if k.key in MODES_3D:
                 rec["vs_this_tree"] = equal_bits(k, versions, packages, args)
                 failed += [f"{k.key} {label}: bits differ"
                            for label, r in rec["vs_this_tree"].items()
@@ -705,7 +748,7 @@ def main(argv=None) -> int:
                     feqmod_f64(state, cfg, args[0].shape[0], species), species)
             rec["few_species"] = {
                 s: race_split(k, few, s,
-                              {"n_y": ops.n_y} if k.key == "b1_3d" else {})
+                              {"n_y": ops.n_y} if k.key in MODES_3D else {})
                 for s in few_species}
             record["kernels"][k.name] = rec
             del ops, args, cut, few, state, versions

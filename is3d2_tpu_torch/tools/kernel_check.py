@@ -27,6 +27,13 @@ the CASES on a make_surface(dimension=3) surface against its plain version
 (Case3dResult); its ragged case also runs on RAGGED_Y's rapidity counts,
 which its y tile does not divide.
 
+Kernel B3's 3+1d mode (df 3/4/5 on a 3+1d surface):
+``check_feqmod_3d_case`` runs FEQMOD_3D_CASES against its plain version
+(FEQMOD_TOL_PLAIN) and the f64 engines (FEQMOD_TOL_F64), optionally on a
+surface that puts cells' eta within detA of a y node
+(``narrow_window_surface``: the narrow window, counted by
+``narrow_pairs``); its ragged case runs on RAGGED_Y's rapidity counts.
+
 Kernel P1 (spin polarization, mode 5): ``check_polarization_case`` holds
 it to its plain version (POLZN_TOL_PLAIN) and to the f64 polarization
 engine (never folded) at the JAX package's bars for its f32 route
@@ -92,6 +99,8 @@ MAIN_PATH_KERNEL = {
     # the 3+1d mode's tile shape comes first among its template parameters
     "cooper_frye_comp_3d":
         r"cooper_frye_comp_3d_kernelI(?:Li\d+E)*Lb1ELb0ELb0ELb0ELb0EE",
+    # B3's 3+1d mode, df 4 with neither outflow nor regulation
+    "cooper_frye_feqmod_3d": r"cooper_frye_feqmod_3d_kernelILi4ELb0ELb0EE",
 }
 
 # name -> (config fields, make_surface options); the workdir needs
@@ -484,11 +493,13 @@ def _b3_ragged(state, ops: fk.FeqmodOperands, cfg: Config):
 FAMOD_SURFACE = {"shear_scale": 0.1, "bulk_scale": 0.05}
 
 
-def famod_surface(workdir: str | Path, n_cells: int, seed: int, device):
-    """make_surface(n_cells, seed, **FAMOD_SURFACE) with the HRG (E, P) of
-    the workdir's species list."""
+def famod_surface(workdir: str | Path, n_cells: int, seed: int, device,
+                  dimension: int = 2):
+    """make_surface(n_cells, seed, **FAMOD_SURFACE) (of ``dimension``)
+    with the HRG (E, P) of the workdir's species list."""
     workdir = Path(workdir)
-    surf = make_surface(n_cells, seed=seed, **FAMOD_SURFACE)
+    surf = make_surface(n_cells, seed=seed, dimension=dimension,
+                        **FAMOD_SURFACE)
     return make_eos_consistent(
         surf, read_pdg(3, workdir / "PDG"),
         GaussLaguerre.from_file(workdir / "tables/gauss/gla_roots_weights.txt"),
@@ -533,6 +544,127 @@ def check_famod_ragged_case(workdir: str | Path, n_cells: int, seed: int,
                                famod_surface(workdir, n_cells, seed, device),
                                device)
     return _b3_ragged(state, fk.famod_operands(*state, cfg), cfg)
+
+
+# ----------------------------------------------------------------------
+# kernel B3's 3+1d mode
+# ----------------------------------------------------------------------
+
+# name -> config fields (compute_dtype f32, dimension 3): df 3 and df 4 on
+# a 3+1d FEQMOD_SURFACE (cells break down), the famod mode on the famod
+# prep of an EOS-consistent 3+1d FAMOD_SURFACE
+FEQMOD_3D_CASES = {
+    "df3": {"df_mode": 3},
+    "df4": {"df_mode": 4},
+    "df3-outflow-regulate": {"df_mode": 3, "outflow": 1, "regulate_deltaf": 1},
+    "df4-regulate": {"df_mode": 4, "regulate_deltaf": 1},
+    "famod": {"df_mode": 5},
+    "famod-outflow": {"df_mode": 5, "outflow": 1},
+}
+
+
+@dataclasses.dataclass
+class Feqmod3dCaseResult(FeqmodCaseResult):
+    """A 3+1d B3 case; ``narrow_pairs``: the (cell, y) pairs of its
+    operands inside the narrow window (``narrow_pairs``)."""
+
+    narrow_pairs: int = 0
+
+
+def narrow_pairs(ops: fk.FeqmodOperands3d) -> int:
+    """The (cell, y) pairs of ``ops`` inside the narrow window."""
+    return int(ops.window().sum())
+
+
+def narrow_window_surface(workdir: str | Path, cfg: Config, n_cells: int,
+                          seed: int, device):
+    """A 3+1d FEQMOD_SURFACE whose cells with deta_min < detA < 0.01 (not
+    broken down) sit within detA / 2 of a y node: each one's eta moved to
+    y_k + detA / 2, the table's nodes y_k with |y_k| <= 2 in turn.  A
+    cell's eta enters neither A nor the breakdown test, so the prep of the
+    moved surface keeps every detA."""
+    surf = make_surface(n_cells, seed=seed, dimension=3, **FEQMOD_SURFACE)
+    cells, fq, _, grid = feqmod_engine_state(workdir, cfg, surf, device)
+    det = fq.detA.cpu().numpy()[:n_cells]
+    keep = ((cells.mask.cpu().numpy()[:n_cells] > 0)
+            & ~fq.breaks_down.cpu().numpy()[:n_cells]
+            & (det > cfg.deta_min) & (det < fk.NARROW_DET))
+    idx = np.flatnonzero(keep)
+    y = grid.y.cpu().numpy()
+    y = y[np.abs(y) <= 2.0]
+    surf.eta[idx] = y[np.arange(idx.size) % y.size] + 0.5 * det[idx]
+    return surf
+
+
+def _state_3d(workdir, cfg: Config, n_cells: int, seed: int, device,
+              narrow: bool = False):
+    """(engine state, operands) of a 3+1d df 3/4 (feqmod) or df 5 (famod)
+    case."""
+    if cfg.df_mode == 5:
+        state = famod_engine_state(
+            workdir, cfg, famod_surface(workdir, n_cells, seed, device, 3),
+            device)
+        return state, fk.famod_operands_3d(*state, cfg)
+    surf = (narrow_window_surface(workdir, cfg, n_cells, seed, device)
+            if narrow else make_surface(n_cells, seed=seed, dimension=3,
+                                        **FEQMOD_SURFACE))
+    state = feqmod_engine_state(workdir, cfg, surf, device)
+    return state, fk.feqmod_operands_3d(*state, cfg)
+
+
+def f64_3d(state, cfg: Config) -> np.ndarray:
+    """The f64 feqmod or famod engine's 3+1d spectra, (S, NpT * Ny * Nphi)
+    in the order of the 3+1d mode's momenta (species, pT, y, phi)."""
+    engine = spectra_famod if cfg.df_mode == 5 else spectra_feqmod
+    out = engine(*state, cfg).permute(0, 1, 3, 2)
+    return out.reshape(out.shape[0], -1).cpu().numpy()
+
+
+def check_feqmod_3d_case(workdir: str | Path, case: str, n_cells: int,
+                         seed: int, device, narrow: bool = False,
+                         **cfg_fields) -> Feqmod3dCaseResult:
+    """Run FEQMOD_3D_CASES[case] on a 3+1d surface of ``n_cells`` cells
+    (``narrow``: narrow_window_surface) through B3's 3+1d mode (its plain
+    version on a CPU device), the plain version and the f64 engine; the
+    workdir's y table gives the rapidities."""
+    cfg = Config(compute_dtype="f32", dimension=3, **FEQMOD_3D_CASES[case],
+                 **cfg_fields)
+    state, ops = _state_3d(workdir, cfg, n_cells, seed, device, narrow)
+    out, plain, launches, repeats = _run(
+        functools.partial(fk.cooper_frye_feqmod_3d, **ops.layout()),
+        functools.partial(fk.cooper_frye_feqmod_3d_plain, **ops.layout()),
+        (*ops.args(), cfg, ops.kind))
+    return Feqmod3dCaseResult(spectra_units(state, out),
+                              spectra_units(state, plain),
+                              f64_3d(state, cfg), launches, repeats,
+                              breakdown_cells(state), narrow_pairs(ops))
+
+
+def check_feqmod_3d_ragged_case(workdir: str | Path, n_cells: int,
+                                seed: int, device,
+                                n_y: int = 3) -> Feqmod3dCaseResult:
+    """B3's 3+1d mode (df 4) against its plain version (which also stands
+    in for f64) on the operands cut to RAGGED and to the first ``n_y``
+    rapidities."""
+    cfg = Config(compute_dtype="f32", df_mode=4, dimension=3)
+    state, ops = _state_3d(workdir, cfg, n_cells, seed, device)
+    species, grid = state[2], state[3]
+    n, S = RAGGED["cells"], RAGGED["species"]
+    full = ops.mom.reshape(ops.mom.shape[0], species.mass.shape[0],
+                           grid.pT.shape[0], grid.y.shape[0],
+                           grid.cos_phi.shape[0])
+    mom = full[:, :S, :RAGGED["pT"], :n_y, :RAGGED["phi"]]
+    layout = {"row_len": RAGGED["phi"], "n_y": n_y}
+    args = (ops.cols[:n].contiguous(), ops.cold[:n].contiguous(),
+            mom.reshape(mom.shape[0], -1).contiguous(),
+            ops.y[:n_y].contiguous(), ops.renorm[:n, :S].contiguous(),
+            ops.red[:n, :S].contiguous(),
+            RAGGED["pT"] * n_y * RAGGED["phi"], cfg, ops.kind)
+    n_break = int((ops.cols[:n, fk.BREAKS_3] != 0).sum().item())
+    return _ragged_result(
+        functools.partial(fk.cooper_frye_feqmod_3d, **layout),
+        functools.partial(fk.cooper_frye_feqmod_3d_plain, **layout), args,
+        Feqmod3dCaseResult, breakdown_cells=n_break)
 
 
 # ----------------------------------------------------------------------

@@ -30,7 +30,7 @@ packages run on the CPU:
     the device boost, and OSCAR files through the CLI;
   * the CLI on a 3+1d workdir writes the JAX driver's files, and the
     writers the same bytes on the same 3+1d spectra;
-  * what validate_slice still rejects in 3+1d.
+  * what validate_slice still rejects in 3+1d (mode 5, the mesh).
 """
 
 import contextlib
@@ -540,10 +540,13 @@ def test_validate_slice_lets_3d_df12_through(kw, df_mode):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"df_mode": 3}, "A9"), ({"df_mode": 4, "compute_dtype": "f32"}, "A9"),
-    ({"df_mode": 5, "compute_dtype": "f32c"}, "A9"),
-    ({"df_mode": 3, "operation": 0}, "A9"),
-    ({"df_mode": 4, "operation": 2}, "A9"),
+    # 3+1d df 3-5 run (tests/test_torch_feqmod_3d.py): their mode 5 and
+    # their mesh are still rejected
+    ({"df_mode": 3, "mode": 5}, "A7"),
+    ({"df_mode": 4, "compute_dtype": "f32", "use_mesh": 1}, "A12"),
+    ({"df_mode": 5, "compute_dtype": "f32c", "mode": 5}, "A7"),
+    ({"df_mode": 3, "operation": 0, "use_mesh": 1}, "A12"),
+    ({"df_mode": 4, "operation": 2, "mode": 5}, "A7"),
     ({"df_mode": 1, "mode": 5}, "A7"),
     ({"df_mode": 2, "mode": 5, "operation": 2}, "A7"),
     ({"df_mode": 1, "use_mesh": 1}, "A12"),

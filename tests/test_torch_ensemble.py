@@ -127,6 +127,13 @@ SPECTRA_CASES = {
                  "cell_block": FAMOD_BLOCK}, "eos", 1e-10),
     "3d-df1-f32c": ({"df_mode": 1, "compute_dtype": "f32c",
                      "dimension": 3}, "3d", 1e-6),
+    # 3+1d df 4 / df 5 f32: B3's 3+1d mode (its plain version here), held
+    # to the JAX ensemble's f64 engines at B3's bar,
+    # tests/test_torch_feqmod_3d.py
+    "3d-df4-f32": ({"df_mode": 4, "compute_dtype": "f32", "dimension": 3,
+                    "cell_block": FEQMOD_BLOCK}, "3d-feqmod", 1e-4),
+    "3d-df5-f32": ({"df_mode": 5, "compute_dtype": "f32", "dimension": 3,
+                    "cell_block": FAMOD_BLOCK}, "3d-eos", 1e-4),
 }
 
 
@@ -195,6 +202,15 @@ def _surfaces(kind: str, inp: Inputs) -> list:
             make_surface(n, seed=300 + i, shear_scale=FAMOD_SHEAR,
                          bulk_scale=FAMOD_BULK), inp.species, inp.laguerre)
             for i, n in enumerate(FAMOD_SIZES)]
+    if kind == "3d-feqmod":
+        return [make_surface(n, seed=500 + i, dimension=3,
+                             shear_scale=FEQMOD_SHEAR, bulk_scale=FEQMOD_BULK)
+                for i, n in enumerate(FEQMOD_SIZES)]
+    if kind == "3d-eos":
+        return [make_eos_consistent(
+            make_surface(n, seed=600 + i, dimension=3,
+                         shear_scale=FAMOD_SHEAR, bulk_scale=FAMOD_BULK),
+            inp.species, inp.laguerre) for i, n in enumerate(FAMOD_SIZES)]
     return [make_surface(n, seed=400 + i, dimension=3)
             for i, n in enumerate(SIZES)]
 
@@ -216,7 +232,7 @@ def runs(inputs, inputs_3d):
     def get(case: str) -> SpectraRun:
         if case not in cache:
             fields, kind, _ = SPECTRA_CASES[case]
-            inp = inputs_3d if kind == "3d" else inputs
+            inp = inputs_3d if kind.startswith("3d") else inputs
             surfs = _surfaces(kind, inp)
             fields = dict(fields)
             block = fields.pop("cell_block", BLOCK)
@@ -245,7 +261,7 @@ def test_ensemble_spectra_match_the_jax_ensemble(runs, case):
     assert r.ours.shape[:2] == (len(r.surfs), len(CHOSEN))
     assert np.isfinite(r.ours).all()
     for i in range(len(r.surfs)):
-        if r.cfg.dimension == 3:
+        if r.cfg.dimension == 3 and r.cfg.df_mode in (1, 2):
             assert kc.peak_err(r.ours[i], r.ref[i]) <= kc.ABS_TOL_3D
             if r.surfs[i].n_cells < GLOBAL_3D_MIN_CELLS:
                 continue
@@ -311,8 +327,10 @@ def test_the_ensemble_never_groups_species(runs, inputs):
 
 
 def test_3d_feqmod_raises_naming_a9(inputs_3d):
-    cfg = port_config(jax_config(4, dimension=3))
-    with pytest.raises(NotImplementedError, match="A9"):
+    """3+1d df 3-5 run now (ROADMAP A9a); their mode 5 is still rejected,
+    naming A7, before any surface is touched."""
+    cfg = port_config(jax_config(4, dimension=3, mode=5))
+    with pytest.raises(NotImplementedError, match="A7"):
         ens.compute_spectra_ensemble(
             [make_surface(16, dimension=3)], inputs_3d.species,
             inputs_3d.chosen, inputs_3d.grids, None, cfg, device="cpu")

@@ -37,7 +37,7 @@ from is3d2_tpu.report import RunReport as JRunReport  # noqa: E402
 
 from torch_parity import (BLOCK, CHOSEN, MILD_SHEAR, build_workdir,  # noqa: E402
                           famod_state, feqmod_state, max_rel_err,
-                          numpy_fields, port_config)
+                          numpy_fields, port_config, run_drivers)
 
 from is3d2_tpu_torch import interop  # noqa: E402
 from is3d2_tpu_torch.config import Config  # noqa: E402
@@ -480,7 +480,8 @@ def test_wrapper_checks_operands(states):
      ValueError),
     ({"df_mode": 3, "compute_dtype": "f32", "use_pallas": 0}, "A9",
      NotImplementedError),
-    ({"df_mode": 4, "dimension": 3}, "A9", NotImplementedError),
+    ({"df_mode": 4, "compute_dtype": "f32c", "use_pallas": 0}, "A9",
+     NotImplementedError),
 ])
 def test_validate_slice_rejects_what_df345_do_not_run(kw, match, exc):
     with pytest.raises(exc, match=match):
@@ -495,6 +496,28 @@ def test_validate_slice_rejects_what_df345_do_not_run(kw, match, exc):
 ])
 def test_validate_slice_lets_df34_through(kw):
     Config(**kw).validate_slice()
+
+
+# ROADMAP C8's op-1 probes of B3 (the port's driver against the JAX
+# driver's f64 route on torch_parity.build_workdir, no baryons): name ->
+# (eta nodes, config fields); each held to B3's bar against f64 (1e-4,
+# tests/test_pallas_kernel.py), measured 1.5e-6 and 1.8e-6
+C8_PROBES = {
+    "df4-f32-no-shear-or-bulk-deltaf": (24, {
+        "df_mode": 4, "compute_dtype": "f32", "include_shear_deltaf": 0,
+        "include_bulk_deltaf": 0}),
+    "df3-f32-one-eta-node": (1, {"df_mode": 3, "compute_dtype": "f32"}),
+}
+
+
+@pytest.mark.parametrize("probe", list(C8_PROBES))
+def test_c8_op1_probes_match_jax_f64(tmp_path, probe):
+    n_eta, fields = C8_PROBES[probe]
+    wd = build_workdir(tmp_path, n_eta=n_eta, params={"cell_block": BLOCK})
+    ref, ours = run_drivers(wd, **fields)
+    out, want = np.asarray(ours.spectra), np.asarray(ref.spectra)
+    assert out.shape == want.shape and np.isfinite(out).all()
+    assert max_rel_err(out, want) <= 1e-4, probe
 
 
 def test_breakdown_report_line_matches_jax(states):

@@ -1,6 +1,6 @@
-"""The CUDA kernels B1 (both modes, 2+1d and 3+1d), B2, B3 and P1 on the card, against their plain
-torch versions and the port's f64 engines, through the shared harness
-tools/kernel_check.py.
+"""The CUDA kernels B1 and B3 (both modes each, 2+1d and 3+1d), B2 and P1
+on the card, against their plain torch versions and the port's f64
+engines, through the shared harness tools/kernel_check.py.
 
 Imports nothing of JAX, so it runs where only torch is installed:
 
@@ -496,6 +496,131 @@ def test_feqmod_kernel_check_plain_on_cpu(workdir, case):
     """The B3 harness on the CPU: the wrapper takes the plain version (no
     launch), it meets the f64 engine, and the surface breaks down."""
     r = kc.check_feqmod_case(workdir, case, 512, 3, "cpu", cell_block=512)
+    assert r.launches == 0
+    assert r.vs_plain == 0.0
+    assert r.ok, (r.vs_f64, r.breakdown_cells)
+
+
+# ----------------------------------------------------------------------
+# kernel B3's 3+1d mode
+# ----------------------------------------------------------------------
+
+def _b3_3d_operands(workdir, df_mode=4, n_surface=512, **cfg_fields):
+    cfg = Config(compute_dtype="f32", dimension=3, cell_block=512,
+                 df_mode=df_mode, **cfg_fields)
+    if df_mode == 5:
+        surf = kc.famod_surface(workdir, n_surface, 5, "cuda", 3)
+        state = kc.famod_engine_state(workdir, cfg, surf, "cuda")
+        return fk.famod_operands_3d(*state, cfg), cfg
+    surf = make_surface(n_surface, seed=5, dimension=3, **kc.FEQMOD_SURFACE)
+    state = kc.feqmod_engine_state(workdir, cfg, surf, "cuda")
+    return fk.feqmod_operands_3d(*state, cfg), cfg
+
+
+def _b3_3d_agrees(args, **layout):
+    out = fk.cooper_frye_feqmod_3d(*args, **layout)
+    again = fk.cooper_frye_feqmod_3d(*args, **layout)
+    plain = fk.cooper_frye_feqmod_3d_plain(*args, **layout)
+    assert torch.equal(out, again)        # no atomics: the same bits
+    out, plain = out.cpu().numpy()[None], plain.cpu().numpy()[None]
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, plain) <= kc.FEQMOD_TOL_PLAIN
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(kc.FEQMOD_3D_CASES))
+def test_feqmod_3d_kernel_vs_plain_and_f64(workdir_3d, case):
+    """B3's 3+1d mode against its plain version (<= 1e-5) and the f64
+    engines (<= 1e-4) over its modes and flags, with breakdown cells."""
+    _needs_cuda()
+    r = kc.check_feqmod_3d_case(workdir_3d, case, 512, 3, "cuda",
+                                cell_block=512)
+    assert r.launches == 1
+    assert r.ok, (r.vs_plain, r.vs_f64, r.breakdown_cells)
+
+
+@pytest.mark.gpu
+def test_feqmod_3d_kernel_narrow_window(workdir_3d):
+    """Cells with detA < 0.01 within detA of a y node: the kernel takes
+    the linearised branch on exactly the (cell, y) pairs the f64 engine
+    does."""
+    _needs_cuda()
+    r = kc.check_feqmod_3d_case(workdir_3d, "df4", 512, 4, "cuda",
+                                narrow=True, cell_block=512)
+    assert r.narrow_pairs > 0 and r.launches == 1
+    assert r.ok, (r.vs_plain, r.vs_f64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_y", kc.RAGGED_Y)
+def test_feqmod_3d_kernel_ragged_y(workdir_3d, n_y):
+    """RAGGED's grid on 3, 5 and 1 rapidities: y counts the y tile does
+    not divide, and fewer than one tile."""
+    _needs_cuda()
+    r = kc.check_feqmod_3d_ragged_case(workdir_3d, 1100, 7, "cuda", n_y=n_y)
+    g = fk.cooper_frye_feqmod_3d.last_geometry
+    assert (g.n_y, g.row_len) == (n_y, kc.RAGGED["phi"])
+    assert r.launches == 1 and r.ok, r.vs_plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_y", [5, 1])
+@pytest.mark.parametrize("n_cells,stop_short", [(100, 0), (333, 3), (1, 9)])
+def test_feqmod_3d_kernel_ragged_groups_and_splits(workdir_3d, n_y, n_cells,
+                                                   stop_short):
+    """2 species x 3 pT x n_y y x 7 phi: y tiles cut short by the group's
+    end, a last group that stops inside a row, cells that fill neither the
+    last tile nor the last split."""
+    _needs_cuda()
+    ops, cfg = _b3_3d_operands(workdir_3d)
+    full = ops.mom.reshape(ops.mom.shape[0], len(CHOSEN), 16, 9, 8)
+    mom = full[:, :2, :3, :n_y, :7].reshape(ops.mom.shape[0], -1)
+    mom = mom[:, :mom.shape[1] - stop_short].contiguous()
+    n = n_cells
+    _b3_3d_agrees((ops.cols[:n].contiguous(), ops.cold[:n].contiguous(),
+                   mom, ops.y[:n_y].contiguous(),
+                   ops.renorm[:n, :2].contiguous(),
+                   ops.red[:n, :2].contiguous(), 3 * n_y * 7, cfg, ops.kind),
+                  row_len=7, n_y=n_y)
+    assert fk.cooper_frye_feqmod_3d.last_geometry.n_y == n_y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("df_mode", [3, 4, 5])
+@pytest.mark.parametrize("outflow", [0, 1])
+@pytest.mark.parametrize("regulate", [0, 1])
+def test_feqmod_3d_kernel_every_template_combination(workdir_3d, df_mode,
+                                                     outflow, regulate):
+    """Each of the 3+1d mode's 12 instantiations launches and agrees with
+    the plain version."""
+    _needs_cuda()
+    ops, cfg = _b3_3d_operands(workdir_3d, df_mode, 200, outflow=outflow,
+                               regulate_deltaf=regulate)
+    _b3_3d_agrees((*ops.args(), cfg, ops.kind), **ops.layout())
+
+
+@pytest.mark.gpu
+def test_feqmod_3d_kernel_hands_a_nan_on(workdir_3d):
+    """A NaN effective temperature on a cell that takes the modified branch
+    at every y reaches every sum, as in the plain version."""
+    _needs_cuda()
+    ops, cfg = _b3_3d_operands(workdir_3d)
+    cols = ops.cols.clone()
+    cell = int(torch.nonzero((cols[:, fk.BREAKS_3] == 0)
+                             & (ops.cold[:, fk.WINDOW_3] == 0))[0])
+    cols[cell, fk.INVTEFF_3] = float("nan")
+    args = (cols, *ops.args()[1:], cfg, ops.kind)
+    assert bool(torch.isnan(fk.cooper_frye_feqmod_3d(
+        *args, **ops.layout())).all())
+    assert bool(torch.isnan(fk.cooper_frye_feqmod_3d_plain(
+        *args, **ops.layout())).all())
+
+
+def test_feqmod_3d_kernel_check_plain_on_cpu(workdir_3d):
+    """The B3 3+1d harness on the CPU: the wrapper takes the plain version
+    (no launch), it meets the f64 engine, and the surface breaks down."""
+    r = kc.check_feqmod_3d_case(workdir_3d, "df4", 512, 3, "cpu",
+                                cell_block=512)
     assert r.launches == 0
     assert r.vs_plain == 0.0
     assert r.ok, (r.vs_f64, r.breakdown_cells)
@@ -1046,6 +1171,10 @@ ENSEMBLE_ROUTES = {
     # the JAX package's 3+1d budget (kernel_check.Case3dResult)
     "B1-3d": ({"df_mode": 1, "compute_dtype": "f32c", "dimension": 3},
               "3d", kc.TOL),
+    "B3-3d": ({"df_mode": 4, "compute_dtype": "f32", "dimension": 3},
+              "feqmod", kc.FEQMOD_TOL_F64),
+    "B3-3d-famod": ({"df_mode": 5, "compute_dtype": "f32", "dimension": 3},
+                    "eos", kc.FEQMOD_TOL_F64),
 }
 
 
@@ -1087,7 +1216,9 @@ def test_ensemble_equals_single_runs_and_the_f64_engine(tmp_path, route):
     args = (run.species, run.chosen_idx, run.grids, run.df_data)
     kernel = {"B1": ck.cooper_frye_comp, "B2": b2.cooper_frye_f32,
               "B3": fk.cooper_frye_feqmod, "B3-famod": fk.cooper_frye_feqmod,
-              "B1-3d": ck.cooper_frye_comp_3d}[route]
+              "B1-3d": ck.cooper_frye_comp_3d,
+              "B3-3d": fk.cooper_frye_feqmod_3d,
+              "B3-3d-famod": fk.cooper_frye_feqmod_3d}[route]
     before = kernel.launches
     out = compute_spectra_ensemble(surfs, *args, cfg, run.laguerre,
                                    surface_chunk=3)
@@ -1103,7 +1234,7 @@ def test_ensemble_equals_single_runs_and_the_f64_engine(tmp_path, route):
                                           use_pallas=-1), run.laguerre)
     bar = ENSEMBLE_ROUTES[route][2]
     for i in range(len(surfs)):
-        if cfg.dimension == 3:
+        if cfg.dimension == 3 and cfg.df_mode in (1, 2):
             assert kc.global_rel_err(out[i], f64[i]) <= bar
             assert kc.peak_err(out[i], f64[i]) <= kc.ABS_TOL_3D
         else:
@@ -1111,9 +1242,9 @@ def test_ensemble_equals_single_runs_and_the_f64_engine(tmp_path, route):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["B1", "B2", "B3", "B1-3d"])
+@pytest.mark.parametrize("route", ["B1", "B2", "B3", "B1-3d", "B3-3d"])
 def test_device_route_queues_no_synchronization(tmp_path, route):
-    """spectra_on_device on df 1-4 (3+1d: df 1/2) queues a surface's work
+    """spectra_on_device on df 1-4 (3+1d too) queues a surface's work
     without waiting for the card: the uploads go through pinned memory and
     the fold gate, the skipped count and the 3+1d live cells come from the
     host columns.  Under torch's sync debug mode "error" any synchronizing

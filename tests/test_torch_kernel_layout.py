@@ -512,3 +512,138 @@ def test_tile_tree_rewrites_only_the_3d_tile(tmp_path):
     assert diff == [(diff[0][0], "constexpr int kP3 = 4, kY3 = 7, "
                                  "kThreads3 = 128, kMinBlocks3 = 2;")]
     assert len(old.splitlines()) == len(new.splitlines())
+
+
+# ----------------------------------------------------------------------
+# kernel B3's 3+1d mode
+# ----------------------------------------------------------------------
+
+_B3_SOURCE = _B1_SOURCE.parent / "cooper_frye_feqmod.cu"
+
+
+def _b3_momenta(n_phi, n_y):
+    """B3's 3+1d f64 momentum rows of 3 species (pi+, pi-, p) x 3 pT x n_y
+    y x n_phi phi, from the port's own momentum_matrix_3d."""
+    from is3d2_tpu_torch.core.spectra import MomentumGridDevice, SpeciesArrays
+    from is3d2_tpu_torch.core.spectra_fast import momentum_matrix_3d
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64))
+
+    phi = np.linspace(0.0, 2.0 * np.pi, n_phi, endpoint=False)
+    grid = MomentumGridDevice(
+        pT=t([0.1, 0.7, 2.0]), pT_weight=t([1.0, 1.0, 1.0]),
+        cos_phi=t(np.cos(phi)), sin_phi=t(np.sin(phi)),
+        phi_weight=t(np.ones(n_phi)), y=t(np.linspace(-5.0, 5.0, n_y)),
+        eta=t([0.0]), eta_weight=t([1.0]))
+    species = SpeciesArrays(mass=t([0.139, 0.139, 0.938]),
+                            sign=t([-1.0, -1.0, 1.0]),
+                            degeneracy=t([1.0, 1.0, 2.0]),
+                            baryon=t([0.0, 0.0, 1.0]))
+    rows = momentum_matrix_3d(species, grid)
+    return torch.stack([rows[k] for k in fk.MOM_ROWS_3D]).contiguous()
+
+
+def test_b3_3d_tile_of_the_source_is_the_default_and_fits_shared_memory():
+    """TILE_3D is the source's kP3, kY3, kThreads3, kMinBlocks3; the cell
+    tile (f32 and f64 columns) stays within 48 KB of static shared memory;
+    the column counts are the source's."""
+    src = _B3_SOURCE.read_text()
+    [line] = re.findall(r"constexpr int kP3 = .*;", src)
+    assert ck.Tile3d(*map(int, re.findall(r"\d+", line)[1::2])) == fk.TILE_3D
+    for name, value in (("kCols3", fk.N_COLS_3D), ("kColsD3", fk.N_COLD_3D),
+                        ("kTileCells3", fk.TILE_CELLS_3D)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert (4 * fk.N_COLS_3D + 8 * fk.N_COLD_3D) * fk.TILE_CELLS_3D \
+        <= 48 * 1024
+    assert fk.TILE_3D.threads % 32 == 0
+
+
+@pytest.mark.parametrize("n_y", [1, 3, 5, 21])
+@pytest.mark.parametrize("n_phi", [1, 7, 48])
+def test_b3_3d_geometry_owns_every_momentum_once(n_phi, n_y):
+    """B3's 3+1d mode takes B1's 3+1d geometry with its own tile: every
+    momentum is owned once, a thread's slots stay in one (species, pT)
+    group (its species' renorm, mass2, b and sign), the slots of a y row
+    share m+ and m-, those of a phi column px and py; the row length is
+    read off the rows where the caller leaves it out."""
+    mom = _b3_momenta(n_phi, n_y)
+    M = mom.shape[1]
+    assert fk.geometry_3d(mom, 1000, n_y).row_len % n_phi == 0
+    g = fk.geometry_3d(mom, 1000, n_y, row_len=n_phi)
+    t = fk.TILE_3D
+    assert (g.n_y, g.r, g.ty, g.threads, g.tile_cells) == (
+        n_y, t.r, t.ty, t.threads, fk.TILE_CELLS_3D)
+    owner = momentum_index_3d(g)
+    np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
+    rows = dict(zip(fk.MOM_ROWS_3D, mom.numpy()))
+    species = np.arange(M) // (3 * n_y * n_phi)
+    for slots in owner.reshape(-1, t.ty, t.r):
+        mine = slots[slots >= 0]
+        if not mine.size:
+            continue
+        assert slots[0, 0] >= 0
+        assert (species[mine] == species[mine[0]]).all()
+        for key in ("mass2", "b", "sgn"):
+            assert (rows[key][mine] == rows[key][mine[0]]).all()
+        for row in slots:
+            row = row[row >= 0]
+            for key in ("mp", "mm"):
+                assert (rows[key][row] == rows[key][row[:1]]).all()
+        for col in slots.T:
+            col = col[col >= 0]
+            for key in ("px", "py"):
+                assert (rows[key][col] == rows[key][col[:1]]).all()
+
+
+def test_b3_3d_main_path_fills_the_card_without_a_split():
+    """Phase 31's shape, 99,753 live cells x 371 x 51 x 21 y x 48 phi:
+    18,921 groups of 7 y tiles x 12 phi tiles, whole waves of the card
+    without a cell split."""
+    t = fk.TILE_3D
+    g = launch_geometry_3d(19_072_368, 48, 21, 99_753, t.r, t.ty,
+                           fk.TILE_CELLS_3D, t.threads, t.blocks_per_sm)
+    assert (g.groups, g.tiles_per_row, g.y_tiles) == (18_921, 12, 7)
+    assert g.n_split == 1 and g.cells_per_split == 99_753
+    assert fill(g.blocks, t.blocks_per_sm * H100_SMS) > 0.95
+
+
+def test_b3_3d_wrapper_checks_its_operands():
+    """The 3+1d wrapper needs n_y, f64 U / momenta / y and f32 columns of
+    the layout's widths, and a species a whole number of groups."""
+    from is3d2_tpu_torch.config import Config
+    mom = _b3_momenta(7, 5)
+    C, S, M = 3, 3, mom.shape[1]
+    args = [torch.zeros((C, fk.N_COLS_3D)),
+            torch.zeros((C, fk.N_COLD_3D), dtype=torch.float64), mom,
+            torch.linspace(-5.0, 5.0, 5, dtype=torch.float64),
+            torch.zeros((C, S)), torch.zeros((C, S)), M // S]
+    cfg = Config(compute_dtype="f32", df_mode=4, dimension=3)
+    with pytest.raises(ValueError, match="n_y"):
+        fk.cooper_frye_feqmod_3d(*args, cfg, "feqmod", row_len=7)
+    out = fk.cooper_frye_feqmod_3d(*args, cfg, "feqmod", row_len=7, n_y=5)
+    assert out.shape == (M,) and out.dtype == torch.float64
+    bad = list(args)
+    bad[1] = bad[1].float()
+    with pytest.raises(ValueError, match="cold"):
+        fk.cooper_frye_feqmod_3d(*bad, cfg, "feqmod", row_len=7, n_y=5)
+    with pytest.raises(ValueError, match="groups"):
+        fk.cooper_frye_feqmod_3d(*args, cfg, "feqmod", row_len=6, n_y=5)
+
+
+def test_tile_tree_rewrites_only_b3s_3d_tile(tmp_path):
+    """kernel_bench --tile3d-b3 races a copy of this tree whose B3 source
+    differs in the 3+1d mode's tile line alone; the tile the source builds
+    is among the raced ones."""
+    from is3d2_tpu_torch.tools.kernel_bench import TILES_3D_B3, tile_tree
+    t = fk.TILE_3D
+    assert f"{t.r}x{t.ty}x{t.threads}x{t.blocks_per_sm}" in TILES_3D_B3
+    root = tile_tree("2x7x128x3", tmp_path, "cooper_frye_feqmod")
+    new = (root / "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu").read_text()
+    old = _B3_SOURCE.read_text()
+    diff = [(a, b) for a, b in zip(old.splitlines(), new.splitlines())
+            if a != b]
+    assert diff == [(diff[0][0], "constexpr int kP3 = 2, kY3 = 7, "
+                                 "kThreads3 = 128, kMinBlocks3 = 3;")]
+    assert (root / "is3d2_tpu_torch/csrc/cooper_frye_comp.cu").read_text() \
+        == _B1_SOURCE.read_text()

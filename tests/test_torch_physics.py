@@ -174,12 +174,13 @@ def test_config_parser_and_slice(workdir):
 @pytest.mark.parametrize("kw,item", [
     ({"operation": 0, "mode": 5, "dimension": 3}, "A7"),
     ({"operation": 2, "mode": 5, "dimension": 3}, "A7"),
-    ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "dimension": 3}, "A9"),
-    ({"df_mode": 5, "dimension": 3}, "A9"),
-    # 3+1d df 1/2 runs every operation (tests/test_torch_3d.py): what is
-    # left there is mode 5 (A7), df 3-5 (A9) and the mesh (A12)
+    ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "use_pallas": 0}, "A9"),
+    ({"df_mode": 5, "compute_dtype": "f32", "use_pallas": 0}, "A9"),
+    # 3+1d df 1-5 run every operation (tests/test_torch_3d.py,
+    # tests/test_torch_feqmod_3d.py): what is left there is mode 5 (A7)
+    # and the mesh (A12)
     ({"mode": 5, "dimension": 3}, "A7"),
-    ({"operation": 0, "df_mode": 3, "dimension": 3}, "A9"),
+    ({"operation": 0, "df_mode": 3, "dimension": 3, "mode": 5}, "A7"),
     ({"mode": 5, "use_mesh": 1}, "A12"),
     ({"compute_dtype": "f32", "use_pallas": 0}, "A7"),
     ({"compute_dtype": "f32c", "use_pallas": 0}, "A7"),

@@ -250,7 +250,8 @@ def test_sampler_report_lines_match_jax():
 @pytest.mark.parametrize("kw,item", [
     ({"df_mode": 5, "mode": 5, "dimension": 3}, "A7"),
     ({"mode": 5, "dimension": 3}, "A7"),
-    ({"use_mesh": 1}, "A12"), ({"mode": 6, "df_mode": 4, "dimension": 3}, "A9"),
+    ({"use_mesh": 1}, "A12"),
+    ({"mode": 6, "df_mode": 4, "dimension": 3, "use_mesh": 1}, "A12"),
     ({"group_particles": 1, "use_mesh": 1}, "A12")])
 def test_validate_slice_operation2_names_its_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):

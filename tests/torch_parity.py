@@ -190,12 +190,14 @@ class FeqmodState:
 
 def feqmod_state(workdir: Path, df_mode: int, include_baryon: bool = False,
                  shear_scale: float = FEQMOD_SHEAR, force_breaks: bool = False,
-                 **cfg_kw) -> FeqmodState:
+                 dimension: int = 2, bulk_scale: float = FEQMOD_BULK,
+                 surf=None, **cfg_kw) -> FeqmodState:
     """The JAX package's df 3/4 prep on a make_surface(N_CELLS, seed=3)
-    surface (large viscosity by default), in f64, and the same state as
+    surface (large viscosity by default; ``dimension`` 3 a 3+1d one and
+    the workdir's y table), or on ``surf``, in f64, and the same state as
     port tensors.  ``force_breaks`` sends every FORCE_EVERY-th cell to the
     breakdown branch as well."""
-    cfg = jax_config(df_mode, include_baryon, **cfg_kw)
+    cfg = jax_config(df_mode, include_baryon, dimension=dimension, **cfg_kw)
     species_t = j_read_pdg(3, workdir / "PDG")
     chosen = species_t.chosen_indices(
         j_load_table(workdir / "PDG/chosen_particles.dat")[:, 0].astype(int))
@@ -203,14 +205,16 @@ def feqmod_state(workdir: Path, df_mode: int, include_baryon: bool = False,
     laguerre = JLaguerre.from_file(workdir / "tables/gauss/gla_roots_weights.txt")
     tables = JTables.load(3, include_baryon, workdir / "deltaf_coefficients/vh")
     df_data = JDeltafData(tables, df_mode, include_baryon)
-    surf = make_surface(N_CELLS, seed=3, include_baryon=include_baryon,
-                        shear_scale=shear_scale, bulk_scale=FEQMOD_BULK)
+    if surf is None:
+        surf = make_surface(N_CELLS, seed=3, include_baryon=include_baryon,
+                            shear_scale=shear_scale, bulk_scale=bulk_scale,
+                            dimension=dimension)
     plasma = surf.thermo_averages()
     if not include_baryon:   # as the driver does
         df_data.compute_jonah_coefficients(species_t, laguerre, plasma)
     j_cells = j_prepare_cells(surf, cfg, block=BLOCK)
     j_species = JSpecies.from_table(species_t, chosen)
-    j_grid = JGrid.from_grids(grids, 2)
+    j_grid = JGrid.from_grids(grids, dimension)
     j_fq = j_prepare_feqmod(j_cells, j_species, df_data, cfg, laguerre)
     if force_breaks:
         every = np.arange(j_cells.n_padded) % FORCE_EVERY == 0
@@ -268,18 +272,20 @@ class FamodState:
 
 def famod_state(workdir: Path, shear_scale: float = FAMOD_SHEAR,
                 force_breaks: bool = False, n_cells: int = N_CELLS,
-                **cfg_kw) -> FamodState:
+                dimension: int = 2, **cfg_kw) -> FamodState:
     """The JAX package's f64 famod prep (_prepare_famod_host) on
-    eos_surface(workdir, n_cells), and the same state as port tensors.
+    eos_surface(workdir, n_cells) (``dimension`` 3: a 3+1d one and the
+    workdir's y table), and the same state as port tensors.
     ``force_breaks`` sends every FORCE_EVERY-th cell to the breakdown
     branch as well."""
     from is3d2_tpu.core.spectra_famod import prepare_famod as j_prepare_famod
-    cfg = jax_config(5, **cfg_kw)
+    cfg = jax_config(5, dimension=dimension, **cfg_kw)
     species_t = j_read_pdg(3, workdir / "PDG")
     chosen = species_t.chosen_indices(
         j_load_table(workdir / "PDG/chosen_particles.dat")[:, 0].astype(int))
     grids = JGrids.from_dir(workdir / "tables")
-    surf = eos_surface(workdir, n_cells, shear_scale=shear_scale)
+    surf = eos_surface(workdir, n_cells, shear_scale=shear_scale,
+                       dimension=dimension)
     j_cells = j_prepare_cells(surf, cfg, block=BLOCK)
     j_fm = j_prepare_famod(j_cells, species_t, cfg)
     if force_breaks:
@@ -287,7 +293,7 @@ def famod_state(workdir: Path, shear_scale: float = FAMOD_SHEAR,
         j_fm = dataclasses.replace(
             j_fm, breaks_down=np.asarray(j_fm.breaks_down) | every)
     j_species = JSpecies.from_table(species_t, chosen)
-    j_grid = JGrid.from_grids(grids, 2)
+    j_grid = JGrid.from_grids(grids, dimension)
     return FamodState(
         cfg=cfg, surf=surf, j_species_table=species_t, j_cells=j_cells,
         j_fm=j_fm, j_species=j_species, j_grid=j_grid,
