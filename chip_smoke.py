@@ -12,7 +12,8 @@ Phases (any failure raises; nothing is caught):
      SASS (phase 22's sfu_floor_ms reads the MUFU count); the same counts
      by pipe for B1's main-path instantiation and for its 3+1d mode's
      (the cell loop per evaluation; phases 6 and 24's fp32_issue_floor_ms
-     read the FP32 count);
+     read the FP32 count), and for B3's 3+1d clean kernel with its
+     registers and spills;
   3. kernel B1 (compensated, df 1/2) vs its plain torch version and the
      port's f64 engine at a reduced shape (2048 cells, 16 species, 51 pT x
      48 phi, 24 eta) for df 1 and df 2 with the clip/outflow/diffusion
@@ -199,7 +200,12 @@ Phases (any failure raises; nothing is caught):
      df 4, outflow, regulation, famod), a narrow-window case (cells with
      detA < 0.01 moved within detA of a y node; it fails without a (cell,
      y) pair in the window) and the ragged case on 3, 5 and 1 rapidities;
-     every case needs breakdown cells;
+     every case needs breakdown cells.  The mode's route is split by cell
+     (the clean kernel on the cells that never take the linearised branch,
+     the mixed kernel on the others): on each case's operands it is held to
+     the mixed kernel on every cell (fk.launch_3d, the one kernel it
+     replaced) within SPLIT_TOL = 1e-10, and equals it bit for bit on the
+     clean cells alone at one split;
  31. the 3+1d df-4 main path at full width through the CLI: phase 24's
      size (1e5 cells, 99,753 live, 371 species, 51 x 48 x 21 y), f32,
      shear 0.2, bulk 0.1 (1.903e12 evaluations); only B3's 3+1d mode may
@@ -209,11 +215,17 @@ Phases (any failure raises; nothing is caught):
      its plain version (<= 1e-5) on the first 1,024 live cells at the full
      M (breakdown cells among them), both timed there; evaluations/s and
      the share of the bound (BOUND_OPS_PER_EVALUATION, the linearised
-     branch counted on the breakdown cells and the window's rows);
+     branch counted on the breakdown cells and the window's rows); the
+     clean and touched cell counts, the route against the mixed kernel on
+     every cell (<= 1e-10) and on the clean cells alone at one split
+     (equal bits), and the clean kernel on its cells, the mixed kernel on
+     the touched ones and the mixed kernel on every cell, each timed by
+     CUDA events, with both geometries;
  33. the 3+1d df-5 main path through the CLI on an EOS-consistent surface
      of phase 31's size: the VAH reconstruction, then B3's 3+1d famod
      instantiation, which alone may launch, once; then that instantiation
-     on the path's operands, timed as phase 32's;
+     on the path's operands, timed and held to the mixed kernel as phase
+     32's;
  34. operation 0 in 3+1d, df 4, on phase 31's surface cut to its first
      OP0_3D_DF4_CELLS cells (a cell block of 512, so no padding cell is
      evaluated) through the f64 engine (no kernel may launch; the engine
@@ -249,6 +261,7 @@ The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -271,7 +284,8 @@ KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod", "cooper_frye_f32",
            "polarization_f32")
 # kernels that live in another kernel's source (name -> source)
 SOURCE_OF = {"cooper_frye_comp_3d": "cooper_frye_comp",
-             "cooper_frye_feqmod_3d": "cooper_frye_feqmod"}
+             "cooper_frye_feqmod_3d": "cooper_frye_feqmod",
+             "cooper_frye_feqmod_3d_clean": "cooper_frye_feqmod"}
 B1_COMPARE_CELLS = 16_384
 B2_COMPARE_CELLS = 8_192
 B3_COMPARE_CELLS = 8_192
@@ -279,6 +293,9 @@ P1_COMPARE_CELLS = 4_096
 B1_3D_COMPARE_CELLS = 1_024
 B3_3D_COMPARE_CELLS = 1_024
 OP0_3D_CELLS = 2_048
+# B3's 3+1d route against the mixed kernel on every cell: only the order of
+# the f64 additions moves
+SPLIT_TOL = 1e-10
 # phase 34's op 0 cut, with a cell block of its size (the f64 engines
 # evaluate the padding cells too): the f64 feqmod engine takes ~17 ms a
 # cell in 3+1d at full width, so phase 25's 2,048 cells would take 35 s of
@@ -365,17 +382,21 @@ EXECUTED_OPS_PER_EVALUATION = {
     # px/py parts of p.dsigma 3 and of pi:pp 4); per (cell, row), shared
     # by its 4 phi, 47 (diffb is dead without diffusion)
     "cooper_frye_comp_3d": 46 + 22 / 7 + 47 / 4,
-    # B3's 3+1d mode (a multiply-add counts two).  Modified per evaluation
-    # 34: p' 3, E_mod^2 6, the conversions 2, fmax 1, the square root 7,
+    # B3's 3+1d mode (a multiply-add counts two).  Modified, in the clean
+    # kernel, which takes ~92 % of the main path's cells, per evaluation
+    # 33: p' 3, E_mod^2 6, the conversions 2, fmax 1, the square root 7,
     # the exponent 2, exp 1, + sign 1, the clamp 1, the reciprocal 5,
-    # p.dsigma 1, the value, renorm and red 3, the f64 add 1; per (cell,
-    # row), shared by the tile's 4 phi, 15 (U's m+/m- columns 9, p.dsigma's
-    # 3, the window 3); per (cell, phi), shared by its 3 y rows, 12 (U's
-    # px/py columns 9, p.dsigma's 3).  Linearised in f64, per evaluation
-    # (nothing shared): df 4 60, famod 24, the window per (cell, row) 3 / 4
-    "cooper_frye_feqmod_3d": {"modified": 34 + 15 / 4 + 12 / 3,
+    # p.dsigma 1, the value and renorm 2 (no red), the f64 add 1; per
+    # (cell, row), shared by the tile's 2 phi, 12 (U's m+/m- columns 9,
+    # p.dsigma's 3; no window); per (cell, phi), shared by its 7 y rows, 12
+    # (U's px/py columns 9, p.dsigma's 3).  The mixed kernel's modified
+    # branch (the touched cells' rows outside the window) executes more
+    # (34 + 15 / 4 + 12 / 3): the bound takes the fewer.  Linearised in
+    # f64, per evaluation (nothing shared): df 4 60, famod 24, the window
+    # per (cell, row) 3 / 4
+    "cooper_frye_feqmod_3d": {"modified": 33 + 12 / 2 + 12 / 7,
                               "breakdown": 60 + 3 / 4,
-                              "famod_modified": 34 + 15 / 4 + 12 / 3,
+                              "famod_modified": 33 + 12 / 2 + 12 / 7,
                               "famod_breakdown": 24 + 3 / 4},
 }
 
@@ -471,8 +492,9 @@ def fp32_issue_floor_ms(fp32_per_evaluation: float, evaluations: float,
 
 def phase_build() -> dict:
     """Returns the SASS counts of P1 per instantiation and of B1's main
-    path (kernel_bench.loop_nest) and of B1's 3+1d mode (its cell loop per
-    evaluation, kernel_bench.per_evaluation)."""
+    path (kernel_bench.loop_nest), of B1's 3+1d mode and of B3's 3+1d clean
+    kernel (their cell loops per evaluation, kernel_bench.per_evaluation;
+    the clean kernel's with its ptxas registers and spills)."""
     print("== 2. build (one nvcc per source, in parallel)")
     from is3d2_tpu_torch.ops import _build
     from is3d2_tpu_torch.tools import kernel_bench as kb
@@ -524,7 +546,22 @@ def phase_build() -> dict:
     b1_3d = kb.per_evaluation(loop)
     print(f"B1 3+1d SASS: the cell loop of {loop['evaluations']} "
           f"evaluations, per evaluation {json.dumps(b1_3d)}")
-    return {"p1": p1, "b1": b1, "b1_3d": b1_3d}
+    path = built["cooper_frye_feqmod"][0]
+    code = kb.sass_functions(path)
+    [clean] = [k for k in code if re.search(
+        MAIN_PATH_KERNEL["cooper_frye_feqmod_3d_clean"], k)]
+    loop = kb.inner_loops(code[clean])[0]
+    lo, hi = loop["range"]
+    opcodes = collections.Counter(op for a, op, _ in code[clean]
+                                  if lo <= a <= hi)
+    b3_3d_clean = {"per_evaluation": kb.per_evaluation(loop),
+                   "evaluations_per_cell_iteration": loop["evaluations"],
+                   "opcodes_per_evaluation": {
+                       op: n / loop["evaluations"]
+                       for op, n in opcodes.most_common()},
+                   **_build.resource_usage(path)[clean]}
+    print(f"B3 3+1d clean kernel: {json.dumps(b3_3d_clean)}")
+    return {"p1": p1, "b1": b1, "b1_3d": b1_3d, "b3_3d_clean": b3_3d_clean}
 
 
 def parity_workdirs(tmp: Path) -> tuple[Path, Path]:
@@ -1989,7 +2026,7 @@ def timed_launches():
                (ck, "launch_3d", "cooper_frye_comp_3d"),
                (b2, "launch", "cooper_frye_f32"),
                (fk, "launch", "cooper_frye_feqmod"),
-               (fk, "launch_3d", "cooper_frye_feqmod_3d")]
+               (fk, "launch_3d_split", "cooper_frye_feqmod_3d")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
 
     def timed(name, fn):
@@ -2347,6 +2384,64 @@ def phase_ensemble_routes(tmp: Path, wd1: Path, wd3: Path) -> dict:
 # phases 30-34: 3+1d df 3/4/5 (B3's 3+1d mode, the f64 engines, op 0, op 2)
 # ----------------------------------------------------------------------
 
+def split_route(ops, cfg, state, label: str, timed: bool = False) -> dict:
+    """B3's 3+1d route on ``ops`` -- the clean kernel on the leading clean
+    cells, the mixed kernel on the touched ones -- against the one kernel
+    it replaced, the mixed kernel on every cell (fk.launch_3d): equal bits
+    on the clean cells alone at one split (each term has the same bits in
+    both kernels), <= SPLIT_TOL on all cells (only the order of the f64
+    additions moves).  ``timed``: the route's two kernels on their own
+    cells and the mixed kernel on every cell, by CUDA events."""
+    from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    args = (*ops.args(), cfg, ops.kind)
+    C, n = ops.cols.shape[0], int(ops.n_clean)
+
+    def cells(lo, hi):
+        return (ops.cols[lo:hi].contiguous(), ops.cold[lo:hi].contiguous(),
+                ops.mom, ops.y, ops.renorm[lo:hi].contiguous(),
+                ops.red[lo:hi].contiguous(), ops.n_per_species, cfg, ops.kind)
+
+    def none():
+        pass
+
+    route = fk.cooper_frye_feqmod_3d(*args, **ops.layout())
+    g = fk.cooper_frye_feqmod_3d.last_geometry
+    g_clean = fk.cooper_frye_feqmod_3d.last_clean_geometry
+    mixed_ms, mixed = cuda_ms(lambda: fk.launch_3d(*args, g), none)
+    vs_mixed = kc.max_rel_err(kc.spectra_units(state, route),
+                              kc.spectra_units(state, mixed))
+    clean = cells(0, n)
+    one_clean, one = (dataclasses.replace(x, n_split=1, cells_per_split=n)
+                      for x in (g_clean, g))
+    equal = bool(torch.equal(fk.launch_3d_split(*clean, one_clean, one),
+                             fk.launch_3d(*clean, one)))
+    r = {"n_clean": n, "touched_cells": C - n,
+         "route_vs_mixed_kernel": vs_mixed,
+         "clean_cut_equal_bits_at_one_split": equal,
+         "clean_geometry": dataclasses.asdict(g_clean),
+         "mixed_geometry": dataclasses.asdict(g)}
+    if timed:
+        touched = cells(n, C)
+        r["clean_kernel_ms"] = cuda_ms(
+            lambda: fk.launch_3d_split(*clean, g_clean, g), none)[0]
+        r["touched_kernel_ms"] = cuda_ms(
+            lambda: fk.launch_3d(*touched, g), none)[0]
+        r["mixed_kernel_all_cells_ms"] = mixed_ms
+    print(f"{label}: {n} clean + {C - n} touched cells; route vs the mixed "
+          f"kernel on every cell {vs_mixed:.3e}; clean cells alone at one "
+          f"split equal bits {equal}"
+          + (f"; clean kernel {r['clean_kernel_ms']:.1f} ms, touched "
+             f"{r['touched_kernel_ms']:.1f} ms, the mixed kernel on every "
+             f"cell {mixed_ms:.1f} ms" if timed else "")
+          + f"; clean {g_clean}, mixed {g}")
+    if not (equal and vs_mixed <= SPLIT_TOL):
+        raise AssertionError(f"{label}: the split route departs from the "
+                             f"mixed kernel ({vs_mixed:.3e}, equal bits on "
+                             f"the clean cells {equal})")
+    return r
+
+
 def phase_b3_3d_compare(wd: Path) -> dict:
     print("== 30. B3's 3+1d mode vs plain version vs f64 engines (2048 "
           "cells of a 3+1d surface, 16 species, 51 x 48 x 21 y; shear 0.2, "
@@ -2377,6 +2472,12 @@ def phase_b3_3d_compare(wd: Path) -> dict:
                      "narrow_pairs": r.narrow_pairs}
     if cases["df4 narrow window"].narrow_pairs < 1:
         raise AssertionError("no (cell, y) pair in the narrow window")
+    # each case's route against the mixed kernel on every cell
+    for name in list(kc.FEQMOD_3D_CASES) + ["df4 narrow window"]:
+        case = "df4" if name == "df4 narrow window" else name
+        cfg, state, ops = kc.feqmod_3d_operands(
+            wd, case, 2048, 7, "cuda", narrow=case != name, cell_block=512)
+        out[name]["split"] = split_route(ops, cfg, state, name)
     return out
 
 
@@ -2421,7 +2522,7 @@ def b3_3d_ops(ops, n: int) -> float:
     return per[pre + "breakdown"] * n_b + per[pre + "modified"] * (n * M - n_b)
 
 
-def phase_b3_3d_full(wd: Path) -> dict:
+def phase_b3_3d_full(wd: Path, clean_build: dict) -> dict:
     print("== 32. B3's 3+1d mode on the 3+1d df-4 main path's operands")
     from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk
     from is3d2_tpu_torch.tools import kernel_check as kc
@@ -2439,15 +2540,16 @@ def phase_b3_3d_full(wd: Path) -> dict:
           f"{pairs} (cell, y) pairs in the narrow window")
     r = timed_3d(kernel, args, ops.evaluations)
     g = fk.cooper_frye_feqmod_3d.last_geometry
-    print(f"launched with {g}")
+    g_clean = fk.cooper_frye_feqmod_3d.last_clean_geometry
+    print(f"launched with clean {g_clean}, mixed {g}; the clean kernel's "
+          f"build {json.dumps(clean_build)}")
+    split = split_route(ops, cfg, state, "phase 32", timed=True)
 
-    def cut(n):
-        return (ops.cols[:n].contiguous(), ops.cold[:n].contiguous(),
-                ops.mom, ops.y, ops.renorm[:n].contiguous(),
-                ops.red[:n].contiguous(), ops.n_per_species, cfg, ops.kind)
+    def cut(n):     # the first n live cells, clean and touched
+        return (*ops.first(n).args(), cfg, ops.kind)
 
     n = B3_3D_COMPARE_CELLS
-    n_brk = int((ops.cols[:n, fk.BREAKS_3] != 0).sum())
+    n_brk = int((ops.first(n).cols[:, fk.BREAKS_3] != 0).sum())
     print(f"compared on the first {n} live cells at the full M ({n_brk} "
           "breakdown cells among them)")
     if n_brk < 1:
@@ -2459,10 +2561,11 @@ def phase_b3_3d_full(wd: Path) -> dict:
     main_bound = bound(b3_3d_ops(ops, C), args, M)["bound_ms"]
     print(f"bound at full size {main_bound:.1f} ms: "
           f"{100 * main_bound / r['main_path_ms']:.1f} % of it")
-    return {"register_tile": g.r, "register_tile_y": g.ty,
-            "threads": g.threads, "cell_split": g.n_split,
+    return {"register_tile": g_clean.r, "register_tile_y": g_clean.ty,
+            "threads": g_clean.threads, "cell_split": g_clean.n_split,
+            "split": split, "clean_kernel_build": clean_build,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            **bound(b3_3d_ops(ops, n), cut(n), M),
+            **bound(b3_3d_ops(ops.first(n), n), cut(n), M),
             "main_path_bound_ms": main_bound,
             "main_path_share_of_bound": main_bound / r["main_path_ms"],
             **r, "breakdown_cells": brk, "narrow_pairs": pairs,
@@ -2494,6 +2597,7 @@ def phase_famod_3d(tmp: Path) -> tuple[int, dict, Path, dict]:
     args = (*ops.args(), cfg, ops.kind)
     r = timed_3d(functools.partial(fk.cooper_frye_feqmod_3d, **ops.layout()),
                  args, ops.evaluations)
+    r["split"] = split_route(ops, cfg, state, "phase 33", timed=True)
     main_bound = bound(b3_3d_ops(ops, ops.cols.shape[0]), args,
                        ops.mom.shape[1])
     print(f"bound at full size {main_bound['bound_ms']:.1f} ms: "
@@ -2609,7 +2713,7 @@ def main() -> int:
         ens_routes = phase_ensemble_routes(tmp, wd1, wd3)
         b3_3d_parity = phase_b3_3d_compare(parity_workdir_3d(tmp))
         b3_3d_launches, b3_3d_stages, wd3_df4 = phase_b3_3d_main_path(tmp)
-        b3_3d = phase_b3_3d_full(wd3_df4)
+        b3_3d = phase_b3_3d_full(wd3_df4, sass["b3_3d_clean"])
         b3_3d_famod_launches, _, wd3_df5, b3_3d_famod = phase_famod_3d(tmp)
         ops_3d = phase_3d_df345_operations(tmp, wd3_df4, wd3_df5)
     if "jax" in sys.modules:

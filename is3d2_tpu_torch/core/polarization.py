@@ -23,7 +23,9 @@ Routes: ``compute_dtype`` "f32" and "f32c" run kernel P1
 CPU), on the eta >= 0 half of the nodes where ``fold_polarization_eta``
 allows it; "f64" runs ``polarization_f64``, the torch f64 engine on
 (cell block, species, pT, phi, eta) tensors, never folded: it is the
-yardstick.  2+1d only (ROADMAP A7 brings 3+1d).
+yardstick.  The polarization runs on 2+1d surfaces: the spectra, dN/dX
+and the sampler run in 3+1d too, but Config.validate_slice rejects a
+mode-5 surface in 3+1d (ROADMAP A7d).
 """
 
 from __future__ import annotations

@@ -48,8 +48,8 @@ from ..core.spectra_fast import (_cell_Q_3d, fold_eta_quadrature,
                                  momentum_matrix_3d)
 from .cooper_frye_comp import Tile3d
 from .launch_geometry import (H100_SMS, THREADS, Geometry, Geometry3d,
-                              launch_geometry_3d, operand_geometry,
-                              over_eta_chunks, row_length)
+                              cell_ranges, launch_geometry_3d,
+                              operand_geometry, over_eta_chunks, row_length)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -575,6 +575,15 @@ def compute_spectra_famod_kernel(cells: CellArrays, fm,
 # cell takes the linearised branch, in f64, where it breaks down, and at
 # every y with |y - eta_cell| < window (MomentumSpectra.cpp:863-871),
 # decided in f64 as the f64 engine decides it.
+#
+# The pack puts the clean cells -- breaks and window 0, so that no y row
+# takes the linearised branch -- first, in their live order, then the
+# others in theirs.  On the card the wrapper counts the leading run of
+# clean cells (``clean_count``, on the card: nothing is read back) and runs
+# two kernels: the clean kernel, the modified branch alone, on that run,
+# and the mixed kernel, both branches (``launch_3d`` runs it on every cell
+# on its own), on the cells after it.  Operands in any other order give the
+# same function: a clean cell after the run takes the mixed kernel.
 
 INVTEFF_3, ALPHAB_EFF_3, BREAKS_3 = 0, 1, 2
 QDF_3 = 3                          # 3..6: p.dsigma in f32
@@ -587,9 +596,11 @@ RATIO_3, INVBETAV_3, DZM3DL_3, DL_3 = 43, 44, 45, 46
 N_COLD_3D = 48
 MOM_ROWS_3D = ("mp", "px", "py", "mm", "mass2", "b", "sgn")
 TILE_CELLS_3D = 32   # kTileCells3
-# kP3, kY3, kThreads3, kMinBlocks3 of the CUDA source: the geometry of a
-# tensor that lies off the card
+# the tiles of the CUDA source, for a tensor that lies off the card: the
+# mixed kernel's (kP3m, kY3m, kThreads3m, kMinBlocks3m) and the clean
+# kernel's (kP3, kY3, kThreads3, kMinBlocks3)
 TILE_3D = Tile3d(r=4, ty=3, threads=256, blocks_per_sm=2)
+TILE_3D_CLEAN = Tile3d(r=2, ty=7, threads=128, blocks_per_sm=3)
 # the rows constant along a (species, pT, y) row of the momentum grid
 _ROW_KEYS_3D = [MOM_ROWS_3D.index(k) for k in ("mp", "mm", "mass2", "b",
                                                 "sgn")]
@@ -611,11 +622,26 @@ class FeqmodOperands3d:
     row_len: int          # Nphi: momenta per (species, pT, y) row of mom
     n_y: int              # Ny: rows per (species, pT) group of mom
     kind: str             # "feqmod" or "famod"
+    n_clean: torch.Tensor  # (1,) int32 on the card: the clean cells
+    order: torch.Tensor   # (C,) int64: each cell's place in the live order
 
     @property
     def evaluations(self) -> int:
         """Integrand evaluations of one kernel call: cells x M."""
         return self.cols.shape[0] * self.mom.shape[1]
+
+    def first(self, n: int) -> "FeqmodOperands3d":
+        """The operands of the first ``n`` live cells before the
+        partition (a cut with the surface's share of touched cells), clean
+        ones first."""
+        index = torch.nonzero(self.order < n).squeeze(1)
+        return dataclasses.replace(
+            self, cols=self.cols[index].contiguous(),
+            cold=self.cold[index].contiguous(),
+            renorm=self.renorm[index].contiguous(),
+            red=self.red[index].contiguous(), order=self.order[index],
+            n_clean=(index < self.n_clean).sum(dtype=torch.int32)
+            .reshape(1))
 
     def args(self) -> tuple:
         """The tensor and shape arguments of cooper_frye_feqmod_3d."""
@@ -634,55 +660,95 @@ class FeqmodOperands3d:
                 < self.cold[:, WINDOW_3:WINDOW_3 + 1])
 
 
+def _rows_f32(mom) -> tuple:
+    """The f32 rows m+, px, py, m-, b, sign of the 3+1d momentum rows."""
+    return tuple(mom[MOM_ROWS_3D.index(k)].to(f32)
+                 for k in ("mp", "px", "py", "mm", "b", "sgn"))
+
+
+def _modified_3d(q, u, mom, momf, rn, outflow: bool) -> torch.Tensor:
+    """The modified branch on a (cell block, M) tensor in the kernels'
+    arithmetic, renorm ``rn`` applied: f32 but p' = U (m+, px, py, m-) and
+    E_mod^2 in f64 from the f64 rows, the (m+, m-) parts formed apart from
+    the (px, py) parts.  ``q``, ``u``: the block's cols and cold; ``momf``:
+    ``_rows_f32(mom)``."""
+    mp64, px64, py64, mm64, mass2_64, _, _ = mom
+    mpf, pxf, pyf, mmf, bm, sgn = momf
+
+    def col(i):
+        return q[:, i:i + 1]                              # (b, 1)
+
+    def d(i):
+        return u[:, i:i + 1]
+
+    p = [(d(U_3 + 4 * i) * mp64 + d(U_3 + 4 * i + 3) * mm64)
+         + (d(U_3 + 4 * i + 1) * px64 + d(U_3 + 4 * i + 2) * py64)
+         for i in range(3)]
+    E2 = (mass2_64 + (p[0] * p[0] + p[1] * p[1] + p[2] * p[2])).to(f32)
+    E_mod = torch.sqrt(torch.clamp(E2, min=1e-30))
+    nchem = -(bm * col(ALPHAB_EFF_3))
+    den = torch.clamp(torch.exp(E_mod * col(INVTEFF_3) + nchem) + sgn,
+                      max=MAX_DEN)
+    pdd = ((col(QDF_3) * mpf + col(QDF_3 + 3) * mmf)
+           + (col(QDF_3 + 1) * pxf + col(QDF_3 + 2) * pyf))
+    if outflow:
+        pdd = torch.clamp(pdd, min=0.0)
+    return rn * (pdd * (1.0 / den))
+
+
+def cooper_frye_feqmod_3d_clean_plain(cols, cold, mom, renorm,
+                                      n_per_species: int, cfg: Config,
+                                      red=None) -> torch.Tensor:
+    """Plain torch version of the clean kernel: the modified branch alone
+    on every given cell (the caller hands it clean cells), renorm applied
+    and no red (with ``red``, multiplied by it as the mixed kernel does:
+    the same bits on live cells, where red is 1, or 0 with renorm 0), every
+    cell's term summed in f64.  Runs on any device."""
+    C, M = cols.shape[0], mom.shape[1]
+    species_of_m = torch.arange(M, device=mom.device) // n_per_species
+    momf = _rows_f32(mom)
+    out = torch.zeros(M, dtype=f64, device=mom.device)
+    blk = max(1, min(C, _PLAIN_BLOCK_ELEMENTS // M))
+    for c0 in range(0, C, blk):
+        value = _modified_3d(cols[c0:c0 + blk], cold[c0:c0 + blk], mom, momf,
+                             renorm[c0:c0 + blk][:, species_of_m],
+                             bool(cfg.outflow))
+        if red is not None:
+            value = red[c0:c0 + blk][:, species_of_m] * value
+        out += value.to(f64).sum(dim=0)
+    return out
+
+
 def cooper_frye_feqmod_3d_plain(cols, cold, mom, y, renorm, red,
                                 n_per_species: int, cfg: Config, kind: str,
                                 row_len: int, n_y: int) -> torch.Tensor:
-    """Plain torch version of the 3+1d mode: the kernel's arithmetic in
-    its order on (cell block, M) tensors -- the modified branch in f32 but
-    p' = U (m+, px, py, m-) and E_mod^2 in f64 from the f64 rows, the
-    (m+, m-) parts formed apart from the (px, py) parts, the renorm applied
-    to it alone; the linearised branch in f64; the window in f64; both
-    branches where-selected per (cell, y), every cell's term summed in f64.
-    Runs on any device."""
+    """Plain torch version of the 3+1d mode, and of its mixed kernel: the
+    kernels' arithmetic in their order on (cell block, M) tensors -- the
+    modified branch (``_modified_3d``) times red, the linearised branch in
+    f64, the window in f64; both branches where-selected per (cell, y),
+    every cell's term summed in f64.  Runs on any device."""
     mode = _mode(cfg, kind)
     C, M = cols.shape[0], mom.shape[1]
     mp64, px64, py64, mm64, mass2_64, b64, sgn64 = mom
-    mpf, pxf, pyf, mmf, bm, sgn = (t.to(f32) for t in (mp64, px64, py64,
-                                                       mm64, b64, sgn64))
     m = torch.arange(M, device=mom.device)
     species_of_m = m // n_per_species
     y_of_m = y[(m // row_len) % n_y]
+    momf = _rows_f32(mom)
     out = torch.zeros(M, dtype=f64, device=mom.device)
     blk = max(1, min(C, _PLAIN_BLOCK_ELEMENTS // M))
     for c0 in range(0, C, blk):
         q = cols[c0:c0 + blk]
         u = cold[c0:c0 + blk]
 
-        def col(i):
-            return q[:, i:i + 1]                          # (b, 1)
-
         def d(i):
             return u[:, i:i + 1]
 
-        rn = renorm[c0:c0 + blk][:, species_of_m]         # (b, M)
-        rd = red[c0:c0 + blk][:, species_of_m]
+        rd = red[c0:c0 + blk][:, species_of_m]            # (b, M)
         narrow = (y_of_m[None, :] - d(ETA_3)).abs() < d(WINDOW_3)
-        use_break = (col(BREAKS_3) != 0.0) | narrow
-
-        # ---------------- modified branch, f32 ----------------
-        p = [(d(U_3 + 4 * i) * mp64 + d(U_3 + 4 * i + 3) * mm64)
-             + (d(U_3 + 4 * i + 1) * px64 + d(U_3 + 4 * i + 2) * py64)
-             for i in range(3)]
-        E2 = (mass2_64 + (p[0] * p[0] + p[1] * p[1] + p[2] * p[2])).to(f32)
-        E_mod = torch.sqrt(torch.clamp(E2, min=1e-30))
-        nchem = -(bm * col(ALPHAB_EFF_3))
-        den = torch.clamp(torch.exp(E_mod * col(INVTEFF_3) + nchem) + sgn,
-                          max=MAX_DEN)
-        pdd = ((col(QDF_3) * mpf + col(QDF_3 + 3) * mmf)
-               + (col(QDF_3 + 1) * pxf + col(QDF_3 + 2) * pyf))
-        if cfg.outflow:
-            pdd = torch.clamp(pdd, min=0.0)
-        value_mod = (rd * (rn * (pdd * (1.0 / den)))).to(f64)
+        use_break = (q[:, BREAKS_3:BREAKS_3 + 1] != 0.0) | narrow
+        value_mod = (rd * _modified_3d(
+            q, u, mom, momf, renorm[c0:c0 + blk][:, species_of_m],
+            bool(cfg.outflow))).to(f64)
 
         # ---------------- linearised branch, f64 ----------------
         def lc(k):   # a light-cone row against (m+, px, py, m-)
@@ -759,8 +825,10 @@ def _check_3d(cols, cold, mom, y, renorm, red, n_per_species: int,
 def geometry_3d(mom: torch.Tensor, n_cells: int, n_y: int,
                 tile: Tile3d = TILE_3D,
                 row_len: int | None = None) -> Geometry3d:
-    """The launch geometry of the 3+1d mode: its momenta run (species, pT,
-    y, phi), ``n_y`` rows of ``row_len`` phi a (species, pT) group.
+    """The launch geometry of a 3+1d kernel of ``tile`` (the mixed
+    kernel's by default, TILE_3D_CLEAN the clean kernel's): its momenta run
+    (species, pT, y, phi), ``n_y`` rows of ``row_len`` phi a (species, pT)
+    group, and its cells split as if all ``n_cells`` were its own.
     ``row_len``, the phi count of the grid, is read off the rows m+, m-,
     mass2, b and sign where the caller leaves it out (a device-to-host
     copy); ``n_y`` cannot be, so the caller names it."""
@@ -773,14 +841,38 @@ def geometry_3d(mom: torch.Tensor, n_cells: int, n_y: int,
                               tile.blocks_per_sm, sms)
 
 
-def launch_3d(cols, cold, mom, y, renorm, red, n_per_species: int,
-              cfg: Config, kind: str, g: Geometry3d, lib=None) -> torch.Tensor:
-    """Launch the 3+1d mode of ``lib`` (default: this package's build) on
-    checked CUDA operands with the geometry ``g``."""
+def clean_count(cols: torch.Tensor, cold: torch.Tensor) -> torch.Tensor:
+    """(1,) int32 on the operands' device: the length of the leading run
+    of clean cells (breaks and window 0), which the clean kernel sums.
+    Nothing is read back."""
+    touched = (cols[:, BREAKS_3] != 0) | (cold[:, WINDOW_3] != 0)
+    return (torch.cumsum(touched, 0) == 0).sum(dtype=torch.int32).reshape(1)
+
+
+def cell_ranges_3d(g_clean: Geometry3d, g: Geometry3d, n_clean: int,
+                   n_cells: int) -> list[tuple[int, int]]:
+    """[begin, end) of the cells each partial row of the split route sums
+    (empty where end <= begin): the clean kernel's splits, then the mixed
+    kernel's.  The kernels' arithmetic."""
+    return cell_ranges(g_clean, n_clean) + [
+        (n_clean + a, n_clean + b)
+        for a, b in cell_ranges(g, n_cells - n_clean)]
+
+
+def _lib(lib):
     if lib is None:
         from . import _build
         lib = _build.load("cooper_frye_feqmod")
-    fn = lib.is3d2_cooper_frye_feqmod_3d
+    return lib
+
+
+def launch_3d(cols, cold, mom, y, renorm, red, n_per_species: int,
+              cfg: Config, kind: str, g: Geometry3d, lib=None) -> torch.Tensor:
+    """The mixed kernel of ``lib`` (default: this package's build) on
+    every cell of checked CUDA operands with the geometry ``g``: B3's 3+1d
+    mode as one kernel, the reference the split route is held to.  It is
+    no launch of the route and counts none."""
+    fn = _lib(lib).is3d2_cooper_frye_feqmod_3d
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -799,8 +891,40 @@ def launch_3d(cols, cold, mom, y, renorm, red, n_per_species: int,
     if err != 0:
         raise RuntimeError(f"cooper_frye_feqmod_3d launch failed: cudaError "
                            f"{err}")
+    return out
+
+
+def launch_3d_split(cols, cold, mom, y, renorm, red, n_per_species: int,
+                    cfg: Config, kind: str, g_clean: Geometry3d,
+                    g: Geometry3d, lib=None) -> torch.Tensor:
+    """The route of the 3+1d mode on checked CUDA operands: the clean
+    kernel of ``lib`` on the leading clean cells (``clean_count``) with
+    the geometry ``g_clean``, the mixed kernel on the cells after them with
+    ``g``, their partial rows added in order.  One launch of the route."""
+    fn = _lib(lib).is3d2_cooper_frye_feqmod_3d_split
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    C, S = renorm.shape
+    M = mom.shape[1]
+    n_clean = clean_count(cols, cold)
+    out = torch.empty(M, dtype=f64, device=cols.device)
+    partial = torch.empty((g_clean.n_split + g.n_split, M), dtype=f64,
+                          device=cols.device)
+    with torch.cuda.device(cols.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cols.data_ptr(), cold.data_ptr(), mom.data_ptr(),
+                 y.data_ptr(), renorm.data_ptr(), red.data_ptr(),
+                 n_clean.data_ptr(), partial.data_ptr(), out.data_ptr(), C, M,
+                 S, n_per_species, g.row_len, g.n_y, g_clean.n_split,
+                 g_clean.cells_per_split, g.n_split, g.cells_per_split,
+                 _mode(cfg, kind), _flags(cfg, kind, False), stream)
+    if err != 0:
+        raise RuntimeError(f"cooper_frye_feqmod_3d launch failed: cudaError "
+                           f"{err}")
     cooper_frye_feqmod_3d.launches += 1
     cooper_frye_feqmod_3d.last_geometry = g
+    cooper_frye_feqmod_3d.last_clean_geometry = g_clean
     return out
 
 
@@ -808,10 +932,11 @@ def cooper_frye_feqmod_3d(cols, cold, mom, y, renorm, red,
                           n_per_species: int, cfg: Config, kind: str,
                           row_len: int | None = None,
                           n_y: int | None = None) -> torch.Tensor:
-    """Run B3's 3+1d mode on CUDA tensors (its plain version on CPU
-    tensors).  Returns the (M,) f64 sums, prefactor and degeneracy not
-    applied.  ``n_y``: the rapidities of the momentum grid, which the
-    caller must name; ``row_len``: its phi count, see ``geometry_3d``."""
+    """Run B3's 3+1d mode on CUDA tensors, split by cell (the clean and
+    the mixed kernel; its plain version on CPU tensors).  Returns the (M,)
+    f64 sums, prefactor and degeneracy not applied.  ``n_y``: the
+    rapidities of the momentum grid, which the caller must name;
+    ``row_len``: its phi count, see ``geometry_3d``."""
     if n_y is None or n_y < 1:
         raise ValueError("cooper_frye_feqmod_3d needs n_y, the rapidity "
                          "count of the momentum grid")
@@ -825,16 +950,22 @@ def cooper_frye_feqmod_3d(cols, cold, mom, y, renorm, red,
                                            row_len, n_y)
     if cols.device.type != "cuda":
         raise ValueError(f"no kernel for device {cols.device}")
-    from . import _build
-    lib = _build.load("cooper_frye_feqmod")
-    g = geometry_3d(mom, cols.shape[0], n_y,
-                    Tile3d.of(lib, "cooper_frye_feqmod_3d"), row_len)
-    return launch_3d(cols, cold, mom, y, renorm, red, n_per_species, cfg,
-                     kind, g, lib)
+    lib = _lib(None)
+    C = cols.shape[0]
+    g_clean = geometry_3d(mom, C, n_y,
+                          Tile3d.of(lib, "cooper_frye_feqmod_3d_clean"),
+                          row_len)
+    g = geometry_3d(mom, C, n_y, Tile3d.of(lib, "cooper_frye_feqmod_3d"),
+                    g_clean.row_len)
+    return launch_3d_split(cols, cold, mom, y, renorm, red, n_per_species,
+                           cfg, kind, g_clean, g, lib)
 
 
 cooper_frye_feqmod_3d.launches = 0
-cooper_frye_feqmod_3d.last_geometry = None   # of the latest launch
+# the geometries of the route's latest launch: the mixed kernel's and the
+# clean kernel's
+cooper_frye_feqmod_3d.last_geometry = None
+cooper_frye_feqmod_3d.last_clean_geometry = None
 
 
 def _lrf_matrix_3d(cells: CellArrays, basis, Minv) -> torch.Tensor:
@@ -861,10 +992,10 @@ def _pack_3d(cells: CellArrays, modified: tuple, columns: dict, U, det,
     linearised branch's f64 ``columns`` (cold's indices; p.dsigma and u.p
     against the light-cone momenta are added here), U (C, 3, 4), the
     window's determinant and the (C, S) renorm / red tables of the live
-    cells as the 3+1d mode's operands, and the momentum rows and y table
-    from ``grid``."""
+    cells as the 3+1d mode's operands, clean cells first
+    (``partition_clean``), and the momentum rows and y table from
+    ``grid``."""
     c = cells
-    live = live_index(c)
     dev = c.tau.device
     q = _cell_Q_3d(c, {})
     cold = torch.zeros((c.n_padded, N_COLD_3D), dtype=f64, device=dev)
@@ -884,12 +1015,32 @@ def _pack_3d(cells: CellArrays, modified: tuple, columns: dict, U, det,
     mom = torch.stack([rows[k] for k in MOM_ROWS_3D]).contiguous()
     NpT, Nphi, Ny = (grid.pT.shape[0], grid.cos_phi.shape[0],
                      grid.y.shape[0])
+    live = live_index(c)
+    order, n_clean = partition_clean((cols[live, BREAKS_3] != 0)
+                                     | (cold[live, WINDOW_3] != 0))
+    at = live[order]
     return FeqmodOperands3d(
-        cols=cols[live].to(f32).contiguous(), cold=cold[live].contiguous(),
+        cols=cols[at].to(f32).contiguous(), cold=cold[at].contiguous(),
         mom=mom, y=grid.y.to(f64).contiguous(),
-        renorm=renorm[live].to(f32).contiguous(),
-        red=red[live].to(f32).contiguous(), n_per_species=NpT * Ny * Nphi,
-        row_len=Nphi, n_y=Ny, kind=kind)
+        renorm=renorm[at].to(f32).contiguous(),
+        red=red[at].to(f32).contiguous(), n_per_species=NpT * Ny * Nphi,
+        row_len=Nphi, n_y=Ny, kind=kind, n_clean=n_clean, order=order)
+
+
+def partition_clean(touched: torch.Tensor) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(order, n_clean) of a stable partition of the cells, clean (not
+    ``touched``) first: order[i] is the cell placed at i, each set in its
+    own order; n_clean a (1,) int32 count.  Scans and a scatter on the
+    cells' device: nothing is read back."""
+    t = touched.to(torch.int64)
+    clean = 1 - t
+    n_clean = clean.sum()
+    place = torch.where(touched, n_clean + torch.cumsum(t, 0),
+                        torch.cumsum(clean, 0)) - 1
+    order = torch.empty_like(place).scatter_(
+        0, place, torch.arange(place.shape[0], device=place.device))
+    return order, n_clean.to(torch.int32).reshape(1)
 
 
 def pack_feqmod_3d(cells: CellArrays, fq, species: SpeciesArrays,

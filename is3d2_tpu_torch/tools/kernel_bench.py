@@ -3,7 +3,7 @@ call, and count what was compiled.
 
     python -m is3d2_tpu_torch.tools.kernel_bench [--tree NAME=DIR ...]
         [--only b1,b3,b2,b1_3d,b3_3d,p1,prep] [--tile3d PxYxTxB ...]
-        [--tile3d-b3 PxYxTxB ...]
+        [--tile3d-b3 PxYxTxB ...] [--branches]
         [--cells 100000] [--compare-cells 8192] [--f64-species 4]
         [--few-species 3,16] [--out build/kernel_bench.json]
 
@@ -34,8 +34,15 @@ script
     moves no rounding; the script exits 1 where one does not);
     ``--tile3d PxYxTxB`` (repeatable) adds a copy of this tree whose B1
     3+1d mode launches a tile of P phi x Y y, T threads a block and B
-    blocks an SM (``tile_tree``), ``--tile3d-b3`` one whose B3 3+1d mode
-    does, so tile shapes race in one call;
+    blocks an SM (``tile_tree``), ``--tile3d-b3`` one whose B3 3+1d clean
+    kernel does, so tile shapes race in one call.  A tree from before B3's
+    3+1d route was split by cell is held to this tree's mixed kernel on
+    every cell (``launch_3d``);
+  * ``--branches`` with ``b3_3d``: B3's 3+1d mixed kernel on every cell as
+    packed, with every cell on its modified branch and with every cell on
+    its linearised branch, and the split route beside them
+    (``race_branches``): each branch's ms per 1e12 evaluations and its
+    share of the packed run;
   * B3: takes the ``--f64-species`` species on which the trees disagree
     most at that cut and holds every tree, and the plain version, to the
     f64 feqmod engine there, at the cut and at the full cell count;
@@ -300,11 +307,15 @@ MODES_3D = ("b1_3d", "b3_3d")
 # B1's 3+1d mode's tile shapes raced for its redesign: phi x y momenta a
 # thread, threads a block, blocks an SM (--tile3d)
 TILES_3D = ("4x3x128x3", "4x3x256x2", "4x7x128x3", "4x7x128x2", "8x3x128x2")
-# B3's 3+1d mode's, raced for its choice (--tile3d-b3)
+# B3's 3+1d mode's (--tile3d-b3): the first eight raced for the one
+# kernel it had, now its mixed kernel; 4x7x128x2, 4x7x128x3, 4x3x128x3,
+# 4x3x256x2 and 8x3x128x2 raced for its clean kernel
 TILES_3D_B3 = ("4x3x128x3", "4x3x256x2", "4x3x128x2", "4x1x128x4",
-               "2x3x128x4", "4x7x128x2", "2x7x128x3", "2x1x128x4")
-# the line of csrc/cooper_frye_comp.cu (and of csrc/cooper_frye_feqmod.cu)
-# that fixes the 3+1d mode's tile
+               "2x3x128x4", "4x7x128x2", "2x7x128x3", "2x1x128x4",
+               "4x7x128x3", "8x3x128x2")
+# the line that fixes a 3+1d tile: B1's 3+1d mode's in
+# csrc/cooper_frye_comp.cu, B3's clean kernel's in csrc/cooper_frye_feqmod.cu
+# (its mixed kernel's constants carry an m: kP3m, ...)
 TILE_LINE_3D = (r"constexpr int kP3 = \d+, kY3 = \d+, kThreads3 = \d+, "
                 r"kMinBlocks3 = \d+;")
 
@@ -312,8 +323,8 @@ TILE_LINE_3D = (r"constexpr int kP3 = \d+, kY3 = \d+, kThreads3 = \d+, "
 def tile_tree(spec: str, root: Path,
               source: str = "cooper_frye_comp") -> Path:
     """A copy of this tree under ``root`` whose 3+1d mode in ``source``
-    launches the tile ``spec`` = "PxYxTxB" (see TILES_3D); returns the
-    copy's directory."""
+    (B3's: its clean kernel) launches the tile ``spec`` = "PxYxTxB" (see
+    TILES_3D); returns the copy's directory."""
     p, y, t, b = (int(v) for v in spec.split("x"))
     here = Path(__file__).resolve().parent.parent
     dst = root / f"tile3d_{source}_{spec}"
@@ -340,11 +351,8 @@ def operands(kernel: Kernel, wd: Path):
         state = kc.feqmod_engine_state(wd, cfg, surf, "cuda")
         ops = fk.feqmod_operands_3d(*state, cfg)
 
-        def cut(n):
-            return (ops.cols[:n].contiguous(), ops.cold[:n].contiguous(),
-                    ops.mom, ops.y, ops.renorm[:n].contiguous(),
-                    ops.red[:n].contiguous(), ops.n_per_species, cfg,
-                    ops.kind)
+        def cut(n):     # the first n live cells, clean and touched
+            return (*ops.first(n).args(), cfg, ops.kind)
 
         def few(s):
             return (ops.cols, ops.cold,
@@ -443,6 +451,31 @@ def race(kernel: Kernel, versions: dict, args: tuple, cut: tuple, plain,
     return results, spectra
 
 
+def _geometries(wrapper) -> tuple:
+    """The geometries of a wrapper's latest launch: B3's 3+1d route has
+    two (its mixed kernel's, then its clean kernel's; a tree from before
+    the split, one), every other wrapper one."""
+    clean = getattr(wrapper, "last_clean_geometry", None)
+    return ((wrapper.last_geometry,) if clean is None
+            else (wrapper.last_geometry, clean))
+
+
+def _splits(geoms: tuple) -> tuple:
+    return tuple((g.n_split, g.cells_per_split) for g in geoms)
+
+
+def relaunch(mod, kernel: Kernel, args: tuple, geoms: tuple, splits: tuple):
+    """This tree's launch of ``kernel`` on ``args`` with the geometries
+    ``geoms`` of its latest launch, their cell splits replaced by
+    ``splits``.  For B3's 3+1d route with one split (a tree from before
+    the route was split by cell) that is the mixed kernel on every cell."""
+    geoms = [dataclasses.replace(g, n_split=n, cells_per_split=c)
+             for g, (n, c) in zip(geoms, splits)]
+    if len(geoms) == 2:
+        return mod.launch_3d_split(*args, geoms[1], geoms[0])
+    return getattr(mod, kernel.launch)(*args, geoms[0])
+
+
 def equal_bits(kernel: Kernel, versions: dict, packages: dict,
                args: tuple) -> dict:
     """Every tree's result on ``args`` against this tree's at the same cell
@@ -451,22 +484,20 @@ def equal_bits(kernel: Kernel, versions: dict, packages: dict,
     whether the bits are equal."""
     mod = importlib.import_module(f"..ops.{kernel.module}", __package__)
     mine = versions[THIS_TREE](*args)
-    g = getattr(mod, kernel.name).last_geometry
+    geoms = _geometries(getattr(mod, kernel.name))
     record = {}
     for label in versions:
         if label == THIS_TREE:
             continue
         out = versions[label](*args)
-        theirs = kernel.wrapper(packages[label]).last_geometry
-        split = (theirs.n_split, theirs.cells_per_split)
-        ref = mine if split == (g.n_split, g.cells_per_split) else \
-            getattr(mod, kernel.launch)(*args, dataclasses.replace(
-                g, n_split=split[0], cells_per_split=split[1]))
+        split = _splits(_geometries(kernel.wrapper(packages[label])))
+        ref = mine if split == _splits(geoms) else \
+            relaunch(mod, kernel, args, geoms[:len(split)], split)
         same = bool(torch.equal(out, ref))
         record[label] = {"split": split, "equal_bits": same}
         print(f"{kernel.key} {label:20s} vs this tree at full size, cell "
-              f"split {split} (this tree's {(g.n_split, g.cells_per_split)})"
-              f": equal bits {same}")
+              f"split {split} (this tree's {_splits(geoms)}): equal bits "
+              f"{same}")
         del out, ref
     return record
 
@@ -531,6 +562,15 @@ def race_split(kernel: Kernel, few, n_species: int, layout: dict) -> dict:
     one = dataclasses.replace(grid, n_split=1,
                               cells_per_split=args[0].shape[0])
     unsplit = dataclasses.replace(g, grid=one) if kernel.key == "b3" else one
+    if kernel.key == "b3_3d":       # the route's two kernels, both split
+        clean = wrapper.last_clean_geometry
+        n = args[0].shape[0]
+
+        def launch(*a):
+            return mod.launch_3d_split(*a[:-1], a[-1][1], a[-1][0])
+        g = (g, clean)
+        unsplit = tuple(dataclasses.replace(x, n_split=1, cells_per_split=n)
+                        for x in g)
     same = torch.equal(out, launch(*args, g))
     ms = {"split": [], "no split": []}
     for which, geom in (("split", g), ("no split", unsplit),
@@ -542,6 +582,72 @@ def race_split(kernel: Kernel, few, n_species: int, layout: dict) -> dict:
           f"{ms['no split'][0]:.1f} {ms['no split'][1]:.1f} ms "
           f"({min(ms['no split']) / min(ms['split']):.2f}x); repeats {same}")
     return {"blocks": grid.blocks, "n_split": grid.n_split, **ms}
+
+
+def race_branches(ops, cfg: Config) -> dict:
+    """B3's 3+1d mixed kernel (both branches; ``launch_3d``) on every cell
+    of ``ops`` three ways, timed twice each in mirrored order: as packed,
+    with every cell on the modified branch (BREAKS_3 and WINDOW_3 zeroed)
+    and with every cell on the linearised one (BREAKS_3 = 1); beside them
+    the route split by cell on the packed operands.  From the middle two,
+    each branch's ms per 1e12 evaluations, and the time each takes of the
+    packed run at its real mix of evaluations."""
+    from ..ops import cooper_frye_feqmod as fk
+    lib = _build.load("cooper_frye_feqmod")
+    C, M = ops.cols.shape[0], ops.mom.shape[1]
+    g = fk.geometry_3d(ops.mom, C, ops.n_y,
+                       fk.Tile3d.of(lib, "cooper_frye_feqmod_3d"),
+                       ops.row_len)
+    modified_cols, linearised_cols = ops.cols.clone(), ops.cols.clone()
+    modified_cols[:, fk.BREAKS_3] = 0.0
+    linearised_cols[:, fk.BREAKS_3] = 1.0
+    modified_cold = ops.cold.clone()
+    modified_cold[:, fk.WINDOW_3] = 0.0
+    variants = {"as packed": (ops.cols, ops.cold),
+                "all modified": (modified_cols, modified_cold),
+                "all linearised": (linearised_cols, ops.cold)}
+
+    args = (ops.mom, ops.y, ops.renorm, ops.red, ops.n_per_species, cfg,
+            ops.kind)
+    calls = {label: functools.partial(fk.launch_3d, cols, cold, *args, g, lib)
+             for label, (cols, cold) in variants.items()}
+    if hasattr(lib, "is3d2_cooper_frye_feqmod_3d_split"):
+        # the route, split by cell, on the packed operands
+        g_clean = fk.geometry_3d(ops.mom, C, ops.n_y, fk.Tile3d.of(
+            lib, "cooper_frye_feqmod_3d_clean"), ops.row_len)
+        calls["split route"] = functools.partial(
+            fk.launch_3d_split, ops.cols, ops.cold, *args, g_clean, g, lib)
+    for call in calls.values():
+        call()                             # warm-up
+    ms = {label: [] for label in calls}
+    for label in list(calls) + list(reversed(calls)):
+        ms[label].append(cuda_ms(calls[label]))
+    brk = ops.cols[:, fk.BREAKS_3] != 0
+    n_lin = (int(brk.sum()) * M
+             + int((ops.window() & ~brk[:, None]).sum()) * (M // ops.n_y))
+    n_mod = C * M - n_lin
+    per = {label: min(v) / (C * M) * 1e12 for label, v in ms.items()}
+    share = {"modified": per["all modified"] * n_mod / 1e12,
+             "linearised": per["all linearised"] * n_lin / 1e12}
+    packed = min(ms["as packed"])
+    record = {"geometry": dataclasses.asdict(g), "ms": ms,
+              "n_clean": int(ops.n_clean),
+              "ms_per_1e12_evaluations": per,
+              "evaluations": {"modified": n_mod, "linearised": n_lin},
+              "predicted_ms_of_packed_run": share,
+              "share_of_packed_run": {k: v / packed
+                                      for k, v in share.items()}}
+    for label, v in ms.items():
+        print(f"b3_3d branches, {label:15s} {v[0]:9.1f} {v[1]:9.1f} ms  "
+              f"{per[label]:9.1f} ms per 1e12 evaluations")
+    print(f"b3_3d branches: as packed {n_mod} modified and {n_lin} "
+          f"linearised evaluations ({n_lin / (C * M):.4f} of them); at "
+          f"the one-branch rates the modified ones take "
+          f"{share['modified']:.1f} ms and the linearised ones "
+          f"{share['linearised']:.1f} ms of the packed run's {packed:.1f} ms"
+          f" ({share['modified'] / packed:.3f} + "
+          f"{share['linearised'] / packed:.3f})")
+    return record
 
 
 def p1_tree_call(package: str, wd: Path, cfg: Config, surf):
@@ -654,6 +760,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tile3d-b3", action="append", default=[],
                     metavar="PxYxTxB",
                     help="the same for B3's 3+1d mode (TILES_3D_B3)")
+    ap.add_argument("--branches", action="store_true",
+                    help="with b3_3d: time its mixed kernel with every cell "
+                         "on one branch (race_branches)")
     ap.add_argument("--cells", type=int, default=100_000)
     ap.add_argument("--compare-cells", type=int, default=8192)
     ap.add_argument("--f64-species", type=int, default=4)
@@ -691,6 +800,10 @@ def main(argv=None) -> int:
         for label, package in packages.items():
             record["builds"][f"{k.key} {label}"] = report_build(
                 f"{k.key} [{label}]", k.name, k.library(package))
+            if k.key == "b3_3d":    # its clean kernel
+                record["builds"][f"{k.key} clean {label}"] = report_build(
+                    f"{k.key} clean [{label}]", k.name + "_clean",
+                    k.library(package))
     if "p1" in only:
         for label, package in packages.items():
             build = importlib.import_module(f"{package}.ops._build")
@@ -746,6 +859,8 @@ def main(argv=None) -> int:
                 rec["vs_f64_full"] = hold_to_f64(
                     f"all {args[0].shape[0]} cells", full,
                     feqmod_f64(state, cfg, args[0].shape[0], species), species)
+            if k.key == "b3_3d" and a.branches:
+                rec["branches"] = race_branches(ops, cfg)
             rec["few_species"] = {
                 s: race_split(k, few, s,
                               {"n_y": ops.n_y} if k.key in MODES_3D else {})

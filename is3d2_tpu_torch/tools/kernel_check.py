@@ -99,8 +99,11 @@ MAIN_PATH_KERNEL = {
     # the 3+1d mode's tile shape comes first among its template parameters
     "cooper_frye_comp_3d":
         r"cooper_frye_comp_3d_kernelI(?:Li\d+E)*Lb1ELb0ELb0ELb0ELb0EE",
-    # B3's 3+1d mode, df 4 with neither outflow nor regulation
+    # B3's 3+1d mode, df 4 with neither outflow nor regulation: its mixed
+    # kernel and its clean kernel
     "cooper_frye_feqmod_3d": r"cooper_frye_feqmod_3d_kernelILi4ELb0ELb0EE",
+    "cooper_frye_feqmod_3d_clean":
+        r"cooper_frye_feqmod_3d_clean_kernelILb0EE",
 }
 
 # name -> (config fields, make_surface options); the workdir needs
@@ -620,6 +623,16 @@ def f64_3d(state, cfg: Config) -> np.ndarray:
     return out.reshape(out.shape[0], -1).cpu().numpy()
 
 
+def feqmod_3d_operands(workdir: str | Path, case: str, n_cells: int,
+                       seed: int, device, narrow: bool = False,
+                       **cfg_fields):
+    """(cfg, engine state, 3+1d operands) of FEQMOD_3D_CASES[case], as
+    ``check_feqmod_3d_case`` makes them."""
+    cfg = Config(compute_dtype="f32", dimension=3, **FEQMOD_3D_CASES[case],
+                 **cfg_fields)
+    return (cfg, *_state_3d(workdir, cfg, n_cells, seed, device, narrow))
+
+
 def check_feqmod_3d_case(workdir: str | Path, case: str, n_cells: int,
                          seed: int, device, narrow: bool = False,
                          **cfg_fields) -> Feqmod3dCaseResult:
@@ -627,9 +640,8 @@ def check_feqmod_3d_case(workdir: str | Path, case: str, n_cells: int,
     (``narrow``: narrow_window_surface) through B3's 3+1d mode (its plain
     version on a CPU device), the plain version and the f64 engine; the
     workdir's y table gives the rapidities."""
-    cfg = Config(compute_dtype="f32", dimension=3, **FEQMOD_3D_CASES[case],
-                 **cfg_fields)
-    state, ops = _state_3d(workdir, cfg, n_cells, seed, device, narrow)
+    cfg, state, ops = feqmod_3d_operands(workdir, case, n_cells, seed,
+                                         device, narrow, **cfg_fields)
     out, plain, launches, repeats = _run(
         functools.partial(fk.cooper_frye_feqmod_3d, **ops.layout()),
         functools.partial(fk.cooper_frye_feqmod_3d_plain, **ops.layout()),
@@ -644,23 +656,24 @@ def check_feqmod_3d_ragged_case(workdir: str | Path, n_cells: int,
                                 seed: int, device,
                                 n_y: int = 3) -> Feqmod3dCaseResult:
     """B3's 3+1d mode (df 4) against its plain version (which also stands
-    in for f64) on the operands cut to RAGGED and to the first ``n_y``
+    in for f64) on the operands cut to RAGGED (its cells: the first live
+    cells before the clean ones were put first) and to the first ``n_y``
     rapidities."""
     cfg = Config(compute_dtype="f32", df_mode=4, dimension=3)
     state, ops = _state_3d(workdir, cfg, n_cells, seed, device)
     species, grid = state[2], state[3]
-    n, S = RAGGED["cells"], RAGGED["species"]
+    S = RAGGED["species"]
+    cut = ops.first(RAGGED["cells"])
     full = ops.mom.reshape(ops.mom.shape[0], species.mass.shape[0],
                            grid.pT.shape[0], grid.y.shape[0],
                            grid.cos_phi.shape[0])
     mom = full[:, :S, :RAGGED["pT"], :n_y, :RAGGED["phi"]]
     layout = {"row_len": RAGGED["phi"], "n_y": n_y}
-    args = (ops.cols[:n].contiguous(), ops.cold[:n].contiguous(),
-            mom.reshape(mom.shape[0], -1).contiguous(),
-            ops.y[:n_y].contiguous(), ops.renorm[:n, :S].contiguous(),
-            ops.red[:n, :S].contiguous(),
+    args = (cut.cols, cut.cold, mom.reshape(mom.shape[0], -1).contiguous(),
+            ops.y[:n_y].contiguous(), cut.renorm[:, :S].contiguous(),
+            cut.red[:, :S].contiguous(),
             RAGGED["pT"] * n_y * RAGGED["phi"], cfg, ops.kind)
-    n_break = int((ops.cols[:n, fk.BREAKS_3] != 0).sum().item())
+    n_break = int((cut.cols[:, fk.BREAKS_3] != 0).sum().item())
     return _ragged_result(
         functools.partial(fk.cooper_frye_feqmod_3d, **layout),
         functools.partial(fk.cooper_frye_feqmod_3d_plain, **layout), args,

@@ -570,17 +570,17 @@ def test_feqmod_3d_kernel_ragged_groups_and_splits(workdir_3d, n_y, n_cells,
                                                    stop_short):
     """2 species x 3 pT x n_y y x 7 phi: y tiles cut short by the group's
     end, a last group that stops inside a row, cells that fill neither the
-    last tile nor the last split."""
+    last tile nor the last split (the first live cells, clean and
+    touched)."""
     _needs_cuda()
     ops, cfg = _b3_3d_operands(workdir_3d)
     full = ops.mom.reshape(ops.mom.shape[0], len(CHOSEN), 16, 9, 8)
     mom = full[:, :2, :3, :n_y, :7].reshape(ops.mom.shape[0], -1)
     mom = mom[:, :mom.shape[1] - stop_short].contiguous()
-    n = n_cells
-    _b3_3d_agrees((ops.cols[:n].contiguous(), ops.cold[:n].contiguous(),
-                   mom, ops.y[:n_y].contiguous(),
-                   ops.renorm[:n, :2].contiguous(),
-                   ops.red[:n, :2].contiguous(), 3 * n_y * 7, cfg, ops.kind),
+    cut = ops.first(n_cells)
+    _b3_3d_agrees((cut.cols, cut.cold, mom, ops.y[:n_y].contiguous(),
+                   cut.renorm[:, :2].contiguous(),
+                   cut.red[:, :2].contiguous(), 3 * n_y * 7, cfg, ops.kind),
                   row_len=7, n_y=n_y)
     assert fk.cooper_frye_feqmod_3d.last_geometry.n_y == n_y
 
@@ -614,6 +614,100 @@ def test_feqmod_3d_kernel_hands_a_nan_on(workdir_3d):
         *args, **ops.layout())).all())
     assert bool(torch.isnan(fk.cooper_frye_feqmod_3d_plain(
         *args, **ops.layout())).all())
+
+
+def _route_geometries(args, layout):
+    """The route's result on ``args`` and its (mixed, clean) geometries."""
+    out = fk.cooper_frye_feqmod_3d(*args, **layout)
+    return (out, fk.cooper_frye_feqmod_3d.last_geometry,
+            fk.cooper_frye_feqmod_3d.last_clean_geometry)
+
+
+def _one_split(g, n):
+    return dataclasses.replace(g, n_split=1, cells_per_split=n)
+
+
+def _vs_mixed(out, mixed, n_species) -> float:
+    """The route against the mixed kernel on every cell: relative on bins
+    >= 1e-4 of each species' peak."""
+    return kc.max_rel_err(out.cpu().numpy().reshape(n_species, -1),
+                          mixed.cpu().numpy().reshape(n_species, -1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("df_mode", [4, 5])
+def test_feqmod_3d_split_equals_the_mixed_kernel_on_clean_cells(workdir_3d,
+                                                                df_mode):
+    """On operands whose cells are all clean the route's clean kernel sums
+    what the mixed kernel sums, each term with the same bits: equal bits
+    at one split, and at the clean kernel's own split."""
+    _needs_cuda()
+    ops, cfg = _b3_3d_operands(workdir_3d, df_mode)
+    n = int(ops.n_clean)
+    assert n > 0
+    args = (ops.cols[:n].contiguous(), ops.cold[:n].contiguous(), ops.mom,
+            ops.y, ops.renorm[:n].contiguous(), ops.red[:n].contiguous(),
+            ops.n_per_species, cfg, ops.kind)
+    out, g, g_clean = _route_geometries(args, ops.layout())
+    one = fk.launch_3d_split(*args, _one_split(g_clean, n), _one_split(g, n))
+    assert torch.equal(one, fk.launch_3d(*args, _one_split(g, n)))
+    same = dataclasses.replace(g, n_split=g_clean.n_split,
+                               cells_per_split=g_clean.cells_per_split)
+    assert torch.equal(out, fk.launch_3d(*args, same))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("df_mode", [3, 4, 5])
+@pytest.mark.parametrize("outflow", [0, 1])
+@pytest.mark.parametrize("regulate", [0, 1])
+def test_feqmod_3d_split_every_template_combination(workdir_3d, df_mode,
+                                                    outflow, regulate):
+    """The route (both kernels, each instantiation) against the mixed
+    kernel on every cell within 1e-10 (only the order of the f64 additions
+    moves), two launches equal bits, and its plain version within B3's
+    bar."""
+    _needs_cuda()
+    ops, cfg = _b3_3d_operands(workdir_3d, df_mode, outflow=outflow,
+                               regulate_deltaf=regulate)
+    n = int(ops.n_clean)
+    assert 0 < n and (df_mode == 5 or n < ops.cols.shape[0])
+    args = (*ops.args(), cfg, ops.kind)
+    out, g, _ = _route_geometries(args, ops.layout())
+    assert _vs_mixed(out, fk.launch_3d(*args, g), len(CHOSEN)) <= 1e-10
+    _b3_3d_agrees(args, **ops.layout())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["all touched", "none touched",
+                                   "unordered"])
+def test_feqmod_3d_split_edge_sets(workdir_3d, which):
+    """A surface on which every cell is touched (the clean kernel sums
+    nothing), one with no touched cell (the mixed kernel sums nothing), and
+    operands not in the pack's order (clean cells after a touched one take
+    the mixed kernel): each against the mixed kernel and the plain
+    version."""
+    _needs_cuda()
+    ops, cfg = _b3_3d_operands(workdir_3d)
+    n = int(ops.n_clean)
+    cols, cold = ops.cols, ops.cold
+    renorm, red = ops.renorm, ops.red
+    if which == "all touched":
+        cols = cols.clone()
+        cols[:, fk.BREAKS_3] = 1.0
+    elif which == "none touched":
+        cols, cold = cols[:n].contiguous(), cold[:n].contiguous()
+        renorm, red = renorm[:n].contiguous(), red[:n].contiguous()
+    else:
+        flip = torch.arange(cols.shape[0] - 1, -1, -1, device=cols.device)
+        cols, cold = cols[flip].contiguous(), cold[flip].contiguous()
+        renorm, red = renorm[flip].contiguous(), red[flip].contiguous()
+    args = (cols, cold, ops.mom, ops.y, renorm, red, ops.n_per_species, cfg,
+            ops.kind)
+    want = {"all touched": 0, "none touched": n, "unordered": 0}[which]
+    assert int(fk.clean_count(cols, cold)) == want
+    out, g, _ = _route_geometries(args, ops.layout())
+    assert _vs_mixed(out, fk.launch_3d(*args, g), len(CHOSEN)) <= 1e-10
+    _b3_3d_agrees(args, **ops.layout())
 
 
 def test_feqmod_3d_kernel_check_plain_on_cpu(workdir_3d):

@@ -545,18 +545,21 @@ def _b3_momenta(n_phi, n_y):
 
 
 def test_b3_3d_tile_of_the_source_is_the_default_and_fits_shared_memory():
-    """TILE_3D is the source's kP3, kY3, kThreads3, kMinBlocks3; the cell
-    tile (f32 and f64 columns) stays within 48 KB of static shared memory;
-    the column counts are the source's."""
+    """TILE_3D is the source's mixed kernel's kP3m, kY3m, kThreads3m,
+    kMinBlocks3m and TILE_3D_CLEAN its clean kernel's kP3, kY3, kThreads3,
+    kMinBlocks3; the cell tile (f32 and f64 columns) stays within 48 KB of
+    static shared memory; the column counts are the source's."""
     src = _B3_SOURCE.read_text()
-    [line] = re.findall(r"constexpr int kP3 = .*;", src)
-    assert ck.Tile3d(*map(int, re.findall(r"\d+", line)[1::2])) == fk.TILE_3D
+    for pattern, tile in ((r"constexpr int kP3m = .*;", fk.TILE_3D),
+                          (r"constexpr int kP3 = .*;", fk.TILE_3D_CLEAN)):
+        [line] = re.findall(pattern, src)
+        assert ck.Tile3d(*map(int, re.findall(r"= (\d+)", line))) == tile
+        assert tile.threads % 32 == 0
     for name, value in (("kCols3", fk.N_COLS_3D), ("kColsD3", fk.N_COLD_3D),
                         ("kTileCells3", fk.TILE_CELLS_3D)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
     assert (4 * fk.N_COLS_3D + 8 * fk.N_COLD_3D) * fk.TILE_CELLS_3D \
         <= 48 * 1024
-    assert fk.TILE_3D.threads % 32 == 0
 
 
 @pytest.mark.parametrize("n_y", [1, 3, 5, 21])
@@ -608,6 +611,69 @@ def test_b3_3d_main_path_fills_the_card_without_a_split():
     assert fill(g.blocks, t.blocks_per_sm * H100_SMS) > 0.95
 
 
+@pytest.mark.parametrize("n_y", [1, 3, 5, 21])
+@pytest.mark.parametrize("n_phi", [1, 7, 48])
+def test_b3_3d_clean_geometry_owns_every_momentum_once(n_phi, n_y):
+    """The clean kernel's tile: every momentum owned once, ragged y and
+    phi masked, a thread's slots in one (species, pT) group, each y row of
+    its slots on one (m+, m-) and each phi column on one (px, py)."""
+    mom = _b3_momenta(n_phi, n_y)
+    M = mom.shape[1]
+    t = fk.TILE_3D_CLEAN
+    g = fk.geometry_3d(mom, 1000, n_y, t, row_len=n_phi)
+    assert (g.r, g.ty, g.threads) == (t.r, t.ty, t.threads)
+    owner = momentum_index_3d(g)
+    np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
+    rows = dict(zip(fk.MOM_ROWS_3D, mom.numpy()))
+    group = np.arange(M) // (n_y * n_phi)
+    for slots in owner.reshape(-1, t.ty, t.r):
+        mine = slots[slots >= 0]
+        if not mine.size:
+            continue
+        assert slots[0, 0] >= 0 and (group[mine] == group[mine[0]]).all()
+        for row in slots:
+            row = row[row >= 0]
+            for key in ("mp", "mm"):
+                assert (rows[key][row] == rows[key][row[:1]]).all()
+        for col in slots.T:
+            col = col[col >= 0]
+            for key in ("px", "py"):
+                assert (rows[key][col] == rows[key][col[:1]]).all()
+
+
+@pytest.mark.parametrize("n_cells", [1, 33, 1000, 4096])
+@pytest.mark.parametrize("clean_share", [0.0, 0.3, 0.92, 1.0])
+@pytest.mark.parametrize("n_species", [1, 3])
+def test_b3_3d_split_route_sums_every_cell_once(n_cells, clean_share,
+                                                n_species):
+    """The split route's partial rows: the clean kernel's splits cover the
+    clean cells [0, n_clean), the mixed kernel's the rest, every cell once
+    and in order, whatever the two geometries' splits."""
+    mom = _b3_momenta(7, 3)[:, :n_species * 3 * 3 * 7]
+    n_clean = int(clean_share * n_cells)
+    g_clean = fk.geometry_3d(mom, n_cells, 3, fk.TILE_3D_CLEAN, row_len=7)
+    g = fk.geometry_3d(mom, n_cells, 3, fk.TILE_3D, row_len=7)
+    for gg in (g_clean, g):
+        assert gg.n_split * gg.cells_per_split >= n_cells
+    ranges = fk.cell_ranges_3d(g_clean, g, n_clean, n_cells)
+    assert len(ranges) == g_clean.n_split + g.n_split
+    cells = np.concatenate([np.arange(a, b) for a, b in ranges])
+    np.testing.assert_array_equal(cells, np.arange(n_cells))
+    assert all(b <= n_clean for a, b in ranges[:g_clean.n_split] if a < b)
+    assert all(a >= n_clean for a, b in ranges[g_clean.n_split:] if a < b)
+
+
+def test_b3_3d_clean_kernel_fills_the_card_without_a_split():
+    """Phase 31's shape through the clean kernel's tile: whole waves of
+    the card without a cell split."""
+    t = fk.TILE_3D_CLEAN
+    g = launch_geometry_3d(19_072_368, 48, 21, 99_753, t.r, t.ty,
+                           fk.TILE_CELLS_3D, t.threads, t.blocks_per_sm)
+    assert g.groups == 18_921
+    assert g.n_split == 1 and g.cells_per_split == 99_753
+    assert fill(g.blocks, t.blocks_per_sm * H100_SMS) > 0.95
+
+
 def test_b3_3d_wrapper_checks_its_operands():
     """The 3+1d wrapper needs n_y, f64 U / momenta / y and f32 columns of
     the layout's widths, and a species a whole number of groups."""
@@ -633,17 +699,17 @@ def test_b3_3d_wrapper_checks_its_operands():
 
 def test_tile_tree_rewrites_only_b3s_3d_tile(tmp_path):
     """kernel_bench --tile3d-b3 races a copy of this tree whose B3 source
-    differs in the 3+1d mode's tile line alone; the tile the source builds
-    is among the raced ones."""
+    differs in the clean kernel's tile line alone; the tiles the source
+    builds are among the raced ones."""
     from is3d2_tpu_torch.tools.kernel_bench import TILES_3D_B3, tile_tree
-    t = fk.TILE_3D
-    assert f"{t.r}x{t.ty}x{t.threads}x{t.blocks_per_sm}" in TILES_3D_B3
-    root = tile_tree("2x7x128x3", tmp_path, "cooper_frye_feqmod")
+    for t in (fk.TILE_3D, fk.TILE_3D_CLEAN):
+        assert f"{t.r}x{t.ty}x{t.threads}x{t.blocks_per_sm}" in TILES_3D_B3
+    root = tile_tree("4x3x128x3", tmp_path, "cooper_frye_feqmod")
     new = (root / "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu").read_text()
     old = _B3_SOURCE.read_text()
     diff = [(a, b) for a, b in zip(old.splitlines(), new.splitlines())
             if a != b]
-    assert diff == [(diff[0][0], "constexpr int kP3 = 2, kY3 = 7, "
+    assert diff == [(diff[0][0], "constexpr int kP3 = 4, kY3 = 3, "
                                  "kThreads3 = 128, kMinBlocks3 = 3;")]
     assert (root / "is3d2_tpu_torch/csrc/cooper_frye_comp.cu").read_text() \
         == _B1_SOURCE.read_text()
