@@ -13,7 +13,9 @@ Phases (any failure raises; nothing is caught):
      by pipe for B1's main-path instantiation and for its 3+1d mode's
      (the cell loop per evaluation; phases 6 and 24's fp32_issue_floor_ms
      read the FP32 count), and for B3's 3+1d clean kernel with its
-     registers and spills;
+     registers and spills; and for P1's 3+1d mode (its cell loop per
+     evaluation, which phase 36's sfu_floor_ms and fp32_issue_floor_ms
+     read);
   3. kernel B1 (compensated, df 1/2) vs its plain torch version and the
      port's f64 engine at a reduced shape (2048 cells, 16 species, 51 pT x
      48 phi, 24 eta) for df 1 and df 2 with the clip/outflow/diffusion
@@ -233,7 +235,30 @@ Phases (any failure raises; nothing is caught):
      tau bins summed back to B3's 3+1d dN/dy summed over y (<= 1e-4); then
      operation 2 with df 4 and df 5 on the workdirs of phases 31 and 33 into
      histograms (1e6 hadrons), each with phase 26's closure against its own
-     op-1 dN/dy files.
+     op-1 dN/dy files;
+ 35. kernel P1's 3+1d mode (polarization_f32_3d_kernel: a thread owns 4
+     phi x 3 y of one (species, pT) group; the terms of each 64-cell run
+     summed in f32, the runs in f64) vs its plain version (<= 1e-5 on both
+     metrics) and the f64 polarization engine at the JAX package's bars
+     (Snorm <= 2e-5, P <= 1e-5 of max |P|) at phase 23's 2,048 cells with
+     thermal vorticity, 16 species, 51 x 48 x 21 y; on a surface whose
+     even cells sit within 1e-4 of a y node (kernel_check.
+     near_cancellation_surface: the pure pn spin terms take mT sinh(y -
+     eta) there); the ragged case on 3, 5 and 1 rapidities;
+ 36. the 3+1d mode-5 main path at full width through the CLI: phase 24's
+     surface (1e5 cells, 99,753 live, 100,000 real) plus vorticity in
+     +-0.05 (drawn last: the other fields keep their bits), 371 species,
+     51 x 48 x 21 y, df 1, f32c.  B1's 3+1d mode (the spectra) and P1's
+     3+1d mode (the polarization) must both launch, once each, and no
+     other kernel; P1 on the 100,000 real cells x 19,072,368 momenta
+     (1.907e12 evaluations); the four files St, Sx, Sy, Sn hold
+     19,072,368 finite rows each.  Then P1's 3+1d mode on that path's
+     operands timed between samples of the SM clock, twice for equal bits
+     and finite sums; evaluations/s, the share of the bound, sfu_floor_ms
+     and fp32_issue_floor_ms (phase 2's SASS counts); against its plain
+     version on the first 1,024 real cells at the full M, both timed; and
+     the kernel against the f64 engine (~5 ms a cell at full width) on
+     the surface cut to its first 2,048 cells, at the JAX bars.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
 12-13's, 16's and 26's numbers, and one {"ensemble": {...}} phases
@@ -245,7 +270,8 @@ numbers at the top and the general one's under "general", each with its
 sfu_floor_ms beside the bound; B1 and B1's 3+1d mode, an entry of its
 own from phases 24-25, with fp32_issue_floor_ms beside it; B3's 3+1d
 mode, an entry of its own from phases 30-34 (its famod instantiation
-under "famod", operations 0 and 2 under "operations"); each of B1, B2, B3
+under "famod", operations 0 and 2 under "operations"); P1's 3+1d mode, an
+entry of its own from phases 35-36; each of B1, B2, B3
 and the two 3+1d modes with the launches and times of its ensemble runs in
 phases 27 and 29 under "ensemble"),
 its bound (the least time the card could take for the same work, from
@@ -285,7 +311,8 @@ KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod", "cooper_frye_f32",
 # kernels that live in another kernel's source (name -> source)
 SOURCE_OF = {"cooper_frye_comp_3d": "cooper_frye_comp",
              "cooper_frye_feqmod_3d": "cooper_frye_feqmod",
-             "cooper_frye_feqmod_3d_clean": "cooper_frye_feqmod"}
+             "cooper_frye_feqmod_3d_clean": "cooper_frye_feqmod",
+             "polarization_f32_3d": "polarization_f32"}
 B1_COMPARE_CELLS = 16_384
 B2_COMPARE_CELLS = 8_192
 B3_COMPARE_CELLS = 8_192
@@ -293,6 +320,10 @@ P1_COMPARE_CELLS = 4_096
 B1_3D_COMPARE_CELLS = 1_024
 B3_3D_COMPARE_CELLS = 1_024
 OP0_3D_CELLS = 2_048
+P1_3D_COMPARE_CELLS = 1_024
+# phase 36's f64 check: the f64 polarization engine takes ~5 ms a cell at
+# full width
+P1_3D_F64_CELLS = 2_048
 # B3's 3+1d route against the mixed kernel on every cell: only the order of
 # the f64 additions moves
 SPLIT_TOL = 1e-10
@@ -354,6 +385,12 @@ OPS_PER_EVALUATION = {
     # sum 7
     "cooper_frye_feqmod_3d": {"modified": 55, "breakdown": 64,
                               "famod_modified": 55, "famod_breakdown": 28},
+    # P1's 3+1d mode, one evaluation per (cell, m): the mT parts 4 (e0,
+    # e3, d0, d3), u.p and p.dsigma against (cosh, sinh) 6, the spin
+    # values' (cosh, sinh) parts 14, their px/py parts and exy, dxy 14,
+    # f0 5, w 2, g 3, the five terms 8 and their f32 sums 5; the
+    # conversions and f64 sums once per 64-cell run
+    "polarization_f32_3d": 61 + 10 / 64,
 }
 # What the kernels execute per evaluation, counted the same way from their
 # sources (a multiply-add counts two; work shared by a thread's 4 momenta
@@ -398,6 +435,13 @@ EXECUTED_OPS_PER_EVALUATION = {
                               "breakdown": 60 + 3 / 4,
                               "famod_modified": 33 + 12 / 2 + 12 / 7,
                               "famod_breakdown": 24 + 3 / 4},
+    # P1's 3+1d mode, per evaluation 27: the exponent 1, 2^x 1, + sign 1,
+    # the clamp 1, the reciprocal 5, p.dsigma and w 2, g 3, the four spin
+    # values 4 and their sums 8, W 1; per (cell, y), shared by the tile's
+    # 4 phi, 14 (u.p, p.dsigma, the spin values against cosh and sinh);
+    # per (cell, phi), shared by its 3 y rows, 14; per (cell, group) 10;
+    # per 64-cell run, the conversions and f64 adds 10 a momentum
+    "polarization_f32_3d": 27 + 14 / 4 + 14 / 3 + 10 / 12 + 10 / 64,
 }
 
 
@@ -439,14 +483,16 @@ def launch_counters():
                                                       cooper_frye_comp_3d)
     from is3d2_tpu_torch.ops.cooper_frye_f32 import cooper_frye_f32
     from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod
-    from is3d2_tpu_torch.ops.polarization_f32 import polarization_f32
+    from is3d2_tpu_torch.ops.polarization_f32 import (polarization_f32,
+                                                      polarization_f32_3d)
     from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod_3d
     return {"cooper_frye_comp": cooper_frye_comp,
             "cooper_frye_feqmod": cooper_frye_feqmod,
             "cooper_frye_f32": cooper_frye_f32,
             "polarization_f32": polarization_f32,
             "cooper_frye_comp_3d": cooper_frye_comp_3d,
-            "cooper_frye_feqmod_3d": cooper_frye_feqmod_3d}
+            "cooper_frye_feqmod_3d": cooper_frye_feqmod_3d,
+            "polarization_f32_3d": polarization_f32_3d}
 
 
 def bound(ops: float, args: tuple, n_mom: int) -> dict:
@@ -561,7 +607,16 @@ def phase_build() -> dict:
                        for op, n in opcodes.most_common()},
                    **_build.resource_usage(path)[clean]}
     print(f"B3 3+1d clean kernel: {json.dumps(b3_3d_clean)}")
-    return {"p1": p1, "b1": b1, "b1_3d": b1_3d, "b3_3d_clean": b3_3d_clean}
+    code = kb.sass_functions(built["polarization_f32"][0])
+    [p1_3d] = [k for k in code if re.search(
+        MAIN_PATH_KERNEL["polarization_f32_3d"], k)]
+    loop = kb.inner_loops(code[p1_3d])[0]
+    p1_3d = {**kb.per_evaluation(loop),
+             "evaluations_per_cell_iteration": loop["evaluations"]}
+    print(f"P1 3+1d SASS: the cell loop of {loop['evaluations']} "
+          f"evaluations, per evaluation {json.dumps(p1_3d)}")
+    return {"p1": p1, "b1": b1, "b1_3d": b1_3d, "b3_3d_clean": b3_3d_clean,
+            "p1_3d": p1_3d}
 
 
 def parity_workdirs(tmp: Path) -> tuple[Path, Path]:
@@ -1622,10 +1677,13 @@ def sm_clocks() -> tuple[int, int]:
     return now, peak
 
 
-def timed_3d(kernel, args, evaluations: int) -> dict:
+def timed_3d(kernel, args, evaluations: int, check=None) -> dict:
     """A 3+1d mode at full size: one launch, then one between samples of
-    the SM clock timed by CUDA events; the two must give equal bits."""
+    the SM clock timed by CUDA events; the two must give equal bits.
+    ``check`` (optional) is called on the first launch's result."""
     first = kernel(*args)
+    if check is not None:
+        check(first)
     torch.cuda.synchronize()
     before, clock_max = sm_clocks()
     start = torch.cuda.Event(enable_timing=True)
@@ -2668,6 +2726,181 @@ def phase_3d_df345_operations(tmp: Path, wd4: Path, wd5: Path) -> dict:
     return r
 
 
+def phase_p1_3d_compare(wd: Path) -> dict:
+    print("== 35. P1's 3+1d mode vs plain version vs f64 polarization engine "
+          "(2048 cells of a 3+1d surface with thermal vorticity, 16 species, "
+          "51 x 48 x 21 y)")
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cases = {
+        "surface": kc.check_polarization_3d_case(wd, 2048, 7, "cuda",
+                                                 cell_block=512),
+        "near a y node": kc.check_polarization_3d_case(
+            wd, 2048, 7, "cuda", near=True, cell_block=512)}
+    for n_y in kc.RAGGED_Y:
+        cases[f"ragged {json.dumps(kc.RAGGED)} x {n_y} y"] = \
+            kc.check_polarization_3d_ragged_case(wd, 2048, 7, "cuda",
+                                                 n_y=n_y)
+    record = {}
+    for name, r in cases.items():
+        print(f"{name:26s} ({r.launches} launch) kernel vs plain: Snorm "
+              f"{r.vs_plain[0]:.3e}, P {r.vs_plain[1]:.3e}; kernel vs f64: "
+              f"Snorm {r.vs_f64[0]:.3e}, P {r.vs_f64[1]:.3e}; plain vs f64: "
+              f"Snorm {r.plain_vs_f64[0]:.3e}, P {r.plain_vs_f64[1]:.3e}")
+        if not (r.ok and r.launches == 1):
+            raise AssertionError(
+                f"P1 3+1d {name}: kernel disagrees, does not repeat or "
+                f"launched {r.launches} times ({r.vs_plain} vs plain, "
+                f"{r.vs_f64} vs f64; bars {kc.POLZN_TOL_PLAIN:g} plain, "
+                f"{kc.POLZN_TOL_NORM:g} / {kc.POLZN_TOL_P:g} f64)")
+        record[name] = {"vs_plain": r.vs_plain, "vs_f64": r.vs_f64,
+                        "plain_vs_f64": r.plain_vs_f64}
+    return record
+
+
+def phase_p1_3d_main_path(tmp: Path) -> tuple[dict, dict, Path]:
+    print(f"== 36. 3+1d mode-5 main path: {MAIN_CELLS} cells of a 3+1d "
+          "surface with thermal vorticity, all species, 51 x 48 x 21 y, df 1,"
+          " f32c: the spectra on B1's 3+1d mode, the polarization on P1's "
+          "3+1d mode")
+    from is3d2_tpu_torch.io.fastio import load_table_fast
+    from is3d2_tpu_torch.io.output import POLARIZATION_FILES
+    from is3d2_tpu_torch.ops import polarization_f32 as pz
+    from is3d2_tpu_torch.tools.synthetic import write_workdir
+    t0 = time.perf_counter()
+    wd = write_workdir(tmp / "main_3d_mode5", n_cells=MAIN_CELLS,
+                       dimension=3, surface_mode=5,
+                       params={"df_mode": 1, "compute_dtype": "f32c"})
+    print(f"workdir written in {time.perf_counter() - t0:.1f} s")
+    launches, stages, _ = run_cli(wd, "cooper_frye_comp_3d",
+                                  also=("polarization_f32_3d",))
+    last = pz.polarization_f32_3d.last_launch
+    n_species = len(np.loadtxt(wd / "PDG/chosen_particles.dat"))
+    rows = n_species * 51 * 48 * 21
+    print(f"P1 3+1d's launch: {json.dumps(last)}")
+    if not (launches["polarization_f32_3d"] == 1
+            and launches["cooper_frye_comp_3d"] == 1
+            and last == {"cells": MAIN_CELLS, "momenta": rows, "n_y": 21,
+                         "dimension": 3}):
+        raise AssertionError("the 3+1d mode-5 main path did not launch B1's "
+                             "and P1's 3+1d modes once each, P1 on "
+                             f"{MAIN_CELLS} cells and {rows} momenta")
+    check_3d_spectra_files(wd)
+    t0 = time.perf_counter()
+    for name in POLARIZATION_FILES:
+        v = load_table_fast(wd / f"results/{name}.dat")
+        if v.shape != (rows, 4) or not np.isfinite(v).all():
+            raise AssertionError(f"{name}.dat: shape {v.shape} (want "
+                                 f"({rows}, 4)) or a value not finite")
+        print(f"{name}.dat: {v.shape[0]} rows, finite, max |P| "
+              f"{np.abs(v[:, 3]).max():.4e}")
+        del v
+    print(f"(parsed in {time.perf_counter() - t0:.1f} s); stage seconds: "
+          f"{json.dumps(stages)}")
+    return launches, stages, wd
+
+
+def phase_p1_3d_full(wd: Path, sass: dict) -> dict:
+    print("== 36. (cont.) P1's 3+1d mode on the main path's operands")
+    from is3d2_tpu_torch.io.surface import read_surface
+    from is3d2_tpu_torch.ops import polarization_f32 as pz
+    from is3d2_tpu_torch.tools import kernel_check as kc
+
+    cfg, state = main_path_state(wd, kc.polarization_engine_state)
+    ops = kc.polarization_operands_3d(state)
+    del state
+    kernel = functools.partial(pz.polarization_f32_3d, **ops.layout())
+    C, M = ops.cell.shape[0], ops.mom.shape[1]
+    print(f"{C} real cells x {M} momenta (M mod 256 = {M % 256}) = "
+          f"{ops.evaluations:.4g} evaluations")
+
+    def finite(out):
+        if not torch.isfinite(out).all():
+            raise AssertionError("P1 3+1d at full size: a sum not finite")
+        print(f"every sum finite on all {M} momenta; Snorm > 0 on "
+              f"{int((out[4] > 0).sum())}")
+    r = timed_3d(kernel, ops.args(), ops.evaluations, finite)
+    full_ms, clock_max = r["main_path_ms"], r["clocks_sm_mhz"]["max"]
+    g = pz.polarization_f32_3d.last_geometry
+    print(f"launched with {g}")
+    per_eval = BOUND_OPS_PER_EVALUATION["polarization_f32_3d"]
+
+    n = P1_3D_COMPARE_CELLS
+    cut = ops.first(n)
+    print(f"compared on the first {n} real cells at the full M")
+    ms, out = cuda_ms(lambda: kernel(*cut.args()))
+    plain_ms, ref = cuda_ms(
+        lambda: pz.polarization_f32_3d_plain(*cut.args(), **ops.layout()),
+        warmup=lambda: pz.polarization_f32_3d_plain(
+            *ops.first(64).args(), **ops.layout()))
+    print(f"cut: kernel {ms:.1f} ms, plain version {plain_ms:.1f} ms "
+          f"({plain_ms / ms:.1f}x the kernel)")
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    norm_err, p_err = kc.polarization_errors(out, ref)
+    max_abs = kc.polarization_units(out, ref)
+    print(f"kernel vs plain: Snorm {norm_err:.3e} relative, P {p_err:.3e} of "
+          f"max |P| (bar {kc.POLZN_TOL_PLAIN:g}), max |P_kernel - P_plain| "
+          f"{max_abs:.3e}")
+    if not (np.isfinite(out).all()
+            and max(norm_err, p_err) <= kc.POLZN_TOL_PLAIN):
+        raise AssertionError("P1 3+1d disagrees with its plain version on "
+                             "the main path's operands")
+    del out, ref
+    main_bound = bound(per_eval * ops.evaluations, ops.args(),
+                       5 * M)["bound_ms"]
+    sfu = (sass["mufu"] + sass["convert"]) * ops.evaluations
+    sfu_floor = sfu / (SFU_LANES_PER_SM * H100_SMS * clock_max * 1e6) * 1e3
+    floor = fp32_issue_floor_ms(sass["fp32"], ops.evaluations, clock_max)
+    print(f"bound at full size {main_bound:.1f} ms: "
+          f"{100 * main_bound / full_ms:.1f} % of it; sfu_floor_ms "
+          f"{sfu_floor:.1f} ({sass['mufu']:.2f} MUFU + {sass['convert']:.2f} "
+          f"conversions an evaluation over {SFU_LANES_PER_SM} x {H100_SMS} "
+          f"lanes at {clock_max} MHz): {100 * sfu_floor / full_ms:.1f} % of "
+          f"it; fp32_issue_floor_ms {floor:.1f} ({sass['fp32']:.2f} FP32 "
+          f"instructions an evaluation): {100 * floor / full_ms:.1f} % of it")
+    record = {"register_tile": g.r, "register_tile_y": g.ty,
+              "threads": g.threads, "cell_split": g.n_split,
+              "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+              **bound(per_eval * n * M, cut.args(), 5 * M),
+              "main_path_bound_ms": main_bound,
+              "main_path_share_of_bound": main_bound / full_ms,
+              "sfu_floor_ms": sfu_floor,
+              "main_path_share_of_sfu_floor": sfu_floor / full_ms,
+              "fp32_per_evaluation": sass["fp32"],
+              "fp32_issue_floor_ms": floor,
+              "main_path_share_of_fp32_floor": floor / full_ms, **r,
+              # no single PyTorch call computes a polarization sum
+              "library_ms": None, "cells_compared": n,
+              "snorm_rel_err": norm_err, "p_err": p_err}
+    del ops, cut
+
+    # the f64 engine at full width on the surface's first cells
+    n = P1_3D_F64_CELLS
+    surf = read_surface(wd / "input/surface.dat", cfg.mode, cfg.dimension,
+                        bool(cfg.include_baryon))
+    surf = dataclasses.replace(surf, **{
+        f.name: getattr(surf, f.name)[:n] for f in dataclasses.fields(surf)
+        if getattr(surf, f.name) is not None})
+    state = kc.polarization_engine_state(wd, dataclasses.replace(
+        cfg, cell_block=n), surf, "cuda")
+    small = kc.polarization_operands_3d(state)
+    out = kernel(*small.args()).cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = kc.f64_polarization_3d(state)
+    f64_s = time.perf_counter() - t0
+    norm_err, p_err = kc.polarization_errors(out, ref)
+    print(f"first {n} cells: the f64 engine {f64_s:.1f} s "
+          f"({f64_s / n * 1e3:.2f} ms a cell); kernel vs f64: Snorm "
+          f"{norm_err:.3e}, P {p_err:.3e} (bars {kc.POLZN_TOL_NORM:g} / "
+          f"{kc.POLZN_TOL_P:g})")
+    if not (norm_err <= kc.POLZN_TOL_NORM and p_err <= kc.POLZN_TOL_P):
+        raise AssertionError("P1 3+1d misses the JAX bars against the f64 "
+                             f"engine on the main path's first {n} cells")
+    record["vs_f64_first_cells"] = {"cells": n, "snorm_rel_err": norm_err,
+                                    "p_err": p_err, "f64_seconds": f64_s}
+    return record
+
+
 def main() -> int:
     card = phase_environment()
     # the package is imported only now: a copy of this script alone, or a
@@ -2716,6 +2949,9 @@ def main() -> int:
         b3_3d = phase_b3_3d_full(wd3_df4, sass["b3_3d_clean"])
         b3_3d_famod_launches, _, wd3_df5, b3_3d_famod = phase_famod_3d(tmp)
         ops_3d = phase_3d_df345_operations(tmp, wd3_df4, wd3_df5)
+        p1_3d_parity = phase_p1_3d_compare(parity_workdir_3d(tmp))
+        p1_3d_launches, p1_3d_stages, wd3_m5 = phase_p1_3d_main_path(tmp)
+        p1_3d = phase_p1_3d_full(wd3_m5, sass["p1_3d"])
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2792,7 +3028,17 @@ def main() -> int:
          "operations": ops_3d,
          # phase 29: ensembles of 4 df-4 and 4 df-5 3+1d surfaces
          "ensemble": {"df4": ens_routes["3d_df4"],
-                      "famod": ens_routes["3d_df5"]}}]}))
+                      "famod": ens_routes["3d_df5"]}},
+        {"name": "polarization_f32_3d", "route": "cuda",
+         "source": "is3d2_tpu_torch/csrc/polarization_f32.cu",
+         # an XLA program: the JAX package has no Pallas kernel for it
+         "replaces": "is3d2_tpu/core/polarization_fast.py:138",
+         "launches": p1_3d_launches["polarization_f32_3d"], **p1_3d,
+         # phase 36: the 3+1d mode-5 main path, B1's 3+1d mode beside it
+         "mode5_main_path": {"launches": p1_3d_launches,
+                             "stage_seconds": p1_3d_stages},
+         # phase 35: parity at 2,048 cells
+         "parity": p1_3d_parity}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

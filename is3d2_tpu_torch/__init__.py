@@ -21,10 +21,9 @@ for df 5), 1 (continuous spectra, df 1-5) and 2 (the sampler, df 1-5),
 in 2+1d and in 3+1d (dimension 3), on surfaces of modes 0-7 or handed
 over in memory, with or without group_particles, single surfaces and
 ensembles, and after any of them the thermal-vorticity spin polarization
-of a 2+1d mode-5 surface.  ``Config.validate_slice`` rejects the rest: a
-mode-5 surface in 3+1d (ROADMAP A7d), use_pallas = 0 with f32/f32c in
-2+1d operation 1 (A7e, A9b) and use_mesh (A12).  Importing it never
-imports jax.
+of a mode-5 surface, in 2+1d and in 3+1d.  ``Config.validate_slice``
+rejects the rest: use_pallas = 0 with f32/f32c in 2+1d operation 1 (A7e,
+A9b) and use_mesh (A12).  Importing it never imports jax.
 """
 
 from .constants import hbarC, two_pi, two_pi2_hbarC3, four_pi2_hbarC3  # noqa: F401

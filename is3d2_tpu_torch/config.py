@@ -193,10 +193,10 @@ class Config:
             # there, which use_pallas does not select), f64 through the
             # torch f64 engines (use_pallas 1 too: B2 and the JAX
             # package's feqmod kernel are 2+1d only), operation 0 through
-            # the f64 engines on every dtype
-            if self.mode == 5:
-                todo = ("mode 5 in dimension 3 (3+1d polarization): "
-                        "ROADMAP A7")
+            # the f64 engines on every dtype; a mode-5 surface adds the
+            # polarization (f32/f32c kernel P1's 3+1d mode, f64 the torch
+            # f64 engine)
+            pass
         elif self.operation in (0, 2):
             # the sampler has no kernel; the JAX package's operation 0
             # ignores use_pallas (f64 runs the f64 engines, f32/f32c the

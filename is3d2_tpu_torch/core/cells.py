@@ -24,11 +24,13 @@ from ..transfer import to_device
 class HostFacts:
     """What the host knows of the padded columns it uploaded, so that no
     route reads them back from the device: the fold gate's six maxima
-    (max |un|, |dan|, |pitn|, |pixn|, |piyn|, |Vn|) and the indices of the
-    cells with mask > 0."""
+    (max |un|, |dan|, |pitn|, |pixn|, |piyn|, |Vn|), the indices of the
+    cells with mask > 0 and the count of real cells (pad_mask > 0: the
+    first ``real`` rows)."""
 
     odd_max: tuple
     live: np.ndarray
+    real: int
 
 
 @dataclasses.dataclass
@@ -191,7 +193,7 @@ def prepare_cells(surf: SurfaceData, cfg: Config, device,
     cells.host = HostFacts(
         odd_max=tuple(float(np.abs(a).max())
                       for a in (un, dan, pitn, pixn, piyn, Vn)),
-        live=np.flatnonzero(mask > 0.0))
+        live=np.flatnonzero(mask > 0.0), real=n)
     return cells
 
 

@@ -18,14 +18,17 @@ As in the JAX package:
   * the species are never grouped: the driver hands over the whole chosen
     list even with group_particles = 1.
 
+In 3+1d (dimension 3) each (cell, y) pair is one term: the cell's eta
+enters through y - eta_cell, and there is no eta quadrature, so no eta
+weight and no delta_eta (the JAX package's w_eta = 1).
+
 Routes: ``compute_dtype`` "f32" and "f32c" run kernel P1
 (ops/polarization_f32.py: CUDA on a GPU, its plain torch version on the
-CPU), on the eta >= 0 half of the nodes where ``fold_polarization_eta``
-allows it; "f64" runs ``polarization_f64``, the torch f64 engine on
-(cell block, species, pT, phi, eta) tensors, never folded: it is the
-yardstick.  The polarization runs on 2+1d surfaces: the spectra, dN/dX
-and the sampler run in 3+1d too, but Config.validate_slice rejects a
-mode-5 surface in 3+1d (ROADMAP A7d).
+CPU), in 2+1d on the eta >= 0 half of the nodes where
+``fold_polarization_eta`` allows it, in 3+1d in its 3+1d mode
+(``compute_polarization_kernel_3d``); "f64" runs ``polarization_f64``,
+the torch f64 engine on (cell block, species, pT, phi, eta or y)
+tensors, never folded: it is the yardstick.
 """
 
 from __future__ import annotations
@@ -82,9 +85,11 @@ def fold_polarization_eta(cells: CellArrays, grid: MomentumGridDevice,
 
 def _cell_block_polzn(c: CellArrays, species: SpeciesArrays,
                       grid: MomentumGridDevice, T: float,
-                      d_eta: float) -> torch.Tensor:
-    """(5, S, NpT, Nphi) sums over the block's cells and the eta nodes of
-    (St, Sx, Sy, Sn, Snorm); the JAX _cell_block_polzn in 2+1d."""
+                      d_eta: float, dimension: int = 2) -> torch.Tensor:
+    """The JAX _cell_block_polzn: in 2+1d (5, S, NpT, Nphi) sums over the
+    block's cells and the eta nodes of (St, Sx, Sy, Sn, Snorm); in 3+1d
+    (5, S, NpT, Nphi, Ny) sums over the block's cells, the last axis
+    y - eta_cell and no eta weight."""
     def C(a):   # cell scalar -> (c, 1, 1, 1, 1)
         return a[:, None, None, None, None]
 
@@ -97,9 +102,16 @@ def _cell_block_polzn(c: CellArrays, species: SpeciesArrays,
     px = (grid.pT[:, None] * grid.cos_phi[None, :])[None, None, :, :, None]
     py = (grid.pT[:, None] * grid.sin_phi[None, :])[None, None, :, :, None]
 
-    sinh_d = torch.sinh(-grid.eta)[None, None, None, None, :]   # y = 0
+    if dimension == 2:
+        sinh_d = torch.sinh(-grid.eta)[None, None, None, None, :]   # y = 0
+        w_eta = (grid.eta_weight * d_eta)[None, None, None, None, :]
+        dims = (0, 4)
+    else:
+        sinh_d = torch.sinh(grid.y[None, :] - c.eta[:, None])[
+            :, None, None, None, :]
+        w_eta = 1.0
+        dims = (0,)
     cosh_d = torch.sqrt(1.0 + sinh_d * sinh_d)
-    w_eta = (grid.eta_weight * d_eta)[None, None, None, None, :]
     pt = mT5 * cosh_d
     pn = mT5 / C(c.tau) * sinh_d
 
@@ -116,27 +128,30 @@ def _cell_block_polzn(c: CellArrays, species: SpeciesArrays,
     spin_n = pref * (C(c.wtx) * py + C(c.wxy) * pt - C(c.wty) * px)
 
     w = w_eta * C(c.pad_mask) * pdd * f0
-    return torch.stack([torch.sum(w * v, dim=(0, 4))
+    return torch.stack([torch.sum(w * v, dim=dims)
                         for v in (spin_t, spin_x, spin_y, spin_n)]
-                       + [torch.sum(w, dim=(0, 4))])
+                       + [torch.sum(w, dim=dims)])
 
 
 def polarization_f64(cells: CellArrays, species: SpeciesArrays,
                      grid: MomentumGridDevice, T: float,
-                     d_eta: float) -> torch.Tensor:
-    """The torch f64 engine: (5, S, NpT, Nphi, 1) raw sums, cell blocks of
-    at most _F64_BLOCK_ELEMENTS integrand points added in order."""
+                     d_eta: float, dimension: int = 2) -> torch.Tensor:
+    """The torch f64 engine: (5, S, NpT, Nphi, Ny) raw sums (Ny = 1 in
+    2+1d), cell blocks of at most _F64_BLOCK_ELEMENTS integrand points
+    added in order.  ``d_eta`` is not read in 3+1d."""
     shape = (species.mass.shape[0], grid.pT.shape[0], grid.cos_phi.shape[0])
-    per_cell = math.prod(shape) * grid.eta.shape[0]
+    n_y = grid.y.shape[0] if dimension == 3 else 1
+    per_cell = math.prod(shape) * (n_y if dimension == 3
+                                   else grid.eta.shape[0])
     C = cells.n_padded
     blk = max(1, min(C, _F64_BLOCK_ELEMENTS // per_cell))
-    acc = torch.zeros((5, *shape), dtype=torch.float64,
-                      device=cells.tau.device)
+    acc = torch.zeros((5, *shape) + ((n_y,) if dimension == 3 else ()),
+                      dtype=torch.float64, device=cells.tau.device)
     for i in range(0, C, blk):
         cb = CellArrays(**{f.name: getattr(cells, f.name)[i:i + blk]
                            for f in dataclasses.fields(cells)})
-        acc += _cell_block_polzn(cb, species, grid, T, d_eta)
-    return acc[..., None]
+        acc += _cell_block_polzn(cb, species, grid, T, d_eta, dimension)
+    return acc if dimension == 3 else acc[..., None]
 
 
 def polarization_state(surf, species_table: SpeciesTable,
@@ -151,22 +166,23 @@ def polarization_state(surf, species_table: SpeciesTable,
 def compute_polarization(surf, species_table: SpeciesTable,
                          chosen_idx: np.ndarray, grids: MomentumGrids,
                          plasma: ThermoAverages, cfg: Config, device):
-    """Returns (St, Sx, Sy, Sn, Snorm), each (S, NpT, Nphi, 1) f64 numpy
-    raw sums; the polarization is S^mu / Snorm
+    """Returns (St, Sx, Sy, Sn, Snorm), each (S, NpT, Nphi, Ny) f64 numpy
+    raw sums (Ny = 1 in 2+1d); the polarization is S^mu / Snorm
     (io/output.py::write_polarization)."""
-    if cfg.dimension != 2:
-        raise NotImplementedError("3+1d polarization is not ported yet "
-                                  "(ROADMAP A7)")
     cells, species, grid = polarization_state(surf, species_table,
                                               chosen_idx, grids, cfg, device)
     T = float(plasma.temperature)
     d_eta = delta_eta(grids)   # of the unfolded table
-    if cfg.compute_dtype in ("f32", "f32c"):
+    if cfg.compute_dtype in ("f32", "f32c") and cfg.dimension == 3:
+        from ..ops.polarization_f32 import compute_polarization_kernel_3d
+        acc = compute_polarization_kernel_3d(cells, species, grid, T)
+    elif cfg.compute_dtype in ("f32", "f32c"):
         from ..ops.polarization_f32 import compute_polarization_kernel
         grid, folded = fold_polarization_eta(cells, grid, cfg)
         acc = compute_polarization_kernel(cells, species, grid, T, d_eta,
                                           folded)
     else:
-        acc = polarization_f64(cells, species, grid, T, d_eta)
+        acc = polarization_f64(cells, species, grid, T, d_eta,
+                               cfg.dimension)
     out = acc.cpu().numpy()
     return out[0], out[1], out[2], out[3], out[4]

@@ -236,15 +236,18 @@ class IS3D:
     def _polarization(self, results: Path, write: bool) -> None:
         """The spin polarization of a mode-5 surface, after any operation
         (is3d2_tpu/driver.py:243-250): every chosen species, never grouped;
-        stage_seconds["polarization"] includes the write."""
+        stage_seconds["polarization"] includes the write, which
+        stage_seconds["polarization_write"] also gives on its own."""
         print("computing spin polarization ...", flush=True)
         t0 = time.time()
         self.polarization = compute_polarization(
             self.surface, self.species, self.chosen_idx, self.grids,
             self.plasma, self.cfg, self.device)
         if write:
+            tw = time.time()
             output.write_polarization(results, *self.polarization,
                                       self.grids, self.cfg.dimension)
+            self.stage_seconds["polarization_write"] = time.time() - tw
         self.stage_seconds["polarization"] = time.time() - t0
 
     def _mark_compute(self, t_start: float, what: str) -> None:

@@ -2,8 +2,8 @@
 call, and count what was compiled.
 
     python -m is3d2_tpu_torch.tools.kernel_bench [--tree NAME=DIR ...]
-        [--only b1,b3,b2,b1_3d,b3_3d,p1,prep] [--tile3d PxYxTxB ...]
-        [--tile3d-b3 PxYxTxB ...] [--branches]
+        [--only b1,b3,b2,b1_3d,b3_3d,p1,p1_3d,prep] [--tile3d PxYxTxB ...]
+        [--tile3d-b3 PxYxTxB ...] [--tile3d-p1 PxYxTxB ...] [--branches]
         [--cells 100000] [--compare-cells 8192] [--f64-species 4]
         [--few-species 3,16] [--out build/kernel_bench.json]
 
@@ -56,6 +56,12 @@ script
     the tree has one), timed in the order trees, trees reversed, and held
     to this tree's plain version on the first ``--compare-cells`` cells
     at the JAX package's polarization bars (Snorm, P; kernel_check);
+  * ``p1_3d`` (listed in ``--only``): P1's 3+1d mode of every tree on the
+    3+1d mode-5 main path's operands (df 1 f32c, a 3+1d mode-5 surface of
+    ``--cells`` cells, 21 y), timed and held as ``p1`` (``race_p1_3d``),
+    each tree's bits against this tree's printed; ``--tile3d-p1 PxYxTxB``
+    (repeatable; TILES_3D_P1) adds a copy of this tree whose 3+1d mode
+    launches that tile;
   * ``prep`` (listed in ``--only``): the df-5 famod prep, whose VAH
     reconstruction is the df-5 path's first cost, of every tree on one
     EOS-consistent surface of ``--cells`` cells (kernel_check.famod_surface),
@@ -313,6 +319,10 @@ TILES_3D = ("4x3x128x3", "4x3x256x2", "4x7x128x3", "4x7x128x2", "8x3x128x2")
 TILES_3D_B3 = ("4x3x128x3", "4x3x256x2", "4x3x128x2", "4x1x128x4",
                "2x3x128x4", "4x7x128x2", "2x7x128x3", "2x1x128x4",
                "4x7x128x3", "8x3x128x2")
+# P1's 3+1d mode's (--tile3d-p1): the f64 sums of a thread (5 P Y of them)
+# live in shared memory beside the cell tile and its y rows
+TILES_3D_P1 = ("4x3x64x4", "4x3x128x2", "2x3x128x4", "4x2x128x3",
+               "4x1x128x4", "2x2x256x2", "2x7x128x2", "2x3x256x2")
 # the line that fixes a 3+1d tile: B1's 3+1d mode's in
 # csrc/cooper_frye_comp.cu, B3's clean kernel's in csrc/cooper_frye_feqmod.cu
 # (its mixed kernel's constants carry an m: kP3m, ...)
@@ -708,6 +718,61 @@ def race_p1(packages: dict, wd: Path, n_compare: int) -> dict:
     return results
 
 
+def race_p1_3d(packages: dict, wd: Path, n_compare: int) -> dict:
+    """Time every tree's P1 3+1d mode on the 3+1d mode-5 workdir's
+    operands (twice, mirrored order), hold it to this tree's plain version
+    on the first ``n_compare`` cells at the polarization bars, and compare
+    its bits at full size with this tree's (the same runs of cells at
+    every tile)."""
+    cfg = Config.from_file(wd / "iS3D_parameters.dat")
+    surf = read_surface(wd / "input/surface.dat", 5, 3, False)
+    calls = {}
+    for label, package in packages.items():
+        tkc = importlib.import_module(f"{package}.tools.kernel_check")
+        tpz = importlib.import_module(f"{package}.ops.polarization_f32")
+        if not hasattr(tkc, "polarization_operands_3d"):
+            print(f"p1_3d {label}: no 3+1d mode")
+            continue
+        ops = tkc.polarization_operands_3d(
+            tkc.polarization_engine_state(wd, cfg, surf, "cuda"))
+        calls[label] = (functools.partial(tpz.polarization_f32_3d,
+                                          **ops.layout()), ops, tpz)
+    _, ops, mine = calls[THIS_TREE]
+    ref = mine.polarization_f32_3d_plain(*ops.first(n_compare).args(),
+                                         **ops.layout()).cpu().numpy()
+    full = calls[THIS_TREE][0](*ops.args())
+    results = {}
+    for label, (call, ops, tpz) in calls.items():
+        cut = ops.first(n_compare)
+        out = call(*cut.args())
+        again = call(*cut.args())
+        same = bool(torch.equal(call(*ops.args()), full))
+        results[label] = {
+            "ms": [], "geometry": str(tpz.polarization_f32_3d.last_geometry),
+            "vs_plain": kc.polarization_errors(out.cpu().numpy(), ref),
+            "repeats": bool(torch.equal(out, again)),
+            "finite": bool(torch.isfinite(out).all()),
+            "equal_bits_at_full_size": same}
+    del full
+    for label in list(calls) + list(reversed(calls)):
+        call, ops, _ = calls[label]
+        results[label]["ms"].append(cuda_ms(lambda: call(*ops.args())))
+    mine_ms = min(results[THIS_TREE]["ms"])
+    evaluations = calls[THIS_TREE][1].evaluations
+    for label, r in results.items():
+        ok = (r["finite"] and r["repeats"]
+              and max(r["vs_plain"]) <= kc.POLZN_TOL_PLAIN)
+        r["evaluations_per_s"] = evaluations / min(r["ms"]) * 1e3
+        print(f"p1_3d {label:20s} {r['ms'][0]:9.1f} {r['ms'][1]:9.1f} ms  "
+              f"{min(r['ms']) / mine_ms:.3f}x this tree's  "
+              f"{r['evaluations_per_s']:.4g} evaluations/s  vs this tree's "
+              f"plain version: Snorm {r['vs_plain'][0]:.3e}, P "
+              f"{r['vs_plain'][1]:.3e}  repeats {r['repeats']}  equal bits "
+              f"{r['equal_bits_at_full_size']}  "
+              f"{'ok' if ok else 'MISSES ITS BAR'}  {r['geometry']}")
+    return results
+
+
 def race_prep(packages: dict, wd: Path, n_cells: int) -> dict:
     """Time every tree's prepare_famod on one famod surface (see the module
     docstring) and hold the others to this tree's result."""
@@ -760,6 +825,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tile3d-b3", action="append", default=[],
                     metavar="PxYxTxB",
                     help="the same for B3's 3+1d mode (TILES_3D_B3)")
+    ap.add_argument("--tile3d-p1", action="append", default=[],
+                    metavar="PxYxTxB",
+                    help="the same for P1's 3+1d mode (TILES_3D_P1)")
     ap.add_argument("--branches", action="store_true",
                     help="with b3_3d: time its mixed kernel with every cell "
                          "on one branch (race_branches)")
@@ -783,6 +851,9 @@ def main(argv=None) -> int:
     trees += [(f"b3 tile {spec}", tile_tree(spec, Path("build/tile3d"),
                                             "cooper_frye_feqmod"))
               for spec in a.tile3d_b3]
+    trees += [(f"p1 tile {spec}", tile_tree(spec, Path("build/tile3d"),
+                                            "polarization_f32"))
+              for spec in a.tile3d_p1]
     for i, (label, directory) in enumerate(trees):
         packages[label] = load_tree(i, Path(directory)).__name__
     only = a.only.split(",")
@@ -804,11 +875,14 @@ def main(argv=None) -> int:
                 record["builds"][f"{k.key} clean {label}"] = report_build(
                     f"{k.key} clean [{label}]", k.name + "_clean",
                     k.library(package))
-    if "p1" in only:
+    for key, name in (("p1", "polarization_f32"),
+                      ("p1_3d", "polarization_f32_3d")):
+        if key not in only:
+            continue
         for label, package in packages.items():
             build = importlib.import_module(f"{package}.ops._build")
-            record["builds"][f"p1 {label}"] = report_build(
-                f"p1 [{label}]", "polarization_f32",
+            record["builds"][f"{key} {label}"] = report_build(
+                f"{key} [{label}]", name,
                 build.build("polarization_f32")[0])
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -873,6 +947,15 @@ def main(argv=None) -> int:
                                params={"df_mode": 1, "compute_dtype": "f32c"},
                                surface_mode=5)
             record["p1"] = race_p1(packages, wd, a.compare_cells)
+        if "p1_3d" in only:
+            wd = write_workdir(Path(tmp) / "p1_3d", n_cells=a.cells,
+                               params={"df_mode": 1, "compute_dtype": "f32c"},
+                               surface_mode=5, dimension=3)
+            record["p1_3d"] = race_p1_3d(packages, wd, a.compare_cells)
+            failed += [f"p1_3d {label}: misses its bar"
+                       for label, r in record["p1_3d"].items()
+                       if not (r["finite"] and r["repeats"] and
+                               max(r["vs_plain"]) <= kc.POLZN_TOL_PLAIN)]
         if "prep" in only:
             wd = write_workdir(Path(tmp) / "prep", n_cells=16)
             record["prep"] = race_prep(packages, wd, a.cells)

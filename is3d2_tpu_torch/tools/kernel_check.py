@@ -43,6 +43,12 @@ the route's fold gate picks (``polarization_operands``): folded with the
 default ``eta_fold``, general with ``eta_fold = 0`` or an odd source
 (``un_scale``, ``dan_scale``).
 
+Kernel P1's 3+1d mode: ``check_polarization_3d_case`` holds it to its
+plain version and to the f64 engine at the same bars on a 3+1d surface
+with vorticity, also on one whose cells sit within NEAR_Y of a y node
+(``near_cancellation_surface``: the pure pn spin terms take mT sinh(y -
+eta) there); its ragged case runs on RAGGED_Y's rapidity counts.
+
 Each kernel also has a ragged case (RAGGED: rows of 7 phi under a register
 tile of 4, fewer momenta than one block owns, a cell count that fills
 neither the last tile nor the last split), cut from a case's operands and
@@ -104,6 +110,8 @@ MAIN_PATH_KERNEL = {
     "cooper_frye_feqmod_3d": r"cooper_frye_feqmod_3d_kernelILi4ELb0ELb0EE",
     "cooper_frye_feqmod_3d_clean":
         r"cooper_frye_feqmod_3d_clean_kernelILb0EE",
+    # P1's 3+1d mode: its one instantiation, the tile's shape
+    "polarization_f32_3d": r"polarization_f32_3d_kernelI(?:Li\d+E)+E",
 }
 
 # name -> (config fields, make_surface options); the workdir needs
@@ -919,3 +927,87 @@ def check_polarization_ragged_case(workdir: str | Path, n_cells: int,
     plain = plain.cpu().numpy()
     return PolarizationCaseResult(out.cpu().numpy(), plain, plain, launches,
                                   repeats, ops.folded)
+
+
+# ----------------------------------------------------------------------
+# kernel P1's 3+1d mode (spin polarization, mode 5, dimension 3)
+# ----------------------------------------------------------------------
+
+# cells moved next to a y node (near_cancellation_surface): |y - eta| below
+NEAR_Y = 1e-4
+
+
+def f64_polarization_3d(state) -> np.ndarray:
+    """The f64 engine's 3+1d sums, (5, S * NpT * Ny * Nphi) in the order
+    of the 3+1d mode's momenta (species, pT, y, phi)."""
+    out = polarization_f64(*state, dimension=3).permute(0, 1, 2, 4, 3)
+    return out.reshape(5, -1).cpu().numpy()
+
+
+def polarization_operands_3d(state) -> pz.PolarizationOperands3d:
+    """P1's 3+1d operands for the engine state, as the route packs them."""
+    cells, species, grid, T, _ = state
+    return pz.pack_inputs_3d(cells, species, grid, T)
+
+
+def near_cancellation_surface(workdir: str | Path, n_cells: int, seed: int):
+    """A 3+1d make_surface(n_cells, seed, vorticity=True) surface whose
+    even cells sit within NEAR_Y of a y node of the workdir's table (its
+    nodes with |y| <= 2 in turn; the offset uniform in +-NEAR_Y from a
+    stream of its own): there mT sinh(y - eta) is ~1e-4 mT, and the pure
+    pn spin terms (wxy, wty, wtx, nonzero here) take it."""
+    from ..io.tables import MomentumGrids
+    surf = make_surface(n_cells, seed=seed, dimension=3, vorticity=True)
+    y = MomentumGrids.from_dir(Path(workdir) / "tables").y
+    y = y[np.abs(y) <= 2.0]
+    idx = np.arange(0, n_cells, 2)
+    rng = np.random.default_rng([seed, 3])
+    surf.eta[idx] = (y[np.arange(idx.size) % y.size]
+                     + rng.uniform(-NEAR_Y, NEAR_Y, idx.size))
+    return surf
+
+
+def check_polarization_3d_case(workdir: str | Path, n_cells: int, seed: int,
+                               device, near: bool = False,
+                               **cfg_fields) -> PolarizationCaseResult:
+    """P1's 3+1d mode (its plain version on a CPU device), the plain
+    version and the f64 engine on a 3+1d surface with thermal vorticity
+    (``near``: near_cancellation_surface) with the workdir's species and
+    tables (mode 5, f32c, dimension 3)."""
+    cfg = Config(compute_dtype="f32c", mode=5, dimension=3, **cfg_fields)
+    surf = (near_cancellation_surface(workdir, n_cells, seed) if near else
+            make_surface(n_cells, seed=seed, dimension=3, vorticity=True))
+    state = polarization_engine_state(workdir, cfg, surf, device)
+    ops = polarization_operands_3d(state)
+    out, plain, launches, repeats = _run(
+        functools.partial(pz.polarization_f32_3d, **ops.layout()),
+        functools.partial(pz.polarization_f32_3d_plain, **ops.layout()),
+        ops.args())
+    return PolarizationCaseResult(out.cpu().numpy(), plain.cpu().numpy(),
+                                  f64_polarization_3d(state), launches,
+                                  repeats, False)
+
+
+def check_polarization_3d_ragged_case(workdir: str | Path, n_cells: int,
+                                      seed: int, device, n_y: int = 3
+                                      ) -> PolarizationCaseResult:
+    """P1's 3+1d mode against its plain version (which also stands in for
+    f64) on the operands cut to RAGGED and to the first ``n_y``
+    rapidities."""
+    cfg = Config(compute_dtype="f32c", mode=5, dimension=3)
+    surf = make_surface(n_cells, seed=seed, dimension=3, vorticity=True)
+    state = polarization_engine_state(workdir, cfg, surf, device)
+    ops = polarization_operands_3d(state)
+    full = ops.mom.reshape(ops.mom.shape[0], state[1].mass.shape[0],
+                           state[2].pT.shape[0], ops.n_y, ops.row_len)
+    mom = full[:, :RAGGED["species"], :RAGGED["pT"], :n_y, :RAGGED["phi"]]
+    n = RAGGED["cells"]
+    args = (ops.cell[:n].contiguous(), ops.ytab[:n, :n_y].contiguous(),
+            mom.reshape(mom.shape[0], -1).contiguous())
+    layout = {"row_len": RAGGED["phi"], "n_y": n_y}
+    out, plain, launches, repeats = _run(
+        functools.partial(pz.polarization_f32_3d, **layout),
+        functools.partial(pz.polarization_f32_3d_plain, **layout), args)
+    plain = plain.cpu().numpy()
+    return PolarizationCaseResult(out.cpu().numpy(), plain, plain, launches,
+                                  repeats, False)

@@ -539,18 +539,26 @@ def test_validate_slice_lets_3d_df12_through(kw, df_mode):
     Config(dimension=3, df_mode=df_mode, mode=1, **kw).validate_slice()
 
 
+@pytest.mark.parametrize("kw", [
+    # a mode-5 surface in 3+1d runs after df 1-5 and every operation
+    # (tests/test_torch_polarization_3d.py)
+    {"df_mode": 3, "mode": 5},
+    {"df_mode": 5, "compute_dtype": "f32c", "mode": 5},
+    {"df_mode": 4, "operation": 2, "mode": 5},
+    {"df_mode": 1, "mode": 5},
+    {"df_mode": 2, "mode": 5, "operation": 2},
+])
+def test_validate_slice_lets_3d_mode5_through(kw):
+    Config(**{"dimension": 3, **kw}).validate_slice()
+
+
 @pytest.mark.parametrize("kw,item", [
-    # 3+1d df 3-5 run (tests/test_torch_feqmod_3d.py): their mode 5 and
-    # their mesh are still rejected
-    ({"df_mode": 3, "mode": 5}, "A7"),
+    # 3+1d df 1-5 and mode 5 run: their mesh is still rejected
     ({"df_mode": 4, "compute_dtype": "f32", "use_mesh": 1}, "A12"),
-    ({"df_mode": 5, "compute_dtype": "f32c", "mode": 5}, "A7"),
     ({"df_mode": 3, "operation": 0, "use_mesh": 1}, "A12"),
-    ({"df_mode": 4, "operation": 2, "mode": 5}, "A7"),
-    ({"df_mode": 1, "mode": 5}, "A7"),
-    ({"df_mode": 2, "mode": 5, "operation": 2}, "A7"),
     ({"df_mode": 1, "use_mesh": 1}, "A12"),
     ({"df_mode": 2, "operation": 2, "use_mesh": 1}, "A12"),
+    ({"df_mode": 1, "mode": 5, "use_mesh": 1}, "A12"),
 ])
 def test_validate_slice_still_rejects_in_3d(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

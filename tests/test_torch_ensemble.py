@@ -326,14 +326,23 @@ def test_the_ensemble_never_groups_species(runs, inputs):
     assert not np.array_equal(one, r.ours[1])
 
 
-def test_3d_feqmod_raises_naming_a9(inputs_3d):
-    """3+1d df 3-5 run now (ROADMAP A9a); their mode 5 is still rejected,
-    naming A7, before any surface is touched."""
-    cfg = port_config(jax_config(4, dimension=3, mode=5))
-    with pytest.raises(NotImplementedError, match="A7"):
-        ens.compute_spectra_ensemble(
-            [make_surface(16, dimension=3)], inputs_3d.species,
-            inputs_3d.chosen, inputs_3d.grids, None, cfg, device="cpu")
+def test_3d_mode5_ensemble_gives_the_mode1_spectra(runs, inputs_3d):
+    """3+1d df 4 on mode-5 surfaces (ROADMAP A7d: no longer rejected): the
+    ensemble, like the JAX package's, computes no polarization and reads
+    no vorticity, so the 3d-df4-f32 case's surfaces with the thermal
+    vorticity drawn (make_surface draws it after every other field) give
+    its mode-1 spectra bit for bit."""
+    r = runs("3d-df4-f32")
+    surfs = [make_surface(s.n_cells, seed=500 + i, dimension=3,
+                          shear_scale=FEQMOD_SHEAR, bulk_scale=FEQMOD_BULK,
+                          vorticity=True) for i, s in enumerate(r.surfs)]
+    assert all(np.abs(s.wxy).max() > 0 for s in surfs)
+    cfg = dataclasses.replace(r.cfg, mode=5)
+    assert (cfg.dimension, cfg.df_mode, cfg.mode) == (3, 4, 5)
+    out = ens.compute_spectra_ensemble(
+        surfs, inputs_3d.species, inputs_3d.chosen, inputs_3d.grids,
+        r.df_data, cfg, inputs_3d.laguerre, device="cpu")
+    np.testing.assert_array_equal(out, r.ours)
 
 
 def test_make_ensemble_draws_make_surface_by_seed():

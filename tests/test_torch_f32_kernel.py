@@ -206,6 +206,10 @@ def test_df12_dispatch_follows_the_jax_package(workdir, monkeypatch, dtype,
     {"compute_dtype": "f64", "use_pallas": 1},
     {"compute_dtype": "f32", "use_pallas": -1},
     {"compute_dtype": "f32", "use_pallas": 1},
+    # 3+1d runs every df 1/2 route (tests/test_torch_3d.py), mode 5 too
+    # (tests/test_torch_polarization_3d.py)
+    {"compute_dtype": "f64", "use_pallas": 1, "dimension": 3, "mode": 5},
+    {"compute_dtype": "f32", "use_pallas": -1, "dimension": 3, "mode": 5},
 ])
 @pytest.mark.parametrize("df_mode", [1, 2])
 def test_validate_slice_lets_the_kernel_routes_through(kw, df_mode):
@@ -216,9 +220,6 @@ def test_validate_slice_lets_the_kernel_routes_through(kw, df_mode):
 @pytest.mark.parametrize("kw", [
     {"compute_dtype": "f32", "use_pallas": 0},
     {"compute_dtype": "f32c", "use_pallas": 0},
-    # 3+1d runs every df 1/2 route (tests/test_torch_3d.py) but mode 5
-    {"compute_dtype": "f64", "use_pallas": 1, "dimension": 3, "mode": 5},
-    {"compute_dtype": "f32", "use_pallas": -1, "dimension": 3, "mode": 5},
 ])
 @pytest.mark.parametrize("df_mode", [1, 2])
 def test_validate_slice_still_rejects_the_kernel_less_engines(kw, df_mode):

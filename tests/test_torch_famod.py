@@ -425,8 +425,15 @@ def test_validate_slice_lets_df5_through(kw):
     Config(df_mode=5, **kw).validate_slice()
 
 
+@pytest.mark.parametrize("kw", [{"mode": 5, "dimension": 3}])
+def test_validate_slice_lets_df5_on_a_3d_mode5_surface_through(kw):
+    """df 5 on a 3+1d mode-5 surface: B3's 3+1d famod mode, then the
+    polarization, which no df mode enters."""
+    Config(**{"df_mode": 5, **kw}).validate_slice()
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"mode": 5, "dimension": 3}, "A7"), ({"mode": 2, "use_mesh": 1}, "A12"),
+    ({"mode": 2, "use_mesh": 1}, "A12"),
     ({"compute_dtype": "f32", "use_pallas": 0}, "A9"),
     ({"operation": 2, "mode": 5, "use_mesh": 1}, "A12"),
     ({"compute_dtype": "f32c", "use_pallas": 0}, "A9"),

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from is3d2_tpu_torch.config import Config  # noqa: E402
+from is3d2_tpu_torch.ops import _build  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_comp as ck  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_f32 as b2  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
@@ -1249,6 +1250,146 @@ def test_polarization_check_plain_on_cpu(workdir):
 
 
 # ----------------------------------------------------------------------
+# kernel P1's 3+1d mode (spin polarization, mode 5, dimension 3)
+# ----------------------------------------------------------------------
+
+def _p1_3d_operands(workdir, n_surface=512, device="cuda", T=None,
+                    seed=5):
+    cfg = Config(compute_dtype="f32c", mode=5, dimension=3, cell_block=512)
+    state = kc.polarization_engine_state(
+        workdir, cfg, make_surface(n_surface, seed=seed, dimension=3,
+                                   vorticity=True), device)
+    if T is not None:
+        state = (*state[:3], T, state[4])
+    return kc.polarization_operands_3d(state)
+
+
+def _p1_3d_agrees(args, **layout):
+    out = pz.polarization_f32_3d(*args, **layout)
+    again = pz.polarization_f32_3d(*args, **layout)
+    plain = pz.polarization_f32_3d_plain(*args, **layout).cpu().numpy()
+    assert torch.equal(out, again)        # no atomics: the same bits
+    out = out.cpu().numpy()
+    assert np.isfinite(out).all()
+    assert max(kc.polarization_errors(out, plain)) <= kc.POLZN_TOL_PLAIN
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("near", [False, True], ids=["surface", "near"])
+def test_polarization_3d_kernel_vs_plain_and_f64(workdir_3d, near):
+    """P1's 3+1d mode at 512 cells (and with half of them within 1e-4 of a
+    y node): <= 1e-5 against its plain version on both metrics, the JAX
+    bars against the f64 engine, one launch, the same bits twice."""
+    _needs_cuda()
+    r = kc.check_polarization_3d_case(workdir_3d, 512, 3, "cuda",
+                                      near=near, cell_block=512)
+    assert r.launches == 1 and r.repeats
+    assert r.ok, (r.vs_plain, r.vs_f64)
+    assert pz.polarization_f32_3d.last_launch == {
+        "cells": 512, "momenta": r.kernel.shape[1], "n_y": 9,
+        "dimension": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_y", kc.RAGGED_Y)
+def test_polarization_3d_kernel_ragged_case(workdir_3d, n_y):
+    """The operands cut to kc.RAGGED (rows of 7 phi, 1,000 cells) and to
+    3, 5 and 1 rapidities: y counts the 3-row tile does not divide."""
+    _needs_cuda()
+    r = kc.check_polarization_3d_ragged_case(workdir_3d, 2048, 7, "cuda",
+                                             n_y=n_y)
+    assert r.launches == 1 and r.ok, r.vs_plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cells,n_groups", [(1, 1), (63, 2), (65, 9),
+                                              (333, 5), (512, 9)])
+def test_polarization_3d_kernel_ragged_groups_and_cells(ragged_workdir_3d,
+                                                        n_cells, n_groups):
+    """Rows of 7 phi x 3 y under a tile of 4 x 3, groups that do not fill
+    a block, cell counts that fill neither the last 64-cell run nor the
+    last split, and a last group cut short."""
+    _needs_cuda()
+    ops = _p1_3d_operands(ragged_workdir_3d)
+    n_mom = n_groups * 3 * 7 - (5 if n_groups > 1 else 0)
+    _p1_3d_agrees((ops.cell[:n_cells].contiguous(),
+                   ops.ytab[:n_cells].contiguous(),
+                   ops.mom[:, :n_mom].contiguous()), **ops.layout())
+
+
+@pytest.mark.gpu
+def test_polarization_3d_kernel_splits_the_cells(workdir_3d):
+    """A few momenta over many cells: the wrapper splits the cells across
+    blockIdx.y (partials added in a fixed order), and the sums equal the
+    plain version's runs of 64 cells within its bar."""
+    _needs_cuda()
+    ops = _p1_3d_operands(workdir_3d, n_surface=4096)
+    mom = ops.mom[:, :21 * 8].contiguous()
+    g = pz.geometry_3d(mom.shape[1], ops.cell.shape[0], ops.row_len,
+                       ops.n_y, pz.TILE_3D, mom.device)
+    assert g.n_split > 1 and g.cells_per_split % pz.TILE_CELLS_3D == 0
+    _p1_3d_agrees((ops.cell, ops.ytab, mom), **ops.layout())
+    assert pz.polarization_f32_3d.last_geometry.n_split == g.n_split
+
+
+@pytest.mark.gpu
+def test_polarization_3d_kernel_more_y_than_one_launch(tmp_path):
+    """300 rapidities, more than one launch takes (kMaxY): the wrapper
+    runs chunks of rows, one launch each, with the plain version's sums."""
+    _needs_cuda()
+    wd = write_workdir(tmp_path / "y300", n_cells=16, chosen_mcids=(211, 2212),
+                       n_pT=3, n_phi=7, n_T=21, dimension=3, n_y=300)
+    ops = _p1_3d_operands(wd, n_surface=200)
+    lib = _build.load("polarization_f32")
+    assert ops.n_y == 300 > lib.is3d2_polarization_f32_3d_max_y()
+    before = pz.polarization_f32_3d.launches
+    _p1_3d_agrees(ops.args(), **ops.layout())
+    assert pz.polarization_f32_3d.launches - before == 2 * 2
+
+
+@pytest.mark.gpu
+def test_polarization_3d_kernel_overflowing_exponential(workdir_3d):
+    """A cold surface, where 2^x overflows for heavy species at high pT:
+    f0 is 0 to f32's range, never NaN, and the sums stay finite."""
+    _needs_cuda()
+    ops = _p1_3d_operands(workdir_3d, T=0.002)
+    assert torch.isfinite(pz.polarization_f32_3d(*ops.args(),
+                                                 **ops.layout())).all()
+
+
+@pytest.mark.gpu
+def test_polarization_3d_route_takes_real_cells_without_a_read_back(
+        workdir_3d):
+    """compute_polarization_kernel_3d on 500 cells padded to 512: the real
+    rows only, the same bits as with no padding (cell_block 4), within the
+    bars of the f64 engine on the padded cells."""
+    _needs_cuda()
+    surf = make_surface(500, seed=9, dimension=3, vorticity=True)
+    out = {}
+    for block in (512, 4):
+        cfg = Config(compute_dtype="f32c", mode=5, dimension=3,
+                     cell_block=block)
+        state = kc.polarization_engine_state(workdir_3d, cfg, surf, "cuda")
+        out[block] = pz.compute_polarization_kernel_3d(*state[:4])
+        if block == 512:
+            ref = kc.polarization_f64(*state, dimension=3).cpu().numpy()
+    assert pz.polarization_f32_3d.last_launch["cells"] == 500
+    assert torch.equal(out[512], out[4])
+    norm, p = kc.polarization_errors(out[512].cpu().numpy(), ref)
+    assert norm <= kc.POLZN_TOL_NORM and p <= kc.POLZN_TOL_P, (norm, p)
+
+
+def test_polarization_3d_check_plain_on_cpu(workdir_3d):
+    """The 3+1d P1 harness on the CPU: the wrapper takes the plain version
+    (no launch), which meets the f64 engine at the JAX package's bars."""
+    r = kc.check_polarization_3d_case(workdir_3d, 256, 3, "cpu",
+                                      cell_block=256)
+    assert r.launches == 0 and r.vs_plain == (0.0, 0.0)
+    assert r.ok, (r.vs_f64, r.plain_vs_f64)
+
+
+# ----------------------------------------------------------------------
 # the multi-surface ensemble (core/ensemble.py) on the card
 # ----------------------------------------------------------------------
 
@@ -1335,25 +1476,44 @@ def test_ensemble_equals_single_runs_and_the_f64_engine(tmp_path, route):
             assert kc.max_rel_err(out[i], f64[i]) <= bar, i
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("route", ["B1", "B2", "B3", "B1-3d", "B3-3d"])
-def test_device_route_queues_no_synchronization(tmp_path, route):
-    """spectra_on_device on df 1-4 (3+1d too) queues a surface's work
-    without waiting for the card: the uploads go through pinned memory and
-    the fold gate, the skipped count and the 3+1d live cells come from the
-    host columns.  Under torch's sync debug mode "error" any synchronizing
-    operation raises."""
-    _needs_cuda()
+def _queued_route(tmp_path, route):
+    """A call of the route on its first surface: spectra_on_device, or for
+    P1-3d the 3+1d polarization route on cells prepared on the card."""
+    if route == "P1-3d":
+        wd = write_workdir(tmp_path / route, n_cells=16, chosen_mcids=CHOSEN,
+                           n_pT=16, n_phi=8, n_T=21, dimension=3,
+                           surface_mode=5)
+        cfg = Config(compute_dtype="f32c", mode=5, dimension=3,
+                     cell_block=512)
+        state = kc.polarization_engine_state(
+            wd, cfg, make_surface(ENSEMBLE_CELLS[2], seed=70, dimension=3,
+                                  vorticity=True), "cuda")
+        return lambda: pz.compute_polarization_kernel_3d(*state[:4])
     from is3d2_tpu_torch.core.spectra import spectra_on_device
     cfg, surfs, run = _ensemble_run(tmp_path, route)
     args = (run.species, run.chosen_idx, run.grids, run.df_data, cfg,
             "cuda", run.laguerre)
-    want = spectra_on_device(surfs[0], *args)      # builds and loads
+    return lambda: spectra_on_device(surfs[0], *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["B1", "B2", "B3", "B1-3d", "B3-3d",
+                                   "P1-3d"])
+def test_device_route_queues_no_synchronization(tmp_path, route):
+    """spectra_on_device on df 1-4 (3+1d too), and the 3+1d polarization
+    route, queue a surface's work without waiting for the card: the
+    uploads go through pinned memory and the fold gate, the skipped count,
+    the 3+1d live cells and the real cells come from the host columns.
+    Under torch's sync debug mode "error" any synchronizing operation
+    raises."""
+    _needs_cuda()
+    call = _queued_route(tmp_path, route)
+    want = call()      # builds and loads
     torch.cuda.synchronize()
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = spectra_on_device(surfs[0], *args)
+        got = call()
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     assert torch.equal(got, want)

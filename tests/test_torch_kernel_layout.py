@@ -8,6 +8,7 @@ be read off the momentum rows; the split must depend on the shapes alone;
 and a block of B3 must never span more species than it stages renorms for.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -711,5 +712,155 @@ def test_tile_tree_rewrites_only_b3s_3d_tile(tmp_path):
             if a != b]
     assert diff == [(diff[0][0], "constexpr int kP3 = 4, kY3 = 3, "
                                  "kThreads3 = 128, kMinBlocks3 = 3;")]
+    assert (root / "is3d2_tpu_torch/csrc/cooper_frye_comp.cu").read_text() \
+        == _B1_SOURCE.read_text()
+
+
+# ----------------------------------------------------------------------
+# kernel P1's 3+1d mode
+# ----------------------------------------------------------------------
+
+_P1_SOURCE = _B1_SOURCE.parent / "polarization_f32.cu"
+
+
+def _p1_tiles():
+    from is3d2_tpu_torch.tools.kernel_bench import TILES_3D_P1
+    return [ck.Tile3d(*(int(v) for v in spec.split("x")))
+            for spec in TILES_3D_P1]
+
+
+def _p1_3d_momenta(n_phi, n_y, n_pT=3):
+    """P1's 3+1d momentum rows of 3 species (pi+, pi-, p) x n_pT pT x n_y
+    y x n_phi phi, from the pack."""
+    from is3d2_tpu_torch.core.cells import CellArrays
+    from is3d2_tpu_torch.core.spectra import MomentumGridDevice, SpeciesArrays
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float64)
+    phi = np.linspace(0.0, 2 * np.pi, n_phi, endpoint=False)
+    grid = MomentumGridDevice(
+        pT=t(0.2 + 0.3 * np.arange(n_pT)), pT_weight=t(np.ones(n_pT)),
+        cos_phi=t(np.cos(phi)), sin_phi=t(np.sin(phi)),
+        phi_weight=t(np.ones(n_phi)), y=t(np.linspace(-5.0, 5.0, n_y)),
+        eta=t([0.0]), eta_weight=t([1.0]))
+    species = SpeciesArrays(mass=t([0.139, 0.139, 0.938]),
+                            sign=t([-1.0, -1.0, 1.0]),
+                            degeneracy=t([1.0, 1.0, 2.0]),
+                            baryon=t([0.0, 0.0, 1.0]))
+    one = torch.ones(1, dtype=torch.float64)
+    cells = CellArrays(**{f.name: one.clone()
+                          for f in dataclasses.fields(CellArrays)})
+    return pz.pack_inputs_3d(cells, species, grid, 0.15).mom
+
+
+@pytest.mark.parametrize("tile", _p1_tiles(), ids=str)
+@pytest.mark.parametrize("n_phi", [1, 7, 48])
+@pytest.mark.parametrize("n_y", [1, 2, 3, 5, 21])
+def test_p1_3d_tile_stays_in_one_group(n_y, n_phi, tile):
+    """P1's 3+1d register tile (r phi x ty y), for every raced tile: every
+    momentum owned once; a thread's slots never leave one (species, pT)
+    group, so mT, sign and 1/(4m) are equal across them; a phi column's
+    slots share px and py across y; each slot's y is the row the kernel
+    reads its (cosh, sinh) from."""
+    mom = _p1_3d_momenta(n_phi, n_y)
+    M = mom.shape[1]
+    g = pz.geometry_3d(M, 300, n_phi, n_y, tile)
+    owner = momentum_index_3d(g)
+    assert owner.shape == (g.blocks, tile.threads, tile.ty, tile.r)
+    np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
+    rows = dict(zip(pz.MOM_ROWS, mom.numpy()))
+    group = np.arange(M) // (n_y * n_phi)
+    y_of = np.arange(M) // n_phi % n_y
+    for slots in owner.reshape(-1, tile.ty, tile.r):
+        mine = slots[slots >= 0]
+        if not mine.size:
+            continue
+        assert slots[0, 0] >= 0
+        assert (group[mine] == group[mine[0]]).all()
+        for key in ("mT", "sgn", "inv4m"):
+            assert (rows[key][mine] == rows[key][mine[0]]).all()
+        for i, row in enumerate(slots):
+            row = row[row >= 0]
+            assert (y_of[row] == y_of[slots[0, 0]] + i).all()
+        for col in slots.T:
+            col = col[col >= 0]
+            for key in ("px", "py"):
+                assert (rows[key][col] == rows[key][col[:1]]).all()
+
+
+def _p1_smem(tile, n_y):
+    """A block's shared memory in P1's 3+1d mode: the cell tile (static),
+    the f64 sums and the tile's y rows (dynamic)."""
+    return (4 * pz.TILE_CELLS_3D * len(pz.CELL_COLS)
+            + 8 * pz.N_SUMS * tile.r * tile.ty * tile.threads
+            + 8 * pz.TILE_CELLS_3D * n_y)
+
+
+def _p1_max_y(src, tile):
+    """The source's kMaxY for ``tile``: the y rows that fit a block's
+    shared memory (kBlockSmem) beside the cell tile and the f64 sums, at
+    most the source's cap."""
+    smem = int(re.search(r"constexpr size_t kBlockSmem = (\d+);", src)[1])
+    [cap] = re.findall(r"constexpr int kMaxY = kRoomY < (\d+) \? "
+                       r"\(int\)kRoomY : \1;", src)
+    return min(int(cap), (smem - _p1_smem(tile, 0))
+               // (8 * pz.TILE_CELLS_3D))
+
+
+def test_p1_3d_tile_of_the_source_is_the_default_and_fits_shared_memory():
+    """TILE_3D is the source's kP3, kY3, kThreads3, kMinBlocks3 and among
+    the raced tiles; with 21 y rows its blocks_per_sm blocks fit an SM's
+    228 KB, and a launch of it takes 256 y rows (kMaxY), whose block fits
+    a block's 227 KB; every raced tile leaves room for 21 rows."""
+    from is3d2_tpu_torch.tools.kernel_bench import TILE_LINE_3D, TILES_3D_P1
+    src = _P1_SOURCE.read_text()
+    [line] = re.findall(TILE_LINE_3D, src)
+    t = ck.Tile3d(*map(int, re.findall(r"= (\d+)", line)))
+    assert t == pz.TILE_3D
+    assert f"{t.r}x{t.ty}x{t.threads}x{t.blocks_per_sm}" in TILES_3D_P1
+    assert re.search(rf"constexpr int kTileCells3 = {pz.TILE_CELLS_3D};",
+                     src)
+    assert t.blocks_per_sm * _p1_smem(t, 21) <= 228 * 1024
+    assert _p1_max_y(src, t) == 256
+    assert _p1_smem(t, _p1_max_y(src, t)) <= 232448
+    for tile in _p1_tiles():
+        assert tile.threads % 32 == 0
+        assert _p1_smem(tile, 21) <= 232448
+
+
+def test_p1_3d_main_path_fills_the_card_without_a_split():
+    """Phase 36's shape, 100,000 real cells x 371 x 51 x 21 y x 48 phi:
+    18,921 groups of 7 y tiles x 12 phi tiles, whole waves of the card
+    without a cell split, for the tile the source builds."""
+    t = pz.TILE_3D
+    g = pz.geometry_3d(19_072_368, 100_000, 48, 21, t)
+    assert (g.groups, g.tiles_per_row, g.y_tiles) == (18_921, 12, 7)
+    assert g.n_split == 1 and g.cells_per_split == 100_000
+    assert fill(g.blocks, t.blocks_per_sm * H100_SMS) > 0.95
+
+
+@pytest.mark.parametrize("n_cells", [1, 64, 65, 1000, 4096])
+def test_p1_3d_splits_begin_on_a_run(n_cells):
+    """Each cell split of the 3+1d mode begins on a 64-cell run, so the
+    kernel's f32 runs are the plain version's [64 k, 64 k + 64)."""
+    g = pz.geometry_3d(21 * 7, n_cells, 7, 21)
+    ranges = cell_ranges(g, n_cells)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_cells
+    for (a, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c
+    assert all(a % pz.TILE_CELLS_3D == 0 for a, _ in ranges)
+
+
+def test_tile_tree_rewrites_only_p1s_3d_tile(tmp_path):
+    """kernel_bench --tile3d-p1 races a copy of this tree whose P1 source
+    differs in the 3+1d mode's tile line alone."""
+    from is3d2_tpu_torch.tools.kernel_bench import tile_tree
+    root = tile_tree("2x7x128x2", tmp_path, "polarization_f32")
+    new = (root / "is3d2_tpu_torch/csrc/polarization_f32.cu").read_text()
+    old = _P1_SOURCE.read_text()
+    diff = [(a, b) for a, b in zip(old.splitlines(), new.splitlines())
+            if a != b]
+    assert diff == [(diff[0][0], "constexpr int kP3 = 2, kY3 = 7, "
+                                 "kThreads3 = 128, kMinBlocks3 = 2;")]
     assert (root / "is3d2_tpu_torch/csrc/cooper_frye_comp.cu").read_text() \
         == _B1_SOURCE.read_text()

@@ -171,16 +171,24 @@ def test_config_parser_and_slice(workdir):
     Config(df_mode=2, compute_dtype="f64").validate_slice()
 
 
+@pytest.mark.parametrize("kw", [
+    # a mode-5 surface in 3+1d: the polarization runs there too
+    # (tests/test_torch_polarization_3d.py)
+    {"operation": 0, "mode": 5, "dimension": 3},
+    {"operation": 2, "mode": 5, "dimension": 3},
+    {"mode": 5, "dimension": 3},
+    {"operation": 0, "df_mode": 3, "dimension": 3, "mode": 5},
+])
+def test_validate_slice_lets_3d_mode5_through(kw):
+    Config(**{"df_mode": 1, "compute_dtype": "f32c", **kw}).validate_slice()
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"operation": 0, "mode": 5, "dimension": 3}, "A7"),
-    ({"operation": 2, "mode": 5, "dimension": 3}, "A7"),
     ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "use_pallas": 0}, "A9"),
     ({"df_mode": 5, "compute_dtype": "f32", "use_pallas": 0}, "A9"),
-    # 3+1d df 1-5 run every operation (tests/test_torch_3d.py,
-    # tests/test_torch_feqmod_3d.py): what is left there is mode 5 (A7)
-    # and the mesh (A12)
-    ({"mode": 5, "dimension": 3}, "A7"),
-    ({"operation": 0, "df_mode": 3, "dimension": 3, "mode": 5}, "A7"),
+    # 3+1d df 1-5 run every operation and mode 5 (tests/test_torch_3d.py,
+    # tests/test_torch_feqmod_3d.py, tests/test_torch_polarization_3d.py):
+    # what is left there is the mesh (A12)
     ({"mode": 5, "use_mesh": 1}, "A12"),
     ({"compute_dtype": "f32", "use_pallas": 0}, "A7"),
     ({"compute_dtype": "f32c", "use_pallas": 0}, "A7"),

@@ -28,7 +28,8 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).parent))
 
 from torch_parity import (BLOCK, CHOSEN, N_CELLS, build_workdir,  # noqa: E402
-                          max_rel_err, numpy_fields, run_drivers)
+                          max_rel_err, numpy_fields,
+                          polarization_file_errors, run_drivers, set_params)
 
 from is3d2_tpu.config import Config as JConfig  # noqa: E402
 from is3d2_tpu.core.cells import prepare_cells as j_prepare_cells  # noqa: E402
@@ -413,24 +414,6 @@ def test_write_polarization_gives_the_jax_bytes(workdir, tmp_path,
         sorted(f"{n}.dat" for n in output.POLARIZATION_FILES)
 
 
-def _file_errors(jax_wd, port_wd, snorm) -> float:
-    """max |P_port - P_jax| / max |P_jax| over the four files, on the bins
-    whose (JAX) Snorm is >= POLZN_P_FLOOR of its max; the key columns
-    equal and every value finite."""
-    good = (snorm > kc.POLZN_P_FLOOR * snorm.max()).transpose(0, 3, 2, 1)
-    err = 0.0
-    for name in output.POLARIZATION_FILES:
-        ref = np.loadtxt(jax_wd / "results" / f"{name}.dat")
-        out = np.loadtxt(port_wd / "results" / f"{name}.dat")
-        assert out.shape == ref.shape == (good.size, 4), name
-        np.testing.assert_array_equal(out[:, :3], ref[:, :3])
-        assert np.isfinite(out).all(), name
-        sel = good.reshape(-1)
-        err = max(err, np.abs(out[sel, 3] - ref[sel, 3]).max()
-                  / np.abs(ref[sel, 3]).max())
-    return err
-
-
 # (workdir parameters, bar on the files' P): op 1 df 1 in f32c (P1's plain
 # version) and in f64, op 0, op 2 into the test histograms, group_particles
 # (the polarization stays ungrouped)
@@ -446,25 +429,18 @@ DRIVER_CASES = {
 }
 
 
-def _params(wd: Path, params: dict) -> None:
-    p = wd / "iS3D_parameters.dat"
-    kv = dict(line.split(" = ", 1) for line in p.read_text().splitlines())
-    kv.update({k: str(v) for k, v in params.items()})
-    p.write_text("".join(f"{k} = {v}\n" for k, v in kv.items()))
-
-
 @pytest.mark.parametrize("case", list(DRIVER_CASES))
 def test_port_cli_matches_jax_driver_mode5(tmp_path, case):
     params, tol = DRIVER_CASES[case]
     wd = build_workdir(tmp_path / "jax", surface_mode=5)
-    _params(wd, params)
+    set_params(wd, params)
     shutil.copytree(wd, tmp_path / "port")
     ref = JIS3D(wd)
     ref.run_particlization()
     assert cli.main([str(tmp_path / "port"), "--device", "cpu"]) == 0
     St, Sx, Sy, Sn, Snorm = ref.polarization
     assert St.shape[0] == len(CHOSEN)      # every species, never grouped
-    assert _file_errors(wd, tmp_path / "port", Snorm) <= tol
+    assert polarization_file_errors(wd, tmp_path / "port", Snorm) <= tol
 
 
 def test_df5_on_a_mode5_surface(tmp_path):
@@ -480,7 +456,7 @@ def test_df5_on_a_mode5_surface(tmp_path):
         eos_consistent=True, surface_mode=5, shear_scale=0.05,
         bulk_scale=0.02)
     wd1 = shutil.copytree(wd5, tmp_path / "m1")
-    _params(wd1, {"mode": 1})
+    set_params(wd1, {"mode": 1})
     for wd in (wd5, wd1):
         assert cli.main([str(wd), "--device", "cpu"]) == 0
     for f in sorted((wd1 / "results/continuous").iterdir()):
@@ -495,7 +471,8 @@ def test_df5_on_a_mode5_surface(tmp_path):
         jcfg)
     j_output.write_polarization(tmp_path / "jax" / "results", *ref,
                                 JGrids.from_dir(wd5 / "tables"), 2)
-    assert _file_errors(tmp_path / "jax", wd5, ref[4]) <= kc.POLZN_TOL_P
+    assert polarization_file_errors(tmp_path / "jax", wd5,
+                                    ref[4]) <= kc.POLZN_TOL_P
 
 
 def test_port_driver_f64_polarization_in_memory(workdir):
@@ -524,7 +501,7 @@ def test_port_runs_mode5_without_jax(tmp_path):
         n_phi=8, n_eta=8, n_T=21, surface_mode=5,
         params={"cell_block": BLOCK})}
     wds["f64"] = shutil.copytree(wds["f32c"], tmp_path / "f64")
-    _params(wds["f64"], {"compute_dtype": "f64"})
+    set_params(wds["f64"], {"compute_dtype": "f64"})
     code = (
         "import sys\n"
         "from is3d2_tpu_torch import cli\n"

@@ -247,9 +247,17 @@ def test_sampler_report_lines_match_jax():
         in ours.lines()
 
 
+@pytest.mark.parametrize("kw", [
+    {"df_mode": 5, "mode": 5, "dimension": 3},
+    {"mode": 5, "dimension": 3},
+])
+def test_validate_slice_lets_operation2_in_3d_mode5_through(kw):
+    """Operation 2 on a 3+1d mode-5 surface: the sampler, then the
+    polarization (tests/test_torch_polarization_3d.py)."""
+    Config(operation=2, **{"df_mode": 1, **kw}).validate_slice()
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"df_mode": 5, "mode": 5, "dimension": 3}, "A7"),
-    ({"mode": 5, "dimension": 3}, "A7"),
     ({"use_mesh": 1}, "A12"),
     ({"mode": 6, "df_mode": 4, "dimension": 3, "use_mesh": 1}, "A12"),
     ({"group_particles": 1, "use_mesh": 1}, "A12")])

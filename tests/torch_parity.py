@@ -303,6 +303,34 @@ def famod_state(workdir: Path, shear_scale: float = FAMOD_SHEAR,
         grid=interop.grid_from_numpy(numpy_fields(j_grid)))
 
 
+def set_params(wd: Path, params: dict) -> None:
+    """Update entries of a workdir's iS3D_parameters.dat."""
+    p = wd / "iS3D_parameters.dat"
+    kv = dict(line.split(" = ", 1) for line in p.read_text().splitlines())
+    kv.update({k: str(v) for k, v in params.items()})
+    p.write_text("".join(f"{k} = {v}\n" for k, v in kv.items()))
+
+
+def polarization_file_errors(jax_wd: Path, port_wd: Path, snorm) -> float:
+    """max |P_port - P_jax| / max |P_jax| over the four polarization files,
+    on the bins whose (JAX) Snorm (S, NpT, Nphi, Ny) is >= POLZN_P_FLOOR of
+    its max; the key columns (y, phi, pT) equal and every value finite."""
+    from is3d2_tpu_torch.io import output
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    good = (snorm > kc.POLZN_P_FLOOR * snorm.max()).transpose(0, 3, 2, 1)
+    err = 0.0
+    for name in output.POLARIZATION_FILES:
+        ref = np.loadtxt(jax_wd / "results" / f"{name}.dat")
+        out = np.loadtxt(port_wd / "results" / f"{name}.dat")
+        assert out.shape == ref.shape == (good.size, 4), name
+        np.testing.assert_array_equal(out[:, :3], ref[:, :3])
+        assert np.isfinite(out).all(), name
+        sel = good.reshape(-1)
+        err = max(err, np.abs(out[sel, 3] - ref[sel, 3]).max()
+                  / np.abs(ref[sel, 3]).max())
+    return err
+
+
 def run_drivers(workdir: Path, **fields):
     """The JAX driver's f64 route and the port's driver (on the CPU), in
     memory (write=False) on one workdir whose parameters ``fields``
