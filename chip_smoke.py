@@ -237,14 +237,19 @@ Phases (any failure raises; nothing is caught):
      histograms (1e6 hadrons), each with phase 26's closure against its own
      op-1 dN/dy files;
  35. kernel P1's 3+1d mode (polarization_f32_3d_kernel: a thread owns 4
-     phi x 3 y of one (species, pT) group; the terms of each 64-cell run
+     phi x 3 y of one (species, pT) group; the exponential factored into a
+     (cell, y) and a (cell, phi) factor; the terms of each 256-cell run
      summed in f32, the runs in f64) vs its plain version (<= 1e-5 on both
      metrics) and the f64 polarization engine at the JAX package's bars
      (Snorm <= 2e-5, P <= 1e-5 of max |P|) at phase 23's 2,048 cells with
      thermal vorticity, 16 species, 51 x 48 x 21 y; on a surface whose
      even cells sit within 1e-4 of a y node (kernel_check.
      near_cancellation_surface: the pure pn spin terms take mT sinh(y -
-     eta) there); the ragged case on 3, 5 and 1 rapidities;
+     eta) there); on a cold, fast-flowing surface (kernel_check.
+     fast_flow_surface: |u_perp| ~ 3, T = 0.08 GeV, where the factors
+     would be inf and 0 without their shift; against f64 at
+     kernel_check.FAST_FLOW_TOL); the ragged case on 3, 5 and 1
+     rapidities;
  36. the 3+1d mode-5 main path at full width through the CLI: phase 24's
      surface (1e5 cells, 99,753 live, 100,000 real) plus vorticity in
      +-0.05 (drawn last: the other fields keep their bits), 371 species,
@@ -254,8 +259,10 @@ Phases (any failure raises; nothing is caught):
      (1.907e12 evaluations); the four files St, Sx, Sy, Sn hold
      19,072,368 finite rows each.  Then P1's 3+1d mode on that path's
      operands timed between samples of the SM clock, twice for equal bits
-     and finite sums; evaluations/s, the share of the bound, sfu_floor_ms
-     and fp32_issue_floor_ms (phase 2's SASS counts); against its plain
+     and finite sums; evaluations/s, the share of the bound, sfu_floor_ms,
+     fp32_issue_floor_ms and issue_floor_ms (all its instructions over
+     the card's 128 issue lanes an SM; phase 2's SASS counts); against its
+     plain
      version on the first 1,024 real cells at the full M, both timed; and
      the kernel against the f64 engine (~5 ms a cell at full width) on
      the surface cut to its first 2,048 cells, at the JAX bars.
@@ -386,11 +393,14 @@ OPS_PER_EVALUATION = {
     "cooper_frye_feqmod_3d": {"modified": 55, "breakdown": 64,
                               "famod_modified": 55, "famod_breakdown": 28},
     # P1's 3+1d mode, one evaluation per (cell, m): the mT parts 4 (e0,
-    # e3, d0, d3), u.p and p.dsigma against (cosh, sinh) 6, the spin
-    # values' (cosh, sinh) parts 14, their px/py parts and exy, dxy 14,
-    # f0 5, w 2, g 3, the five terms 8 and their f32 sums 5; the
-    # conversions and f64 sums once per 64-cell run
-    "polarization_f32_3d": 61 + 10 / 64,
+    # e3, d0, d3) and the shift A = qa pT 1; the y factor 5 (e_m against
+    # (cosh, sinh) 3, - A, exp2) and p.dsigma's (cosh, sinh) part 3; the
+    # spin values' (cosh, sinh) parts 14; the phi factor 5 (exy 3, + A,
+    # exp2) and the px/py parts of p.dsigma and the spin values 11; f0 4
+    # (the product, + sign, the clamp, 1 / x), w 2, g 3, the five terms 8
+    # and their f32 sums 5; the conversions and f64 sums once per 256-cell
+    # run
+    "polarization_f32_3d": 65 + 10 / 256,
 }
 # What the kernels execute per evaluation, counted the same way from their
 # sources (a multiply-add counts two; work shared by a thread's 4 momenta
@@ -435,13 +445,16 @@ EXECUTED_OPS_PER_EVALUATION = {
                               "breakdown": 60 + 3 / 4,
                               "famod_modified": 33 + 12 / 2 + 12 / 7,
                               "famod_breakdown": 24 + 3 / 4},
-    # P1's 3+1d mode, per evaluation 27: the exponent 1, 2^x 1, + sign 1,
-    # the clamp 1, the reciprocal 5, p.dsigma and w 2, g 3, the four spin
-    # values 4 and their sums 8, W 1; per (cell, y), shared by the tile's
-    # 4 phi, 14 (u.p, p.dsigma, the spin values against cosh and sinh);
-    # per (cell, phi), shared by its 3 y rows, 14; per (cell, group) 10;
-    # per 64-cell run, the conversions and f64 adds 10 a momentum
-    "polarization_f32_3d": 27 + 14 / 4 + 14 / 3 + 10 / 12 + 10 / 64,
+    # P1's 3+1d mode, per evaluation 22: the two factors' product + sign 2,
+    # the clamp 1, the reciprocal (rcp.approx, no Newton step) 1, p.dsigma
+    # and w 2, g 3, the four spin values 4 and their sums 8, W 1; per
+    # (cell, y), shared by the tile's 4 phi, 16 (u.p, p.dsigma, the spin
+    # values against cosh and sinh 14, the y factor's - A and 2^x 2); per
+    # (cell, phi), shared by its 3 y rows, 16 (the px/py parts 14, the phi
+    # factor's + A and 2^x 2); per (cell, group), shared by its 12
+    # momenta, 11 (the mT parts 10, the shift 1); per 256-cell run, the
+    # conversions and f64 adds 10 a momentum
+    "polarization_f32_3d": 22 + 16 / 4 + 16 / 3 + 11 / 12 + 10 / 256,
 }
 
 
@@ -610,7 +623,7 @@ def phase_build() -> dict:
     code = kb.sass_functions(built["polarization_f32"][0])
     [p1_3d] = [k for k in code if re.search(
         MAIN_PATH_KERNEL["polarization_f32_3d"], k)]
-    loop = kb.inner_loops(code[p1_3d])[0]
+    loop = kb.inner_loops(code[p1_3d], kb.P1_3D_UNIT)[0]
     p1_3d = {**kb.per_evaluation(loop),
              "evaluations_per_cell_iteration": loop["evaluations"]}
     print(f"P1 3+1d SASS: the cell loop of {loop['evaluations']} "
@@ -2735,7 +2748,9 @@ def phase_p1_3d_compare(wd: Path) -> dict:
         "surface": kc.check_polarization_3d_case(wd, 2048, 7, "cuda",
                                                  cell_block=512),
         "near a y node": kc.check_polarization_3d_case(
-            wd, 2048, 7, "cuda", near=True, cell_block=512)}
+            wd, 2048, 7, "cuda", near=True, cell_block=512),
+        "fast cold cells": kc.check_polarization_3d_case(
+            wd, 2048, 7, "cuda", fast_flow=True, cell_block=512)}
     for n_y in kc.RAGGED_Y:
         cases[f"ragged {json.dumps(kc.RAGGED)} x {n_y} y"] = \
             kc.check_polarization_3d_ragged_case(wd, 2048, 7, "cuda",
@@ -2751,9 +2766,10 @@ def phase_p1_3d_compare(wd: Path) -> dict:
                 f"P1 3+1d {name}: kernel disagrees, does not repeat or "
                 f"launched {r.launches} times ({r.vs_plain} vs plain, "
                 f"{r.vs_f64} vs f64; bars {kc.POLZN_TOL_PLAIN:g} plain, "
-                f"{kc.POLZN_TOL_NORM:g} / {kc.POLZN_TOL_P:g} f64)")
+                f"{r.f64_bars[0]:g} / {r.f64_bars[1]:g} f64)")
         record[name] = {"vs_plain": r.vs_plain, "vs_f64": r.vs_f64,
-                        "plain_vs_f64": r.plain_vs_f64}
+                        "plain_vs_f64": r.plain_vs_f64,
+                        "f64_bars": r.f64_bars}
     return record
 
 
@@ -2850,13 +2866,20 @@ def phase_p1_3d_full(wd: Path, sass: dict) -> dict:
     sfu = (sass["mufu"] + sass["convert"]) * ops.evaluations
     sfu_floor = sfu / (SFU_LANES_PER_SM * H100_SMS * clock_max * 1e6) * 1e3
     floor = fp32_issue_floor_ms(sass["fp32"], ops.evaluations, clock_max)
+    # every instruction takes an issue slot of one of an SM's four
+    # schedulers, each a warp of 32 lanes a clock: 128 lanes, as FP32's
+    issue = fp32_issue_floor_ms(sass["instructions"], ops.evaluations,
+                                clock_max)
     print(f"bound at full size {main_bound:.1f} ms: "
           f"{100 * main_bound / full_ms:.1f} % of it; sfu_floor_ms "
           f"{sfu_floor:.1f} ({sass['mufu']:.2f} MUFU + {sass['convert']:.2f} "
           f"conversions an evaluation over {SFU_LANES_PER_SM} x {H100_SMS} "
           f"lanes at {clock_max} MHz): {100 * sfu_floor / full_ms:.1f} % of "
           f"it; fp32_issue_floor_ms {floor:.1f} ({sass['fp32']:.2f} FP32 "
-          f"instructions an evaluation): {100 * floor / full_ms:.1f} % of it")
+          f"instructions an evaluation): {100 * floor / full_ms:.1f} % of "
+          f"it; issue_floor_ms {issue:.1f} ({sass['instructions']:.2f} "
+          f"instructions an evaluation): {100 * issue / full_ms:.1f} % of "
+          f"it")
     record = {"register_tile": g.r, "register_tile_y": g.ty,
               "threads": g.threads, "cell_split": g.n_split,
               "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
@@ -2867,7 +2890,10 @@ def phase_p1_3d_full(wd: Path, sass: dict) -> dict:
               "main_path_share_of_sfu_floor": sfu_floor / full_ms,
               "fp32_per_evaluation": sass["fp32"],
               "fp32_issue_floor_ms": floor,
-              "main_path_share_of_fp32_floor": floor / full_ms, **r,
+              "main_path_share_of_fp32_floor": floor / full_ms,
+              "instructions_per_evaluation": sass["instructions"],
+              "issue_floor_ms": issue,
+              "main_path_share_of_issue_floor": issue / full_ms, **r,
               # no single PyTorch call computes a polarization sum
               "library_ms": None, "cells_compared": n,
               "snorm_rel_err": norm_err, "p_err": p_err}

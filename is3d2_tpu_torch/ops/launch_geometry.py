@@ -176,16 +176,19 @@ def momentum_index(g: Geometry) -> np.ndarray:
     return m.reshape(g.blocks, THREADS, g.r)
 
 
-def momentum_index_3d(g: Geometry3d) -> np.ndarray:
+def momentum_index_3d(g: Geometry3d, strided: bool = False) -> np.ndarray:
     """(blocks, threads, ty, r) int64: the momentum point m that thread
     ``thread`` of block ``block`` owns in slot (i, j) -- y ``i``, phi ``j``
     of its tile -- or -1 where the slot is masked.  The same arithmetic as
-    B1's 3+1d mode."""
+    B1's 3+1d mode: a thread's phi are consecutive; ``strided``, as P1's
+    3+1d mode: they are t, t + tiles_per_row, ... for its t-th phi tile."""
     gid = np.arange(g.blocks * g.threads, dtype=np.int64)
     tiles = g.tiles_per_row * g.y_tiles
     group, t = gid // tiles, gid % tiles
     y = (t // g.tiles_per_row * g.ty)[:, None, None] + np.arange(g.ty)[:, None]
-    phi = (t % g.tiles_per_row * g.r)[:, None, None] + np.arange(g.r)
+    col = (t % g.tiles_per_row)[:, None, None]
+    phi = (col + np.arange(g.r) * g.tiles_per_row if strided
+           else col * g.r + np.arange(g.r))
     m = (group[:, None, None] * g.n_y + y) * g.row_len + phi
     m = np.where((y < g.n_y) & (phi < g.row_len) & (m < g.n_mom), m, -1)
     return m.reshape(g.blocks, g.threads, g.ty, g.r)

@@ -345,27 +345,37 @@ def compute_polarization_kernel(cells: CellArrays, species: SpeciesArrays,
 #
 # Operand layout (all contiguous; written by ``pack_inputs_3d``):
 #
-#   cell  (C, 20) f32      columns CELL_COLS of the real cells, as in 2+1d
+#   cell  (C, 21) f32      columns CELL_COLS_3D of the real cells: 2+1d's
+#                          CELL_COLS, then qa = |u_perp| log2(e) / T
 #   ytab  (C, Ny, 2) f32   cosh(y - eta_cell), sinh(y - eta_cell)
-#   mom   (5, M) f32       rows MOM_ROWS, m = (species, pT, y, phi): a
+#   mom   (6, M) f32       rows MOM_ROWS_3D, m = (species, pT, y, phi): a
 #                          (species, pT) group is n_y rows of row_len phi
 #
 # and the result is (5, M) f64: the sums over the cells of (g S_t, g S_x,
 # g S_y, g S_n, w), the first four times -1 / (4m).
 #
 # The arithmetic, in f32.  Per (cell, group): the mT parts of the cell's
-# rows (e0 = qe0 mT, e3 = qe3 mT, ...); per (cell, y): e_m = e0 cosh +
-# e3 sinh, d_m, and the spin values' (mT cosh, mT sinh) parts; per (cell,
-# phi): their px/py parts exy, dxy, ...; per evaluation x = e_m + exy,
-# f0 = 1 / min(2^x + sign, 2^126), w = (d_m + dxy) f0,
-# g = w (1 - sign f0) and the five terms g (s_m + s_xy), w.  Five sums
-# per evaluation: the terms of a run of TILE_CELLS_3D cells (the runs
-# [64 k, 64 k + 64) of the real cells, whatever the cell split) are added
-# in f32 in cell order, and each run's sum goes into the f64 sums, so the
-# f32 -> f64 conversions are paid once per run, not per evaluation.  The
-# JAX program sums a whole cell block in f32.
+# rows (e0 = qe0 mT, e3 = qe3 mT, ...) and the shift A = qa pT; per (cell,
+# y): e_m = e0 cosh + e3 sinh, the y factor Ey = 2^(e_m - A), d_m, and the
+# spin values' (mT cosh, mT sinh) parts; per (cell, phi): their px/py parts
+# exy, dxy, ... and the phi factor Ep = 2^(exy + A); per evaluation
+# f0 = 1 / min(Ey Ep + sign, 2^126), w = (d_m + dxy) f0,
+# g = w (1 - sign f0) and the five terms g (s_m + s_xy), w.
+# Ey Ep = 2^(u.p log2(e) / T), and the shift keeps both exponents >= 0
+# (exy + A >= 0 for every phi; e_m - A >= k (mT sqrt(1 + u_perp^2) -
+# |u_perp| pT) > 0 for a timelike u, k = log2(e) / T), so neither factor
+# underflows while the other overflows: where the product overflows, f0 is
+# 2^-126 as in 2+1d, never a NaN, and Snorm stays above 0 where every term
+# of a momentum overflows.  Five sums per evaluation: the terms
+# of a run of RUN_CELLS_3D cells (the runs [256 k, 256 k + 256) of the
+# real cells, whatever the cell split) are added in f32 in cell order, and
+# each run's sum goes into the f64 sums, so the f32 -> f64 conversions and
+# the kernel's round trips to its f64 sums are paid once per run, not per
+# evaluation.  The JAX program sums a whole cell block in f32.
 
-TILE_CELLS_3D = 64   # kTileCells3: the cells staged at once, and one f32 run
+RUN_CELLS_3D = 256   # kRunCells3: one f32 run, and the grain of a cell split
+CELL_COLS_3D = CELL_COLS + ("qa",)
+MOM_ROWS_3D = MOM_ROWS + ("pT",)
 
 # kP3, kY3, kThreads3, kMinBlocks3 of csrc/polarization_f32.cu: the
 # geometry of a tensor that lies off the card
@@ -376,9 +386,9 @@ TILE_3D = Tile3d(r=4, ty=3, threads=64, blocks_per_sm=4)
 class PolarizationOperands3d:
     """Kernel P1's 3+1d operands (see above)."""
 
-    cell: torch.Tensor    # (C, 20) f32, real cells only
+    cell: torch.Tensor    # (C, 21) f32, real cells only
     ytab: torch.Tensor    # (C, Ny, 2) f32
-    mom: torch.Tensor     # (5, M) f32
+    mom: torch.Tensor     # (6, M) f32
     row_len: int          # Nphi
     n_y: int              # Ny
 
@@ -408,6 +418,8 @@ def pack_inputs_3d(cells: CellArrays, species: SpeciesArrays,
     c = _real_cells(cells)
     d = grid.y[None, :] - c.eta[:, None]
     ytab = torch.stack([torch.cosh(d), torch.sinh(d)], dim=2)
+    qa = torch.sqrt(c.ux ** 2 + c.uy ** 2) * (math.log2(math.e) / T)
+    cell = torch.cat([_cell_columns(c, T), qa.to(f32)[:, None]], dim=1)
     S, NpT, Ny = species.mass.shape[0], grid.pT.shape[0], grid.y.shape[0]
     Nphi = grid.cos_phi.shape[0]
     shape = (S, NpT, Ny, Nphi)
@@ -420,52 +432,53 @@ def pack_inputs_3d(cells: CellArrays, species: SpeciesArrays,
     py = (grid.pT[:, None] * grid.sin_phi[None, :])[None, :, None, :]
     rows = {"mT": flat(mT[:, :, None, None]), "px": flat(px),
             "py": flat(py), "sgn": flat(species.sign[:, None, None, None]),
-            "inv4m": flat((0.25 / species.mass)[:, None, None, None])}
-    mom = torch.stack([rows[k].to(f32) for k in MOM_ROWS]).contiguous()
+            "inv4m": flat((0.25 / species.mass)[:, None, None, None]),
+            "pT": flat(grid.pT[None, :, None, None])}
+    mom = torch.stack([rows[k].to(f32) for k in MOM_ROWS_3D]).contiguous()
     return PolarizationOperands3d(
-        cell=_cell_columns(c, T), ytab=ytab.to(f32).contiguous(), mom=mom,
+        cell=cell.contiguous(), ytab=ytab.to(f32).contiguous(), mom=mom,
         row_len=Nphi, n_y=Ny)
 
 
 def polarization_f32_3d_plain(cell, ytab, mom, row_len: int, n_y: int):
-    """Plain torch version of the 3+1d mode: the kernel's f32 arithmetic in
-    its order on (cells, momenta) tensors, the terms of each run of
-    TILE_CELLS_3D cells added in f32 one cell after another, as the kernel
+    """Plain torch version of the 3+1d mode: the kernel's f32 arithmetic
+    in its order on (cells, momenta) tensors, the terms of each run of
+    RUN_CELLS_3D cells added in f32 one cell after another, as the kernel
     adds them, and the runs summed in f64.  Runs on any device.  Returns
     (5, M) f64."""
     C, M = cell.shape[0], mom.shape[1]
-    mT, px, py, sgn, inv4m = mom
+    mT, px, py, sgn, inv4m, pT = mom
     y_of = torch.arange(M, device=mom.device) // row_len % n_y
     out = torch.zeros((N_SUMS, M), dtype=f64, device=mom.device)
-    m_blk = max(1, _PLAIN_BLOCK_ELEMENTS // TILE_CELLS_3D)
+    m_blk = max(1, _PLAIN_BLOCK_ELEMENTS // RUN_CELLS_3D)
     for m0 in range(0, M, m_blk):
         m = slice(m0, m0 + m_blk)
-        for c0 in range(0, C, TILE_CELLS_3D):
-            c1 = min(C, c0 + TILE_CELLS_3D)
+        for c0 in range(0, C, RUN_CELLS_3D):
+            c1 = min(C, c0 + RUN_CELLS_3D)
             q = {name: cell[c0:c1, i:i + 1]
-                 for i, name in enumerate(CELL_COLS)}
+                 for i, name in enumerate(CELL_COLS_3D)}
             t = ytab[c0:c1][:, y_of[m]]
             ch, sh = t[..., 0], t[..., 1]
-            # once per (cell, group): the mT parts
+            # once per (cell, group): the mT parts and the shift
+            a = q["qa"] * pT[m]
             e0, e3 = q["qe0"] * mT[m], q["qe3"] * mT[m]
             d0, d3 = q["qd0"] * mT[m], q["qd3"] * mT[m]
-            # once per (cell, y)
-            e_m = e0 * ch + e3 * sh
+            # once per (cell, y): the y factor 2^(e_m - A)
+            ey = torch.exp2(e0 * ch + e3 * sh - a)
             d_m = d0 * ch + d3 * sh
             st_m = (q["qt3"] * mT[m]) * sh
             sx_m = (q["qx0"] * mT[m]) * ch + (q["qx3"] * mT[m]) * sh
             sy_m = (q["qy0"] * mT[m]) * ch + (q["qy3"] * mT[m]) * sh
             sn_m = (q["qn0"] * mT[m]) * ch
-            # once per (cell, phi)
-            exy = q["qe1"] * px[m] + q["qe2"] * py[m]
+            # once per (cell, phi): the phi factor 2^(exy + A)
+            ep = torch.exp2(q["qe1"] * px[m] + q["qe2"] * py[m] + a)
             dxy = q["qd1"] * px[m] + q["qd2"] * py[m]
             st_xy = q["qt1"] * px[m] + q["qt2"] * py[m]
             sx_xy = q["qx2"] * py[m]
             sy_xy = q["qy1"] * px[m]
             sn_xy = q["qn1"] * px[m] + q["qn2"] * py[m]
             # per evaluation
-            f0 = 1.0 / torch.clamp(torch.exp2(e_m + exy) + sgn[m],
-                                   max=MAX_DEN)
+            f0 = 1.0 / torch.clamp(ey * ep + sgn[m], max=MAX_DEN)
             w = (d_m + dxy) * f0
             g = w * (1.0 - sgn[m] * f0)
             terms = torch.stack([g * (st_m + st_xy), g * (sx_m + sx_xy),
@@ -483,9 +496,9 @@ def _check_3d(cell, ytab, mom, row_len, n_y) -> None:
         raise ValueError("polarization_f32_3d needs row_len and n_y, the phi "
                          "and rapidity counts of the momentum grid")
     C = cell.shape[0]
-    want = {"cell": (cell, (C, len(CELL_COLS))),
+    want = {"cell": (cell, (C, len(CELL_COLS_3D))),
             "ytab": (ytab, (C, n_y, 2)),
-            "mom": (mom, (len(MOM_ROWS), mom.shape[-1]))}
+            "mom": (mom, (len(MOM_ROWS_3D), mom.shape[-1]))}
     for name, (t, shape) in want.items():
         if t.device != cell.device:
             raise ValueError(f"{name} is on {t.device}, cell on {cell.device}")
@@ -506,7 +519,7 @@ def geometry_3d(n_mom: int, n_cells: int, row_len: int, n_y: int,
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device is not None and device.type == "cuda" else H100_SMS)
     return launch_geometry_3d(n_mom, row_len, n_y, n_cells, tile.r, tile.ty,
-                              TILE_CELLS_3D, tile.threads,
+                              RUN_CELLS_3D, tile.threads,
                               tile.blocks_per_sm, sms)
 
 
@@ -566,12 +579,12 @@ def polarization_f32_3d(cell, ytab, mom, row_len: int | None = None,
         raise ValueError(f"{n_y} rapidities run in chunks of {chunk}: the "
                          "momenta must be whole (species, pT) groups")
     groups = M // (n_y * row_len)
-    full = mom.reshape(N_SUMS, groups, n_y, row_len)
+    full = mom.reshape(mom.shape[0], groups, n_y, row_len)
     out = torch.empty((N_SUMS, groups, n_y, row_len), dtype=f64,
                       device=cell.device)
     for y0 in range(0, n_y, chunk):
         y1 = min(n_y, y0 + chunk)
-        part = full[:, :, y0:y1].reshape(N_SUMS, -1).contiguous()
+        part = full[:, :, y0:y1].reshape(mom.shape[0], -1).contiguous()
         g = geometry_3d(part.shape[1], cell.shape[0], row_len, y1 - y0, tile,
                         cell.device)
         out[:, :, y0:y1] = launch_3d(

@@ -20,7 +20,8 @@ script
     from ``cuobjdump``, the registers, stack and shared memory of the
     instantiations the main paths launch, and their inner eta loops'
     instructions by pipe per evaluation (an evaluation is one MUFU.EX2 of
-    the loop: every evaluation takes one expf);
+    the loop: every evaluation takes one expf; in P1's 3+1d mode, whose
+    exponentials the register tile shares, one MUFU.RCP);
   * makes the main paths' operands (df 1 f32c for B1; df 4 f32 with shear
     0.2 and bulk 0.1 for B3; df 2 f64 with use_pallas 1 for B2; ``b1_3d``,
     listed in ``--only``: df 1 f32c on a 3+1d surface, 21 y, for B1's 3+1d
@@ -170,20 +171,23 @@ def _by_pipe(ops: list[str]) -> dict:
     return counts
 
 
-def inner_loops(code: list[tuple[int, str, str]]) -> list[dict]:
+def inner_loops(code: list[tuple[int, str, str]],
+                unit: str = "MUFU.EX2") -> list[dict]:
     """Instruction counts by pipe of every innermost loop (a backward branch
     with no other backward branch inside it) that holds a MUFU.EX2, and
-    its address range."""
+    its address range.  Its evaluations are its ``unit`` instructions: one
+    MUFU.EX2 an evaluation, or, where a kernel shares its exponentials
+    across a register tile (P1's 3+1d mode), one MUFU.RCP."""
     back = _back_edges(code)
     loops = []
     for lo, hi in back:
         if any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in back):
             continue
         body = [op for addr, op, _ in code if lo <= addr <= hi]
-        n_exp = sum(op == "MUFU.EX2" for op in body)
-        if n_exp == 0:
+        n_eval = sum(op == unit for op in body)
+        if "MUFU.EX2" not in body or n_eval == 0:
             continue
-        counts = {"evaluations": n_exp, **_by_pipe(body)}
+        counts = {"evaluations": n_eval, **_by_pipe(body)}
         counts["mufu kinds"] = sorted({op for op in body
                                        if op.startswith("MUFU")})
         counts["range"] = (lo, hi)
@@ -222,10 +226,11 @@ def loop_nest(code: list[tuple[int, str, str]]) -> dict:
             "f2f_per_cell_step": sum(op.startswith("F2F") for op in step_ops)}
 
 
-def report_build(label: str, name: str, lib: Path) -> dict:
+def report_build(label: str, name: str, lib: Path,
+                 unit: str = "MUFU.EX2") -> dict:
     """Print and return the resources and eta loops of the instantiation the
     main path launches (of every kernel with an eta loop, where a tree names
-    its kernels otherwise)."""
+    its kernels otherwise); ``unit``: see inner_loops."""
     code = sass_functions(lib)
     pat = kc.MAIN_PATH_KERNEL[name]
     names = [k for k in code if re.search(pat, k)] or list(code)
@@ -234,7 +239,7 @@ def report_build(label: str, name: str, lib: Path) -> dict:
              else {})
     record = {}
     for k in names:
-        loops = inner_loops(code[k])
+        loops = inner_loops(code[k], unit)
         if not loops:
             continue
         spills = {key: ptxas.get(k, {}).get(key)
@@ -319,10 +324,18 @@ TILES_3D = ("4x3x128x3", "4x3x256x2", "4x7x128x3", "4x7x128x2", "8x3x128x2")
 TILES_3D_B3 = ("4x3x128x3", "4x3x256x2", "4x3x128x2", "4x1x128x4",
                "2x3x128x4", "4x7x128x2", "2x7x128x3", "2x1x128x4",
                "4x7x128x3", "8x3x128x2")
-# P1's 3+1d mode's (--tile3d-p1): the f64 sums of a thread (5 P Y of them)
-# live in shared memory beside the cell tile and its y rows
+# P1's 3+1d mode's (--tile3d-p1): the first eight raced when a thread's f64
+# sums (5 P Y of them) lived in shared memory beside the cell tile and its
+# y rows, the rest with the exponential factored and the sums in the
+# launch's rows of its result
 TILES_3D_P1 = ("4x3x64x4", "4x3x128x2", "2x3x128x4", "4x2x128x3",
-               "4x1x128x4", "2x2x256x2", "2x7x128x2", "2x3x256x2")
+               "4x1x128x4", "2x2x256x2", "2x7x128x2", "2x3x256x2",
+               "4x7x64x4", "8x3x64x4", "6x3x64x5", "3x7x64x5", "4x3x64x6",
+               "4x6x64x4", "4x7x128x2", "8x3x128x2", "6x3x64x4",
+               "4x3x128x3", "2x7x64x6")
+# the instruction P1's 3+1d mode runs once an evaluation (its exponentials
+# are shared across the register tile)
+P1_3D_UNIT = "MUFU.RCP"
 # the line that fixes a 3+1d tile: B1's 3+1d mode's in
 # csrc/cooper_frye_comp.cu, B3's clean kernel's in csrc/cooper_frye_feqmod.cu
 # (its mixed kernel's constants carry an m: kP3m, ...)
@@ -861,10 +874,14 @@ def main(argv=None) -> int:
     few_species = [int(s) for s in a.few_species.split(",") if s]
 
     # every tree's sources, one nvcc each, all at once
-    builds = {(k.module, package): (k, package) for k in kernels
+    builds = {(k.module, package) for k in kernels
               for package in packages.values()}
+    if {"p1", "p1_3d"} & set(only):
+        builds |= {("polarization_f32", package)
+                   for package in packages.values()}
     with concurrent.futures.ThreadPoolExecutor(len(builds) or 1) as pool:
-        list(pool.map(lambda kp: kp[0].library(kp[1]), builds.values()))
+        list(pool.map(lambda mp: importlib.import_module(
+            f"{mp[1]}.ops._build").build(mp[0]), builds))
     record = {"card": card, "cells": a.cells, "builds": {}, "kernels": {}}
     failed = []
     for k in kernels:
@@ -882,8 +899,8 @@ def main(argv=None) -> int:
         for label, package in packages.items():
             build = importlib.import_module(f"{package}.ops._build")
             record["builds"][f"{key} {label}"] = report_build(
-                f"{key} [{label}]", name,
-                build.build("polarization_f32")[0])
+                f"{key} [{label}]", name, build.build("polarization_f32")[0],
+                P1_3D_UNIT if key == "p1_3d" else "MUFU.EX2")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     scratch = Path("build")

@@ -830,6 +830,8 @@ class PolarizationCaseResult:
     launches: int         # kernel launches of the checked call
     repeats: bool         # a second call gave the same bits
     folded: bool          # the instantiation: eta-folded or general
+    # the bars against the f64 engine: Snorm, P
+    f64_bars: tuple[float, float] = (POLZN_TOL_NORM, POLZN_TOL_P)
 
     @property
     def vs_plain(self) -> tuple[float, float]:
@@ -848,7 +850,7 @@ class PolarizationCaseResult:
         norm, p = self.vs_f64
         return bool(np.isfinite(self.kernel).all() and self.repeats
                     and max(self.vs_plain) <= POLZN_TOL_PLAIN
-                    and norm <= POLZN_TOL_NORM and p <= POLZN_TOL_P)
+                    and norm <= self.f64_bars[0] and p <= self.f64_bars[1])
 
 
 def polarization_engine_state(workdir: str | Path, cfg: Config, surf,
@@ -967,25 +969,65 @@ def near_cancellation_surface(workdir: str | Path, n_cells: int, seed: int):
     return surf
 
 
+# A cold, fast-flowing 3+1d surface (fast_flow_surface): every cell at
+# FAST_FLOW_T, |u_perp| within 5 % of FAST_FLOW_U.  There, at pT ~ 3 GeV,
+# log2(e) |u_perp| pT / T reaches ~170: split into its (cell, y) and (cell,
+# phi) factors without P1's shift, 2^(u.p log2(e) / T) would be inf times
+# 0 for the cells flowing along phi.
+FAST_FLOW_U = 3.0
+FAST_FLOW_T = 0.08      # GeV
+# The bar there against the f64 engine, on Snorm and P: with |u.p| / T up
+# to ~250, one f32 rounding of an exponent's piece (e0 = qe0 mT, cosh d,
+# A = qa pT, ...) is ~1.5e-5 of it and moves the term by ~1e-5, in any
+# order of the arithmetic: the plain version is as far from the f64
+# engine as the kernel, and so is the JAX package's f32 program
+# (tests/test_torch_polarization_3d.py::
+# test_p1_3d_shifted_factors_stay_finite_on_fast_cold_cells prints the
+# port's and its).  The bar is a few such roundings: it catches a wrong
+# shift or a lost factor, not the f32 route's own limit.
+FAST_FLOW_TOL = 1e-4
+
+
+def fast_flow_surface(n_cells: int, seed: int):
+    """A 3+1d make_surface(n_cells, seed, vorticity=True) surface at
+    FAST_FLOW_T whose transverse flow is FAST_FLOW_U in size (within 5 %)
+    and random in direction, from a stream of its own."""
+    surf = make_surface(n_cells, seed=seed, dimension=3, vorticity=True)
+    rng = np.random.default_rng([seed, 4])
+    u = FAST_FLOW_U * rng.uniform(0.95, 1.05, n_cells)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n_cells)
+    surf.ux, surf.uy = u * np.cos(phi), u * np.sin(phi)
+    surf.T = np.full(n_cells, FAST_FLOW_T)
+    return surf
+
+
 def check_polarization_3d_case(workdir: str | Path, n_cells: int, seed: int,
                                device, near: bool = False,
+                               fast_flow: bool = False,
                                **cfg_fields) -> PolarizationCaseResult:
     """P1's 3+1d mode (its plain version on a CPU device), the plain
     version and the f64 engine on a 3+1d surface with thermal vorticity
-    (``near``: near_cancellation_surface) with the workdir's species and
-    tables (mode 5, f32c, dimension 3)."""
+    (``near``: near_cancellation_surface; ``fast_flow``:
+    fast_flow_surface, held to the f64 engine at FAST_FLOW_TOL) with the
+    workdir's species and tables (mode 5, f32c, dimension 3)."""
     cfg = Config(compute_dtype="f32c", mode=5, dimension=3, **cfg_fields)
-    surf = (near_cancellation_surface(workdir, n_cells, seed) if near else
-            make_surface(n_cells, seed=seed, dimension=3, vorticity=True))
+    if fast_flow:
+        surf = fast_flow_surface(n_cells, seed)
+    elif near:
+        surf = near_cancellation_surface(workdir, n_cells, seed)
+    else:
+        surf = make_surface(n_cells, seed=seed, dimension=3, vorticity=True)
     state = polarization_engine_state(workdir, cfg, surf, device)
     ops = polarization_operands_3d(state)
     out, plain, launches, repeats = _run(
         functools.partial(pz.polarization_f32_3d, **ops.layout()),
         functools.partial(pz.polarization_f32_3d_plain, **ops.layout()),
         ops.args())
+    bars = ((FAST_FLOW_TOL, FAST_FLOW_TOL) if fast_flow
+            else (POLZN_TOL_NORM, POLZN_TOL_P))
     return PolarizationCaseResult(out.cpu().numpy(), plain.cpu().numpy(),
                                   f64_polarization_3d(state), launches,
-                                  repeats, False)
+                                  repeats, False, bars)
 
 
 def check_polarization_3d_ragged_case(workdir: str | Path, n_cells: int,

@@ -1308,8 +1308,8 @@ def test_polarization_3d_kernel_ragged_case(workdir_3d, n_y):
 def test_polarization_3d_kernel_ragged_groups_and_cells(ragged_workdir_3d,
                                                         n_cells, n_groups):
     """Rows of 7 phi x 3 y under a tile of 4 x 3, groups that do not fill
-    a block, cell counts that fill neither the last 64-cell run nor the
-    last split, and a last group cut short."""
+    a block, cell counts that fill neither the last 64-cell tile, the last
+    256-cell run nor the last split, and a last group cut short."""
     _needs_cuda()
     ops = _p1_3d_operands(ragged_workdir_3d)
     n_mom = n_groups * 3 * 7 - (5 if n_groups > 1 else 0)
@@ -1322,13 +1322,13 @@ def test_polarization_3d_kernel_ragged_groups_and_cells(ragged_workdir_3d,
 def test_polarization_3d_kernel_splits_the_cells(workdir_3d):
     """A few momenta over many cells: the wrapper splits the cells across
     blockIdx.y (partials added in a fixed order), and the sums equal the
-    plain version's runs of 64 cells within its bar."""
+    plain version's runs of RUN_CELLS_3D cells within its bar."""
     _needs_cuda()
     ops = _p1_3d_operands(workdir_3d, n_surface=4096)
     mom = ops.mom[:, :21 * 8].contiguous()
     g = pz.geometry_3d(mom.shape[1], ops.cell.shape[0], ops.row_len,
                        ops.n_y, pz.TILE_3D, mom.device)
-    assert g.n_split > 1 and g.cells_per_split % pz.TILE_CELLS_3D == 0
+    assert g.n_split > 1 and g.cells_per_split % pz.RUN_CELLS_3D == 0
     _p1_3d_agrees((ops.cell, ops.ytab, mom), **ops.layout())
     assert pz.polarization_f32_3d.last_geometry.n_split == g.n_split
 
@@ -1356,6 +1356,20 @@ def test_polarization_3d_kernel_overflowing_exponential(workdir_3d):
     ops = _p1_3d_operands(workdir_3d, T=0.002)
     assert torch.isfinite(pz.polarization_f32_3d(*ops.args(),
                                                  **ops.layout())).all()
+
+
+@pytest.mark.gpu
+def test_polarization_3d_kernel_fast_cold_cells(workdir_3d):
+    """kernel_check.fast_flow_surface (|u_perp| ~ 3, T = 0.08 GeV, pT up
+    to 3 GeV), where the factored exponential's two factors would be inf
+    and 0 without the shift: every sum finite, <= 1e-5 against the plain
+    version, kc.FAST_FLOW_TOL against the f64 engine, the same bits
+    twice."""
+    _needs_cuda()
+    r = kc.check_polarization_3d_case(workdir_3d, 512, 3, "cuda",
+                                      fast_flow=True, cell_block=512)
+    assert r.launches == 1 and r.repeats
+    assert r.ok, (r.vs_plain, r.vs_f64)
 
 
 @pytest.mark.gpu

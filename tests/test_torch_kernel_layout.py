@@ -318,6 +318,22 @@ def test_inner_loops_counts_the_eta_loop_by_pipe():
     assert loop["mufu kinds"] == ["MUFU.EX2", "MUFU.RCP"]
 
 
+def test_inner_loops_counts_evaluations_by_their_unit():
+    """A loop whose exponentials a register tile shares (P1's 3+1d mode:
+    one MUFU.EX2 per row and per column, one MUFU.RCP per evaluation)
+    counts its evaluations by the reciprocals; a loop without an expf is
+    not reported whatever it holds."""
+    from is3d2_tpu_torch.tools.kernel_bench import P1_3D_UNIT, inner_loops
+    ops = ["MUFU.EX2", "MUFU.EX2", "FFMA", "MUFU.RCP", "FFMA", "MUFU.RCP",
+           "FFMA", "MUFU.RCP", "FFMA", "MUFU.RCP"]
+    code = [(0x10 * i, op, "R0, R1") for i, op in enumerate(ops)]
+    code += [(0xa0, "BRA", "0x0"),
+             (0xb0, "MUFU.RCP", "R2, R2"), (0xc0, "BRA", "0xb0")]
+    (loop,) = inner_loops(code, P1_3D_UNIT)
+    assert loop["evaluations"] == 4 and loop["mufu"] == 6
+    assert inner_loops(code)[0]["evaluations"] == 2
+
+
 def test_resources_reads_the_cuobjdump_report():
     from is3d2_tpu_torch.tools.kernel_bench import resources
     text = ("Fatbin elf code:\n================\narch = sm_90a\n\n"
@@ -765,10 +781,10 @@ def test_p1_3d_tile_stays_in_one_group(n_y, n_phi, tile):
     mom = _p1_3d_momenta(n_phi, n_y)
     M = mom.shape[1]
     g = pz.geometry_3d(M, 300, n_phi, n_y, tile)
-    owner = momentum_index_3d(g)
+    owner = momentum_index_3d(g, strided=True)
     assert owner.shape == (g.blocks, tile.threads, tile.ty, tile.r)
     np.testing.assert_array_equal(np.sort(owner[owner >= 0]), np.arange(M))
-    rows = dict(zip(pz.MOM_ROWS, mom.numpy()))
+    rows = dict(zip(pz.MOM_ROWS_3D, mom.numpy()))
     group = np.arange(M) // (n_y * n_phi)
     y_of = np.arange(M) // n_phi % n_y
     for slots in owner.reshape(-1, tile.ty, tile.r):
@@ -777,7 +793,7 @@ def test_p1_3d_tile_stays_in_one_group(n_y, n_phi, tile):
             continue
         assert slots[0, 0] >= 0
         assert (group[mine] == group[mine[0]]).all()
-        for key in ("mT", "sgn", "inv4m"):
+        for key in ("mT", "sgn", "inv4m", "pT"):
             assert (rows[key][mine] == rows[key][mine[0]]).all()
         for i, row in enumerate(slots):
             row = row[row >= 0]
@@ -788,67 +804,106 @@ def test_p1_3d_tile_stays_in_one_group(n_y, n_phi, tile):
                 assert (rows[key][col] == rows[key][col[:1]]).all()
 
 
-def _p1_smem(tile, n_y):
+@pytest.mark.parametrize("strided,least", [(True, 0.8), (False, 0.0)])
+def test_p1_3d_warps_read_whole_sectors_of_the_sums(strided, least):
+    """On phase 36's grid (48 phi, 21 y) the f64 sums a warp reads and
+    writes together (one slot (i, j) of its 32 threads) fill at least 80 %
+    of the 32-byte sectors they touch with P1's strided phi, and 25 % with
+    a thread's phi consecutive (B1's layout): the reason for the stride."""
+    t = pz.TILE_3D
+    g = pz.geometry_3d(51 * 21 * 48 * 3, 300, 48, 21, t)
+    owner = momentum_index_3d(g, strided=strided)
+    warps = owner.reshape(-1, 32, t.ty, t.r)
+    used = []
+    for i in range(t.ty):
+        for j in range(t.r):
+            m = warps[:, :, i, j]
+            for row in m:
+                row = row[row >= 0]
+                if row.size:
+                    used.append(8 * row.size / (32 * np.unique(row // 4).size))
+    share = float(np.mean(used))
+    assert share >= least
+    if not strided:
+        assert share <= 1 / t.r + 1e-9
+
+
+def _p1_source_int(src, name):
+    return int(re.search(rf"constexpr (?:int|size_t) {name} = (\d+);",
+                         src)[1])
+
+
+def _p1_smem(src, n_y):
     """A block's shared memory in P1's 3+1d mode: the cell tile (static),
-    the f64 sums and the tile's y rows (dynamic)."""
-    return (4 * pz.TILE_CELLS_3D * len(pz.CELL_COLS)
-            + 8 * pz.N_SUMS * tile.r * tile.ty * tile.threads
-            + 8 * pz.TILE_CELLS_3D * n_y)
+    each cell's columns staged at a stride of kCellStride3 floats, and the
+    tile's y rows (dynamic); no tile shape enters it."""
+    tile = _p1_source_int(src, "kTileCells3")
+    return (4 * tile * _p1_source_int(src, "kCellStride3")
+            + 8 * tile * n_y)
 
 
-def _p1_max_y(src, tile):
-    """The source's kMaxY for ``tile``: the y rows that fit a block's
-    shared memory (kBlockSmem) beside the cell tile and the f64 sums, at
-    most the source's cap."""
-    smem = int(re.search(r"constexpr size_t kBlockSmem = (\d+);", src)[1])
-    [cap] = re.findall(r"constexpr int kMaxY = kRoomY < (\d+) \? "
-                       r"\(int\)kRoomY : \1;", src)
-    return min(int(cap), (smem - _p1_smem(tile, 0))
-               // (8 * pz.TILE_CELLS_3D))
+# the f64 sums the resident threads of P1's 3+1d mode keep in the
+# launch's rows of its result, 5 per momentum, stay this far inside the
+# H100's 50 MB L2 (kernel_bench races tiles past it)
+L2_BYTES = 50 * 2**20
+P1_SUMS_L2_SHARE = 0.8
+
+
+def _p1_resident_sums(tile):
+    return (tile.blocks_per_sm * H100_SMS * tile.threads * tile.r * tile.ty
+            * pz.N_SUMS * 8)
 
 
 def test_p1_3d_tile_of_the_source_is_the_default_and_fits_shared_memory():
     """TILE_3D is the source's kP3, kY3, kThreads3, kMinBlocks3 and among
-    the raced tiles; with 21 y rows its blocks_per_sm blocks fit an SM's
-    228 KB, and a launch of it takes 256 y rows (kMaxY), whose block fits
-    a block's 227 KB; every raced tile leaves room for 21 rows."""
+    the raced tiles; a staged cell holds CELL_COLS_3D in whole 16-byte
+    vectors; with 21 y rows its blocks_per_sm blocks fit an SM's 228 KB,
+    and a launch takes kMaxY = 256 y rows, whose block fits a block's 227
+    KB; the f64 sums of its resident threads stay inside P1_SUMS_L2_SHARE
+    of L2; every raced tile is whole warps."""
     from is3d2_tpu_torch.tools.kernel_bench import TILE_LINE_3D, TILES_3D_P1
     src = _P1_SOURCE.read_text()
     [line] = re.findall(TILE_LINE_3D, src)
     t = ck.Tile3d(*map(int, re.findall(r"= (\d+)", line)))
     assert t == pz.TILE_3D
     assert f"{t.r}x{t.ty}x{t.threads}x{t.blocks_per_sm}" in TILES_3D_P1
-    assert re.search(rf"constexpr int kTileCells3 = {pz.TILE_CELLS_3D};",
-                     src)
-    assert t.blocks_per_sm * _p1_smem(t, 21) <= 228 * 1024
-    assert _p1_max_y(src, t) == 256
-    assert _p1_smem(t, _p1_max_y(src, t)) <= 232448
+    assert _p1_source_int(src, "kRunCells3") == pz.RUN_CELLS_3D
+    assert pz.RUN_CELLS_3D % _p1_source_int(src, "kTileCells3") == 0
+    stride = _p1_source_int(src, "kCellStride3")
+    assert stride % 4 == 0 and stride >= len(pz.CELL_COLS_3D)
+    assert t.blocks_per_sm * _p1_smem(src, 21) <= 228 * 1024
+    assert _p1_source_int(src, "kMaxY") == 256
+    assert _p1_smem(src, 256) <= _p1_source_int(src, "kBlockSmem") == 232448
+    assert _p1_resident_sums(t) <= P1_SUMS_L2_SHARE * L2_BYTES
     for tile in _p1_tiles():
         assert tile.threads % 32 == 0
-        assert _p1_smem(tile, 21) <= 232448
 
 
 def test_p1_3d_main_path_fills_the_card_without_a_split():
     """Phase 36's shape, 100,000 real cells x 371 x 51 x 21 y x 48 phi:
-    18,921 groups of 7 y tiles x 12 phi tiles, whole waves of the card
-    without a cell split, for the tile the source builds."""
+    18,921 groups of whole tiles (the tile divides 21 y and 48 phi), whole
+    waves of the card without a cell split, for the tile the source
+    builds."""
     t = pz.TILE_3D
+    assert 21 % t.ty == 0 and 48 % t.r == 0
     g = pz.geometry_3d(19_072_368, 100_000, 48, 21, t)
-    assert (g.groups, g.tiles_per_row, g.y_tiles) == (18_921, 12, 7)
+    assert (g.groups, g.tiles_per_row, g.y_tiles) == (18_921, 48 // t.r,
+                                                      21 // t.ty)
     assert g.n_split == 1 and g.cells_per_split == 100_000
     assert fill(g.blocks, t.blocks_per_sm * H100_SMS) > 0.95
 
 
-@pytest.mark.parametrize("n_cells", [1, 64, 65, 1000, 4096])
+@pytest.mark.parametrize("n_cells", [1, 64, 65, 1000, 4096, 20_000])
 def test_p1_3d_splits_begin_on_a_run(n_cells):
-    """Each cell split of the 3+1d mode begins on a 64-cell run, so the
-    kernel's f32 runs are the plain version's [64 k, 64 k + 64)."""
+    """Each cell split of the 3+1d mode begins on a run of RUN_CELLS_3D
+    cells, so the kernel's f32 runs are the plain version's
+    [256 k, 256 k + 256)."""
     g = pz.geometry_3d(21 * 7, n_cells, 7, 21)
     ranges = cell_ranges(g, n_cells)
     assert ranges[0][0] == 0 and ranges[-1][1] == n_cells
     for (a, b), (c, _) in zip(ranges, ranges[1:]):
         assert b == c
-    assert all(a % pz.TILE_CELLS_3D == 0 for a, _ in ranges)
+    assert all(a % pz.RUN_CELLS_3D == 0 for a, _ in ranges)
 
 
 def test_tile_tree_rewrites_only_p1s_3d_tile(tmp_path):

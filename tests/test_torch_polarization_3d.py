@@ -161,6 +161,57 @@ def test_p1_3d_check_cases_on_the_cpu(workdir):
     assert torch.equal(ops.ytab, want)
 
 
+def _factor_exponents(ops):
+    """(e_m, exy, A) as the plain version forms them in f32: the (cells,
+    M) exponents of the factored exponential are e_m - A (per (cell, y))
+    and exy + A (per (cell, phi))."""
+    q = {n: ops.cell[:, i:i + 1] for i, n in enumerate(pz.CELL_COLS_3D)}
+    mT, px, py, _, _, pT = ops.mom
+    t = ops.ytab[:, torch.arange(ops.mom.shape[1]) // ops.row_len % ops.n_y]
+    e_m = (q["qe0"] * mT) * t[..., 0] + (q["qe3"] * mT) * t[..., 1]
+    return e_m, q["qe1"] * px + q["qe2"] * py, q["qa"] * pT
+
+
+@pytest.mark.parametrize("which", ["surface", "near", "fast"])
+def test_p1_3d_shifted_factors_stay_at_least_one(workdir, which):
+    """P1's shift A = |u_perp| pT log2(e) / T keeps both exponents of the
+    factored 2^(u.p log2(e) / T) at least 0 up to f32 rounding, so both
+    factors are at least ~1: on the test surface, the near-cancellation
+    surface and the fast cold one."""
+    surf = {"surface": _surface(),
+            "near": kc.near_cancellation_surface(workdir, N_CELLS, 3),
+            "fast": kc.fast_flow_surface(N_CELLS, 3)}[which]
+    e_m, exy, a = _factor_exponents(
+        kc.polarization_operands_3d(_state(workdir, surf)))
+    assert float(a.min()) > 0
+    tol = 1e-6 * float(a.max())
+    assert float((e_m - a).min()) >= -tol
+    assert float((exy + a).min()) >= -tol
+
+
+def test_p1_3d_shifted_factors_stay_finite_on_fast_cold_cells(workdir):
+    """kernel_check.fast_flow_surface: |u_perp| ~ 3, T = 0.08 GeV, pT up
+    to 3 GeV.  Unshifted, 2^e_m 2^exy is inf times 0 (a NaN) for some
+    terms; P1's plain version (shifted) stays finite and within
+    kc.FAST_FLOW_TOL of the f64 engine on both metrics.  At |u.p| / T ~
+    150 no f32 order of the arithmetic reaches the JAX bars: the JAX
+    package's f32 program's distance from its f64 engine is printed
+    beside the port's."""
+    surf = kc.fast_flow_surface(N_CELLS, 3)
+    e_m, exy, _ = _factor_exponents(
+        kc.polarization_operands_3d(_state(workdir, surf)))
+    assert torch.isnan(torch.exp2(e_m) * torch.exp2(exy)).any()
+    r = kc.check_polarization_3d_case(workdir, N_CELLS, 3, "cpu",
+                                      fast_flow=True, cell_block=BLOCK)
+    assert r.launches == 0 and np.isfinite(r.kernel).all()
+    assert r.ok, r.vs_f64
+    jax = kc.polarization_errors(_jax(workdir, surf, "f32"),
+                                 _jax(workdir, surf, "f64"))
+    print(f"fast cold cells: port f32c vs f64 Snorm {r.vs_f64[0]:.3e}, P "
+          f"{r.vs_f64[1]:.3e}; JAX f32 vs f64 Snorm {jax[0]:.3e}, P "
+          f"{jax[1]:.3e}")
+
+
 # ----------------------------------------------------------------------
 # the 3+1d pack and its ragged sizes
 # ----------------------------------------------------------------------
@@ -185,12 +236,13 @@ def test_p1_3d_pack_takes_the_real_cells_and_orders_y_before_phi(workdir):
     assert cells.n_padded == N_CELLS
     assert ((cells.mask == 0) & (cells.pad_mask == 1)).sum() > 0
     ops = kc.polarization_operands_3d(state)
-    assert ops.cell.shape == (n, len(pz.CELL_COLS))
+    assert ops.cell.shape == (n, len(pz.CELL_COLS_3D))
     assert ops.ytab.shape == (n, N_Y, 2)
     assert (ops.row_len, ops.n_y) == (8, N_Y)
-    mom = ops.mom.reshape(5, len(CHOSEN), 16, N_Y, 8)
+    mom = ops.mom.reshape(len(pz.MOM_ROWS_3D), len(CHOSEN), 16, N_Y, 8)
     assert (mom[1] == mom[1][:, :, :1]).all()          # px along y
     assert (mom[0] == mom[0][..., :1, :1]).all()        # mT per group
+    assert (mom[5] == mom[5][..., :1, :1]).all()        # pT per group
     ref = kc.f64_polarization_3d(state)
     _bars(pz.polarization_f32_3d(*ops.args(), **ops.layout()).numpy(), ref)
     skipped = dataclasses.replace(cells, pad_mask=cells.mask)
@@ -201,7 +253,7 @@ def test_p1_3d_pack_takes_the_real_cells_and_orders_y_before_phi(workdir):
 
 # name -> (write_workdir options, cells): 1 y node; 5 y and 7 phi, which
 # the register tile (4 phi x 3 y) does not divide, on 500 cells (not a
-# whole number of 64-cell runs)
+# whole number of 256-cell runs)
 RAGGED_WORKDIRS = {
     "one-y": ({"n_y": 1, "n_phi": 8}, N_CELLS),
     "5y-7phi-500cells": ({"n_y": 5, "n_phi": 7}, 500),
@@ -232,11 +284,11 @@ def test_p1_3d_ragged_cut_runs(workdir, n_y):
 
 
 def test_p1_3d_sums_runs_of_64_cells_in_f32(workdir):
-    """The plain version adds the terms of each run of TILE_CELLS_3D cells
-    in f32, in cell order, and the runs in f64 (as the kernel does): with
-    the factor -1/(4m) set to 1, the cut to 128 cells is the f64 sum of
-    its two 64-cell runs bit for bit, and a 64-cell run is not the f64 sum
-    of its cells (it rounds in f32) but within f32 rounding of it."""
+    """The plain version adds the terms of each run of RUN_CELLS_3D (256)
+    cells in f32, in cell order, and the runs in f64 (as the kernel does):
+    with the factor -1/(4m) set to 1, the cut to two runs is the f64 sum
+    of its two runs bit for bit, and a run is not the f64 sum of its cells
+    (it rounds in f32) but within f32 rounding of it."""
     ops = kc.polarization_operands_3d(_state(workdir, _surface()))
     mom = ops.mom.clone()
     mom[4] = -1.0
@@ -245,10 +297,11 @@ def test_p1_3d_sums_runs_of_64_cells_in_f32(workdir):
         return pz.polarization_f32_3d_plain(
             ops.cell[c0:c1].contiguous(), ops.ytab[c0:c1].contiguous(), mom,
             **ops.layout())
-    assert pz.TILE_CELLS_3D == 64
-    a = run(0, 64)
-    assert torch.equal(a + run(64, 128), run(0, 128))
-    singles = sum(run(c, c + 1) for c in range(64))
+    n = pz.RUN_CELLS_3D
+    assert n == 256 and ops.cell.shape[0] >= 2 * n
+    a = run(0, n)
+    assert torch.equal(a + run(n, 2 * n), run(0, 2 * n))
+    singles = sum(run(c, c + 1) for c in range(n))
     assert not torch.equal(singles, a)
     torch.testing.assert_close(a, singles, rtol=1e-5,
                                atol=1e-6 * float(a.abs().max()))
