@@ -265,11 +265,41 @@ Phases (any failure raises; nothing is caught):
      plain
      version on the first 1,024 real cells at the full M, both timed; and
      the kernel against the f64 engine (~5 ms a cell at full width) on
-     the surface cut to its first 2,048 cells, at the JAX bars.
+     the surface cut to its first 2,048 cells, at the JAX bars;
+ 37. the sweep tool (is3d2_tpu_torch.tools.sweep.run_sweep) at full width
+     on a copy of phase 5's workdir (the sweep overwrites the workdir's
+     results): grad, ce, ptm, ptb x none, shear, bulk, shear_bulk, 16 runs
+     of 1e5 cells, 371 species, 51 x 48 x 24, f32c; then famod x none,
+     shear on a copy of phase 14's.  The launch counts, set to 0 before
+     each sweep: 8 of B1 and 8 of B3, then 2 of B3 (its famod mode), and
+     no other kernel; every archive with its main path's file names (phase
+     5's, 14's), those of every 8th species and of pi+, K+ and p of their
+     shapes, finite and non-negative; grad/shear_bulk (phase 5's configuration) equal to
+     phase 5's files byte for byte; each run's stage seconds and the
+     sweeps' walls printed;
+ 38. use_pallas = 0 with f32/f32c (the JAX package's XLA fast paths, for
+     which the kernels stand in): a copy of phase 5's workdir with
+     use_pallas 0 through the CLI, B1 alone launching, its files phase 5's
+     bytes; df 3 f32, df 4 f32 and f32c, df 5 f32 on 2,048-cell surfaces
+     (shear 0.2, bulk 0.1; df 5 kernel_check.famod_surface) with phase
+     3's workdir: each launches B3 (df 5 its famod mode) once, equals its
+     use_pallas = -1 run bit for bit and meets the f64 engine at 1e-4;
+ 39. the oversampling campaign (is3d2_tpu_torch.tools.oversample) on
+     phase 12's workdir: 4 batches of a quarter of phase 12's events
+     (~2.5e6 hadrons each) with seeds sampler_seed + 1000 b into OSCAR
+     files, no kernel launched; each batch's yield per event within 0.05
+     Ntot + 5 sqrt(Ntot / n) of the estimate, the batches' first events
+     different, batch 0's pi+, K+ and p dN/dy (its OSCAR rows at |y| <
+     y_cut) within 5 sigma + 1 % of phase 5's files; then
+     tools.analysis.compare_sampling_smooth on phase 12's histograms
+     against phase 5's spectra (yield ratio within 5 %), and
+     compute_observables on a 20-event op-2 run with CSV files (the
+     surface cut to its first 5,000 cells), whose identified dN/dy at |y|
+     < 0.5 equal the run's own ParticleList counts event by event.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
-12-13's, 16's and 26's numbers, and one {"ensemble": {...}} phases
-27-29's.  The line before the last is a JSON object with each
+12-13's, 16's and 26's numbers, one {"ensemble": {...}} phases 27-29's
+and one {"tools": {...}} phases 37-39's.  The line before the last is a JSON object with each
 kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
 "operation0", phase 19 under B3's "operation0", each with the launches of
 its own path; P1's launches from phase 21, its folded instantiation's
@@ -2927,6 +2957,315 @@ def phase_p1_3d_full(wd: Path, sass: dict) -> dict:
     return record
 
 
+# ----------------------------------------------------------------------
+# phases 37-39: the tools, the use_pallas = 0 routes, the campaign
+# ----------------------------------------------------------------------
+
+# rows x columns of each op-1 file of a 2+1d main path (51 pT x 48 phi);
+# dN_pTdpTdphidy has a header line more
+OP1_FILE_SHAPES = {"dN_pTdpTdphidy": (51 * 48, 4), "vn": (51, 9),
+                   "dN_2pipTdpTdy": (51, 3), "dN_dphidy": (48, 3),
+                   "dN_dy": (1, 2)}
+# phase 37 reads the values of every 8th species' files in each archive
+SWEEP_SAMPLE_STRIDE = 8
+CAMPAIGN_BATCHES = 4
+OBSERVABLE_EVENTS = 20
+# compute_observables reads CSV text at ~3e5 hadrons a second on the card's
+# host: 20 events of the whole surface (3e6 hadrons) took 9-20 s, 5,000
+# cells' ~1.5e5 take well under one
+OBSERVABLE_CELLS = 5_000
+
+
+def check_op1_file(path: Path) -> None:
+    """An archived op-1 file of a 2+1d main path: its shape, finite and
+    non-negative values.  Read as text, not parsed: rows non-blank lines
+    (the blank line after each block is single) of cols tab-separated
+    fields, none empty; a value below zero is a field that starts with
+    "-"; the writers' "%.8e" and "%.8f" hold no "n", which "nan" and "inf"
+    do."""
+    kind = path.name.rsplit("_", 1)[0]
+    text = path.read_bytes()
+    if kind == "dN_pTdpTdphidy":
+        text = text.partition(b"\n")[2]
+    rows, cols = OP1_FILE_SHAPES[kind]
+    if (text.count(b"\n") - text.count(b"\n\n") != rows
+            or text.count(b"\t") != rows * (cols - 1)
+            or text.startswith((b"\n", b"\t", b"-")) or b"\n\n\n" in text
+            or b"\t\t" in text or b"\t\n" in text or b"\n\t" in text
+            or b"n" in text or b"\t-" in text or b"\n-" in text):
+        raise AssertionError(f"{path}: not {rows} x {cols} values, or one "
+                             "not finite or below zero")
+
+
+def counted_sweep(wd: Path, out: Path, df_names: tuple
+                  ) -> tuple[dict, dict, float, dict]:
+    """tools.sweep.run_sweep on ``wd`` with every launch count set to 0
+    just before and read just after; returns the archive, each run's
+    stage seconds, the wall and every kernel's launches."""
+    from is3d2_tpu_torch.tools.sweep import run_sweep
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    timings = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        archive = run_sweep(wd, df_names, out_dir=out, device="cuda",
+                            timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    stages = {f"{df}/{corr}": st for (df, corr), st in timings.items()}
+    for run, st in stages.items():
+        print(f"{run:18s} {json.dumps(st)}")
+    print(f"{len(archive)} runs in {wall:.2f} s; kernel launches {launches}")
+    return archive, stages, wall, launches
+
+
+def phase_sweep(tmp: Path, wd1: Path, wd5: Path) -> dict:
+    print(f"== 37. tools.sweep at full width: phase 5's {MAIN_CELLS} cells "
+          "(grad, ce, ptm, ptb x none, shear, bulk, shear_bulk; f32c), then "
+          "famod x none, shear on phase 14's")
+    wd = derived_workdir(tmp, wd1, "sweep", {})
+    grid, stages, wall, launches = counted_sweep(
+        wd, tmp / "sweep_results", ("grad", "ce", "ptm", "ptb"))
+    want = {"cooper_frye_comp": 8, "cooper_frye_feqmod": 8}
+    if launches != {**dict.fromkeys(launches, 0), **want}:
+        raise AssertionError(f"the sweep launched {launches}, not {want}")
+    wd_fa = derived_workdir(tmp, wd5, "sweep_famod", {})
+    famod, fa_stages, fa_wall, fa_launches = counted_sweep(
+        wd_fa, tmp / "sweep_famod_results", ("famod",))
+    want = {"cooper_frye_feqmod": 2}
+    if fa_launches != {**dict.fromkeys(fa_launches, 0), **want}:
+        raise AssertionError(f"the famod sweep launched {fa_launches}, not "
+                             f"{want}")
+    if sorted(famod) != [("famod", "none"), ("famod", "shear")]:
+        raise AssertionError(f"famod ran {sorted(famod)}")
+    # every archive holds the file names of its main path (phase 5's,
+    # phase 14's); the values of a sample (the files of every
+    # SWEEP_SAMPLE_STRIDE-th species and of pi+, K+ and p) are read: all
+    # 33,390 files take ~17 s on the card's host, and grad/shear_bulk is
+    # held whole to phase 5's bytes below
+    ref = wd1 / "results/continuous"
+    names = sorted(p.name for p in ref.iterdir())
+    t0 = time.perf_counter()
+    files, n_files, species = [], 0, set()
+    for runs, src in ((grid, wd1), (famod, wd5)):
+        want = sorted(p.name for p in (src / "results/continuous").iterdir()
+                      if p.name.startswith(("dN", "vn")))
+        mcids = sorted({int(n[:-4].rsplit("_", 1)[1]) for n in want})
+        sample = {*mcids[::SWEEP_SAMPLE_STRIDE], 211, 321, 2212}
+        species |= sample
+        for d in runs.values():
+            if sorted(p.name for p in d.iterdir()) != want:
+                raise AssertionError(f"{d}: not the file names of {src}")
+            n_files += len(want)
+            files += [d / n for n in want
+                      if int(n[:-4].rsplit("_", 1)[1]) in sample]
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        list(pool.map(check_op1_file, files))
+    print(f"{n_files} archived files, their main paths' names; {len(files)} "
+          f"of them ({len(species)} species) of their shapes, finite, >= 0 "
+          f"(checked in {time.perf_counter() - t0:.1f} s)")
+    # grad with shear and bulk is phase 5's configuration: B1 splits cells
+    # without atomics, so its files are phase 5's bytes
+    got = grid[("grad", "shear_bulk")]
+    if sorted(p.name for p in got.iterdir()) != names or any(
+            (got / n).read_bytes() != (ref / n).read_bytes() for n in names):
+        raise AssertionError("the sweep's grad/shear_bulk archive differs "
+                             "from phase 5's files")
+    print(f"grad/shear_bulk: {len(names)} files, phase 5's bytes")
+    return {"runs": len(grid) + len(famod), "wall_s": wall + fa_wall,
+            "grid_wall_s": wall, "famod_wall_s": fa_wall,
+            "launches": {"grid": launches, "famod": fa_launches},
+            "stage_seconds": {**stages, **fa_stages}, "files": n_files}
+
+
+def use_pallas_case(wd: Path, fields: dict, surf, kernel: str) -> dict:
+    """One configuration on ``surf`` with the parity workdir's tables,
+    through spectra_on_device with use_pallas 0 and -1 (each launches
+    ``kernel`` once and nothing else; equal bits) and the f64 engine."""
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.core.spectra import compute_spectra
+    from is3d2_tpu_torch.driver import IS3D
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cfg = Config(cell_block=512, **fields)
+    run = IS3D(wd, cfg=cfg, device="cuda")
+    run.surface = surf
+    run._setup()
+    counters = launch_counters()
+
+    def spectra(**f):
+        for fn in counters.values():
+            fn.launches = 0
+        out = compute_spectra(surf, run.species, run.chosen_idx, run.grids,
+                              run.df_data, dataclasses.replace(cfg, **f),
+                              "cuda", run.laguerre)
+        return out, {k: fn.launches for k, fn in counters.items() if
+                     fn.launches}
+
+    off, launched = spectra(use_pallas=0)
+    auto, launched_auto = spectra(use_pallas=-1)
+    f64, _ = spectra(compute_dtype="f64", use_pallas=-1)
+    err = kc.max_rel_err(off, f64)
+    r = {"launches": launched, "equal_bits": bool(np.array_equal(off, auto)),
+         "vs_f64": err}
+    print(f"{json.dumps(fields):62s} {launched}  use_pallas 0 = -1: "
+          f"{r['equal_bits']}  vs f64 {err:.3e}")
+    if not (launched == launched_auto == {kernel: 1} and r["equal_bits"]
+            and np.isfinite(off).all() and err <= kc.FEQMOD_TOL_F64):
+        raise AssertionError(f"use_pallas 0 {fields}: {r}")
+    return r
+
+
+def phase_use_pallas0(tmp: Path, wd1: Path, wd_parity: Path) -> dict:
+    print("== 38. use_pallas = 0: phase 5's main path, then df 3, df 4 and "
+          "df 5 at 2048 cells")
+    wd = derived_workdir(tmp, wd1, "main_df1_use_pallas0", {"use_pallas": 0})
+    launches, stages, _ = run_cli(wd, "cooper_frye_comp")
+    ref, got = wd1 / "results/continuous", wd / "results/continuous"
+    names = sorted(p.name for p in ref.iterdir())
+    if sorted(p.name for p in got.iterdir()) != names or any(
+            (got / n).read_bytes() != (ref / n).read_bytes() for n in names):
+        raise AssertionError("the use_pallas = 0 main path's files differ "
+                             "from phase 5's")
+    print(f"main path, use_pallas 0: {len(names)} files, phase 5's bytes; "
+          f"stage seconds {json.dumps(stages)}")
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    from is3d2_tpu_torch.tools.synthetic import make_surface
+    surf = make_surface(2048, seed=7, **kc.FEQMOD_SURFACE)
+    fa_surf = kc.famod_surface(wd_parity, 2048, 7, "cuda")
+    cases = {}
+    for fields, s in (({"df_mode": 3, "compute_dtype": "f32"}, surf),
+                      ({"df_mode": 4, "compute_dtype": "f32"}, surf),
+                      ({"df_mode": 4, "compute_dtype": "f32c"}, surf),
+                      ({"df_mode": 5, "compute_dtype": "f32"}, fa_surf)):
+        name = f"df{fields['df_mode']} {fields['compute_dtype']}"
+        cases[name] = use_pallas_case(wd_parity, fields, s,
+                                      "cooper_frye_feqmod")
+    return {"main_path": {"launches": launches["cooper_frye_comp"],
+                          "stage_seconds": stages}, "cases": cases}
+
+
+def read_oscar(batch_dir: Path) -> np.ndarray:
+    """pid, pz, E of every row of a batch's OSCAR files (n pid px py pz E m
+    x y z t after one header line)."""
+    return np.concatenate([
+        np.loadtxt(f, skiprows=1, usecols=(1, 4, 5), ndmin=2).reshape(-1, 3)
+        for f in batch_dir.glob("particle_list_osc_*.dat")])
+
+
+def phase_campaign(tmp: Path, wd1: Path, op2_hist: dict) -> dict:
+    print(f"== 39. tools.oversample on phase 12's workdir: "
+          f"{CAMPAIGN_BATCHES} batches of ~2.5e6 hadrons; tools.analysis")
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.tools import analysis, oversample
+    wd = tmp / "op2_hist"
+    events = -(-op2_hist["n_events"] // CAMPAIGN_BATCHES)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        Ntot, batches = oversample.run_campaign(wd, CAMPAIGN_BATCHES, events,
+                                                device="cuda")
+    wall = time.perf_counter() - t0
+    if any(fn.launches for fn in counters.values()):
+        raise AssertionError("the campaign launched a Cooper-Frye kernel")
+    bar = 0.05 * Ntot + 5.0 * np.sqrt(Ntot / events)
+    for b in batches:
+        b["dir"] = str(b["dir"])
+        per_event = b["kept"] / b["events"]
+        print(f"batch {b['batch']} (seed {b['seed']}): kept {b['kept']}, "
+              f"{b['events']} events, sampled in {b['sample_seconds']:.3f} s,"
+              f" written in {b['write_seconds']:.3f} s; {per_event:.2f} per "
+              f"event vs the estimate {Ntot:.2f} (bar {bar:.2f})")
+        if abs(per_event - Ntot) >= bar:
+            raise AssertionError(f"batch {b['batch']}: kept yield outside "
+                                 "the estimate's bound")
+    first = {(Path(b["dir"]) / "particle_list_osc_1.dat").read_bytes()
+             for b in batches}
+    if len(first) != CAMPAIGN_BATCHES:
+        raise AssertionError("two batches wrote the same first event")
+    print(f"campaign wall {wall:.2f} s; the batches' first events differ")
+    # batch 0's dN/dy at |y| < y_cut against phase 5's op-1 files
+    t0 = time.perf_counter()
+    rows = read_oscar(Path(batches[0]["dir"]))
+    y_cut = Config.from_file(wd / "iS3D_parameters.dat").y_cut
+    y = 0.5 * np.log((rows[:, 2] + rows[:, 1]) / (rows[:, 2] - rows[:, 1]))
+    norm = 2.0 * y_cut * events
+    print(f"batch 0: {len(rows)} OSCAR rows parsed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if len(rows) != batches[0]["kept"]:
+        raise AssertionError("batch 0's OSCAR rows are not its kept count")
+    closure = {}
+    for m in (211, 321, 2212):
+        n = int(((rows[:, 0] == m) & (np.abs(y) < y_cut)).sum())
+        smooth = float(np.loadtxt(wd1 / f"results/continuous/dN_dy_{m}.dat")[1])
+        sampled, sigma = n / norm, np.sqrt(max(n, 1)) / norm
+        closure[str(m)] = {"sampled": sampled, "smooth": smooth,
+                           "sigma": sigma}
+        print(f"dN/dy {m}: batch 0 {sampled:.6g} (sigma {sigma:.3g}) vs op-1 "
+              f"{smooth:.6g}: {(sampled - smooth) / smooth:+.3e} relative")
+        if abs(sampled - smooth) >= 5.0 * sigma + 0.01 * smooth:
+            raise AssertionError(f"batch 0's dN/dy closure of {m} fails")
+    # phase 12's histograms against phase 5's smooth spectra
+    shutil.copytree(wd1 / "results/continuous", wd / "results/continuous")
+    with contextlib.redirect_stdout(io.StringIO()):
+        compare = analysis.compare_sampling_smooth(wd, (211, 321, 2212))
+    for m, r in compare.items():
+        print(f"compare_sampling_smooth {m}: yield ratio "
+              f"{r['yield_ratio']:.5f}, mean per-bin |sampled/smooth - 1| "
+              f"{r['mean_dev']:.4f}")
+        if not abs(r["yield_ratio"] - 1.0) < 0.05:
+            raise AssertionError(f"compare_sampling_smooth {m}: {r}")
+    return {"Ntot": Ntot, "events_per_batch": events, "wall_s": wall,
+            "batches": batches, "closure": closure,
+            "compare_sampling_smooth": {str(m): r for m, r in compare.items()},
+            "observables": phase_observables(tmp, wd)}
+
+
+def phase_observables(tmp: Path, wd_op2: Path) -> dict:
+    """tools.analysis.compute_observables on a 20-event op-2 run with CSV
+    files, on the op-2 surface cut to its first OBSERVABLE_CELLS cells:
+    per event, its identified dN/dy equal to counts from the run's own
+    ParticleList (|mcid|, |y| < 0.5)."""
+    from is3d2_tpu_torch.driver import IS3D
+    from is3d2_tpu_torch.tools import analysis
+    wd = derived_workdir(tmp, wd_op2, "op2_csv", {
+        "test_sampler": 0, "write_csv": 1,
+        "max_num_samples": OBSERVABLE_EVENTS})
+    surface = wd / "input/surface.dat"
+    with open(surface) as fh:
+        head = [next(fh) for _ in range(OBSERVABLE_CELLS)]
+    surface.write_text("".join(head))
+    run = IS3D(wd, device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        run.run_particlization()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        obs = analysis.compute_observables(wd)
+    seconds = time.perf_counter() - t0
+    p = run.final_particles
+    E, pz = p.E.astype(np.float64), p.pz.astype(np.float64)
+    y = 0.5 * np.log((E + pz) / (E - pz))
+    if obs["dN_dy_pion"].shape != (OBSERVABLE_EVENTS,):
+        raise AssertionError(f"{obs['dN_dy_pion'].shape[0]} events")
+    counts = {}
+    for name, m in (("pion", 211), ("kaon", 321), ("proton", 2212)):
+        sel = (np.abs(p.mcid) == m) & (np.abs(y) < 0.5)
+        direct = np.bincount(p.event[sel], minlength=OBSERVABLE_EVENTS)
+        if not np.array_equal(obs[f"dN_dy_{name}"], direct):
+            raise AssertionError(f"compute_observables' dN_dy_{name} is not "
+                                 "the run's own count")
+        counts[name] = float(direct.mean())
+    print(f"compute_observables on {OBSERVABLE_EVENTS} events "
+          f"({len(p.E)} hadrons) in {seconds:.1f} s: mean dN/dy at |y| < 0.5 "
+          f"{json.dumps(counts)}, equal to the run's own counts event by "
+          "event")
+    return {"events": OBSERVABLE_EVENTS, "hadrons": int(len(p.E)),
+            "seconds": seconds, "mean_dN_dy": counts}
+
+
 def main() -> int:
     card = phase_environment()
     # the package is imported only now: a copy of this script alone, or a
@@ -2978,6 +3317,16 @@ def main() -> int:
         p1_3d_parity = phase_p1_3d_compare(parity_workdir_3d(tmp))
         p1_3d_launches, p1_3d_stages, wd3_m5 = phase_p1_3d_main_path(tmp)
         p1_3d = phase_p1_3d_full(wd3_m5, sass["p1_3d"])
+        tools = {"sweep": phase_sweep(tmp, wd1, wd5)}
+        # phase 37's workdirs and archives (~3.7e4 files) are not read
+        # again: removed while phases 38-39 run, not one by one at the end
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            removed = pool.submit(lambda: [shutil.rmtree(tmp / d) for d in (
+                "sweep", "sweep_results", "sweep_famod",
+                "sweep_famod_results")])
+            tools["use_pallas0"] = phase_use_pallas0(tmp, wd1, wd)
+            tools["campaign"] = phase_campaign(tmp, wd1, op2_hist)
+        removed.result()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2991,6 +3340,7 @@ def main() -> int:
     print(json.dumps({"ensemble": {"card": card, "spectra": ens_spectra,
                                    "sampler": ens_sampler,
                                    "routes": ens_routes}}))
+    print(json.dumps({"tools": {"card": card, **tools}}))
     print(card)
     print(json.dumps({"kernels": [
         {"name": "cooper_frye_comp", "route": "cuda",

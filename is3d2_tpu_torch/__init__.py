@@ -14,16 +14,21 @@ reference.  The layout mirrors it so each module has a counterpart:
                Monte-Carlo hadron sampler and the spin polarization;
   - ops/       hand-written CUDA kernels for Hopper, their plain torch
                versions and the nvcc build;
-  - tools/     delta-f table generator and the synthetic-workdir builder.
+  - tools/     delta-f table generator, the synthetic-workdir builder,
+               the kernels' check and bench harnesses, and the JAX
+               package's tools and campaign scripts: the df x corrections
+               sweep, the modified-distribution matrix, the oversampling
+               campaign, the post-run analysis and the particle presets
+               (``python -m is3d2_tpu_torch.tools.<name>``).
 
 The port covers operations 0 (dN/dX, df 1-4; like the reference, none
 for df 5), 1 (continuous spectra, df 1-5) and 2 (the sampler, df 1-5),
 in 2+1d and in 3+1d (dimension 3), on surfaces of modes 0-7 or handed
 over in memory, with or without group_particles, single surfaces and
 ensembles, and after any of them the thermal-vorticity spin polarization
-of a mode-5 surface, in 2+1d and in 3+1d.  ``Config.validate_slice``
-rejects the rest: use_pallas = 0 with f32/f32c in 2+1d operation 1 (A7e,
-A9b) and use_mesh (A12).  Importing it never imports jax.
+of a mode-5 surface, in 2+1d and in 3+1d, with every use_pallas and
+compute_dtype.  ``Config.validate_slice`` rejects only use_mesh = 1
+(several devices, ROADMAP A12).  Importing it never imports jax.
 """
 
 from .constants import hbarC, two_pi, two_pi2_hbarC3, four_pi2_hbarC3  # noqa: F401

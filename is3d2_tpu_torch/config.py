@@ -88,14 +88,15 @@ class Config:
     # defaults as is3d2_tpu/config.py ---
     # compute dtype of the Cooper-Frye engines: "f64" (the torch f64
     # engines), "f32" (plain f32) or "f32c" (compensated f32: the exp
-    # argument in split-exact arithmetic, <=1e-6 of f64).  With the kernels
-    # on, df 1/2 run kernel B1 for both f32 and f32c, as the JAX package
-    # does on an accelerator; df 3/4 run kernel B3
+    # argument in split-exact arithmetic, <=1e-6 of f64).  df 1/2 run
+    # kernel B1 for both f32 and f32c, as the JAX package does on an
+    # accelerator; df 3/4 run kernel B3, df 5 its famod mode
     compute_dtype: str = "f64"
-    # hand-written kernels: -1 = auto, 1 = on, 0 = off.  With f32/f32c, -1
-    # and 1 select the kernel; 0 selects the JAX package's XLA fast paths,
-    # which are not ported yet.  With f64, 1 selects kernel B2 (plain f32)
-    # for df 1/2 and kernel B3 for df 3/4
+    # the JAX package's Pallas switch: -1 = auto, 1 = on, 0 = off.  With
+    # f32/f32c every value runs the hand-written kernels (0 selects the JAX
+    # package's XLA fast paths, for which the port's kernels stand in;
+    # validate_slice).  With f64, 1 selects kernel B2 (plain f32) for df
+    # 1/2 and kernel B3 for df 3-5 in 2+1d
     use_pallas: int = -1
     # number of freezeout cells per device block in the CF reduction
     cell_block: int = 4096
@@ -173,8 +174,19 @@ class Config:
 
     def validate_slice(self) -> None:
         """Reject what the port does not run yet, naming the ROADMAP item
-        that brings it (ROADMAP.md, queues A and B), and what the JAX
-        package rejects too: df 4 with baryons, and df 5 in operation 0."""
+        that brings it (ROADMAP.md, queue A): only ``use_mesh = 1`` (A12).
+        Also reject what the JAX package rejects: df 4 with baryons, and
+        df 5 in operation 0.
+
+        Every other single-device configuration runs, in 2+1d and 3+1d.
+        ``use_pallas`` selects between a Pallas kernel and an XLA program
+        in the JAX package, a choice that exists because a TPU has two
+        compilers; the port has one implementation of each sum.  So with
+        f32/f32c, use_pallas 0 runs the kernels that -1 and 1 run (B1 for
+        df 1/2, B3 for df 3/4, B3's famod mode for df 5; their 3+1d modes
+        on a 3+1d surface; on the CPU their plain versions).  With f64 it
+        selects B2 (df 1/2) or B3 (df 3-5) in 2+1d with use_pallas 1 only,
+        as the JAX package does; operation 0 and the sampler ignore it."""
         self.validate()
         if self.df_mode == 4 and self.include_baryon:
             # as the JAX package's DeltafData.evaluate raises
@@ -184,32 +196,7 @@ class Config:
             raise ValueError("no spacetime distribution routine for famod "
                              "(matches the reference, "
                              "EmissionFunction.cpp:1184-1189)")
-        feqmod = self.df_mode in (3, 4, 5)
-        todo = None
-        if self.dimension == 3:
-            # df 1-5 run every operation in 3+1d (df 5 no operation 0):
-            # f32/f32c through kernel B1's 3+1d mode (df 1/2) or B3's
-            # (df 3-5) in operation 1 (the JAX package's XLA programs
-            # there, which use_pallas does not select), f64 through the
-            # torch f64 engines (use_pallas 1 too: B2 and the JAX
-            # package's feqmod kernel are 2+1d only), operation 0 through
-            # the f64 engines on every dtype; a mode-5 surface adds the
-            # polarization (f32/f32c kernel P1's 3+1d mode, f64 the torch
-            # f64 engine)
-            pass
-        elif self.operation in (0, 2):
-            # the sampler has no kernel; the JAX package's operation 0
-            # ignores use_pallas (f64 runs the f64 engines, f32/f32c the
-            # kernels, where the JAX package runs its XLA fast paths)
-            pass
-        elif feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
-            todo = (f"use_pallas 0 with {self.compute_dtype} for df "
-                    f"{self.df_mode} (XLA feqmod fast path): ROADMAP A9")
-        elif not feqmod and self.compute_dtype != "f64" and self.use_pallas == 0:
-            todo = (f"use_pallas 0 with {self.compute_dtype} (XLA f32/f32c "
-                    "fast path): ROADMAP A7")
-        if todo is None and self.use_mesh == 1:
-            todo = ("use_mesh 1 (multi-device; for operation 2 "
-                    "parallel/sampler_shard.py): ROADMAP A12")
-        if todo is not None:
-            raise NotImplementedError(f"not ported yet: {todo}")
+        if self.use_mesh == 1:
+            raise NotImplementedError(
+                "not ported yet: use_mesh 1 (multi-device; for operation 2 "
+                "parallel/sampler_shard.py): ROADMAP A12")

@@ -28,7 +28,8 @@ CPU), in 2+1d on the eta >= 0 half of the nodes where
 ``fold_polarization_eta`` allows it, in 3+1d in its 3+1d mode
 (``compute_polarization_kernel_3d``); "f64" runs ``polarization_f64``,
 the torch f64 engine on (cell block, species, pT, phi, eta or y)
-tensors, never folded: it is the yardstick.
+tensors, never folded: it is the yardstick.  ``use_pallas`` selects
+nothing here, as in the JAX package (is3d2_tpu/core/polarization.py:116-128).
 """
 
 from __future__ import annotations

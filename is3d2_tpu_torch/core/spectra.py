@@ -259,16 +259,15 @@ def df12_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
 
 
 def uses_feqmod_kernel(cfg: Config) -> bool:
-    """df 3/4/5 through kernel B3 (as is3d2_tpu/core/spectra.py:428-442 and
-    :449-465 choose its Pallas kernel or XLA fast path).  2+1d: always
-    with use_pallas = 1, and for f32/f32c unless use_pallas = 0.  3+1d:
-    f32/f32c whatever use_pallas says (B3's 3+1d mode stands in for the
-    JAX XLA program _feqmod_fast_3d_jit), never f64 (the JAX Pallas kernel
-    is 2+1d only: f64 with use_pallas = 1 runs the f64 engine)."""
-    fast = cfg.compute_dtype in ("f32", "f32c")
-    if cfg.dimension == 3:
-        return fast
-    return cfg.use_pallas == 1 or (fast and cfg.use_pallas != 0)
+    """df 3/4/5 through kernel B3 (where is3d2_tpu/core/spectra.py:428-442
+    and :449-465 choose its Pallas kernel or XLA fast path): f32/f32c
+    whatever use_pallas says (B3 and its 3+1d mode stand in for the JAX
+    XLA programs _feqmod_fast_jit and _feqmod_fast_3d_jit); f64 with
+    use_pallas = 1 in 2+1d (the JAX Pallas kernel is 2+1d only: in 3+1d
+    f64 runs the f64 engine)."""
+    if cfg.compute_dtype in ("f32", "f32c"):
+        return True
+    return cfg.use_pallas == 1 and cfg.dimension == 2
 
 
 def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
@@ -308,11 +307,11 @@ def spectra_on_device(surf, species_table: SpeciesTable,
 
     df 1/2, routed as the JAX package routes one device
     (is3d2_tpu/core/spectra.py:354-420): "f32" and "f32c" run the
-    compensated kernel B1 (in 3+1d its 3+1d mode); "f64" runs the
-    plain-f32 kernel B2 with use_pallas = 1 in 2+1d and the torch f64
-    engine otherwise.  df 3/4 (``laguerre`` needed): the feqmod prep,
-    then kernel B3 (in 3+1d its 3+1d mode; see uses_feqmod_kernel) or the
-    torch f64 feqmod engine.
+    compensated kernel B1 (in 3+1d its 3+1d mode) whatever use_pallas
+    says; "f64" runs the plain-f32 kernel B2 with use_pallas = 1 in 2+1d
+    and the torch f64 engine otherwise.  df 3/4 (``laguerre`` needed): the
+    feqmod prep, then kernel B3 (in 3+1d its 3+1d mode; see
+    uses_feqmod_kernel) or the torch f64 feqmod engine.
     df 5: the famod prep (the VAH reconstruction, or a mode-2/3 surface's
     own variables), then kernel B3's famod mode (the same routes) or the
     torch f64 famod engine.  A kernel runs as CUDA on a GPU device and as
@@ -342,13 +341,12 @@ def spectra_on_device(surf, species_table: SpeciesTable,
         return spectra_feqmod(*state, cfg)
     state = df12_state(surf, species_table, chosen_idx, grids, df_data, cfg,
                        device, report)
-    # use_pallas = -1 means "the kernel" in the port on any device (on the
-    # CPU, its plain version), where the JAX package runs its XLA fast
-    # paths on the CPU backend; validate_slice rejects use_pallas = 0 with
-    # f32/f32c in 2+1d (those XLA paths are not ported).  In 3+1d f32 and
-    # f32c run B1's 3+1d mode whatever use_pallas says (the JAX package's
-    # XLA programs _block_fast_3d(_comp)), and f64 the f64 engine: B2 is
-    # 2+1d only, as the JAX package's _kernel is
+    # f32 and f32c run B1 whatever use_pallas says, on any device (on the
+    # CPU its plain version): where the JAX package runs its XLA fast paths
+    # (use_pallas = 0, or -1 on the CPU backend: _block_fast_comp,
+    # _block_fast; in 3+1d _block_fast_3d(_comp)), B1 and its 3+1d mode
+    # stand in for them.  f64 runs B2 with use_pallas = 1 in 2+1d (B2 is
+    # 2+1d only, as the JAX package's _kernel is), else the f64 engine
     if cfg.compute_dtype in ("f32", "f32c"):
         from ..ops.spectra_fast_common import compute_spectra_comp
         return compute_spectra_comp(*state, cfg)

@@ -29,7 +29,8 @@ from is3d2_tpu.ops.spectra_fast_common import (  # noqa: E402
     pack_inputs as j_pack_inputs)
 
 from torch_parity import (BLOCK, DF12_CASES, build_workdir,  # noqa: E402
-                          case_state, max_rel_err, port_config)
+                          case_state, max_rel_err, port_config,
+                          port_spectra_by_use_pallas, tiny_workdir)
 
 from is3d2_tpu_torch.core.spectra_fast import fold_eta_quadrature  # noqa: E402
 from is3d2_tpu_torch.ops import cooper_frye_f32 as b2  # noqa: E402
@@ -165,15 +166,17 @@ def test_wrapper_checks_operands(cases):
 
 @pytest.mark.parametrize("dtype,use_pallas,engine", [
     ("f64", 1, "kernel B2"), ("f64", -1, "f64 engine"), ("f64", 0, "f64 engine"),
-    ("f32", -1, "kernel B1"), ("f32", 1, "kernel B1"),
+    ("f32", -1, "kernel B1"), ("f32", 1, "kernel B1"), ("f32", 0, "kernel B1"),
     ("f32c", -1, "kernel B1"), ("f32c", 1, "kernel B1"),
+    ("f32c", 0, "kernel B1"),
 ])
 def test_df12_dispatch_follows_the_jax_package(workdir, monkeypatch, dtype,
                                                use_pallas, engine):
     """compute_spectra routes df 1/2 as is3d2_tpu/core/spectra.py:354-389
-    does on one accelerator: f32/f32c with the kernels on to the
-    compensated kernel B1, f64 with use_pallas = 1 to the plain-f32 kernel
-    B2, f64 otherwise to the f64 engine."""
+    does on one accelerator: f32/f32c to the compensated kernel B1 (with
+    use_pallas = 0 too, where B1 stands in for the JAX XLA fast paths), f64
+    with use_pallas = 1 to the plain-f32 kernel B2, f64 otherwise to the
+    f64 engine."""
     from is3d2_tpu_torch.config import Config
     from is3d2_tpu_torch.core import spectra
     from is3d2_tpu_torch.driver import IS3D
@@ -222,7 +225,13 @@ def test_validate_slice_lets_the_kernel_routes_through(kw, df_mode):
     {"compute_dtype": "f32c", "use_pallas": 0},
 ])
 @pytest.mark.parametrize("df_mode", [1, 2])
-def test_validate_slice_still_rejects_the_kernel_less_engines(kw, df_mode):
+def test_use_pallas0_runs_kernel_b1(tmp_path, kw, df_mode):
+    """use_pallas = 0 with f32/f32c (the JAX package's XLA fast paths;
+    ROADMAP A7e) validates and runs kernel B1, its plain version here: the
+    same spectra as use_pallas = -1, bit for bit."""
     from is3d2_tpu_torch.config import Config
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Config(df_mode=df_mode, **kw).validate_slice()
+    Config(df_mode=df_mode, **kw).validate_slice()
+    wd = tiny_workdir(tmp_path, df_mode, kw["compute_dtype"])
+    off, auto = port_spectra_by_use_pallas(wd)
+    assert np.isfinite(off).all() and off.any()
+    np.testing.assert_array_equal(off, auto)

@@ -44,7 +44,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from torch_parity import (BLOCK, CHOSEN, build_workdir,  # noqa: E402
                           eos_surface, famod_state, max_rel_err,
-                          port_config)
+                          port_config, port_spectra_by_use_pallas,
+                          tiny_workdir)
 
 from is3d2_tpu.core.spectra_famod import \
     _spectra_famod_jit  # noqa: E402
@@ -434,13 +435,22 @@ def test_validate_slice_lets_df5_on_a_3d_mode5_surface_through(kw):
 
 @pytest.mark.parametrize("kw,item", [
     ({"mode": 2, "use_mesh": 1}, "A12"),
-    ({"compute_dtype": "f32", "use_pallas": 0}, "A9"),
     ({"operation": 2, "mode": 5, "use_mesh": 1}, "A12"),
-    ({"compute_dtype": "f32c", "use_pallas": 0}, "A9"),
 ])
 def test_validate_slice_rejects_the_df5_corners(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Config(**{"df_mode": 5, **kw}).validate_slice()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f32c"])
+def test_use_pallas0_runs_the_famod_mode(tmp_path, dtype):
+    """df 5 with use_pallas = 0 and f32/f32c (the JAX package's XLA famod
+    fast path; ROADMAP A9b) validates and runs B3's famod mode, its plain
+    version here: the spectra of use_pallas = -1, bit for bit."""
+    Config(df_mode=5, compute_dtype=dtype, use_pallas=0).validate_slice()
+    off, auto = port_spectra_by_use_pallas(tiny_workdir(tmp_path, 5, dtype))
+    assert np.isfinite(off).all() and off.any()
+    np.testing.assert_array_equal(off, auto)
 
 
 def test_df5_takes_the_chapman_enskog_coefficients(workdir):

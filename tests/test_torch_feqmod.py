@@ -37,7 +37,9 @@ from is3d2_tpu.report import RunReport as JRunReport  # noqa: E402
 
 from torch_parity import (BLOCK, CHOSEN, MILD_SHEAR, build_workdir,  # noqa: E402
                           famod_state, feqmod_state, max_rel_err,
-                          numpy_fields, port_config, run_drivers)
+                          numpy_fields, port_config,
+                          port_spectra_by_use_pallas, run_drivers,
+                          tiny_workdir)
 
 from is3d2_tpu_torch import interop  # noqa: E402
 from is3d2_tpu_torch.config import Config  # noqa: E402
@@ -474,18 +476,26 @@ def test_wrapper_checks_operands(states):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,match,exc", [
-    ({"df_mode": 5, "compute_dtype": "f32", "use_pallas": 0}, "A9",
-     NotImplementedError),
     ({"df_mode": 4, "include_baryon": 1}, "does not support nonzero muB",
      ValueError),
-    ({"df_mode": 3, "compute_dtype": "f32", "use_pallas": 0}, "A9",
-     NotImplementedError),
-    ({"df_mode": 4, "compute_dtype": "f32c", "use_pallas": 0}, "A9",
-     NotImplementedError),
 ])
 def test_validate_slice_rejects_what_df345_do_not_run(kw, match, exc):
     with pytest.raises(exc, match=match):
         Config(**kw).validate_slice()
+
+
+@pytest.mark.parametrize("df_mode,dtype", [(5, "f32"), (3, "f32"),
+                                           (4, "f32c")])
+def test_use_pallas0_runs_kernel_b3(tmp_path, df_mode, dtype):
+    """df 3-5 with use_pallas = 0 and f32/f32c (the JAX package's XLA
+    feqmod fast path; ROADMAP A9b) validate and run kernel B3 (df 5 its
+    famod mode), its plain version here: the spectra of use_pallas = -1,
+    bit for bit."""
+    Config(df_mode=df_mode, compute_dtype=dtype, use_pallas=0).validate_slice()
+    wd = tiny_workdir(tmp_path, df_mode, dtype)
+    off, auto = port_spectra_by_use_pallas(wd)
+    assert np.isfinite(off).all() and off.any()
+    np.testing.assert_array_equal(off, auto)
 
 
 @pytest.mark.parametrize("kw", [

@@ -1531,3 +1531,80 @@ def test_device_route_queues_no_synchronization(tmp_path, route):
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     assert torch.equal(got, want)
+
+
+# ----------------------------------------------------------------------
+# use_pallas = 0 (ROADMAP A7e / A9b) and the sweep tool on the card
+# ----------------------------------------------------------------------
+
+def _route_workdir(root, df_mode: int, dtype: str):
+    """512 cells, CHOSEN, 16 pT x 8 phi x 24 eta; df 3-5 on shear 0.1,
+    bulk 0.05 (an EOS-consistent surface for df 5), so that cells break
+    down."""
+    feqmod = df_mode in (3, 4, 5)
+    return write_workdir(root, n_cells=512, chosen_mcids=CHOSEN, n_pT=16,
+                         n_phi=8, n_T=21, eos_consistent=df_mode == 5,
+                         shear_scale=0.1 if feqmod else 0.02,
+                         bulk_scale=0.05 if feqmod else 0.01,
+                         params={"cell_block": 512, "df_mode": df_mode,
+                                 "compute_dtype": dtype})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("df_mode,dtype,kernel", [
+    (1, "f32c", "B1"), (2, "f32", "B1"), (4, "f32", "B3"),
+    (3, "f32c", "B3"), (5, "f32", "B3 famod")])
+def test_use_pallas0_runs_the_kernel_on_the_card(tmp_path, df_mode, dtype,
+                                                kernel):
+    """use_pallas = 0 with f32/f32c launches the kernel that use_pallas =
+    -1 launches, once, and gives its bits."""
+    import io
+    from contextlib import redirect_stdout
+
+    from is3d2_tpu_torch.driver import IS3D
+    _needs_cuda()
+    wd = _route_workdir(tmp_path, df_mode, dtype)
+    fn = ck.cooper_frye_comp if kernel == "B1" else fk.cooper_frye_feqmod
+    out = {}
+    for use_pallas in (0, -1):
+        cfg = dataclasses.replace(Config.from_file(wd / "iS3D_parameters.dat"),
+                                  use_pallas=use_pallas)
+        before = fn.launches
+        with redirect_stdout(io.StringIO()):
+            run = IS3D(wd, cfg=cfg, device="cuda")
+            run.run_particlization(write=False)
+        assert fn.launches - before == 1, use_pallas
+        out[use_pallas] = run.spectra
+    assert np.isfinite(out[0]).all() and (out[0] > 0).any()
+    np.testing.assert_array_equal(out[0], out[-1])
+
+
+@pytest.mark.gpu
+def test_sweep_on_the_card(tmp_path):
+    """A 2 x 2 sweep (grad, ptb x none, shear) on the card against the same
+    sweep on the CPU (the kernels' plain versions): the same archive, B1's
+    files within 1e-6 and B3's within 1e-5 on bins >= 1e-4 of their
+    peak."""
+    import io
+    from contextlib import redirect_stdout
+
+    from is3d2_tpu_torch.tools.sweep import run_sweep
+    _needs_cuda()
+    wd = _route_workdir(tmp_path / "wd", 4, "f32")
+    with redirect_stdout(io.StringIO()):
+        gpu = run_sweep(wd, ("grad", "ptb"), ("none", "shear"),
+                        tmp_path / "gpu", device="cuda")
+        cpu = run_sweep(wd, ("grad", "ptb"), ("none", "shear"),
+                        tmp_path / "cpu", device="cpu")
+    assert sorted(gpu) == sorted(cpu) and len(gpu) == 4
+    for key, d in gpu.items():
+        tol = kc.TOL if key[0] == "grad" else kc.FEQMOD_TOL_PLAIN
+        names = sorted(p.name for p in d.iterdir())
+        assert names == sorted(p.name for p in cpu[key].iterdir())
+        for name in names:
+            if not name.startswith("dN_pTdpTdphidy"):
+                continue
+            a = np.loadtxt(d / name, skiprows=1)[:, 3]
+            b = np.loadtxt(cpu[key] / name, skiprows=1)[:, 3]
+            assert np.isfinite(a).all()
+            assert kc.max_rel_err(a[None], b[None]) <= tol, (key, name)

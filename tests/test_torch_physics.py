@@ -184,17 +184,15 @@ def test_validate_slice_lets_3d_mode5_through(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"df_mode": 3, "use_pallas": 0}, "A9"), ({"df_mode": 4, "use_pallas": 0}, "A9"),
-    ({"df_mode": 5, "compute_dtype": "f32", "use_pallas": 0}, "A9"),
-    # 3+1d df 1-5 run every operation and mode 5 (tests/test_torch_3d.py,
-    # tests/test_torch_feqmod_3d.py, tests/test_torch_polarization_3d.py):
-    # what is left there is the mesh (A12)
+    # every single-device configuration runs, in 2+1d and 3+1d
+    # (test_validate_slice_accepts_every_single_device_configuration): what
+    # is left is the mesh (A12)
     ({"mode": 5, "use_mesh": 1}, "A12"),
-    ({"compute_dtype": "f32", "use_pallas": 0}, "A7"),
-    ({"compute_dtype": "f32c", "use_pallas": 0}, "A7"),
     ({"compute_dtype": "f64", "use_pallas": 1, "dimension": 3,
       "use_mesh": 1}, "A12"),
     ({"group_particles": 1, "use_mesh": 1}, "A12"), ({"use_mesh": 1}, "A12"),
+    ({"df_mode": 4, "compute_dtype": "f32", "use_pallas": 0,
+      "use_mesh": 1}, "A12"),
 ])
 def test_validate_slice_rejects_the_rest(kw, item):
     cfg = Config(**{"df_mode": 1, "compute_dtype": "f32c", **kw})
@@ -202,15 +200,51 @@ def test_validate_slice_rejects_the_rest(kw, item):
         cfg.validate_slice()
 
 
+def test_validate_slice_accepts_every_single_device_configuration():
+    """Operation x dimension x df x compute_dtype x use_pallas: every
+    combination that the JAX package runs validates; the two it rejects
+    raise its ValueError (df 4 with baryons, df 5 in operation 0), and
+    use_mesh = 1 alone raises NotImplementedError, naming A12."""
+    import itertools
+    for op, dim, df, dtype, pallas, baryon in itertools.product(
+            (0, 1, 2), (2, 3), (1, 2, 3, 4, 5), ("f64", "f32", "f32c"),
+            (-1, 0, 1), (0, 1)):
+        cfg = Config(operation=op, dimension=dim, df_mode=df,
+                     compute_dtype=dtype, use_pallas=pallas,
+                     include_baryon=baryon)
+        if (df == 4 and baryon) or (op == 0 and df == 5):
+            with pytest.raises(ValueError):
+                cfg.validate_slice()
+            continue
+        cfg.validate_slice()
+        with pytest.raises(NotImplementedError, match="A12"):
+            dataclasses.replace(cfg, use_mesh=1).validate_slice()
+
+
+@pytest.mark.parametrize("kw,df_mode", [
+    ({"compute_dtype": "f32c"}, 3), ({"compute_dtype": "f32c"}, 4),
+    ({"compute_dtype": "f32"}, 5), ({"compute_dtype": "f32"}, 1),
+    ({"compute_dtype": "f32c"}, 1),
+])
+def test_use_pallas0_runs_the_kernel_route(kw, df_mode):
+    """use_pallas = 0 with f32/f32c (ROADMAP A7e / A9b) validates, and
+    df 3/4/5 pick kernel B3 (df 5 its famod mode) as -1 does.  That the
+    runs launch their kernel and agree bit for bit is the business of
+    tests/test_torch_use_pallas0.py and the kernels' own files."""
+    from is3d2_tpu_torch.core.spectra import uses_feqmod_kernel
+    for use_pallas in (0, -1):
+        cfg = Config(df_mode=df_mode, use_pallas=use_pallas, **kw)
+        cfg.validate_slice()
+        assert uses_feqmod_kernel(cfg) or df_mode < 3
+
+
 @pytest.mark.parametrize("kw", [{"mode": m} for m in (0, 1, 2, 3, 4, 6, 7)]
                          + [{"use_pallas": 0}, {"group_particles": 1}])
 def test_validate_slice_lets_this_slice_through(kw):
     """Operations 0, 1 and 2 with df 1-4 on every ported surface mode, and
-    group_particles; operation 0 with use_pallas = 0 too (the JAX
-    package's operation 0 ignores it)."""
+    group_particles; use_pallas = 0 too (operation 0 and the sampler
+    ignore it, and operation 1 runs the kernels with it)."""
     for operation in (0, 1, 2):
-        if operation == 1 and kw.get("use_pallas") == 0:
-            continue
         for df_mode in (1, 2, 3, 4):
             for dtype in ("f64", "f32c"):
                 Config(operation=operation, df_mode=df_mode,

@@ -352,6 +352,39 @@ def run_drivers(workdir: Path, **fields):
     return ref, ours
 
 
+def tiny_workdir(root: Path, df_mode: int, compute_dtype: str,
+                 **params) -> Path:
+    """A 128-cell, 3-species, 8 pT x 4 phi x 8 eta workdir for route
+    checks (an EOS-consistent surface for df 5; shear 0.1, bulk 0.05 for
+    df 3-5, so that cells break down); ``params`` update its parameters."""
+    feqmod = df_mode in (3, 4, 5)
+    return write_workdir(
+        root, n_cells=128, chosen_mcids=PIKP, n_pT=8, n_phi=4, n_eta=8,
+        n_T=21, eos_consistent=df_mode == 5,
+        shear_scale=FAMOD_SHEAR if feqmod else 0.02,
+        bulk_scale=FAMOD_BULK if feqmod else 0.01,
+        params={"cell_block": 128, "df_mode": df_mode,
+                "compute_dtype": compute_dtype, **params})
+
+
+def port_spectra_by_use_pallas(workdir: Path, values=(0, -1), **fields):
+    """The port's operation-1 spectra on the CPU (in memory, logs
+    swallowed) for each ``use_pallas`` of ``values``, the workdir's
+    parameters updated by ``fields``."""
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.driver import IS3D
+    base = dataclasses.replace(
+        Config.from_file(workdir / "iS3D_parameters.dat"), **fields)
+    out = []
+    for value in values:
+        cfg = dataclasses.replace(base, use_pallas=value)
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = IS3D(workdir, cfg=cfg, device="cpu")
+            run.run_particlization(write=False)
+        out.append(run.spectra)
+    return out
+
+
 # ----------------------------------------------------------------------
 # the sampler (operation 2)
 # ----------------------------------------------------------------------
