@@ -15,12 +15,15 @@ Phases (any failure raises; nothing is caught):
      read the FP32 count), and for B3's 3+1d clean kernel with its
      registers and spills; and for P1's 3+1d mode (its cell loop per
      evaluation, which phase 36's sfu_floor_ms and fp32_issue_floor_ms
-     read);
+     read).  The SASS is parsed in a process of its own while phases 3-5
+     run, and printed before phase 6 (2b);
   3. kernel B1 (compensated, df 1/2) vs its plain torch version and the
      port's f64 engine at a reduced shape (2048 cells, 16 species, 51 pT x
      48 phi, 24 eta) for df 1 and df 2 with the clip/outflow/diffusion
-     variants: <= 1e-6 relative on bins >= 1e-4 of each species' peak
-     (is3d2_tpu_torch/tools/kernel_check); a ragged case against the
+     variants, and without shear delta-f (include_shear_deltaf 0: the
+     kernel's kShear = false instantiations): <= 1e-6 relative on bins
+     >= 1e-4 of each species' peak (is3d2_tpu_torch/tools/kernel_check);
+     a ragged case against the
      plain version (kernel_check.RAGGED: rows of 7 phi under a register
      tile of 4, 105 momenta, 1000 cells); and df 1 on an eta table of 80
      nodes, not folded (kernel_check.ETA_NODES): three launches of at most
@@ -268,10 +271,10 @@ Phases (any failure raises; nothing is caught):
      the surface cut to its first 2,048 cells, at the JAX bars;
  37. the sweep tool (is3d2_tpu_torch.tools.sweep.run_sweep) at full width
      on a copy of phase 5's workdir (the sweep overwrites the workdir's
-     results): grad, ce, ptm, ptb x none, shear, bulk, shear_bulk, 16 runs
+     results): grad, ce, ptm, ptb x shear_bulk (SWEEP_CORRECTIONS), 4 runs
      of 1e5 cells, 371 species, 51 x 48 x 24, f32c; then famod x none,
      shear on a copy of phase 14's.  The launch counts, set to 0 before
-     each sweep: 8 of B1 and 8 of B3, then 2 of B3 (its famod mode), and
+     each sweep: 2 of B1 and 2 of B3, then 2 of B3 (its famod mode), and
      no other kernel; every archive with its main path's file names (phase
      5's, 14's), those of every 8th species and of pi+, K+ and p of their
      shapes, finite and non-negative; grad/shear_bulk (phase 5's configuration) equal to
@@ -295,11 +298,50 @@ Phases (any failure raises; nothing is caught):
      against phase 5's spectra (yield ratio within 5 %), and
      compute_observables on a 20-event op-2 run with CSV files (the
      surface cut to its first 5,000 cells), whose identified dN/dy at |y|
-     < 0.5 equal the run's own ParticleList counts event by event.
+     < 0.5 equal the run's own ParticleList counts event by event;
+ 40. the meshed main path (parallel/, cfg.use_mesh = 1; one card stands
+     for four devices, parallel/sharding.local_devices giving
+     [cuda:0] * 4): phase 5's workdir through the driver in memory, once
+     on one device, then under the meshes (4, 1) and (2, 2)
+     (mesh_species_shards 1, 2) and, where torch sees several cards, over
+     all of them as (n, 1).  B1 launches once a shard and nothing else;
+     the spectra within MESH_TOL = 1e-12 of the single device's on bins
+     >= 1e-4 of each species' peak (whole cell blocks keep each cell's
+     f32 work: only the f64 order moves); it prints each shard's device,
+     cells, species and cell split, the sum of the per-shard CUDA-event
+     ms against one device's 2,040.3 ms, and the wall;
+ 41. the meshed routes at MESH_CELLS = 1,024 cells (cell_block 256) of
+     phase 3's workdir and phase 23's 3+1d one, through the driver in
+     memory under (4, 1) and (2, 2) against the single-device run, each
+     within MESH_TOL (op 0 on each axis' normalized bins, the
+     polarization's five sums in units of their max): B3 df 4 (shear 0.2,
+     bulk 0.1), B3 famod (EOS-consistent), the f64 engines of df 1 and
+     df 4, B1's 3+1d mode, op 0 df 1 (B1) and df 4 (B3) per bin and
+     shard, P1 folded and P1's 3+1d mode (mode 5), and 3+1d op 0 (the
+     f64 engine) on 256 cells in blocks of 64; each shard launches the
+     route's kernel.  Then the two routes the JAX package keeps on one
+     device under a mesh: B2 (df 2, f64, use_pallas 1) and B3's 3+1d
+     mode (df 4, f32, shear 0.2, bulk 0.1): each launches its kernel
+     exactly once, records no shard, and stays within MESH_TOL of its
+     run with use_mesh 0;
+ 42. the meshed op 2 through the driver's meshed branches: phase 12's
+     histogram campaign (1e7 kept, in chunks of 3e6 drawn hadrons, in
+     memory) against the same campaign on one device: the counts equal,
+     the v_n sums within MESH_TOL of their max (CUDA's index_add_ adds
+     f64 with atomics); phase 13's OSCAR configuration at 1e6 hadrons in
+     chunks of 1.5e5: the event files equal the single device's byte for
+     byte; no kernel launches; over [cuda:0] * 4 and, where there are
+     several, all cards;
+ 43. the meshed ensemble: 8 of phase 27's surfaces under a (4, 1) mesh of
+     cuda:0 x 4 (core/ensemble.py's surface groups), B1 once a surface,
+     every surface bit-equal to its single compute_spectra run; the
+     kernel ms summed and the busy share.
 
 Before the card's line, a JSON object {"sampler": {...}} carries phases
-12-13's, 16's and 26's numbers, one {"ensemble": {...}} phases 27-29's
-and one {"tools": {...}} phases 37-39's.  The line before the last is a JSON object with each
+12-13's, 16's and 26's numbers, one {"ensemble": {...}} phases 27-29's,
+one {"tools": {...}} phases 37-39's, one {"mesh": {...}} phases 40-43's
+and one {"phase_seconds": {...}, "total_s": ...} each phase function's
+wall and the script's.  The line before the last is a JSON object with each
 kernel's measurements (phases 17-18 under B1's "grouped_mode6" and
 "operation0", phase 19 under B3's "operation0", each with the launches of
 its own path; P1's launches from phase 21, its folded instantiation's
@@ -310,7 +352,9 @@ mode, an entry of its own from phases 30-34 (its famod instantiation
 under "famod", operations 0 and 2 under "operations"); P1's 3+1d mode, an
 entry of its own from phases 35-36; each of B1, B2, B3
 and the two 3+1d modes with the launches and times of its ensemble runs in
-phases 27 and 29 under "ensemble"),
+phases 27 and 29 under "ensemble"; each kernel's runs in phases 40-43 under
+"mesh", B2's and B3's 3+1d mode's the one launch of their route under
+each mesh),
 its bound (the least time the card could take for the same work, from
 BOUND_OPS_PER_EVALUATION and the bytes of its operands), library_ms null
 (no single PyTorch call computes a Cooper-Frye or polarization sum), and
@@ -331,6 +375,7 @@ import dataclasses
 import functools
 import io
 import json
+import multiprocessing
 import re
 import shutil
 import subprocess
@@ -580,13 +625,10 @@ def fp32_issue_floor_ms(fp32_per_evaluation: float, evaluations: float,
 
 
 def phase_build() -> dict:
-    """Returns the SASS counts of P1 per instantiation and of B1's main
-    path (kernel_bench.loop_nest), of B1's 3+1d mode and of B3's 3+1d clean
-    kernel (their cell loops per evaluation, kernel_bench.per_evaluation;
-    the clean kernel's with its ptxas registers and spills)."""
+    """Builds and loads every source, prints each one's ptxas resources;
+    returns the libraries (source -> path) for sass_counts."""
     print("== 2. build (one nvcc per source, in parallel)")
     from is3d2_tpu_torch.ops import _build
-    from is3d2_tpu_torch.tools import kernel_bench as kb
     from is3d2_tpu_torch.tools.kernel_check import MAIN_PATH_KERNEL
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -616,26 +658,41 @@ def phase_build() -> dict:
                     print(f"  {key} main path's instantiation: "
                           f"{json.dumps(u)}")
     print(f"build+load {time.perf_counter() - t0:.2f} s")
-    code = kb.sass_functions(built["polarization_f32"][0])
+    return {name: str(path) for name, (path, _) in built.items()}
+
+
+def sass_counts(paths: dict) -> tuple[dict, list]:
+    """The SASS counts of P1 per instantiation and of B1's main path
+    (kernel_bench.loop_nest), of B1's 3+1d mode and of B3's 3+1d clean
+    kernel (their cell loops per evaluation, kernel_bench.per_evaluation;
+    the clean kernel's with its ptxas registers and spills), from the
+    libraries ``paths`` (source -> path), and the lines that say so.
+    Parsing cuobjdump's text takes ~15 s: main() runs this in a process of
+    its own beside phases 3-5."""
+    from is3d2_tpu_torch.ops import _build
+    from is3d2_tpu_torch.tools import kernel_bench as kb
+    from is3d2_tpu_torch.tools.kernel_check import MAIN_PATH_KERNEL
+    lines = []
+    code = code_p1 = kb.sass_functions(Path(paths["polarization_f32"]))
     p1 = {}
     for which, pattern in (("folded", r"polarization_f32_kernelILb1EE"),
                            ("general", r"polarization_f32_kernelILb0EE")):
         [name] = [k for k in code if re.search(pattern, k)]
         p1[which] = kb.loop_nest(code[name])
-        print(f"P1 {which} SASS: {json.dumps(p1[which])}")
-    code = kb.sass_functions(built["cooper_frye_comp"][0])
+        lines.append(f"P1 {which} SASS: {json.dumps(p1[which])}")
+    code = kb.sass_functions(Path(paths["cooper_frye_comp"]))
     [b1] = [k for k in code if re.search(MAIN_PATH_KERNEL["cooper_frye_comp"],
                                          k)]
     b1 = kb.loop_nest(code[b1])
-    print(f"B1 SASS: {json.dumps(b1)}")
+    lines.append(f"B1 SASS: {json.dumps(b1)}")
     [b1_3d] = [k for k in code
                if re.search(MAIN_PATH_KERNEL["cooper_frye_comp_3d"], k)]
     # the cell loop: the innermost loop with an expf
     loop = kb.inner_loops(code[b1_3d])[0]
     b1_3d = kb.per_evaluation(loop)
-    print(f"B1 3+1d SASS: the cell loop of {loop['evaluations']} "
-          f"evaluations, per evaluation {json.dumps(b1_3d)}")
-    path = built["cooper_frye_feqmod"][0]
+    lines.append(f"B1 3+1d SASS: the cell loop of {loop['evaluations']} "
+                 f"evaluations, per evaluation {json.dumps(b1_3d)}")
+    path = Path(paths["cooper_frye_feqmod"])
     code = kb.sass_functions(path)
     [clean] = [k for k in code if re.search(
         MAIN_PATH_KERNEL["cooper_frye_feqmod_3d_clean"], k)]
@@ -649,17 +706,25 @@ def phase_build() -> dict:
                        op: n / loop["evaluations"]
                        for op, n in opcodes.most_common()},
                    **_build.resource_usage(path)[clean]}
-    print(f"B3 3+1d clean kernel: {json.dumps(b3_3d_clean)}")
-    code = kb.sass_functions(built["polarization_f32"][0])
-    [p1_3d] = [k for k in code if re.search(
+    lines.append(f"B3 3+1d clean kernel: {json.dumps(b3_3d_clean)}")
+    [p1_3d] = [k for k in code_p1 if re.search(
         MAIN_PATH_KERNEL["polarization_f32_3d"], k)]
-    loop = kb.inner_loops(code[p1_3d], kb.P1_3D_UNIT)[0]
+    loop = kb.inner_loops(code_p1[p1_3d], kb.P1_3D_UNIT)[0]
     p1_3d = {**kb.per_evaluation(loop),
              "evaluations_per_cell_iteration": loop["evaluations"]}
-    print(f"P1 3+1d SASS: the cell loop of {loop['evaluations']} "
-          f"evaluations, per evaluation {json.dumps(p1_3d)}")
+    lines.append(f"P1 3+1d SASS: the cell loop of {loop['evaluations']} "
+                 f"evaluations, per evaluation {json.dumps(p1_3d)}")
     return {"p1": p1, "b1": b1, "b1_3d": b1_3d, "b3_3d_clean": b3_3d_clean,
-            "p1_3d": p1_3d}
+            "p1_3d": p1_3d}, lines
+
+
+def phase_sass(job) -> dict:
+    """sass_counts' result (``job``, its future), its lines printed."""
+    print("== 2b. SASS counts (parsed beside phases 3-5)")
+    sass, lines = job.result()
+    for line in lines:
+        print(line)
+    return sass
 
 
 def parity_workdirs(tmp: Path) -> tuple[Path, Path]:
@@ -703,6 +768,16 @@ def phase_b1_compare(wd: Path, wd_eta: Path) -> None:
         if not (r.ok and r.launches == 1):
             raise AssertionError(f"{name}: kernel disagrees or does not "
                                  f"repeat ({r.vs_plain:.3e} vs plain, "
+                                 f"{r.vs_f64:.3e} vs f64)")
+    for name in ("df1", "df2"):
+        # the kernel's kShear = false instantiations
+        r = kc.check_case(wd, name, 2048, 7, "cuda", include_shear_deltaf=0)
+        print(f"{name + '-noshear':22s} kernel vs plain {r.vs_plain:.3e}  "
+              f"kernel vs f64 {r.vs_f64:.3e}  plain vs f64 "
+              f"{r.plain_vs_f64:.3e}")
+        if not (r.ok and r.launches == 1):
+            raise AssertionError(f"{name}-noshear: kernel disagrees or does "
+                                 f"not repeat ({r.vs_plain:.3e} vs plain, "
                                  f"{r.vs_f64:.3e} vs f64)")
     r = kc.check_ragged_case(wd, 2048, 7, "cuda")
     print(f"{'ragged ' + json.dumps(kc.RAGGED):22s} kernel vs plain "
@@ -2132,12 +2207,16 @@ def timed_launches():
 
     def timed(name, fn):
         def run(*args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            spans.append((name, start, end))
+            # on the stream of the launch's own card (a mesh launches on
+            # several): every wrapped launch takes its operand first
+            dev = args[0].device
+            with torch.cuda.device(dev):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+            spans.append((name, start, end, dev))
             return out
         return run
 
@@ -2152,11 +2231,13 @@ def timed_launches():
 
 def span_stats(spans, wall_s: float) -> dict:
     """Kernel ms summed over ``spans``, the busy share of ``wall_s``, and
-    the device's gaps between one launch's end and the next one's start."""
-    torch.cuda.synchronize()
-    ms = [s.elapsed_time(e) for _, s, e in spans]
+    the device's gaps between one launch's end and the next one's start
+    (where both ran on one card)."""
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+    ms = [s.elapsed_time(e) for _, s, e, _ in spans]
     gaps = [spans[k][2].elapsed_time(spans[k + 1][1])
-            for k in range(len(spans) - 1)]
+            for k in range(len(spans) - 1) if spans[k][3] == spans[k + 1][3]]
     return {"wall_s": wall_s, "launches": len(spans),
             "kernel_ms": float(sum(ms)),
             "kernel_ms_each": {"min": float(min(ms)), "max": float(max(ms)),
@@ -2968,6 +3049,10 @@ OP1_FILE_SHAPES = {"dN_pTdpTdphidy": (51 * 48, 4), "vn": (51, 9),
                    "dN_dy": (1, 2)}
 # phase 37 reads the values of every 8th species' files in each archive
 SWEEP_SAMPLE_STRIDE = 8
+# phase 37's grid: each df with shear and bulk delta-f (phase 5's
+# corrections); the other three corrections' 12 runs of the default matrix
+# (75-93 s of the script's time limit) make room for phases 40-43
+SWEEP_CORRECTIONS = ("shear_bulk",)
 CAMPAIGN_BATCHES = 4
 OBSERVABLE_EVENTS = 20
 # compute_observables reads CSV text at ~3e5 hadrons a second on the card's
@@ -2997,7 +3082,8 @@ def check_op1_file(path: Path) -> None:
                              "not finite or below zero")
 
 
-def counted_sweep(wd: Path, out: Path, df_names: tuple
+def counted_sweep(wd: Path, out: Path, df_names: tuple,
+                  corr_names: tuple = ("none", "shear", "bulk", "shear_bulk")
                   ) -> tuple[dict, dict, float, dict]:
     """tools.sweep.run_sweep on ``wd`` with every launch count set to 0
     just before and read just after; returns the archive, each run's
@@ -3009,8 +3095,8 @@ def counted_sweep(wd: Path, out: Path, df_names: tuple
     timings = {}
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        archive = run_sweep(wd, df_names, out_dir=out, device="cuda",
-                            timings=timings)
+        archive = run_sweep(wd, df_names, corr_names, out_dir=out,
+                            device="cuda", timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -3023,12 +3109,13 @@ def counted_sweep(wd: Path, out: Path, df_names: tuple
 
 def phase_sweep(tmp: Path, wd1: Path, wd5: Path) -> dict:
     print(f"== 37. tools.sweep at full width: phase 5's {MAIN_CELLS} cells "
-          "(grad, ce, ptm, ptb x none, shear, bulk, shear_bulk; f32c), then "
-          "famod x none, shear on phase 14's")
+          "(grad, ce, ptm, ptb x shear_bulk; f32c), then famod x none, "
+          "shear on phase 14's")
     wd = derived_workdir(tmp, wd1, "sweep", {})
     grid, stages, wall, launches = counted_sweep(
-        wd, tmp / "sweep_results", ("grad", "ce", "ptm", "ptb"))
-    want = {"cooper_frye_comp": 8, "cooper_frye_feqmod": 8}
+        wd, tmp / "sweep_results", ("grad", "ce", "ptm", "ptb"),
+        SWEEP_CORRECTIONS)
+    want = {"cooper_frye_comp": 2, "cooper_frye_feqmod": 2}
     if launches != {**dict.fromkeys(launches, 0), **want}:
         raise AssertionError(f"the sweep launched {launches}, not {want}")
     wd_fa = derived_workdir(tmp, wd5, "sweep_famod", {})
@@ -3266,8 +3353,404 @@ def phase_observables(tmp: Path, wd_op2: Path) -> dict:
             "seconds": seconds, "mean_dN_dy": counts}
 
 
+# ----------------------------------------------------------------------
+# phases 40-43: the multi-device path (parallel/)
+# ----------------------------------------------------------------------
+
+# one card stands for four devices: cfg.use_mesh = 1 meshes over
+# [cuda:0] * MESH_SLOTS, as (4, 1) and (2, 2)
+MESH_SLOTS = 4
+MESH_SHAPES = ((4, 1), (2, 2))
+# a meshed route against its single-device run: whole cell blocks keep
+# each cell's f32 work, so only the order of the f64 additions moves
+MESH_TOL = 1e-12
+# phase 41's surfaces: phase 3's generator cut to 1,024 cells (the f64
+# engines and op 0's per-bin launches set the phase's time), in 4 blocks
+# of 256: one a shard of (4, 1), and P1's 3+1d runs of 256 cells whole
+MESH_CELLS = 1_024
+MESH_BLOCK = 256
+# 3+1d op 0 runs the f64 engine (~10 ms a cell at phase 23's width)
+MESH_OP0_3D_CELLS = 256
+MESH_OP0_3D_BLOCK = 64
+# phase 42: phase 12's campaign in chunks of this many drawn hadrons (9
+# chunks over the four slots; phase 12 runs 2), and phase 13's
+# configuration at 1e6 hadrons in chunks of 1.5e5
+MESH_HISTOGRAM_CHUNK = 3.0e6
+MESH_OSCAR_HADRONS = 1.0e6
+MESH_OSCAR_CHUNK = 1.5e5
+MESH_ENSEMBLE_SURFACES = 8
+
+
+@contextlib.contextmanager
+def mesh_devices(devices):
+    """parallel/sharding.local_devices replaced by ``devices`` while the
+    block runs, so that cfg.use_mesh = 1 meshes over them."""
+    from is3d2_tpu_torch.parallel import sharding
+    saved = sharding.local_devices
+    sharding.local_devices = lambda device=None: list(devices)
+    try:
+        yield
+    finally:
+        sharding.local_devices = saved
+
+
+def mesh_device_lists() -> list:
+    """(label, devices) of the meshes phases 40 and 42 run: [cuda:0] x 4,
+    and every card where torch sees several."""
+    n = torch.cuda.device_count()
+    print(f"torch.cuda.device_count() = {n}")
+    lists = [("cuda:0 x 4", [torch.device("cuda", 0)] * MESH_SLOTS)]
+    if n >= 2:
+        lists.append((f"{n} cards",
+                      [torch.device("cuda", k) for k in range(n)]))
+    return lists
+
+
+def sync_all() -> None:
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+def driver_run(wd: Path, cfg, surf=None, write: bool = False):
+    """The driver as a library user calls it (the surface from ``wd`` or
+    ``surf`` in memory), with every launch count set to 0 just before and
+    read just after.  Returns (run, launches, wall s); run.log is its
+    log."""
+    from is3d2_tpu_torch.driver import IS3D
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        run = IS3D(wd, cfg=cfg, device="cuda")
+        if surf is not None:
+            run.surface = surf
+        run.run_particlization(fo_from_file=surf is None, write=write)
+    sync_all()
+    wall = time.perf_counter() - t0
+    run.log = log.getvalue()
+    return run, {name: fn.launches for name, fn in counters.items()}, wall
+
+
+def expect_launches(launches: dict, want: dict, label: str) -> None:
+    full = {**dict.fromkeys(launches, 0), **want}
+    if launches != full:
+        raise AssertionError(f"{label}: launches {launches}, expected {full}")
+
+
+def phase_mesh_main_path(wd1: Path) -> dict:
+    print(f"== 40. meshed main path: phase 5's workdir ({MAIN_CELLS} cells, "
+          "all species, 51 x 48 x 24, df 1, f32c) through the driver's "
+          "compute_spectra under meshes (4, 1) and (2, 2) of cuda:0 x 4")
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.parallel import sharding
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cfg0 = Config.from_file(wd1 / "iS3D_parameters.dat")
+    single, launches, wall = driver_run(
+        wd1, dataclasses.replace(cfg0, use_mesh=0))
+    expect_launches(launches, {"cooper_frye_comp": 1}, "single device")
+    ref = single.spectra
+    print(f"single device: wall {wall:.2f} s, stage seconds "
+          f"{json.dumps(single.stage_seconds)}")
+    out = {"single_wall_s": wall,
+           "single_stage_seconds": single.stage_seconds, "meshes": {}}
+    for label, devices in mesh_device_lists():
+        shapes = MESH_SHAPES if label.startswith("cuda:0") \
+            else ((len(devices), 1),)
+        for shape in shapes:
+            cfg = dataclasses.replace(cfg0, use_mesh=1,
+                                      mesh_species_shards=shape[1])
+            with mesh_devices(devices), timed_launches() as spans:
+                run, launches, wall = driver_run(wd1, cfg)
+            n = shape[0] * shape[1]
+            expect_launches(launches, {"cooper_frye_comp": n},
+                            f"{label} {shape}")
+            stats = span_stats(spans, run.stage_seconds["compute"])
+            err = kc.max_rel_err(run.spectra, ref)
+            mesh_line = re.search(r"^mesh: (.*)$", run.log, re.M).group(1)
+            shards = [(s["device"], s["cells"], s["species"],
+                       (s["geometry"] or {}).get("n_split"))
+                      for s in sharding.last_shards]
+            print(f"{label} {shape}: mesh {mesh_line}; shards (device, "
+                  f"cells, species, cell split) {shards}")
+            print(f"  {n} launches of B1, sum of the per-shard CUDA-event "
+                  f"ms {stats['kernel_ms']:.1f} (one launch on one device: "
+                  f"2,040.3 ms on an H100 80GB HBM3 at 700 W, PERF.md), "
+                  f"compute wall "
+                  f"{run.stage_seconds['compute']:.3f} s, driver wall "
+                  f"{wall:.2f} s, busy {100 * stats['busy_share']:.1f} %; "
+                  f"against the single-device spectra {err:.3e} (bar "
+                  f"{MESH_TOL:g})")
+            if not (np.isfinite(run.spectra).all() and err <= MESH_TOL):
+                raise AssertionError(f"meshed main path {label} {shape}: "
+                                     f"{err:.3e} off the single device")
+            out["meshes"][f"{label} {shape[0]}x{shape[1]}"] = {
+                "launches": n, "kernel_ms": stats["kernel_ms"],
+                "kernel_ms_each": stats["kernel_ms_each"],
+                "compute_s": run.stage_seconds["compute"],
+                "wall_s": wall, "busy_share": stats["busy_share"],
+                "max_rel_err": err, "shards": shards}
+    return out
+
+
+def _err_spectra(a, b) -> float:
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    return kc.max_rel_err(np.asarray(a), np.asarray(b))
+
+
+def _err_dX(a, b, cfg) -> float:
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    return max(kc.max_rel_err(x, y) for x, y in
+               zip(a.normalized(cfg), b.normalized(cfg)))
+
+
+def _err_polarization(a, b) -> float:
+    """Each of the five sums in units of its own max |.| (the spin sums
+    cancel between cells)."""
+    return max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300))
+               for x, y in zip(a, b))
+
+
+def phase_mesh_routes(tmp: Path, wd: Path, wd3: Path) -> dict:
+    print(f"== 41. meshed routes at {MESH_CELLS} cells (cell_block "
+          f"{MESH_BLOCK}), 16 species, 51 x 48 x 24 / 21 y: each under "
+          "(4, 1) and (2, 2) of cuda:0 x 4 against its single-device run")
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.parallel import sharding
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    from is3d2_tpu_torch.tools.synthetic import make_surface
+    mild = make_surface(MESH_CELLS, seed=7)
+    feqmod = make_surface(MESH_CELLS, seed=7, **kc.FEQMOD_SURFACE)
+    famod = kc.famod_surface(wd, MESH_CELLS, 7, "cuda")
+    vort = kc.polarization_surface(MESH_CELLS, 7)
+    mild3 = make_surface(MESH_CELLS, seed=7, dimension=3)
+    vort3 = make_surface(MESH_CELLS, seed=7, dimension=3, vorticity=True)
+    small3 = make_surface(MESH_OP0_3D_CELLS, seed=7, dimension=3)
+    feqmod3 = make_surface(MESH_CELLS, seed=7, dimension=3,
+                           **kc.FEQMOD_SURFACE)
+    spectra = ("spectra", _err_spectra)
+    # name -> (workdir, surface, config fields, what is compared, the
+    # kernel each shard launches)
+    routes = {
+        "B3 df 4": (wd, feqmod, {"df_mode": 4, "compute_dtype": "f32"},
+                    spectra, "cooper_frye_feqmod"),
+        "B3 famod": (wd, famod, {"df_mode": 5, "compute_dtype": "f32"},
+                     spectra, "cooper_frye_feqmod"),
+        "f64 df 1": (wd, mild, {"df_mode": 1, "compute_dtype": "f64"},
+                     spectra, None),
+        "f64 df 4": (wd, feqmod, {"df_mode": 4, "compute_dtype": "f64"},
+                     spectra, None),
+        "B1 3+1d": (wd3, mild3, {"df_mode": 1, "compute_dtype": "f32c"},
+                    spectra, "cooper_frye_comp_3d"),
+        "op 0 df 1": (wd, mild, {"operation": 0, "df_mode": 1,
+                                 "compute_dtype": "f32c"},
+                      ("dN_dX", _err_dX), "cooper_frye_comp"),
+        "op 0 df 4": (wd, feqmod, {"operation": 0, "df_mode": 4,
+                                   "compute_dtype": "f32"},
+                      ("dN_dX", _err_dX), "cooper_frye_feqmod"),
+        "P1 folded": (wd, vort, {"mode": 5, "df_mode": 1,
+                                 "compute_dtype": "f32c"},
+                      ("polarization", _err_polarization),
+                      "polarization_f32"),
+        "P1 3+1d": (wd3, vort3, {"mode": 5, "df_mode": 1,
+                                 "compute_dtype": "f32c"},
+                    ("polarization", _err_polarization),
+                    "polarization_f32_3d"),
+        "3+1d op 0 (f64)": (wd3, small3, {"operation": 0, "df_mode": 1,
+                                          "compute_dtype": "f32c",
+                                          "cell_block": MESH_OP0_3D_BLOCK},
+                            ("dN_dX", _err_dX), None),
+        # the routes the JAX package keeps on one device under a mesh
+        "B2 (one device)": (wd, mild, {"df_mode": 2, "compute_dtype": "f64",
+                                       "use_pallas": 1},
+                            spectra, "cooper_frye_f32"),
+        "B3 3+1d (one device)": (wd3, feqmod3, {"df_mode": 4,
+                                                "compute_dtype": "f32"},
+                                 spectra, "cooper_frye_feqmod_3d"),
+    }
+    devices = [torch.device("cuda", 0)] * MESH_SLOTS
+    out = {}
+    for name, (w, surf, fields, (attr, err_fn), kernel) in routes.items():
+        one_device = name.endswith("(one device)")
+        base = dataclasses.replace(
+            Config.from_file(w / "iS3D_parameters.dat"),
+            **{"operation": 1, "cell_block": MESH_BLOCK, "include_baryon": 0,
+               "include_baryondiff_deltaf": 0, **fields})
+        single, _, single_wall = driver_run(
+            w, dataclasses.replace(base, use_mesh=0), surf)
+        ref = getattr(single, attr)
+        res = {"single_wall_s": single_wall}
+        for shape in MESH_SHAPES:
+            cfg = dataclasses.replace(base, use_mesh=1,
+                                      mesh_species_shards=shape[1])
+            sharding.last_shards.clear()
+            with mesh_devices(devices):
+                run, launches, wall = driver_run(w, cfg, surf)
+            got = getattr(run, attr)
+            err = (err_fn(got, ref, cfg) if attr == "dN_dX"
+                   else err_fn(got, ref))
+            n_shards = len(sharding.last_shards)
+            print(f"{name:20s} {shape}: {n_shards} shards, launches "
+                  f"{ {k: v for k, v in launches.items() if v} }, wall "
+                  f"{wall:.2f} s (single {single_wall:.2f} s); against the "
+                  f"single-device run {err:.3e}")
+            if one_device:
+                expect_launches(launches, {kernel: 1}, f"{name} {shape}")
+                if n_shards or run.mesh is None or err > MESH_TOL:
+                    raise AssertionError(
+                        f"{name} {shape}: {n_shards} shards recorded "
+                        f"(mesh {run.mesh}), {err:.3e} off the single "
+                        f"device (bar {MESH_TOL:g})")
+            elif kernel is not None and launches[kernel] < n_shards:
+                raise AssertionError(f"{name} {shape}: {kernel} launched "
+                                     f"{launches[kernel]} times on "
+                                     f"{n_shards} shards")
+            elif n_shards < 2 or err > MESH_TOL:
+                raise AssertionError(f"{name} {shape}: {n_shards} shards, "
+                                     f"{err:.3e} off the single device "
+                                     f"(bar {MESH_TOL:g})")
+            res[f"{shape[0]}x{shape[1]}"] = {
+                "launches": {k: v for k, v in launches.items() if v},
+                "shards": n_shards, "wall_s": wall, "max_err": err}
+        out[name] = res
+    return out
+
+
+def _histograms_equal(a, b, label: str) -> None:
+    """Two runs' test histograms: the counts equal, the v_n sums within
+    MESH_TOL of each array's max |.| (CUDA's index_add_ adds f64 with
+    atomics, in an order that may move from run to run)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name.startswith("vn_"):
+            err = float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300))
+            if err > MESH_TOL:
+                raise AssertionError(f"{label}: {f.name} {err:.3e} off")
+        elif not np.array_equal(x, y):
+            raise AssertionError(f"{label}: {f.name} differs")
+
+
+def phase_mesh_sampler(tmp: Path) -> dict:
+    print("== 42. meshed op 2 through the driver's meshed branches: phase "
+          f"12's histogram campaign (chunks of {MESH_HISTOGRAM_CHUNK:g} "
+          f"drawn hadrons, compute only) and phase 13's OSCAR files at "
+          f"{MESH_OSCAR_HADRONS:g} hadrons (chunks of {MESH_OSCAR_CHUNK:g})")
+    from is3d2_tpu_torch.config import Config
+    wd_h = tmp / "op2_hist"
+    cfg_h = dataclasses.replace(Config.from_file(wd_h / "iS3D_parameters.dat"),
+                                sampler_chunk_hadrons=MESH_HISTOGRAM_CHUNK)
+    single, launches, wall = driver_run(
+        wd_h, dataclasses.replace(cfg_h, use_mesh=0))
+    expect_launches(launches, {}, "single-device sampler")
+    d = single.sampler_diags
+    print(f"single device: {d['kept']} kept, {d['chunks']} chunks, compute "
+          f"{single.stage_seconds['compute']:.3f} s, wall {wall:.2f} s")
+    out = {"histograms": {"single": {"kept": d["kept"],
+                                     "chunks": d["chunks"],
+                                     "compute_s":
+                                         single.stage_seconds["compute"]}}}
+    lists = mesh_device_lists()
+    for label, devices in lists:
+        with mesh_devices(devices):
+            run, launches, wall = driver_run(
+                wd_h, dataclasses.replace(cfg_h, use_mesh=1))
+        expect_launches(launches, {}, f"{label} sampler")
+        _histograms_equal(run.histograms, single.histograms, label)
+        m = run.sampler_diags
+        if (m["kept"], m["drawn"], m["chunks"]) != (d["kept"], d["drawn"],
+                                                    d["chunks"]):
+            raise AssertionError(f"{label}: diagnostics differ")
+        print(f"{label}: histograms equal the single device's (counts "
+              f"exactly, v_n within {MESH_TOL:g}); compute "
+              f"{run.stage_seconds['compute']:.3f} s, wall {wall:.2f} s")
+        out["histograms"][label] = {"compute_s": run.stage_seconds["compute"],
+                                    "wall_s": wall}
+    params = {"min_num_hadrons": MESH_OSCAR_HADRONS,
+              "sampler_chunk_hadrons": MESH_OSCAR_CHUNK}
+    files = {}
+    for um, (label, devices) in [(0, lists[0])] + [(1, x) for x in lists]:
+        key = "single" if um == 0 else label
+        wd = derived_workdir(tmp, tmp / "op2_oscar",
+                             f"op2_oscar_mesh_{len(files)}",
+                             {**params, "use_mesh": um})
+        with mesh_devices(devices):
+            run, launches, wall = driver_run(wd, Config.from_file(
+                wd / "iS3D_parameters.dat"), write=True)
+        expect_launches(launches, {}, f"{key} OSCAR")
+        files[key] = sorted((wd / "results").glob("particle_list_osc_*"))
+        print(f"{key}: {run.sampler_diags['kept']} kept in "
+              f"{run.sampler_diags['chunks']} chunks, {len(files[key])} "
+              f"event files, compute {run.stage_seconds['compute']:.3f} s, "
+              f"wall {wall:.2f} s")
+        out[f"oscar {key}"] = {"kept": run.sampler_diags["kept"],
+                               "events": len(files[key]),
+                               "compute_s": run.stage_seconds["compute"],
+                               "wall_s": wall}
+    ref = files.pop("single")
+    for key, got in files.items():
+        if [p.name for p in got] != [p.name for p in ref] or any(
+                a.read_bytes() != b.read_bytes() for a, b in zip(got, ref)):
+            raise AssertionError(f"{key}: OSCAR files differ from the "
+                                 "single device's")
+        print(f"{key}: {len(got)} OSCAR files equal the single device's, "
+              "event for event")
+    return out
+
+
+def phase_mesh_ensemble(wd1: Path) -> dict:
+    print(f"== 43. meshed ensemble: {MESH_ENSEMBLE_SURFACES} of phase 27's "
+          f"surfaces ({ENSEMBLE_CELLS} cells), df 1, f32c, mesh (4, 1) of "
+          "cuda:0 x 4")
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.core.ensemble import compute_spectra_ensemble
+    from is3d2_tpu_torch.core.spectra import compute_spectra
+    from is3d2_tpu_torch.parallel.sharding import make_mesh
+    from is3d2_tpu_torch.tools.synthetic import make_ensemble
+    surfs = make_ensemble(MESH_ENSEMBLE_SURFACES, ENSEMBLE_CELLS,
+                          ENSEMBLE_SEED0, **ENSEMBLE_SURFACE)
+    species, chosen, grids, laguerre, df_data = ensemble_inputs(
+        wd1, 1, surfs[0])
+    cfg = dataclasses.replace(Config.from_file(wd1 / "iS3D_parameters.dat"),
+                              df_mode=1, compute_dtype="f32c",
+                              cell_block=ENSEMBLE_CELLS)
+    args = (species, chosen, grids, df_data, cfg)
+    mesh = make_mesh(4, 1, [torch.device("cuda", 0)] * MESH_SLOTS)
+    with timed_launches() as spans:
+        out, launches, wall = counted(
+            lambda: compute_spectra_ensemble(surfs, *args, mesh=mesh),
+            "cooper_frye_comp", MESH_ENSEMBLE_SURFACES)
+    stats = span_stats(spans, wall)
+    for i, s in enumerate(surfs):
+        if not np.array_equal(out[i], compute_spectra(s, *args, "cuda")):
+            raise AssertionError(f"meshed ensemble: surface {i} differs "
+                                 "from its single run")
+    print(f"{MESH_ENSEMBLE_SURFACES} surfaces in 4 groups, "
+          f"{launches['cooper_frye_comp']} launches of B1, wall "
+          f"{wall:.3f} s, kernel {stats['kernel_ms']:.1f} ms, busy "
+          f"{100 * stats['busy_share']:.1f} %; every surface bit-equal to "
+          "its single run")
+    return stats
+
+
+# each phase function's wall seconds (timed), printed before the card's
+# line: where the script's time limit goes
+PHASE_SECONDS: dict = {}
+
+
+def timed(fn, *args):
+    """fn(*args), its wall seconds added to PHASE_SECONDS under its name."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[fn.__name__] = (PHASE_SECONDS.get(fn.__name__, 0.0)
+                                      + time.perf_counter() - t0)
+
+
 def main() -> int:
-    card = phase_environment()
+    t_start = time.perf_counter()
+    card = timed(phase_environment)
     # the package is imported only now: a copy of this script alone, or a
     # machine without a card, fails above or here and prints no result
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -3275,58 +3758,73 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    sass = phase_build()
+    libraries = timed(phase_build)
     scratch = Path(__file__).resolve().parent / "build"
     scratch.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+    # the SASS counts are parsed in a process of their own (no card, no
+    # GIL shared) while phases 3-5 run
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as \
+            sass_pool, tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        sass_job = sass_pool.submit(sass_counts, libraries)
         tmp = Path(tmp)
         wd, wd_eta = parity_workdirs(tmp)
-        phase_b1_compare(wd, wd_eta)
-        phase_b3_compare(wd, wd_eta)
-        b1_launches, b1_stages, wd1 = phase_b1_main_path(tmp)
-        b1 = phase_b1_full(wd1, b1_stages, sass["b1"])
-        b3_launches, _, wd4 = phase_b3_main_path(tmp)
-        b3 = phase_b3_full(wd4)
-        phase_b2_compare(wd, wd_eta)
-        b2_launches, _, wd2 = phase_b2_main_path(tmp)
-        b2 = phase_b2_full(wd2)
-        op2_hist = phase_sampler_histograms(tmp, wd1)
-        op2_oscar = phase_sampler_oscar(tmp, wd4)
-        b3f_launches, _, wd5, famod = phase_famod_main_path(tmp)
-        b3f = phase_famod_full(wd5)
-        op2_famod = phase_famod_sampler(tmp, wd5)
-        grouped = phase_grouped_main_path(tmp)
-        op0_b1 = phase_op0_b1(tmp, wd1, wd)
-        op0_b3 = phase_op0_b3(tmp, wd)
-        phase_p1_compare(wd, wd_eta)
-        p1_launches, p1_stages, wd_m5 = phase_p1_main_path(tmp)
-        p1 = phase_p1_full(wd_m5, sass["p1"])
-        phase_b1_3d_compare(parity_workdir_3d(tmp))
-        b1_3d_launches, b1_3d_stages, wd3 = phase_b1_3d_main_path(tmp)
-        b1_3d = phase_b1_3d_full(wd3, sass["b1_3d"])
-        op0_3d = phase_op0_3d(tmp, wd3)
-        op2_3d = phase_sampler_3d(tmp, wd3)
-        ens_spectra = phase_ensemble_spectra(wd1)
-        ens_sampler = phase_ensemble_sampler(wd1)
-        ens_routes = phase_ensemble_routes(tmp, wd1, wd3)
-        b3_3d_parity = phase_b3_3d_compare(parity_workdir_3d(tmp))
-        b3_3d_launches, b3_3d_stages, wd3_df4 = phase_b3_3d_main_path(tmp)
-        b3_3d = phase_b3_3d_full(wd3_df4, sass["b3_3d_clean"])
-        b3_3d_famod_launches, _, wd3_df5, b3_3d_famod = phase_famod_3d(tmp)
-        ops_3d = phase_3d_df345_operations(tmp, wd3_df4, wd3_df5)
-        p1_3d_parity = phase_p1_3d_compare(parity_workdir_3d(tmp))
-        p1_3d_launches, p1_3d_stages, wd3_m5 = phase_p1_3d_main_path(tmp)
-        p1_3d = phase_p1_3d_full(wd3_m5, sass["p1_3d"])
-        tools = {"sweep": phase_sweep(tmp, wd1, wd5)}
+        timed(phase_b1_compare, wd, wd_eta)
+        timed(phase_b3_compare, wd, wd_eta)
+        b1_launches, b1_stages, wd1 = timed(phase_b1_main_path, tmp)
+        sass = timed(phase_sass, sass_job)
+        b1 = timed(phase_b1_full, wd1, b1_stages, sass["b1"])
+        b3_launches, _, wd4 = timed(phase_b3_main_path, tmp)
+        b3 = timed(phase_b3_full, wd4)
+        timed(phase_b2_compare, wd, wd_eta)
+        b2_launches, _, wd2 = timed(phase_b2_main_path, tmp)
+        b2 = timed(phase_b2_full, wd2)
+        op2_hist = timed(phase_sampler_histograms, tmp, wd1)
+        op2_oscar = timed(phase_sampler_oscar, tmp, wd4)
+        b3f_launches, _, wd5, famod = timed(phase_famod_main_path, tmp)
+        b3f = timed(phase_famod_full, wd5)
+        op2_famod = timed(phase_famod_sampler, tmp, wd5)
+        grouped = timed(phase_grouped_main_path, tmp)
+        op0_b1 = timed(phase_op0_b1, tmp, wd1, wd)
+        op0_b3 = timed(phase_op0_b3, tmp, wd)
+        timed(phase_p1_compare, wd, wd_eta)
+        p1_launches, p1_stages, wd_m5 = timed(phase_p1_main_path, tmp)
+        p1 = timed(phase_p1_full, wd_m5, sass["p1"])
+        timed(phase_b1_3d_compare, parity_workdir_3d(tmp))
+        b1_3d_launches, b1_3d_stages, wd3 = timed(phase_b1_3d_main_path,
+                                                  tmp)
+        b1_3d = timed(phase_b1_3d_full, wd3, sass["b1_3d"])
+        op0_3d = timed(phase_op0_3d, tmp, wd3)
+        op2_3d = timed(phase_sampler_3d, tmp, wd3)
+        ens_spectra = timed(phase_ensemble_spectra, wd1)
+        ens_sampler = timed(phase_ensemble_sampler, wd1)
+        ens_routes = timed(phase_ensemble_routes, tmp, wd1, wd3)
+        b3_3d_parity = timed(phase_b3_3d_compare, parity_workdir_3d(tmp))
+        b3_3d_launches, b3_3d_stages, wd3_df4 = timed(
+            phase_b3_3d_main_path, tmp)
+        b3_3d = timed(phase_b3_3d_full, wd3_df4, sass["b3_3d_clean"])
+        b3_3d_famod_launches, _, wd3_df5, b3_3d_famod = timed(
+            phase_famod_3d, tmp)
+        ops_3d = timed(phase_3d_df345_operations, tmp, wd3_df4, wd3_df5)
+        p1_3d_parity = timed(phase_p1_3d_compare, parity_workdir_3d(tmp))
+        p1_3d_launches, p1_3d_stages, wd3_m5 = timed(
+            phase_p1_3d_main_path, tmp)
+        p1_3d = timed(phase_p1_3d_full, wd3_m5, sass["p1_3d"])
+        tools = {"sweep": timed(phase_sweep, tmp, wd1, wd5)}
         # phase 37's workdirs and archives (~3.7e4 files) are not read
         # again: removed while phases 38-39 run, not one by one at the end
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             removed = pool.submit(lambda: [shutil.rmtree(tmp / d) for d in (
                 "sweep", "sweep_results", "sweep_famod",
                 "sweep_famod_results")])
-            tools["use_pallas0"] = phase_use_pallas0(tmp, wd1, wd)
-            tools["campaign"] = phase_campaign(tmp, wd1, op2_hist)
+            tools["use_pallas0"] = timed(phase_use_pallas0, tmp, wd1, wd)
+            tools["campaign"] = timed(phase_campaign, tmp, wd1, op2_hist)
         removed.result()
+        mesh = {"main_path": timed(phase_mesh_main_path, wd1),
+                "routes": timed(phase_mesh_routes, tmp, wd,
+                                parity_workdir_3d(tmp)),
+                "sampler": timed(phase_mesh_sampler, tmp),
+                "ensemble": timed(phase_mesh_ensemble, wd1)}
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -3341,7 +3839,14 @@ def main() -> int:
                                    "sampler": ens_sampler,
                                    "routes": ens_routes}}))
     print(json.dumps({"tools": {"card": card, **tools}}))
+    print(json.dumps({"mesh": {"card": card, **mesh}}))
+    print(json.dumps({"phase_seconds": PHASE_SECONDS,
+                      "total_s": time.perf_counter() - t_start,
+                      "card": card}))
     print(card)
+
+    def routes(*names):
+        return {n: mesh["routes"][n] for n in names}
     print(json.dumps({"kernels": [
         {"name": "cooper_frye_comp", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_comp.cu",
@@ -3353,7 +3858,12 @@ def main() -> int:
          # phase 27: the 64-surface ensemble, one launch a surface
          "ensemble": {"launches": ens_spectra["launches"],
                       "pipeline": ens_spectra["pipeline"],
-                      "plain_loop": ens_spectra["plain_loop"]}},
+                      "plain_loop": ens_spectra["plain_loop"]},
+         # phases 40, 41 and 43: the main path under (4, 1) and (2, 2),
+         # operation 0, the meshed ensemble
+         "mesh": {"main_path": mesh["main_path"],
+                  "routes": routes("op 0 df 1"),
+                  "ensemble": mesh["ensemble"]}},
         {"name": "cooper_frye_feqmod", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_feqmod_pallas.py:68",
@@ -3364,13 +3874,17 @@ def main() -> int:
          "operation0": op0_b3,
          # phase 29: ensembles of 8 df-4 and 4 df-5 surfaces
          "ensemble": {"df4": ens_routes["df4"],
-                      "famod": ens_routes["df5"]}},
+                      "famod": ens_routes["df5"]},
+         # phase 41: df 4, famod and operation 0 under (4, 1) and (2, 2)
+         "mesh": {"routes": routes("B3 df 4", "B3 famod", "op 0 df 4")}},
         {"name": "cooper_frye_f32", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_f32.cu",
          "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:83",
          "launches": b2_launches, **b2,
          # phase 29: an ensemble of 4 surfaces
-         "ensemble": ens_routes["df2_use_pallas"]},
+         "ensemble": ens_routes["df2_use_pallas"],
+         # phase 41: one launch under each mesh, on one device as in JAX
+         "mesh": {"routes": routes("B2 (one device)")}},
         {"name": "polarization_f32", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/polarization_f32.cu",
          # an XLA program: the JAX package has no Pallas kernel for it
@@ -3378,7 +3892,9 @@ def main() -> int:
          "launches": p1_launches["polarization_f32"], **p1,
          # phase 21: the mode-5 main path, B1 for its spectra beside P1
          "mode5_main_path": {"launches": p1_launches,
-                             "stage_seconds": p1_stages}},
+                             "stage_seconds": p1_stages},
+         # phase 41: the cells over "cells"
+         "mesh": {"routes": routes("P1 folded")}},
         {"name": "cooper_frye_comp_3d", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_comp.cu",
          # an XLA program (and _block_fast_3d, :353, for f32): the JAX
@@ -3389,7 +3905,9 @@ def main() -> int:
          # phase 25: operation 0 in 3+1d, the f64 engine on a cut
          "operation0_f64_engine": op0_3d,
          # phase 29: an ensemble of 4 surfaces
-         "ensemble": ens_routes["3d"]},
+         "ensemble": ens_routes["3d"],
+         # phase 41: B1's 3+1d mode and 3+1d op 0 (the f64 engine)
+         "mesh": {"routes": routes("B1 3+1d", "3+1d op 0 (f64)")}},
         {"name": "cooper_frye_feqmod_3d", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/cooper_frye_feqmod.cu",
          # an XLA program: the JAX package has no Pallas kernel in 3+1d
@@ -3404,7 +3922,9 @@ def main() -> int:
          "operations": ops_3d,
          # phase 29: ensembles of 4 df-4 and 4 df-5 3+1d surfaces
          "ensemble": {"df4": ens_routes["3d_df4"],
-                      "famod": ens_routes["3d_df5"]}},
+                      "famod": ens_routes["3d_df5"]},
+         # phase 41: one launch under each mesh, on one device as in JAX
+         "mesh": {"routes": routes("B3 3+1d (one device)")}},
         {"name": "polarization_f32_3d", "route": "cuda",
          "source": "is3d2_tpu_torch/csrc/polarization_f32.cu",
          # an XLA program: the JAX package has no Pallas kernel for it
@@ -3414,7 +3934,10 @@ def main() -> int:
          "mode5_main_path": {"launches": p1_3d_launches,
                              "stage_seconds": p1_3d_stages},
          # phase 35: parity at 2,048 cells
-         "parity": p1_3d_parity}]}))
+         "parity": p1_3d_parity,
+         # phase 41: the cells over "cells" in MESH_BLOCK = 256-cell
+         # blocks, the mode's whole 256-cell f32 runs
+         "mesh": {"routes": routes("P1 3+1d")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

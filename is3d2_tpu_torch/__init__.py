@@ -14,6 +14,8 @@ reference.  The layout mirrors it so each module has a counterpart:
                Monte-Carlo hadron sampler and the spin polarization;
   - ops/       hand-written CUDA kernels for Hopper, their plain torch
                versions and the nvcc build;
+  - parallel/  the engines, the sampler's events and an ensemble's
+               surfaces sharded over the local devices (use_mesh);
   - tools/     delta-f table generator, the synthetic-workdir builder,
                the kernels' check and bench harnesses, and the JAX
                package's tools and campaign scripts: the df x corrections
@@ -27,8 +29,8 @@ in 2+1d and in 3+1d (dimension 3), on surfaces of modes 0-7 or handed
 over in memory, with or without group_particles, single surfaces and
 ensembles, and after any of them the thermal-vorticity spin polarization
 of a mode-5 surface, in 2+1d and in 3+1d, with every use_pallas and
-compute_dtype.  ``Config.validate_slice`` rejects only use_mesh = 1
-(several devices, ROADMAP A12).  Importing it never imports jax.
+compute_dtype, on one device or sharded over the local devices
+(use_mesh, parallel/).  Importing it never imports jax.
 """
 
 from .constants import hbarC, two_pi, two_pi2_hbarC3, four_pi2_hbarC3  # noqa: F401

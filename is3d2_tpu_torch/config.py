@@ -107,9 +107,9 @@ class Config:
     # also write the plain-CSV particle lists (the reference's main path
     # writes only OSCAR, EmissionFunction.cpp:1290; CSV doubles export time)
     write_csv: int = 0
-    # multi-device sharding of the continuous engines: -1 = auto, 0 = off,
-    # 1 = force on.  The port runs on one device; 1 is rejected by
-    # validate_slice
+    # multi-device sharding of the engines and the sampler over the local
+    # devices (parallel/): -1 = auto (several CUDA devices), 0 = off,
+    # 1 = force on (also several CPU devices)
     use_mesh: int = -1
     # mesh shape: devices = (devices/mesh_species_shards) cell shards
     # x mesh_species_shards species shards
@@ -173,12 +173,11 @@ class Config:
             raise ValueError("compute_dtype must be 'f32', 'f64' or 'f32c'")
 
     def validate_slice(self) -> None:
-        """Reject what the port does not run yet, naming the ROADMAP item
-        that brings it (ROADMAP.md, queue A): only ``use_mesh = 1`` (A12).
-        Also reject what the JAX package rejects: df 4 with baryons, and
-        df 5 in operation 0.
+        """Reject what the JAX package rejects: df 4 with baryons, and df 5
+        in operation 0.
 
-        Every other single-device configuration runs, in 2+1d and 3+1d.
+        Every other configuration runs, in 2+1d and 3+1d, on one device or
+        (``use_mesh``) sharded over the local devices (parallel/).
         ``use_pallas`` selects between a Pallas kernel and an XLA program
         in the JAX package, a choice that exists because a TPU has two
         compilers; the port has one implementation of each sum.  So with
@@ -196,7 +195,3 @@ class Config:
             raise ValueError("no spacetime distribution routine for famod "
                              "(matches the reference, "
                              "EmissionFunction.cpp:1184-1189)")
-        if self.use_mesh == 1:
-            raise NotImplementedError(
-                "not ported yet: use_mesh 1 (multi-device; for operation 2 "
-                "parallel/sampler_shard.py): ROADMAP A12")

@@ -20,6 +20,17 @@ Newton's convergence back, so there only the host part overlaps.  The
 sampler reads back once per event chunk anyway, and runs surface by
 surface.
 
+With ``mesh`` (parallel/sharding.py::Mesh) the surfaces are cut by the
+mesh's axis 0 into contiguous groups, one group per device (the first of
+each row), as the JAX package shards its surface axis.  The spectra
+pipeline then queues the groups' surfaces in turn, device by device, and
+keeps at most two surfaces a device in flight; the sampler runs each
+group in a worker thread of its own.  Each surface still runs its single-
+surface route on one device, with its own seed, so it equals its single
+run bit for bit on devices of one kind.  Without ``mesh`` an ensemble runs
+on ``device`` alone, whatever cfg.use_mesh says (only the driver turns
+cfg.use_mesh into a mesh), as the JAX ensemble runs without one.
+
 What the JAX package's semantics keep:
   * the species are never grouped: the ensemble runs with
     group_particles = 0, as the JAX ensemble builds its species arrays from
@@ -35,7 +46,6 @@ What the JAX package's semantics keep:
   * every surface samples ``events_per_surface`` events.
 
 What the signatures drop or ignore:
-  * ``mesh``: the surface axis over several devices waits for ROADMAP A12;
   * the JAX padding arguments (``n_cells_pad``, ``_n_cells_pad``,
     ``_surf_offset``): nothing is padded to a common cell count;
   * ``surface_chunk`` is accepted and changes nothing: nothing is stacked,
@@ -53,6 +63,7 @@ What the signatures drop or ignore:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from pathlib import Path
 
@@ -90,29 +101,70 @@ def _start_copy(t: torch.Tensor):
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+    with torch.cuda.device(t.device):   # the copy's stream is t's device's
+        done = torch.cuda.Event()
+        done.record()
     return host, done
+
+
+def surface_groups(n_surfaces: int, mesh, device) -> list:
+    """[(device, surface indices)]: all on ``device`` without a mesh, else
+    the contiguous groups of the mesh's axis 0, one per row's first
+    device (empty groups left out)."""
+    if mesh is None:
+        return [(device, list(range(n_surfaces)))]
+    from ..parallel.sharding import species_ranges
+    rows = [row[0] for row in mesh.devices]
+    return [(d, list(range(b, e)))
+            for d, (b, e) in zip(rows, species_ranges(n_surfaces, len(rows)))
+            if e > b]
+
+
+def _round_robin(groups: list) -> list:
+    """(device, surface) of every group in turn: the groups' first
+    surfaces, then their second ones, ..."""
+    longest = max(len(g) for _, g in groups)
+    return [(d, g[k]) for k in range(longest) for d, g in groups
+            if k < len(g)]
+
+
+def _over_groups(groups: list, run) -> dict:
+    """``run(device, i)`` for every surface, group by group on one device
+    each: inline for one group, else one worker thread a group.  Returns
+    {i: result}."""
+    def group(d, idx):
+        return {i: run(d, i) for i in idx}
+    if len(groups) == 1:
+        return group(*groups[0])
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(len(groups)) as pool:
+        futures = [pool.submit(group, d, idx) for d, idx in groups]
+        out = {}
+        for f in futures:
+            out.update(f.result())
+    return out
 
 
 def compute_spectra_ensemble(surfs, species_table: SpeciesTable, chosen_idx,
                              grids: MomentumGrids, df_data: DeltafData,
                              cfg: Config,
                              laguerre: GaussLaguerre | None = None,
-                             cell_block: int | None = None,
+                             cell_block: int | None = None, mesh=None,
                              surface_chunk: int | None = None,
                              device=None) -> np.ndarray:
     """Continuous spectra of every surface, df 1-5: (n_surfaces, S, NpT,
     Nphi, Ny) f64 on the host.  Surface i is spectra_on_device's result for
     surfs[i] with ``cfg`` (``cell_block`` overriding cfg.cell_block,
-    grouping off); ``laguerre`` is needed for df 3/4."""
+    grouping off); ``laguerre`` is needed for df 3/4.  ``mesh`` spreads the
+    surfaces over its devices (surface_groups)."""
     if not surfs:
         raise ValueError("the ensemble has no surface")
     dev = run_device(device)
     cfg = _config(cfg, cell_block, surface_chunk)
     chosen_idx = np.asarray(chosen_idx)
+    groups = surface_groups(len(surfs), mesh, dev)
     out = None
-    pending = None
+    pending = collections.deque()
 
     def land(i, host, done):
         nonlocal out
@@ -123,15 +175,16 @@ def compute_spectra_ensemble(surfs, species_table: SpeciesTable, chosen_idx,
             out = np.empty((len(surfs), *a.shape), dtype=a.dtype)
         out[i] = a
 
-    for i, surf in enumerate(surfs):
-        spectra = spectra_on_device(surf, species_table, chosen_idx, grids,
-                                    df_data, cfg, dev, laguerre)
-        copy = _start_copy(spectra)
+    for d, i in _round_robin(groups):
+        spectra = spectra_on_device(surfs[i], species_table, chosen_idx,
+                                    grids, df_data, cfg, d, laguerre)
+        pending.append((i, *_start_copy(spectra)))
         del spectra
-        if pending is not None:
-            land(*pending)   # surface i is queued behind surface i - 1
-        pending = (i, *copy)
-    land(*pending)
+        if len(pending) > len(groups):
+            # surface i is queued behind the previous one of its device
+            land(*pending.popleft())
+    while pending:
+        land(*pending.popleft())
     return out
 
 
@@ -169,26 +222,31 @@ def sample_ensemble_histograms(surfs, species_table: SpeciesTable, chosen_idx,
                                laguerre: GaussLaguerre,
                                events_per_surface: int, capacity: int,
                                seed: int = 1, cell_block: int | None = None,
-                               surface_chunk: int | None = None,
+                               mesh=None, surface_chunk: int | None = None,
                                device=None):
     """Sample ``events_per_surface`` events from every surface into its
     test histograms.  Returns (histograms, overflow): the JAX ensemble's
     dict (sampler_hist.stack_histograms: the raw counts and v_n sums with a
     leading surface axis) and an all-False (n_surfaces,) array.  Surface
     i's histograms are sample_particles' on surfs[i] with seed
-    surface_seed(seed, i), binned by a ChunkBinner."""
+    surface_seed(seed, i), binned by a ChunkBinner; ``mesh`` spreads the
+    surfaces over its devices (surface_groups)."""
     dev = run_device(device)
     cfg = _config(cfg, cell_block, surface_chunk)
-    hists = []
-    for i, surf in enumerate(surfs):
+
+    def one(d, i):
         binner = ChunkBinner(len(chosen_idx), cfg)
+        surf = surfs[i]
         sample_particles(surf, _surface_table(species_table, surf, df_data,
                                               laguerre, cfg),
                          chosen_idx, df_data, cfg, laguerre,
-                         events_per_surface, dev, seed=surface_seed(seed, i),
+                         events_per_surface, d, seed=surface_seed(seed, i),
                          chunk_consumer=binner)
-        hists.append(binner.result(events_per_surface))
-    return stack_histograms(hists), np.zeros(len(surfs), dtype=bool)
+        return binner.result(events_per_surface)
+
+    hists = _over_groups(surface_groups(len(surfs), mesh, dev), one)
+    return (stack_histograms([hists[i] for i in range(len(surfs))]),
+            np.zeros(len(surfs), dtype=bool))
 
 
 def sample_ensemble_particle_lists(surfs, species_table: SpeciesTable,
@@ -196,7 +254,7 @@ def sample_ensemble_particle_lists(surfs, species_table: SpeciesTable,
                                    cfg: Config, laguerre: GaussLaguerre,
                                    events_per_surface: int, capacity: int,
                                    results_root, seed: int = 1,
-                                   cell_block: int | None = None,
+                                   cell_block: int | None = None, mesh=None,
                                    surface_chunk: int | None = None,
                                    oscar: bool = True, csv: bool = False,
                                    device=None) -> list[dict]:
@@ -204,26 +262,30 @@ def sample_ensemble_particle_lists(surfs, species_table: SpeciesTable,
     ``results_root/surface_<i>/particle_list_osc_<ev>.dat`` (and, with
     ``csv``, ``particle_list_<ev>.dat``) for events 0 ..
     events_per_surface - 1 through a StreamingEventWriter, from
-    sample_particles on surfs[i] with seed surface_seed(seed, i).  Returns
-    one {"dir", "rows_written", "events_written", "kept"} per surface."""
+    sample_particles on surfs[i] with seed surface_seed(seed, i); ``mesh``
+    spreads the surfaces over its devices (surface_groups).  Returns one
+    {"dir", "rows_written", "events_written", "kept"} per surface."""
     from ..io.output import StreamingEventWriter
 
     dev = run_device(device)
     cfg = _config(cfg, cell_block, surface_chunk)
-    stats = []
-    for i, surf in enumerate(surfs):
+
+    def one(d, i):
+        surf = surfs[i]
         writer = StreamingEventWriter(Path(results_root) / f"surface_{i}",
                                       oscar=oscar, csv=csv)
         try:
             diags = sample_particles(
                 surf, _surface_table(species_table, surf, df_data, laguerre,
                                      cfg),
-                chosen_idx, df_data, cfg, laguerre, events_per_surface, dev,
+                chosen_idx, df_data, cfg, laguerre, events_per_surface, d,
                 seed=surface_seed(seed, i), chunk_consumer=writer, lean=True)
         finally:
             writer.close()
-        stats.append({"dir": str(writer.results_dir),
-                      "rows_written": writer.rows_written,
-                      "events_written": writer.events_written,
-                      "kept": diags["kept"]})
-    return stats
+        return {"dir": str(writer.results_dir),
+                "rows_written": writer.rows_written,
+                "events_written": writer.events_written,
+                "kept": diags["kept"]}
+
+    stats = _over_groups(surface_groups(len(surfs), mesh, dev), one)
+    return [stats[i] for i in range(len(surfs))]

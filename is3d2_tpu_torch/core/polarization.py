@@ -166,15 +166,26 @@ def polarization_state(surf, species_table: SpeciesTable,
 
 def compute_polarization(surf, species_table: SpeciesTable,
                          chosen_idx: np.ndarray, grids: MomentumGrids,
-                         plasma: ThermoAverages, cfg: Config, device):
+                         plasma: ThermoAverages, cfg: Config, device,
+                         mesh=None):
     """Returns (St, Sx, Sy, Sn, Snorm), each (S, NpT, Nphi, Ny) f64 numpy
     raw sums (Ny = 1 in 2+1d); the polarization is S^mu / Snorm
-    (io/output.py::write_polarization)."""
+    (io/output.py::write_polarization).  Under ``mesh`` (the driver's,
+    parallel/sharding.py::auto_mesh of cfg.use_mesh) the cells are cut over
+    its devices."""
     cells, species, grid = polarization_state(surf, species_table,
                                               chosen_idx, grids, cfg, device)
     T = float(plasma.temperature)
     d_eta = delta_eta(grids)   # of the unfolded table
-    if cfg.compute_dtype in ("f32", "f32c") and cfg.dimension == 3:
+    if mesh is not None:
+        from ..parallel import sharding
+        # is3d2_tpu/core/polarization.py:113-125: P1 (or its 3+1d mode)
+        # with the cells over "cells", the f64 engine over the whole mesh
+        meshed = (sharding.sharded_polarization_fast
+                  if cfg.compute_dtype in ("f32", "f32c")
+                  else sharding.sharded_polarization)
+        acc = meshed(cells, species, grid, T, cfg, mesh, delta_eta=d_eta)
+    elif cfg.compute_dtype in ("f32", "f32c") and cfg.dimension == 3:
         from ..ops.polarization_f32 import compute_polarization_kernel_3d
         acc = compute_polarization_kernel_3d(cells, species, grid, T)
     elif cfg.compute_dtype in ("f32", "f32c"):

@@ -508,7 +508,6 @@ class ChunkStats:
 
     syncs: int = 0
     chunks: int = 0
-    prep_seconds: float = 0.0       # setup, alias tables (host clock)
     drawn: int = 0
     kept: int = 0
     largest_chunk: int = 0
@@ -994,6 +993,79 @@ def campaign_seed(cfg: Config, seed: int | None) -> int:
     return int(np.random.SeedSequence().entropy) & 0x7FFFFFFF
 
 
+@dataclasses.dataclass
+class CampaignPlan:
+    """A prepared campaign and how it is cut: what sample_particles and
+    its meshed form (parallel/sampler_shard.py) share."""
+
+    camp: Campaign
+    recon: object            # the famod prep's Reconstruction (df 5), or None
+    seed: int
+    per_chunk: int           # events a chunk (chunk_plan)
+    n_chunks: int
+    pack: tuple | None       # pack_bits of lean chunks
+    prep_seconds: float      # setup and alias tables (host clock)
+
+
+def plan_campaign(surf, species_table: SpeciesTable, chosen_idx,
+                  df_data: DeltafData, cfg: Config, laguerre: GaussLaguerre,
+                  n_events: int, device, seed: int | None,
+                  lean: bool) -> CampaignPlan:
+    t0 = time.perf_counter()
+    setup, species, recon = prepare_setup(surf, species_table, chosen_idx,
+                                          df_data, cfg, laguerre, device)
+    camp = prepare_campaign(setup, species, species_table.mc_id[chosen_idx],
+                            cfg)
+    prep = time.perf_counter() - t0
+    per_chunk = chunk_plan(camp.mean_1ev, n_events, cfg)
+    pack = pack_bits(setup.cells.n_padded, camp.n_species, per_chunk) \
+        if lean else None
+    return CampaignPlan(camp, recon, campaign_seed(cfg, seed), per_chunk,
+                        -(-n_events // per_chunk), pack, prep)
+
+
+def finish_campaign(plan: CampaignPlan, stats: list, surf, report,
+                    chunks: list | None):
+    """The summed diagnostics of the chunks' ChunkStats ``stats`` (into
+    ``report`` where given); with ``chunks`` (full-form chunks kept
+    without a consumer) their columns concatenated beside them."""
+    diags = {"drawn": sum(s.drawn for s in stats),
+             "kept": sum(s.kept for s in stats),
+             "mom_proposals": sum(int(s.mom_proposals) for s in stats),
+             "mom_acceptances": sum(int(s.mom_acceptances) for s in stats),
+             "dropped": sum(int(s.dropped) for s in stats),
+             "syncs": sum(s.syncs for s in stats),
+             "chunks": sum(s.chunks for s in stats),
+             "largest_chunk": max((s.largest_chunk for s in stats),
+                                  default=0),
+             "prep_seconds": plan.prep_seconds,
+             "events_per_chunk": plan.per_chunk}
+    if report is not None:
+        setup, cfg = plan.camp.setup, plan.camp.cfg
+        report.n_cells = surf.n_cells
+        report.mom_proposals = diags["mom_proposals"]
+        report.mom_acceptances = diags["mom_acceptances"]
+        report.hadrons_drawn = diags["drawn"]
+        report.hadrons_kept = diags["kept"]
+        report.dropped_lanes = diags["dropped"]
+        report.sampler_chunks = diags["chunks"]
+        report.sampler_syncs = diags["syncs"]
+        report.largest_chunk = diags["largest_chunk"]
+        report.sampler_prep_seconds = plan.prep_seconds
+        if cfg.df_mode in (3, 4, 5):
+            report.record_breakdown(setup.breaks_down, setup.cells.tau,
+                                    setup.cells.mask)
+        if plan.recon is not None:
+            report.reconstruction = plan.recon
+    if chunks is None:
+        return diags
+    out = {k: (torch.cat([ch[k] for ch in chunks])
+               if k not in ("mcid", "mass_tab") else chunks[0][k])
+           for k in chunks[0] if isinstance(chunks[0][k], torch.Tensor)}
+    out.update(diags)
+    return out
+
+
 def sample_particles(surf, species_table: SpeciesTable, chosen_idx,
                      df_data: DeltafData, cfg: Config,
                      laguerre: GaussLaguerre, n_events: int, device,
@@ -1005,59 +1077,21 @@ def sample_particles(surf, species_table: SpeciesTable, chosen_idx,
     (the histogram binner, the event-file writer, the collector), and the
     summed diagnostics come back; without, the full-form chunks are
     concatenated and returned (tests, small campaigns)."""
+    plan = plan_campaign(surf, species_table, chosen_idx, df_data, cfg,
+                         laguerre, n_events, device, seed, lean)
     stats = ChunkStats()
-    t0 = time.perf_counter()
-    setup, species, recon = prepare_setup(surf, species_table, chosen_idx,
-                                          df_data, cfg, laguerre, device)
-    camp = prepare_campaign(setup, species, species_table.mc_id[chosen_idx],
-                            cfg)
-    stats.prep_seconds = time.perf_counter() - t0
-    seed = campaign_seed(cfg, seed)
-    per_chunk = chunk_plan(camp.mean_1ev, n_events, cfg)
-    n_chunks = -(-n_events // per_chunk)
-    pack = pack_bits(setup.cells.n_padded, camp.n_species, per_chunk) \
-        if lean else None
-
     chunks = []
-    for c in range(n_chunks):
-        ev0 = c * per_chunk
-        ch = sample_chunk(camp, min(per_chunk, n_events - ev0), ev0,
-                          chunk_generator(seed, c, device), stats, lean,
-                          pack, seed)
+    for c in range(plan.n_chunks):
+        ev0 = c * plan.per_chunk
+        ch = sample_chunk(plan.camp, min(plan.per_chunk, n_events - ev0),
+                          ev0, chunk_generator(plan.seed, c, device), stats,
+                          lean, plan.pack, plan.seed)
         if chunk_consumer is not None:
             chunk_consumer(ch)
         else:
             chunks.append(ch)
-    diags = {"drawn": stats.drawn, "kept": stats.kept,
-             "mom_proposals": int(stats.mom_proposals),
-             "mom_acceptances": int(stats.mom_acceptances),
-             "dropped": int(stats.dropped), "syncs": stats.syncs,
-             "chunks": stats.chunks, "largest_chunk": stats.largest_chunk,
-             "prep_seconds": stats.prep_seconds,
-             "events_per_chunk": per_chunk}
-    if report is not None:
-        report.n_cells = surf.n_cells
-        report.mom_proposals = diags["mom_proposals"]
-        report.mom_acceptances = diags["mom_acceptances"]
-        report.hadrons_drawn = diags["drawn"]
-        report.hadrons_kept = diags["kept"]
-        report.dropped_lanes = diags["dropped"]
-        report.sampler_chunks = stats.chunks
-        report.sampler_syncs = stats.syncs
-        report.largest_chunk = stats.largest_chunk
-        report.sampler_prep_seconds = stats.prep_seconds
-        if cfg.df_mode in (3, 4, 5):
-            report.record_breakdown(setup.breaks_down, setup.cells.tau,
-                                    setup.cells.mask)
-        if recon is not None:
-            report.reconstruction = recon
-    if chunk_consumer is not None:
-        return diags
-    out = {k: (torch.cat([ch[k] for ch in chunks])
-               if k not in ("mcid", "mass_tab") else chunks[0][k])
-           for k in chunks[0] if isinstance(chunks[0][k], torch.Tensor)}
-    out.update(diags)
-    return out
+    return finish_campaign(plan, [stats], surf, report,
+                           None if chunk_consumer is not None else chunks)
 
 
 def _to_host(t, pinned: bool):
@@ -1110,8 +1144,11 @@ class ChunkCollector:
         event = None
         if any(isinstance(v, torch.Tensor) and v.is_pinned()
                for v in staged.values()):
-            event = torch.cuda.Event()
-            event.record()
+            # after the copies, on the stream of the chunk's device (a
+            # meshed campaign's chunks come from several)
+            with torch.cuda.device(ch["px"].device):
+                event = torch.cuda.Event()
+                event.record()
         return {"host": staged, "meta": meta, "done": event}
 
     def collect(self, staged: dict) -> dict:

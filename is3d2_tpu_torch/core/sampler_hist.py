@@ -121,9 +121,11 @@ class ChunkBinner:
         if self._acc is None:
             self._acc = h
         else:
+            # a meshed campaign's chunks come from several devices: each
+            # is binned on its own and added on the first chunk's device
             for k, v in h.items():
                 if k != "pT_count":
-                    self._acc[k] += v
+                    self._acc[k] += v.to(self._acc[k].device)
 
     def result(self, n_events: int) -> SampledHistograms:
         return _result(self._acc, n_events)

@@ -146,11 +146,16 @@ def dN_dy_cells(cells: CellArrays, aux, species: SpeciesArrays,
 
 
 def f64_bins(cells: CellArrays, aux, species: SpeciesArrays,
-             grid: MomentumGridDevice, cfg: Config) -> list[torch.Tensor]:
-    """The f64 route's (S, n_bins) bin sums of the three axes."""
+             grid: MomentumGridDevice, cfg: Config, bins=None,
+             mask=None) -> list[torch.Tensor]:
+    """The f64 route's (S, n_bins) bin sums of the three axes.  ``bins``
+    and ``mask`` (bin_indices and the host mask of these cells) where the
+    caller has them (parallel/sharding.py reads them once for every
+    shard), else read here."""
     dN = dN_dy_cells(cells, aux, species, grid, cfg)
-    mask = cells.mask.cpu().numpy()
-    return [_scatter(dN, idx, n, mask) for idx, n in bin_indices(cells, cfg)]
+    if bins is None:
+        bins, mask = bin_indices(cells, cfg), cells.mask.cpu().numpy()
+    return [_scatter(dN, idx, n, mask) for idx, n in bins]
 
 
 def kernel_operands(cells: CellArrays, aux, species: SpeciesArrays,
@@ -193,16 +198,18 @@ def run_kernel(ops, cfg: Config, plain: bool = False) -> torch.Tensor:
 
 def kernel_bins(cells: CellArrays, ops, species: SpeciesArrays,
                 grid: MomentumGridDevice, cfg: Config,
-                call=run_kernel) -> list[torch.Tensor]:
+                call=run_kernel, bins=None, mask=None) -> list[torch.Tensor]:
     """The kernel route's (S, n_bins) f64 bin sums of the three axes:
     ``call(ops of one bin's cells, cfg)`` -> (M,) f64 on each non-empty
-    bin, contracted with the (pT, phi) weights."""
+    bin, contracted with the (pT, phi) weights.  ``bins`` and ``mask`` as
+    in f64_bins (given, ``cells`` is not read)."""
     S = species.mass.shape[0]
     w = (grid.pT_weight[:, None] * grid.phi_weight[None, :]).reshape(-1)
     scale = PREFACTOR * species.degeneracy[:, None]
-    mask = cells.mask.cpu().numpy()
+    if bins is None:
+        bins, mask = bin_indices(cells, cfg), cells.mask.cpu().numpy()
     out = []
-    for idx, n_bins in bin_indices(cells, cfg):
+    for idx, n_bins in bins:
         rows, runs = binned_cells(idx, n_bins, mask)
         sorted_ops = cell_rows(ops, torch.as_tensor(rows, device=w.device))
         acc = torch.zeros((S, n_bins), dtype=f64, device=w.device)
@@ -216,9 +223,12 @@ def kernel_bins(cells: CellArrays, ops, species: SpeciesArrays,
 def compute_dN_dX(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
                   grids: MomentumGrids, df_data: DeltafData, cfg: Config,
                   device, laguerre: GaussLaguerre | None = None,
-                  report=None) -> SpacetimeDistributions:
+                  report=None, mesh=None) -> SpacetimeDistributions:
     """Operation 0 on ``device``: the f64 engines for compute_dtype f64
-    and in 3+1d, kernel B1 (df 1/2) or B3 (df 3/4) for f32/f32c in 2+1d.
+    and in 3+1d, kernel B1 (df 1/2) or B3 (df 3/4) for f32/f32c in 2+1d;
+    under ``mesh`` (the driver's, parallel/sharding.py::auto_mesh of
+    cfg.use_mesh) the same routes with the cells cut over every device of
+    the mesh.
     df 5 raises the reference's ValueError (Config.validate_slice).
     ``report`` collects the skipped-cell and (df 3/4) breakdown counts."""
     cfg.validate_slice()
@@ -230,7 +240,15 @@ def compute_dN_dX(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
         cells, aux, species, grid = feqmod_state(
             surf, species_table, chosen_idx, grids, df_data, cfg, device,
             laguerre, report)
-    if cfg.compute_dtype == "f64" or cfg.dimension == 3:
+    f64_route = cfg.compute_dtype == "f64" or cfg.dimension == 3
+    if mesh is not None:
+        # cells over the whole mesh (is3d2_tpu/core/spacetime.py:156-195):
+        # 3+1d runs the meshed f64 engine on every dtype, as in JAX
+        from ..parallel import sharding
+        meshed = sharding.sharded_dN_dX if f64_route \
+            else sharding.sharded_dN_dX_fast
+        acc = meshed(cells, aux, species, grid, cfg, mesh)
+    elif f64_route:
         acc = f64_bins(cells, aux, species, grid, cfg)
     else:
         acc = kernel_bins(cells, kernel_operands(cells, aux, species, grid,

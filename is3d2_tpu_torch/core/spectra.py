@@ -272,9 +272,11 @@ def uses_feqmod_kernel(cfg: Config) -> bool:
 
 def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
                     grids: MomentumGrids, df_data: DeltafData, cfg: Config,
-                    device, laguerre=None, report=None) -> np.ndarray:
+                    device, laguerre=None, report=None,
+                    mesh=None) -> np.ndarray:
     """Continuous spectra dN/(pT dpT dphi dy), shape (S, NpT, Nphi, Ny):
-    spectra_on_device's result, brought to the host.
+    spectra_on_device's result (under ``mesh`` if given), brought to the
+    host.
 
     With cfg.group_particles, species within particle_diff_tolerance in
     mass (same sign, and baryon number with baryons on) share one spectra
@@ -290,18 +292,20 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
             rep_out = compute_spectra(
                 surf, species_table, chosen_idx[rep_pos], grids, df_data,
                 dataclasses.replace(cfg, group_particles=0), device,
-                laguerre, report)
+                laguerre, report, mesh)
             deg = species_table.gspin[chosen_idx]
             scale = deg / deg[rep_pos][group_of]
             return rep_out[group_of] * scale[:, None, None, None]
     return spectra_on_device(surf, species_table, chosen_idx, grids, df_data,
-                             cfg, device, laguerre, report).cpu().numpy()
+                             cfg, device, laguerre, report,
+                             mesh).cpu().numpy()
 
 
 def spectra_on_device(surf, species_table: SpeciesTable,
                       chosen_idx: np.ndarray, grids: MomentumGrids,
                       df_data: DeltafData, cfg: Config, device,
-                      laguerre=None, report=None) -> torch.Tensor:
+                      laguerre=None, report=None,
+                      mesh=None) -> torch.Tensor:
     """The spectra of the chosen species, one evaluation each (no
     grouping), as an (S, NpT, Nphi, Ny) f64 tensor on ``device``.
 
@@ -322,23 +326,39 @@ def spectra_on_device(surf, species_table: SpeciesTable,
     cells come from the host columns (cells.HostFacts), so the host can
     prepare the next surface while this one computes (core/ensemble.py).
     df 5's reconstruction reads its Newton's convergence back, and waits.
+
+    Under ``mesh`` (the driver's, parallel/sharding.py::auto_mesh of
+    cfg.use_mesh; None: one device) the state is prepared once on
+    ``device`` and the route runs cut over the mesh's devices, as the JAX
+    package routes (is3d2_tpu/core/spectra.py:349-472);
+    where the JAX package keeps a route on one device under a mesh, so does
+    the port: df 1/2 with use_pallas = 1 in 2+1d and not f32c, df 3-5 with
+    use_pallas = 1 in 2+1d, and 3+1d df 3-5 with f32/f32c.
     """
-    if cfg.df_mode == 5:
-        from .spectra_famod import famod_state, spectra_famod
-        state = famod_state(surf, species_table, chosen_idx, grids, cfg,
-                            device, report)
+    from ..parallel import sharding
+    if cfg.df_mode in (3, 4, 5):
+        if cfg.df_mode == 5:
+            from ..ops.cooper_frye_feqmod import (
+                compute_spectra_famod_kernel as kernel)
+            from .spectra_famod import famod_state
+            from .spectra_famod import spectra_famod as engine
+            state = famod_state(surf, species_table, chosen_idx, grids, cfg,
+                                device, report)
+        else:
+            from ..ops.cooper_frye_feqmod import (
+                compute_spectra_feqmod_kernel as kernel)
+            from .spectra_feqmod import feqmod_state
+            from .spectra_feqmod import spectra_feqmod as engine
+            state = feqmod_state(surf, species_table, chosen_idx, grids,
+                                 df_data, cfg, device, laguerre, report)
         if uses_feqmod_kernel(cfg):
-            from ..ops.cooper_frye_feqmod import compute_spectra_famod_kernel
-            return compute_spectra_famod_kernel(*state, cfg)
-        return spectra_famod(*state, cfg)
-    if cfg.df_mode in (3, 4):
-        from .spectra_feqmod import feqmod_state, spectra_feqmod
-        state = feqmod_state(surf, species_table, chosen_idx, grids, df_data,
-                             cfg, device, laguerre, report)
-        if uses_feqmod_kernel(cfg):
-            from ..ops.cooper_frye_feqmod import compute_spectra_feqmod_kernel
-            return compute_spectra_feqmod_kernel(*state, cfg)
-        return spectra_feqmod(*state, cfg)
+            if (mesh is not None and cfg.dimension == 2
+                    and cfg.use_pallas != 1):
+                return sharding.sharded_spectra_feqmod_fast(*state, cfg, mesh)
+            return kernel(*state, cfg)
+        if mesh is not None:
+            return sharding.sharded_spectra_mod_f64(*state, cfg, mesh)
+        return engine(*state, cfg)
     state = df12_state(surf, species_table, chosen_idx, grids, df_data, cfg,
                        device, report)
     # f32 and f32c run B1 whatever use_pallas says, on any device (on the
@@ -349,8 +369,15 @@ def spectra_on_device(surf, species_table: SpeciesTable,
     # 2+1d only, as the JAX package's _kernel is), else the f64 engine
     if cfg.compute_dtype in ("f32", "f32c"):
         from ..ops.spectra_fast_common import compute_spectra_comp
+        if mesh is not None and cfg.dimension == 3:
+            return sharding.sharded_spectra_fast_3d(*state, cfg, mesh)
+        if mesh is not None and (cfg.compute_dtype == "f32c"
+                                 or cfg.use_pallas != 1):
+            return sharding.sharded_spectra_fast(*state, cfg, mesh)
         return compute_spectra_comp(*state, cfg)
     if cfg.use_pallas == 1 and cfg.dimension == 2:
         from ..ops.spectra_fast_common import compute_spectra_f32
         return compute_spectra_f32(*state, cfg)
+    if mesh is not None:
+        return sharding.sharded_spectra(*state, cfg, mesh)
     return spectra_df12(*state, cfg)

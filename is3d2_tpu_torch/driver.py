@@ -6,7 +6,8 @@ tables and quadrature grids, then on ``device`` compute the spacetime
 distributions dN/dX (operation 0) or the continuous spectra (operation 1),
 or sample hadrons (operation 2) into the test histograms or the OSCAR event
 files, then for a mode-5 surface the spin polarization, and write the
-result files.
+result files.  With cfg.use_mesh the engines and the sampler's events are
+sharded over the local devices (parallel/; the log names the mesh).
 
 Library use (the JETSCAPE-style in-memory path, iS3D.cpp:33-78) is
 ``IS3D.load_surface_from_memory(...)`` followed by
@@ -58,6 +59,10 @@ class IS3D:
         cfg.validate_slice()
         self.cfg = cfg
         self.device = run_device(device)
+        # the local devices the engines and the sampler shard over
+        # (cfg.use_mesh; parallel/sharding.py::auto_mesh), or None
+        from .parallel.sharding import auto_mesh
+        self.mesh = auto_mesh(cfg, self.device)
         self.surface: SurfaceData | None = None
         self.spectra = None
         self.dN_dX = None
@@ -113,6 +118,8 @@ class IS3D:
         print(f"is3d2_tpu_torch particlization: operation={cfg.operation} "
               f"df_mode={cfg.df_mode} hrg_eos={cfg.hrg_eos} "
               f"dimension={cfg.dimension} device={self.device}", flush=True)
+        if self.mesh is not None:
+            print(f"mesh: {self.mesh}", flush=True)
         t_read = time.time()
         if fo_from_file or self.surface is None:
             self.load_surface_from_file()
@@ -141,7 +148,8 @@ class IS3D:
             self.dN_dX = compute_dN_dX(self.surface, self.species,
                                        self.chosen_idx, self.grids,
                                        self.df_data, cfg, self.device,
-                                       laguerre=self.laguerre, report=report)
+                                       laguerre=self.laguerre, report=report,
+                                       mesh=self.mesh)
             self._mark_compute(t_compute, "dN/dX")
             if write:
                 tw = time.time()
@@ -152,7 +160,8 @@ class IS3D:
             spectra = compute_spectra(self.surface, self.species,
                                       self.chosen_idx, self.grids,
                                       self.df_data, cfg, self.device,
-                                      laguerre=self.laguerre, report=report)
+                                      laguerre=self.laguerre, report=report,
+                                      mesh=self.mesh)
             self.spectra = spectra
             self._mark_compute(t_compute, "spectra")
             if write:
@@ -189,22 +198,35 @@ class IS3D:
         print(f"Estimated total particle yield = {int(Ntot)} particles; "
               f"sampling {n_events} events", flush=True)
 
-        if cfg.test_sampler:
-            consumer = ChunkBinner(len(mcids), cfg)
-        elif write:
-            consumer = output.StreamingEventWriter(results,
-                                                   csv=bool(cfg.write_csv))
+        if cfg.test_sampler and self.mesh is not None:
+            # the event axis over the mesh (is3d2_tpu/driver.py:169-192)
+            from .parallel.sampler_shard import sample_histograms_meshed
+            histograms, self.sampler_diags = sample_histograms_meshed(
+                *args, n_events, self.mesh, self.device, report=self.report)
         else:
-            consumer = ChunkCollector()
-        lean = not cfg.test_sampler
-        self.sampler_diags = sample_particles(
-            *args, n_events, self.device, report=self.report,
-            chunk_consumer=consumer, lean=lean)
+            if cfg.test_sampler:
+                consumer = ChunkBinner(len(mcids), cfg)
+            elif write:
+                consumer = output.StreamingEventWriter(
+                    results, csv=bool(cfg.write_csv))
+            else:
+                consumer = ChunkCollector()
+            if self.mesh is None:
+                self.sampler_diags = sample_particles(
+                    *args, n_events, self.device, report=self.report,
+                    chunk_consumer=consumer, lean=not cfg.test_sampler)
+            else:
+                # is3d2_tpu/driver.py:257-279
+                from .parallel.sampler_shard import sample_particles_meshed
+                self.sampler_diags = sample_particles_meshed(
+                    *args, n_events, self.mesh, self.device,
+                    report=self.report, chunk_consumer=consumer, lean=True)
         t_end = time.perf_counter()
         self._mark_compute(t_compute, "sampling")
         ta = time.time()
         if cfg.test_sampler:
-            self.histograms = consumer.result(n_events)
+            self.histograms = (histograms if self.mesh is not None
+                               else consumer.result(n_events))
             self.stage_seconds["assemble"] = time.time() - ta
             if write:
                 tw = time.time()
@@ -242,7 +264,7 @@ class IS3D:
         t0 = time.time()
         self.polarization = compute_polarization(
             self.surface, self.species, self.chosen_idx, self.grids,
-            self.plasma, self.cfg, self.device)
+            self.plasma, self.cfg, self.device, mesh=self.mesh)
         if write:
             tw = time.time()
             output.write_polarization(results, *self.polarization,
@@ -251,8 +273,10 @@ class IS3D:
         self.stage_seconds["polarization"] = time.time() - t0
 
     def _mark_compute(self, t_start: float, what: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = [self.device] if self.mesh is None else self.mesh.flat()
+        for d in dict.fromkeys(devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         dt = time.time() - t_start
         self.stage_seconds["compute"] = dt
         # the reference prints "Spectra calculation took X seconds"

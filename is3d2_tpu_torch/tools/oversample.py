@@ -9,8 +9,9 @@ GPU unless the CPU is asked for) with the seed ``base_seed + 1000 b``
 (``base_seed`` the workdir's sampler_seed, 0 where it is negative) and
 writes its events to ``results/batch_<b>/particle_list_osc_<event>.dat``.
 Each batch has ``--events-per-batch`` events, or the event count that
-min_num_hadrons gives.  One device: sharding the event axis over several
-is ROADMAP A12.
+min_num_hadrons gives.  With the workdir's use_mesh giving a mesh
+(parallel/sharding.py::auto_mesh), each batch's chunks are spread over
+its devices (parallel/sampler_shard.py), with the same hadrons.
 
 CLI:
     python -m is3d2_tpu_torch.tools.oversample <workdir> [--batches 4]
@@ -54,12 +55,20 @@ def run_campaign(workdir, batches: int = 4,
     print(f"yield estimate {Ntot:.1f}; {batches} batches x {n_events} events",
           flush=True)
 
+    if run.mesh is None:
+        def sample(n, seed):
+            return sample_particles(*args, n, run.device, seed=seed)
+    else:
+        from ..parallel.sampler_shard import sample_particles_meshed
+
+        def sample(n, seed):
+            return sample_particles_meshed(*args, n, run.mesh, run.device,
+                                           seed=seed)
     out = []
     for b in range(batches):
         seed = batch_seed(base_seed, b)
         t0 = time.perf_counter()
-        plist = to_particle_list(sample_particles(*args, n_events, run.device,
-                                                  seed=seed))
+        plist = to_particle_list(sample(n_events, seed))
         t1 = time.perf_counter()
         batch_dir = workdir / "results" / f"batch_{b}"
         batch_dir.mkdir(parents=True, exist_ok=True)

@@ -22,11 +22,16 @@ import torch
 
 def run_device(device=None) -> torch.device:
     """``device`` as a torch.device, "cuda" for None; raises where torch
-    sees no CUDA device and the caller did not ask for the CPU."""
+    sees no CUDA device and the caller did not ask for the CPU.  A CUDA
+    device without an index is named by the current one's ("cuda" means
+    whichever device is current when a tensor is made; a run over several
+    devices must name each)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("torch sees no CUDA device; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -553,7 +553,8 @@ def test_validate_slice_lets_3d_mode5_through(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # 3+1d df 1-5 and mode 5 run: their mesh is still rejected
+    # 3+1d df 1-5 and mode 5 under a mesh: rejected until ROADMAP ``item``
+    # (parallel/) was ported
     ({"df_mode": 4, "compute_dtype": "f32", "use_mesh": 1}, "A12"),
     ({"df_mode": 3, "operation": 0, "use_mesh": 1}, "A12"),
     ({"df_mode": 1, "use_mesh": 1}, "A12"),
@@ -561,5 +562,9 @@ def test_validate_slice_lets_3d_mode5_through(kw):
     ({"df_mode": 1, "mode": 5, "use_mesh": 1}, "A12"),
 ])
 def test_validate_slice_still_rejects_in_3d(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Config(**{"dimension": 3, **kw}).validate_slice()
+    """With the mesh ported these validate; what 3+1d still rejects under
+    a mesh is what the JAX package rejects: df 4 with baryons."""
+    Config(**{"dimension": 3, **kw}).validate_slice()
+    with pytest.raises(ValueError, match="PTB"):
+        Config(**{"dimension": 3, **kw, "df_mode": 4,
+                  "include_baryon": 1}).validate_slice()

@@ -434,12 +434,17 @@ def test_validate_slice_lets_df5_on_a_3d_mode5_surface_through(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
+    # df 5 under a mesh: rejected until ROADMAP ``item`` (parallel/) was
+    # ported
     ({"mode": 2, "use_mesh": 1}, "A12"),
     ({"operation": 2, "mode": 5, "use_mesh": 1}, "A12"),
 ])
 def test_validate_slice_rejects_the_df5_corners(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Config(**{"df_mode": 5, **kw}).validate_slice()
+    """With the mesh ported these validate; the df-5 corner left is the
+    JAX package's: operation 0 (no spacetime routine for famod)."""
+    Config(**{"df_mode": 5, **kw}).validate_slice()
+    with pytest.raises(ValueError, match="famod"):
+        Config(**{"df_mode": 5, **kw, "operation": 0}).validate_slice()
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f32c"])

@@ -166,6 +166,18 @@ def test_kernel_check_plain_on_cpu(workdir, case):
     assert r.ok, (r.vs_f64, r.plain_vs_f64)
 
 
+@pytest.mark.parametrize("case", ["df1", "df2"])
+def test_kernel_check_plain_on_cpu_without_shear(workdir, case):
+    """The cases chip_smoke.py's phase 3 adds for B1's kShear = false
+    instantiations (include_shear_deltaf 0), on the CPU: the plain version
+    meets the f64 engine within TOL."""
+    r = kc.check_case(workdir, case, 512, 3, "cpu", cell_block=512,
+                      include_shear_deltaf=0)
+    assert r.launches == 0
+    assert r.vs_plain == 0.0
+    assert r.ok, (r.vs_f64, r.plain_vs_f64)
+
+
 # ----------------------------------------------------------------------
 # kernel B1's 3+1d mode
 # ----------------------------------------------------------------------
@@ -1608,3 +1620,35 @@ def test_sweep_on_the_card(tmp_path):
             b = np.loadtxt(cpu[key] / name, skiprows=1)[:, 3]
             assert np.isfinite(a).all()
             assert kc.max_rel_err(a[None], b[None]) <= tol, (key, name)
+
+
+# ----------------------------------------------------------------------
+# the multi-device path (parallel/sharding.py)
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("devices", ["cuda:0,cuda:0", "cuda:0,cuda:1"])
+def test_meshed_b1_route_on_the_card(workdir, devices):
+    """sharded_spectra_fast over a 2-device mesh against B1 on one device:
+    a launch a shard, the result on the run's device, <= 1e-12 (B1 adds
+    each cell's term into its f64 sums, so a whole-block cut moves only
+    the order of those additions).  On cuda:0 + cuda:1 the second shard
+    launches on cuda:1 with its own geometry; skipped below two cards."""
+    from is3d2_tpu_torch.parallel import sharding as sh
+    _needs_cuda()
+    names = devices.split(",")
+    if len(set(names)) > torch.cuda.device_count():
+        pytest.skip(f"needs {len(set(names))} CUDA devices")
+    cfg = Config(compute_dtype="f32c", df_mode=1, cell_block=128)
+    state = kc.engine_state(workdir, cfg, make_surface(512, seed=5),
+                            "cuda:0")
+    ref = ck.cooper_frye_comp(*comp_operands(*state, cfg).args(), cfg)
+    before = ck.cooper_frye_comp.launches
+    out = sh.sharded_spectra_fast(*state, cfg, sh.make_mesh(2, 1, names))
+    assert ck.cooper_frye_comp.launches - before == 2
+    assert [s["device"] for s in sh.last_shards] == names
+    assert all(s["geometry"] is not None for s in sh.last_shards)
+    assert out.device == torch.device("cuda:0")
+    ref = kc.spectra_units(state, ref)
+    assert kc.max_rel_err(out.reshape(ref.shape).cpu().numpy(), ref) \
+        <= 1e-12

@@ -185,8 +185,8 @@ def test_validate_slice_lets_3d_mode5_through(kw):
 
 @pytest.mark.parametrize("kw,item", [
     # every single-device configuration runs, in 2+1d and 3+1d
-    # (test_validate_slice_accepts_every_single_device_configuration): what
-    # is left is the mesh (A12)
+    # (test_validate_slice_accepts_every_single_device_configuration); the
+    # mesh was rejected until ROADMAP ``item`` (parallel/) was ported
     ({"mode": 5, "use_mesh": 1}, "A12"),
     ({"compute_dtype": "f64", "use_pallas": 1, "dimension": 3,
       "use_mesh": 1}, "A12"),
@@ -195,16 +195,21 @@ def test_validate_slice_lets_3d_mode5_through(kw):
       "use_mesh": 1}, "A12"),
 ])
 def test_validate_slice_rejects_the_rest(kw, item):
+    """The meshed configurations validate; the rest that is rejected is
+    the JAX package's: df 4 with baryons, df 5 in operation 0."""
     cfg = Config(**{"df_mode": 1, "compute_dtype": "f32c", **kw})
-    with pytest.raises(NotImplementedError, match=item):
-        cfg.validate_slice()
+    cfg.validate_slice()
+    for bad in ({"df_mode": 4, "include_baryon": 1},
+                {"df_mode": 5, "operation": 0}):
+        with pytest.raises(ValueError):
+            dataclasses.replace(cfg, **bad).validate_slice()
 
 
 def test_validate_slice_accepts_every_single_device_configuration():
     """Operation x dimension x df x compute_dtype x use_pallas: every
     combination that the JAX package runs validates; the two it rejects
     raise its ValueError (df 4 with baryons, df 5 in operation 0), and
-    use_mesh = 1 alone raises NotImplementedError, naming A12."""
+    each validates with use_mesh = 1 too (parallel/, ROADMAP A12)."""
     import itertools
     for op, dim, df, dtype, pallas, baryon in itertools.product(
             (0, 1, 2), (2, 3), (1, 2, 3, 4, 5), ("f64", "f32", "f32c"),
@@ -217,8 +222,7 @@ def test_validate_slice_accepts_every_single_device_configuration():
                 cfg.validate_slice()
             continue
         cfg.validate_slice()
-        with pytest.raises(NotImplementedError, match="A12"):
-            dataclasses.replace(cfg, use_mesh=1).validate_slice()
+        dataclasses.replace(cfg, use_mesh=1).validate_slice()
 
 
 @pytest.mark.parametrize("kw,df_mode", [

@@ -110,8 +110,9 @@ def test_mode7_rejections_match_jax(tmp_path, dimension, include_baryon,
 
 def test_mode5_is_still_rejected(tmp_path):
     """Mode 5 runs in 2+1d and in 3+1d (its reader and polarization: tests/
-    test_torch_polarization.py, tests/test_torch_polarization_3d.py); it is
-    still rejected where the rest is: with use_mesh (A12)."""
+    test_torch_polarization.py, tests/test_torch_polarization_3d.py), and
+    with use_mesh too (parallel/, ROADMAP A12); it is still rejected where
+    the JAX package rejects the rest: df 4 with baryons."""
     path = tmp_path / "surface.dat"
     s = synthetic.make_surface(8, seed=1, vorticity=True)
     synthetic.write_mode1(s, path, vorticity=True)
@@ -120,8 +121,10 @@ def test_mode5_is_still_rejected(tmp_path):
     Config(mode=5, df_mode=1, compute_dtype="f32c").validate_slice()
     Config(mode=5, df_mode=1, compute_dtype="f32c",
            dimension=3).validate_slice()
-    with pytest.raises(NotImplementedError, match="A12"):
-        Config(mode=5, df_mode=1, compute_dtype="f32c",
+    Config(mode=5, df_mode=1, compute_dtype="f32c",
+           use_mesh=1).validate_slice()
+    with pytest.raises(ValueError, match="PTB"):
+        Config(mode=5, df_mode=4, include_baryon=1,
                use_mesh=1).validate_slice()
 
 
