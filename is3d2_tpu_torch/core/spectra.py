@@ -36,6 +36,7 @@ from ..constants import hbarC
 from ..io.pdg import SpeciesTable
 from ..io.tables import MomentumGrids
 from ..physics.deltaf import DeltafData
+from ..tracing import span
 from ..transfer import to_device
 from .cells import CellArrays, evaluate_cell_deltaf, prepare_cells
 
@@ -240,12 +241,14 @@ def engine_inputs(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     """Per-cell tensors, species and grid on ``device``.  ``report`` (a
     report.RunReport) collects the skipped-cell count, counted on the
     host."""
-    cells = prepare_cells(surf, cfg, device)
-    if report is not None:
-        report.n_cells = surf.n_cells
-        report.skipped_cells = surf.n_cells - len(cells.host.live)
-    return (cells, SpeciesArrays.from_table(species_table, chosen_idx, device),
-            MomentumGridDevice.from_grids(grids, cfg.dimension, device))
+    with span("prepare_cells"):
+        cells = prepare_cells(surf, cfg, device)
+        if report is not None:
+            report.n_cells = surf.n_cells
+            report.skipped_cells = surf.n_cells - len(cells.host.live)
+        return (cells,
+                SpeciesArrays.from_table(species_table, chosen_idx, device),
+                MomentumGridDevice.from_grids(grids, cfg.dimension, device))
 
 
 def df12_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
@@ -255,7 +258,9 @@ def df12_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     everything the df 1/2 engines take."""
     cells, species, grid = engine_inputs(surf, species_table, chosen_idx,
                                          grids, cfg, device, report)
-    return cells, df12_cell_coefficients(cells, df_data, cfg), species, grid
+    with span("cell_physics"):
+        coeffs = df12_cell_coefficients(cells, df_data, cfg)
+    return cells, coeffs, species, grid
 
 
 def uses_feqmod_kernel(cfg: Config) -> bool:
@@ -296,9 +301,10 @@ def compute_spectra(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
             deg = species_table.gspin[chosen_idx]
             scale = deg / deg[rep_pos][group_of]
             return rep_out[group_of] * scale[:, None, None, None]
-    return spectra_on_device(surf, species_table, chosen_idx, grids, df_data,
-                             cfg, device, laguerre, report,
-                             mesh).cpu().numpy()
+    out = spectra_on_device(surf, species_table, chosen_idx, grids, df_data,
+                            cfg, device, laguerre, report, mesh)
+    with span("copy_back"):
+        return out.cpu().numpy()
 
 
 def spectra_on_device(surf, species_table: SpeciesTable,
@@ -356,9 +362,10 @@ def spectra_on_device(surf, species_table: SpeciesTable,
                     and cfg.use_pallas != 1):
                 return sharding.sharded_spectra_feqmod_fast(*state, cfg, mesh)
             return kernel(*state, cfg)
-        if mesh is not None:
-            return sharding.sharded_spectra_mod_f64(*state, cfg, mesh)
-        return engine(*state, cfg)
+        with span("launch"):
+            if mesh is not None:
+                return sharding.sharded_spectra_mod_f64(*state, cfg, mesh)
+            return engine(*state, cfg)
     state = df12_state(surf, species_table, chosen_idx, grids, df_data, cfg,
                        device, report)
     # f32 and f32c run B1 whatever use_pallas says, on any device (on the
@@ -378,6 +385,7 @@ def spectra_on_device(surf, species_table: SpeciesTable,
     if cfg.use_pallas == 1 and cfg.dimension == 2:
         from ..ops.spectra_fast_common import compute_spectra_f32
         return compute_spectra_f32(*state, cfg)
-    if mesh is not None:
-        return sharding.sharded_spectra(*state, cfg, mesh)
-    return spectra_df12(*state, cfg)
+    with span("launch"):
+        if mesh is not None:
+            return sharding.sharded_spectra(*state, cfg, mesh)
+        return spectra_df12(*state, cfg)

@@ -29,6 +29,7 @@ from ..io.tables import MomentumGrids
 from ..physics import lrf
 from ..physics.aniso import (compute_famod_coefficients,
                              find_anisotropic_variables)
+from ..tracing import span
 from ..transfer import to_device
 from .cells import CellArrays, prepare_cells
 from .spectra import (_F64_BLOCK_ELEMENTS, PREFACTOR, MomentumGridDevice,
@@ -442,18 +443,21 @@ def famod_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     df-5 engines take.  ``report`` collects the skipped, breakdown, pl < 0
     and reconstruction-failure counts and the reconstruction's seconds and
     Newton iterations."""
-    cells = famod_cells(surf, cfg, device)
-    if report is not None:
-        report.n_cells = surf.n_cells
-        report.skipped_cells = surf.n_cells - len(cells.host.live)
-    stats = Reconstruction()
-    fm = prepare_famod(cells, species_table, cfg,
-                       vah_from_surface(surf, cells.n_padded, device), stats)
-    if report is not None:
-        report.record_breakdown(fm.breaks_down, cells.tau, cells.mask,
-                                pl_negative=fm.pl_negative,
-                                recon_failed=fm.recon_failed)
-        report.reconstruction = stats
-    return (cells, fm, SpeciesArrays.from_table(species_table, chosen_idx,
-                                                device),
-            MomentumGridDevice.from_grids(grids, cfg.dimension, device))
+    with span("prepare_cells"):
+        cells = famod_cells(surf, cfg, device)
+        if report is not None:
+            report.n_cells = surf.n_cells
+            report.skipped_cells = surf.n_cells - len(cells.host.live)
+        species = SpeciesArrays.from_table(species_table, chosen_idx, device)
+        grid = MomentumGridDevice.from_grids(grids, cfg.dimension, device)
+    with span("cell_physics"):
+        stats = Reconstruction()
+        fm = prepare_famod(cells, species_table, cfg,
+                           vah_from_surface(surf, cells.n_padded, device),
+                           stats)
+        if report is not None:
+            report.record_breakdown(fm.breaks_down, cells.tau, cells.mask,
+                                    pl_negative=fm.pl_negative,
+                                    recon_failed=fm.recon_failed)
+            report.reconstruction = stats
+    return cells, fm, species, grid

@@ -22,6 +22,7 @@ from ..config import Config
 from ..io.pdg import SpeciesTable
 from ..io.tables import GaussLaguerre, MomentumGrids
 from ..physics.deltaf import DeltafData
+from ..tracing import span
 from .cells import CellArrays
 from .feqmod import FeqmodCellData, prepare_feqmod
 from .spectra import (_F64_BLOCK_ELEMENTS, PREFACTOR, MomentumGridDevice,
@@ -222,7 +223,8 @@ def feqmod_state(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
     breakdown-cell counts."""
     cells, species, grid = engine_inputs(surf, species_table, chosen_idx,
                                          grids, cfg, device, report)
-    fq = prepare_feqmod(cells, species, df_data, cfg, laguerre)
-    if report is not None:
-        report.record_breakdown(fq.breaks_down, cells.tau, cells.mask)
+    with span("cell_physics"):
+        fq = prepare_feqmod(cells, species, df_data, cfg, laguerre)
+        if report is not None:
+            report.record_breakdown(fq.breaks_down, cells.tau, cells.mask)
     return cells, fq, species, grid

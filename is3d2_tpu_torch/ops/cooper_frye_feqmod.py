@@ -46,6 +46,7 @@ from ..core.cells import CellArrays, live_index
 from ..core.spectra import PREFACTOR, MomentumGridDevice, SpeciesArrays
 from ..core.spectra_fast import (_cell_Q_3d, fold_eta_quadrature,
                                  momentum_matrix_3d)
+from ..tracing import span
 from .cooper_frye_comp import Tile3d
 from .launch_geometry import (H100_SMS, THREADS, Geometry, Geometry3d,
                               cell_ranges, launch_geometry_3d,
@@ -514,8 +515,10 @@ def famod_operands(cells: CellArrays, fm, species: SpeciesArrays,
 
 def _spectra(ops: FeqmodOperands, species: SpeciesArrays,
              grid: MomentumGridDevice, cfg: Config) -> torch.Tensor:
-    flat = cooper_frye_feqmod(*ops.args(), cfg, ops.kind, row_len=ops.row_len,
-                              dan_weighted=ops.dan_weighted)
+    with span("launch"):
+        flat = cooper_frye_feqmod(*ops.args(), cfg, ops.kind,
+                                  row_len=ops.row_len,
+                                  dan_weighted=ops.dan_weighted)
     out = flat.reshape(species.mass.shape[0], grid.pT.shape[0],
                        grid.cos_phi.shape[0], 1)
     return PREFACTOR * species.degeneracy[:, None, None, None] * out
@@ -528,10 +531,12 @@ def compute_spectra_feqmod_kernel(cells: CellArrays, fq,
     """df 3/4 spectra through kernel B3: (S, NpT, Nphi, Ny) f64 (in 2+1d
     Ny = 1; in 3+1d its 3+1d mode)."""
     if cfg.dimension == 3:
-        return _spectra_3d(feqmod_operands_3d(cells, fq, species, grid, cfg),
-                           species, grid, cfg)
-    return _spectra(feqmod_operands(cells, fq, species, grid, cfg), species,
-                    grid, cfg)
+        with span("pack"):
+            ops = feqmod_operands_3d(cells, fq, species, grid, cfg)
+        return _spectra_3d(ops, species, grid, cfg)
+    with span("pack"):
+        ops = feqmod_operands(cells, fq, species, grid, cfg)
+    return _spectra(ops, species, grid, cfg)
 
 
 def compute_spectra_famod_kernel(cells: CellArrays, fm,
@@ -541,10 +546,12 @@ def compute_spectra_famod_kernel(cells: CellArrays, fm,
     """df 5 spectra through kernel B3's famod mode: (S, NpT, Nphi, Ny) f64
     (in 3+1d its 3+1d mode)."""
     if cfg.dimension == 3:
-        return _spectra_3d(famod_operands_3d(cells, fm, species, grid, cfg),
-                           species, grid, cfg)
-    return _spectra(famod_operands(cells, fm, species, grid, cfg), species,
-                    grid, cfg)
+        with span("pack"):
+            ops = famod_operands_3d(cells, fm, species, grid, cfg)
+        return _spectra_3d(ops, species, grid, cfg)
+    with span("pack"):
+        ops = famod_operands(cells, fm, species, grid, cfg)
+    return _spectra(ops, species, grid, cfg)
 
 
 # ----------------------------------------------------------------------
@@ -1109,7 +1116,9 @@ def run_3d(ops: FeqmodOperands3d, cfg: Config) -> torch.Tensor:
 
 def _spectra_3d(ops: FeqmodOperands3d, species: SpeciesArrays,
                 grid: MomentumGridDevice, cfg: Config) -> torch.Tensor:
-    out = run_3d(ops, cfg).reshape(species.mass.shape[0], grid.pT.shape[0],
-                                   grid.y.shape[0], grid.cos_phi.shape[0])
+    with span("launch"):
+        flat = run_3d(ops, cfg)
+    out = flat.reshape(species.mass.shape[0], grid.pT.shape[0],
+                       grid.y.shape[0], grid.cos_phi.shape[0])
     return (PREFACTOR * species.degeneracy[:, None, None, None]
             * out.permute(0, 1, 3, 2))

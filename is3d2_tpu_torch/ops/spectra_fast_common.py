@@ -25,6 +25,7 @@ from ..core.cells import CellArrays, live_index
 from ..core.spectra import PREFACTOR, MomentumGridDevice, SpeciesArrays
 from ..core.spectra_fast import (_cell_Q_3d_comp, _split12,
                                  fold_eta_quadrature, momentum_matrix_3d_comp)
+from ..tracing import span
 from . import cooper_frye_f32 as b2
 from .cooper_frye_comp import (CELL_COLS, CELL_COLS_3D, MOM_ROWS, MOM_ROWS_3D,
                                cooper_frye_comp, cooper_frye_comp_3d)
@@ -269,19 +270,24 @@ def compute_spectra_comp(cells: CellArrays, coeffs: dict,
     """f32c spectra through the compensated kernel B1: (S, NpT, Nphi, Ny)
     f64 (in 2+1d Ny = 1; in 3+1d B1's 3+1d mode)."""
     if cfg.dimension == 3:
-        ops = comp_operands_3d(cells, coeffs, species, grid, cfg)
-        return spectra_3d(cooper_frye_comp_3d(*ops.args(), cfg,
-                                              **ops.layout()),
-                          species, grid)
-    ops = comp_operands(cells, coeffs, species, grid, cfg)
-    return _spectra(cooper_frye_comp(*ops.args(), cfg, row_len=ops.row_len),
-                    species, grid)
+        with span("pack"):
+            ops = comp_operands_3d(cells, coeffs, species, grid, cfg)
+        with span("launch"):
+            flat = cooper_frye_comp_3d(*ops.args(), cfg, **ops.layout())
+        return spectra_3d(flat, species, grid)
+    with span("pack"):
+        ops = comp_operands(cells, coeffs, species, grid, cfg)
+    with span("launch"):
+        flat = cooper_frye_comp(*ops.args(), cfg, row_len=ops.row_len)
+    return _spectra(flat, species, grid)
 
 
 def compute_spectra_f32(cells: CellArrays, coeffs: dict,
                         species: SpeciesArrays, grid: MomentumGridDevice,
                         cfg: Config) -> torch.Tensor:
     """Plain-f32 spectra through kernel B2: (S, NpT, Nphi, 1) f64."""
-    ops = f32_operands(cells, coeffs, species, grid, cfg)
-    return _spectra(b2.cooper_frye_f32(*ops.args(), cfg, row_len=ops.row_len),
-                    species, grid)
+    with span("pack"):
+        ops = f32_operands(cells, coeffs, species, grid, cfg)
+    with span("launch"):
+        flat = b2.cooper_frye_f32(*ops.args(), cfg, row_len=ops.row_len)
+    return _spectra(flat, species, grid)

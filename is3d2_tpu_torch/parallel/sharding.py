@@ -55,6 +55,7 @@ import torch
 from ..config import Config
 from ..core.cells import CellArrays, HostFacts
 from ..core.spectra import PREFACTOR, MomentumGridDevice, SpeciesArrays
+from ..tracing import span
 from ..transfer import to_device
 
 AXES = ("cells", "species")
@@ -368,13 +369,15 @@ def sharded_spectra_fast(cells: CellArrays, coeffs: dict,
     cut.  Returns (S, NpT, Nphi, 1) f64 on the cells' device."""
     from ..ops.cooper_frye_comp import cooper_frye_comp
     from ..ops.spectra_fast_common import _spectra, comp_operands
-    ops = comp_operands(cells, coeffs, species, grid, cfg)
+    with span("pack"):
+        ops = comp_operands(cells, coeffs, species, grid, cfg)
     per = grid.pT.shape[0] * grid.cos_phi.shape[0]
-    flat = _kernel_over_mesh(
-        ops, mesh, _cell_shards(cells, cfg, mesh.shape[AXES[0]]),
-        species.mass.shape[0], per,
-        lambda s: cooper_frye_comp(*s.args(), cfg, row_len=s.row_len),
-        cooper_frye_comp, cells.tau.device)
+    with span("launch"):
+        flat = _kernel_over_mesh(
+            ops, mesh, _cell_shards(cells, cfg, mesh.shape[AXES[0]]),
+            species.mass.shape[0], per,
+            lambda s: cooper_frye_comp(*s.args(), cfg, row_len=s.row_len),
+            cooper_frye_comp, cells.tau.device)
     return _spectra(flat, species, grid)
 
 
@@ -386,14 +389,16 @@ def sharded_spectra_fast_3d(cells: CellArrays, coeffs: dict,
     cells of its cell range.  Returns (S, NpT, Nphi, Ny) f64."""
     from ..ops.cooper_frye_comp import cooper_frye_comp_3d
     from ..ops.spectra_fast_common import comp_operands_3d, spectra_3d
-    ops = comp_operands_3d(cells, coeffs, species, grid, cfg)
+    with span("pack"):
+        ops = comp_operands_3d(cells, coeffs, species, grid, cfg)
     ranges = packed_ranges(live_rows(cells),
                            _cell_shards(cells, cfg, mesh.shape[AXES[0]]))
     per = grid.pT.shape[0] * grid.y.shape[0] * grid.cos_phi.shape[0]
-    flat = _kernel_over_mesh(
-        ops, mesh, ranges, species.mass.shape[0], per,
-        lambda s: cooper_frye_comp_3d(*s.args(), cfg, **s.layout()),
-        cooper_frye_comp_3d, cells.tau.device)
+    with span("launch"):
+        flat = _kernel_over_mesh(
+            ops, mesh, ranges, species.mass.shape[0], per,
+            lambda s: cooper_frye_comp_3d(*s.args(), cfg, **s.layout()),
+            cooper_frye_comp_3d, cells.tau.device)
     return spectra_3d(flat, species, grid)
 
 
@@ -434,16 +439,18 @@ def sharded_spectra_feqmod_fast(cells: CellArrays, fq_or_fm,
     from ..ops import cooper_frye_feqmod as fk
     if cfg.dimension != 2:
         raise ValueError("the sharded feqmod kernel route implements 2+1d")
-    if cfg.df_mode == 5:
-        ops = fk.famod_operands(cells, fq_or_fm, species, grid, cfg)
-    else:
-        ops = fk.feqmod_operands(cells, fq_or_fm, species, grid, cfg)
-    flat = _kernel_over_mesh(
-        ops, mesh, _cell_shards(cells, cfg, mesh.shape[AXES[0]]),
-        species.mass.shape[0], ops.n_per_species,
-        lambda s: fk.cooper_frye_feqmod(*s.args(), cfg, s.kind,
-                                        row_len=s.row_len),
-        fk.cooper_frye_feqmod, cells.tau.device)
+    with span("pack"):
+        if cfg.df_mode == 5:
+            ops = fk.famod_operands(cells, fq_or_fm, species, grid, cfg)
+        else:
+            ops = fk.feqmod_operands(cells, fq_or_fm, species, grid, cfg)
+    with span("launch"):
+        flat = _kernel_over_mesh(
+            ops, mesh, _cell_shards(cells, cfg, mesh.shape[AXES[0]]),
+            species.mass.shape[0], ops.n_per_species,
+            lambda s: fk.cooper_frye_feqmod(*s.args(), cfg, s.kind,
+                                            row_len=s.row_len),
+            fk.cooper_frye_feqmod, cells.tau.device)
     out = flat.reshape(species.mass.shape[0], grid.pT.shape[0],
                        grid.cos_phi.shape[0], 1)
     return PREFACTOR * species.degeneracy[:, None, None, None] * out
