@@ -561,8 +561,10 @@ def compute_spectra_famod_kernel(cells: CellArrays, fm,
 # Operand layout (contiguous; written by pack_feqmod_3d / pack_famod_3d,
 # the live cells only):
 #
-#   cols   (C, 8) f32    the modified branch's columns COLS_3D: 1/T_eff,
-#                        alphaB_eff, breaks, p.dsigma against the
+#   cols   (C, 8) f32    the modified branch's columns COLS_3D: log2(e) /
+#                        T_eff and log2(e) alphaB_eff (scaled in f64, so
+#                        that the exponential is 2^x with no rounding more
+#                        than e^x had), breaks, p.dsigma against the
 #                        light-cone momenta (m+, px, py, m-) with the
 #                        cell's a = e^-eta / 2, b = e^eta / 2 folded in
 #   cold   (C, 48) f64   U = M^-1 L row-major (3 x 4 against m+, px, py,
@@ -592,7 +594,7 @@ def compute_spectra_famod_kernel(cells: CellArrays, fm,
 # on its own), on the cells after it.  Operands in any other order give the
 # same function: a clean cell after the run takes the mixed kernel.
 
-INVTEFF_3, ALPHAB_EFF_3, BREAKS_3 = 0, 1, 2
+INVTEFF_3, ALPHAB_EFF_3, BREAKS_3 = 0, 1, 2   # the first two times log2(e)
 QDF_3 = 3                          # 3..6: p.dsigma in f32
 N_COLS_3D = 8
 U_3, ETA_3, WINDOW_3, INVT_3, ALPHAB_3 = 0, 12, 13, 14, 15   # cold (U: 0..11)
@@ -607,7 +609,10 @@ TILE_CELLS_3D = 32   # kTileCells3
 # mixed kernel's (kP3m, kY3m, kThreads3m, kMinBlocks3m) and the clean
 # kernel's (kP3, kY3, kThreads3, kMinBlocks3)
 TILE_3D = Tile3d(r=4, ty=3, threads=256, blocks_per_sm=2)
-TILE_3D_CLEAN = Tile3d(r=2, ty=7, threads=128, blocks_per_sm=3)
+TILE_3D_CLEAN = Tile3d(r=6, ty=7, threads=128, blocks_per_sm=2)
+# the modified branch's exponential is 2^x of its argument times log2(e):
+# the pack scales the columns 1/T_eff and alphaB_eff by it in f64
+LOG2E = 1.4426950408889634
 # the rows constant along a (species, pT, y) row of the momentum grid
 _ROW_KEYS_3D = [MOM_ROWS_3D.index(k) for k in ("mp", "mm", "mass2", "b",
                                                 "sgn")]
@@ -677,8 +682,9 @@ def _modified_3d(q, u, mom, momf, rn, outflow: bool) -> torch.Tensor:
     """The modified branch on a (cell block, M) tensor in the kernels'
     arithmetic, renorm ``rn`` applied: f32 but p' = U (m+, px, py, m-) and
     E_mod^2 in f64 from the f64 rows, the (m+, m-) parts formed apart from
-    the (px, py) parts.  ``q``, ``u``: the block's cols and cold; ``momf``:
-    ``_rows_f32(mom)``."""
+    the (px, py) parts, the exponential 2^x of the argument the columns
+    give pre-scaled by log2(e).  ``q``, ``u``: the block's cols and cold;
+    ``momf``: ``_rows_f32(mom)``."""
     mp64, px64, py64, mm64, mass2_64, _, _ = mom
     mpf, pxf, pyf, mmf, bm, sgn = momf
 
@@ -693,8 +699,10 @@ def _modified_3d(q, u, mom, momf, rn, outflow: bool) -> torch.Tensor:
          for i in range(3)]
     E2 = (mass2_64 + (p[0] * p[0] + p[1] * p[1] + p[2] * p[2])).to(f32)
     E_mod = torch.sqrt(torch.clamp(E2, min=1e-30))
-    nchem = -(bm * col(ALPHAB_EFF_3))
-    den = torch.clamp(torch.exp(E_mod * col(INVTEFF_3) + nchem) + sgn,
+    # exp(E_mod / T_eff - alphaB_eff b) as 2^x, the columns pre-scaled by
+    # log2(e) in the pack (b is a whole baryon number: n2 is exact)
+    n2 = -(bm * col(ALPHAB_EFF_3))
+    den = torch.clamp(torch.exp2(E_mod * col(INVTEFF_3) + n2) + sgn,
                       max=MAX_DEN)
     pdd = ((col(QDF_3) * mpf + col(QDF_3 + 3) * mmf)
            + (col(QDF_3 + 1) * pxf + col(QDF_3 + 2) * pyf))
@@ -1016,7 +1024,9 @@ def _pack_3d(cells: CellArrays, modified: tuple, columns: dict, U, det,
     cold[:, QD_3:QD_3 + 4] = q["Q_d"]
     cold[:, QE_3:QE_3 + 4] = q["Q_E"]
     cols = torch.zeros((c.n_padded, N_COLS_3D), dtype=f64, device=dev)
-    cols[:, INVTEFF_3], cols[:, ALPHAB_EFF_3], cols[:, BREAKS_3] = modified
+    inv_teff, alpha_eff, cols[:, BREAKS_3] = modified
+    cols[:, INVTEFF_3] = LOG2E * inv_teff
+    cols[:, ALPHAB_EFF_3] = LOG2E * alpha_eff
     cols[:, QDF_3:QDF_3 + 4] = q["Q_d"]
     rows = momentum_matrix_3d(species, grid)
     mom = torch.stack([rows[k] for k in MOM_ROWS_3D]).contiguous()

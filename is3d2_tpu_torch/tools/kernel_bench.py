@@ -320,10 +320,13 @@ MODES_3D = ("b1_3d", "b3_3d")
 TILES_3D = ("4x3x128x3", "4x3x256x2", "4x7x128x3", "4x7x128x2", "8x3x128x2")
 # B3's 3+1d mode's (--tile3d-b3): the first eight raced for the one
 # kernel it had, now its mixed kernel; 4x7x128x2, 4x7x128x3, 4x3x128x3,
-# 4x3x256x2 and 8x3x128x2 raced for its clean kernel
+# 4x3x256x2 and 8x3x128x2 raced for its clean kernel when each term reached
+# the f64 sums on its own, the rest with the compensated runs
 TILES_3D_B3 = ("4x3x128x3", "4x3x256x2", "4x3x128x2", "4x1x128x4",
                "2x3x128x4", "4x7x128x2", "2x7x128x3", "2x1x128x4",
-               "4x7x128x3", "8x3x128x2")
+               "4x7x128x3", "8x3x128x2", "4x3x128x4", "8x3x128x3",
+               "6x7x128x2", "8x7x128x2", "4x7x64x6", "6x7x64x4",
+               "8x7x64x4")
 # P1's 3+1d mode's (--tile3d-p1): the first eight raced when a thread's f64
 # sums (5 P Y of them) lived in shared memory beside the cell tile and its
 # y rows, the rest with the exponential factored and the sums in the

@@ -19,7 +19,12 @@ EOS-consistent surface (shear 0.1, bulk 0.05).
     renorm is 0 wherever red is 0, so the clean plain version with and
     without the red multiply gives the same bits;
   * the port's IS3D (its plain versions on the CPU) still meets the JAX
-    package's IS3D f64 route at B3's bar (1e-4) on 3+1d df 4 and df 5.
+    package's IS3D f64 route at B3's bar (1e-4) on 3+1d df 4 and df 5;
+  * the pack scales the modified branch's 1/T_eff and alphaB_eff by
+    log2(e) in f64, rounding each once, and the plain version, whose
+    modified branch then takes 2^x of the argument in f32 as the kernels
+    do, meets the f64 feqmod and famod engines at B3's bar on every case of
+    kernel_check's FEQMOD_3D_CASES (512 cells of its 3+1d surfaces, 9 y).
 """
 
 import sys
@@ -39,6 +44,7 @@ from torch_parity import (BLOCK, CHOSEN, FAMOD_BULK, FAMOD_SHEAR,  # noqa: E402
 
 from is3d2_tpu_torch.ops import cooper_frye_feqmod as fk  # noqa: E402
 from is3d2_tpu_torch.tools import kernel_check as kc  # noqa: E402
+from is3d2_tpu_torch.tools.synthetic import write_workdir  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -226,3 +232,50 @@ def test_is3d_meets_the_jax_f64_route(tmp_path_factory, df_mode):
     assert out.shape == want.shape == (S, 16, 8, N_Y)
     assert np.isfinite(out).all() and ours.report.breakdown_cells > 0
     assert max_rel_err(out, want) <= kc.FEQMOD_TOL_F64
+
+
+@pytest.fixture(scope="module")
+def wd_cases(tmp_path_factory):
+    """kernel_check's 3+1d workdir of the card's tests: 8 species with
+    baryons, 16 pT x 8 phi x 9 y."""
+    return write_workdir(tmp_path_factory.mktemp("feqmod_3d_cases"),
+                         n_cells=16,
+                         chosen_mcids=(211, -211, 111, 321, -321, 2212,
+                                       -2212, 3122),
+                         n_pT=16, n_phi=8, n_y=9, dimension=3,
+                         include_baryon=True, n_T=21, n_muB=9)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_pack_scales_the_exponent_columns_by_log2e_in_f64(packs, kind):
+    """The modified branch's 1/T_eff and alphaB_eff (the famod prep's
+    1/lambda and upsilonB) times log2(e), each rounded to f32 once from
+    f64, and the species' baryon numbers whole, so that -(b alphaB_eff
+    log2(e)) takes no rounding in the kernels."""
+    st, _, ops = packs[kind]
+    live = torch.nonzero(st.cells.mask > 0).squeeze(1)[ops.order]
+    if kind == "famod":
+        inv_t, alpha = 1.0 / st.fm.lam, st.fm.upsilonB
+    else:
+        inv_t, alpha = 1.0 / st.fq.T_mod, st.fq.alphaB_mod
+    for col, want in ((fk.INVTEFF_3, inv_t), (fk.ALPHAB_EFF_3, alpha)):
+        want = (fk.LOG2E * want.to(torch.float64))[live].to(torch.float32)
+        assert torch.equal(ops.cols[:, col], want)
+    b = ops.mom[fk.MOM_ROWS_3D.index("b")]
+    assert torch.equal(b, torch.round(b)) and bool((b.abs() <= 1).all())
+
+
+@pytest.mark.parametrize("case", list(kc.FEQMOD_3D_CASES))
+def test_prescaled_exp2_meets_the_f64_engine(wd_cases, case):
+    """The modified branch's exponential as the kernels take it, 2^x of
+    E_mod log2(e) / T_eff - b alphaB_eff log2(e) in f32 from the pack's
+    pre-scaled columns, on clean and touched cells: the plain version
+    against the f64 engine within FEQMOD_TOL_F64."""
+    cfg, state, ops = kc.feqmod_3d_operands(wd_cases, case, 512, 3, "cpu",
+                                            cell_block=512)
+    assert 0 < int(ops.n_clean) < ops.cols.shape[0]
+    plain = fk.cooper_frye_feqmod_3d_plain(*ops.args(), cfg, ops.kind,
+                                           **ops.layout())
+    out = kc.spectra_units(state, plain)
+    assert np.isfinite(out).all()
+    assert kc.max_rel_err(out, kc.f64_3d(state, cfg)) <= kc.FEQMOD_TOL_F64

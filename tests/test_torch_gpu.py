@@ -723,6 +723,90 @@ def test_feqmod_3d_split_edge_sets(workdir_3d, which):
     _b3_3d_agrees(args, **ops.layout())
 
 
+def _cell_args(ops, cfg, at, cols=None, renorm=None):
+    """The route's arguments on the cells ``at`` (an index or a slice) of
+    ``ops``, with ``cols`` and ``renorm`` in place of its own."""
+    cols = ops.cols if cols is None else cols
+    renorm = ops.renorm if renorm is None else renorm
+    return (cols[at].contiguous(), ops.cold[at].contiguous(), ops.mom, ops.y,
+            renorm[at].contiguous(), ops.red[at].contiguous(),
+            ops.n_per_species, cfg, ops.kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("outflow", [0, 1])
+def test_feqmod_3d_clean_kernel_runs_that_end_short(workdir_3d, outflow):
+    """97 clean cells (no whole number of 32-cell tiles) over splits of 48:
+    runs of 32 and 16 cells, and a last split of one cell, whose run ends
+    after one term.  The clean kernel gives the mixed kernel's bits at that
+    split, meets the plain version, and with touched cells after it the
+    route meets the mixed kernel on every cell (<= 1e-10)."""
+    _needs_cuda()
+    ops, cfg = _b3_3d_operands(workdir_3d, outflow=outflow)
+    n, split = 97, 48
+    assert int(ops.n_clean) >= n
+    args = _cell_args(ops, cfg, slice(0, n))
+    _, g, g_clean = _route_geometries(args, ops.layout())
+    cut = dataclasses.replace(g_clean, n_split=3, cells_per_split=split)
+    assert fk.cell_ranges_3d(cut, g, n, n)[:3] == [(0, 48), (48, 96),
+                                                   (96, 97)]
+    out = fk.launch_3d_split(*args, cut, g)
+    same = dataclasses.replace(g, n_split=3, cells_per_split=split)
+    assert torch.equal(out, fk.launch_3d(*args, same))
+    plain = fk.cooper_frye_feqmod_3d_plain(*args, **ops.layout())
+    assert kc.max_rel_err(out.cpu().numpy()[None],
+                          plain.cpu().numpy()[None]) <= kc.FEQMOD_TOL_PLAIN
+    # the clean run, then touched cells: the route's splits as above
+    touched = torch.arange(int(ops.n_clean), ops.cols.shape[0],
+                           device=ops.cols.device)[:3 * split - n]
+    both = _cell_args(ops, cfg, torch.cat(
+        [torch.arange(n, device=touched.device), touched]))
+    assert touched.numel() > 0 and int(fk.clean_count(*both[:2])) == n
+    _, g, _ = _route_geometries(both, ops.layout())
+    out = fk.launch_3d_split(*both, cut, g)
+    assert _vs_mixed(out, fk.launch_3d(*both, g), len(CHOSEN)) <= 1e-10
+    _b3_3d_agrees(both, **ops.layout())
+
+
+@pytest.mark.gpu
+def test_feqmod_3d_clean_kernel_sums_terms_of_either_sign_and_any_size(
+        workdir_3d):
+    """Outflow 0, p.dsigma negated on every third cell (27 % of the terms
+    negative) and each cell's renorm scaled by 10^u, u uniform in
+    [-15, 15]: terms across ~1e30 (down to subnormals) whose bins cancel up
+    to ~800-fold.  A signed sum is held to its error scale, the sum of its
+    terms' magnitudes, per momentum: the route within FEQMOD_TOL_PLAIN of
+    the plain version, and within 1e-12 of the f64 sum, term by term in
+    cell order, of its own terms (each a one-cell launch, whose run is one
+    term and exact)."""
+    _needs_cuda()
+    ops, cfg = _b3_3d_operands(workdir_3d)
+    n = 97
+    gen = torch.Generator().manual_seed(24)
+    scale = 10.0 ** (30.0 * torch.rand(n, generator=gen,
+                                       dtype=torch.float64) - 15.0)
+    renorm = (ops.renorm[:n].double()
+              * scale.to(ops.renorm.device)[:, None]).float()
+    cols = ops.cols[:n].clone()
+    cols[::3, fk.QDF_3:fk.QDF_3 + 4] *= -1.0
+    args = _cell_args(ops, cfg, slice(0, n), cols, renorm)
+    out = fk.cooper_frye_feqmod_3d(*args, **ops.layout()).cpu().numpy()
+    plain = fk.cooper_frye_feqmod_3d_plain(*args, **ops.layout())
+    terms = np.stack([fk.cooper_frye_feqmod_3d(
+        *_cell_args(ops, cfg, slice(c, c + 1), cols, renorm),
+        **ops.layout()).cpu().numpy() for c in range(n)])
+    assert (terms < 0).any() and (terms > 0).any()
+    magnitude = np.abs(terms).sum(axis=0)
+    live = magnitude > 0
+    per_term = np.zeros_like(out)
+    for row in terms:       # f64, one term at a time, in cell order
+        per_term += row
+    assert np.isfinite(out).all()
+    assert (np.abs(out - plain.cpu().numpy())[live]
+            / magnitude[live]).max() <= kc.FEQMOD_TOL_PLAIN
+    assert (np.abs(out - per_term)[live] / magnitude[live]).max() <= 1e-12
+
+
 def test_feqmod_3d_kernel_check_plain_on_cpu(workdir_3d):
     """The B3 3+1d harness on the CPU: the wrapper takes the plain version
     (no launch), it meets the f64 engine, and the surface breaks down."""

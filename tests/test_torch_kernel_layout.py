@@ -579,6 +579,25 @@ def test_b3_3d_tile_of_the_source_is_the_default_and_fits_shared_memory():
         <= 48 * 1024
 
 
+def test_b3_3d_sums_and_momenta_fit_shared_memory_at_the_tiles_blocks():
+    """Both 3+1d kernels keep their f64 sums in shared memory, a column a
+    thread: the mixed kernel's static arrays (cell tile and sums) stay
+    within 48 KB, and the clean kernel's (its cell tile, then a thread's
+    f64 and f32 momenta and its sums, dynamic) fit kMinBlocks3 blocks on
+    an H100 SM (227 KB a block, 228 KB an SM with 1 KB reserved a block)."""
+    src = _B3_SOURCE.read_text()
+    assert re.search(r"__shared__ double s_acc\[kY3m \* kP3m\]\[kThreads3m\]",
+                     src)
+    t, tm = fk.TILE_3D_CLEAN, fk.TILE_3D
+    tile = fk.TILE_CELLS_3D * (4 * fk.N_COLS_3D + 8 * fk.N_COLD_3D)
+    assert tile + 8 * tm.r * tm.ty * tm.threads <= 48 * 1024
+    clean_static = fk.TILE_CELLS_3D * (4 * fk.N_COLS_3D + 8 * 12)
+    clean_dynamic = t.threads * ((t.r + t.ty) * (16 + 8) + 8 * t.r * t.ty)
+    assert clean_static <= 48 * 1024 and clean_dynamic <= 227 * 1024
+    assert t.blocks_per_sm * (clean_static + clean_dynamic + 1024) \
+        <= 228 * 1024
+
+
 @pytest.mark.parametrize("n_y", [1, 3, 5, 21])
 @pytest.mark.parametrize("n_phi", [1, 7, 48])
 def test_b3_3d_geometry_owns_every_momentum_once(n_phi, n_y):
