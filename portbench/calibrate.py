@@ -5,9 +5,10 @@
         [--variant '{"compute_dtype": "f32"}' ...]
 
 For every seed the program runs each distinct surface of the cell once
-through the same driver path the window drives, and the check's number
-(``max_rel_err``, cell.bin_error over the sampled bins) is read against
-the plain reference: the lower readings.  For each control seed the
+through the same driver path the window drives, on the configuration the
+cell's traffic makes of it (manifest.effective), and the check's number
+(``max_rel_err``, cell.check_error over the bins of the cell's operation)
+is read against the plain reference: the lower readings.  For each control seed the
 configuration's control runs on the same surfaces: the program with the
 lower-precision parameters of ``control.params``, or the reference itself
 computed in ``control.reference_dtype``: the upper readings.  Each
@@ -43,8 +44,10 @@ def readings(cell_name: str, seeds, control_seeds, reference_dtypes,
 
     bench = manifest.load(ROOT)
     wl = manifest.workload(bench, cell_name)
-    cfg = cfg or manifest.config(bench, wl["config"])
     traffic = manifest.traffic(wl["traffic"])
+    cfg = manifest.effective(cfg or manifest.config(bench, wl["config"]),
+                             traffic)
+    op = cell.operation(cfg)
     ctl = cfg["control"]
     data_dir = Path(tempfile.mkdtemp(prefix="portbench-cal-"))
     named = {json.dumps(v, sort_keys=True): v for v in variants}
@@ -63,12 +66,10 @@ def readings(cell_name: str, seeds, control_seeds, reference_dtypes,
             with contextlib.redirect_stdout(sys.stderr):
                 prog.load_surface_from_memory(**fields)
                 prog.run_particlization(fo_from_file=False, write=False)
-            return prog.spectra
+            return op.result(prog)
 
-        floor = cfg["check"]["floor"]
         for seed in dict.fromkeys(list(seeds) + list(control_seeds)):
             bins = cell.check_bins(cfg, data_dir, seed)
-            idx = (bins["s"], bins["pT"], bins["phi"], bins["y"])
             surfaces = inputs.make_surfaces(cfg, seed,
                                             traffic["distinct_surfaces"])
             per = {k: [] for k in out}
@@ -80,30 +81,30 @@ def readings(cell_name: str, seeds, control_seeds, reference_dtypes,
                       "seconds": time.perf_counter() - t0})
                 if seed in seeds:
                     t0 = time.perf_counter()
-                    pv = run(program, fields)[idx]
-                    per["program"].append(cell.bin_error(pv, rv, bins, floor))
+                    pv = op.at(run(program, fields), bins)
+                    per["program"].append(cell.check_error(cfg, pv, rv, bins))
                     emit({"seed": seed, "which": "program",
                           "max_rel_err": per["program"][-1],
                           "seconds": time.perf_counter() - t0})
                 if seed in control_seeds:
                     if control is not None:
-                        pv = run(control, fields)[idx]
+                        pv = op.at(run(control, fields), bins)
                     else:
                         pv = cell.reference_values(
                             cfg, s, data_dir, bins, device,
                             getattr(torch, ctl["reference_dtype"]))
-                    per["control"].append(cell.bin_error(pv, rv, bins, floor))
+                    per["control"].append(cell.check_error(cfg, pv, rv, bins))
                     emit({"seed": seed, "which": "control", "control": ctl,
                           "max_rel_err": per["control"][-1]})
                     for d in reference_dtypes:
                         pv = cell.reference_values(cfg, s, data_dir, bins,
                                                    device, getattr(torch, d))
-                        per[d].append(cell.bin_error(pv, rv, bins, floor))
+                        per[d].append(cell.check_error(cfg, pv, rv, bins))
                         emit({"seed": seed, "which": f"reference_{d}",
                               "max_rel_err": per[d][-1]})
                     for k, prog in others.items():
-                        pv = run(prog, fields)[idx]
-                        per[k].append(cell.bin_error(pv, rv, bins, floor))
+                        pv = op.at(run(prog, fields), bins)
+                        per[k].append(cell.check_error(cfg, pv, rv, bins))
                         emit({"seed": seed, "which": f"variant {k}",
                               "max_rel_err": per[k][-1]})
             for k, v in per.items():

@@ -4,8 +4,10 @@ plain reference, and the metrics.
 The window drives the driver's in-memory library path
 (``IS3D.load_surface_from_memory`` then ``run_particlization(
 fo_from_file=False, write=False)``) in a closed loop: the next surface
-starts when the previous one's spectra are on the host.  The traffic file
-says how many distinct surfaces are cycled and how many warm up.
+starts when the previous one's result (the spectra of operation 1, the
+dN/dX of operation 0) is on the host.  The traffic file says how many
+distinct surfaces are cycled and how many warm up, and may set the
+operation; ``OPERATIONS`` says what each operation's check compares.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections.abc import Callable
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +28,7 @@ import torch
 from is3d2_tpu_torch.config import Config
 from is3d2_tpu_torch.driver import IS3D
 
+from ..reference import spacetime
 from . import inputs, manifest
 from .instrument import Instruments
 from .trace import Trace
@@ -138,13 +142,9 @@ class ClockSampler:
         return {"sm_clock_mhz": clocks, "power_draw_w": power}
 
 
-def sample_bins(cfg: dict, species: dict, grids: dict, seed: int) -> dict:
-    """The bins compared, drawn from the seed: the configuration's
-    ``always_mcids`` and the heaviest species, then species at random up
-    to ``species_sampled``; every pT, ``phi_sampled`` phi at random, every
-    y."""
-    chk = cfg["check"]
-    rng = np.random.default_rng([seed, 7])
+def _sample_species(chk: dict, species: dict, rng) -> list[int]:
+    """The configuration's ``always_mcids`` and the heaviest species, then
+    species at random up to ``species_sampled``."""
     mc = list(species["mc_id"])
     chosen = [mc.index(m) for m in chk["always_mcids"] if m in mc]
     heaviest = int(np.argmax(species["mass"]))
@@ -152,7 +152,16 @@ def sample_bins(cfg: dict, species: dict, grids: dict, seed: int) -> dict:
         chosen.append(heaviest)
     rest = [i for i in range(len(mc)) if i not in chosen]
     n_more = max(0, min(len(rest), chk["species_sampled"] - len(chosen)))
-    chosen += [int(i) for i in rng.choice(rest, n_more, replace=False)]
+    return chosen + [int(i) for i in rng.choice(rest, n_more, replace=False)]
+
+
+def sample_bins(cfg: dict, species: dict, grids: dict, seed: int) -> dict:
+    """Operation 1's bins compared, drawn from the seed: the sampled
+    species (_sample_species), every pT, ``phi_sampled`` phi at random,
+    every y."""
+    chk = cfg["check"]
+    rng = np.random.default_rng([seed, 7])
+    chosen = _sample_species(chk, species, rng)
     n_phi = len(grids["phi"])
     phi = np.sort(rng.choice(n_phi, min(n_phi, chk["phi_sampled"]),
                              replace=False))
@@ -161,13 +170,21 @@ def sample_bins(cfg: dict, species: dict, grids: dict, seed: int) -> dict:
     return {"s": s.ravel(), "pT": p.ravel(), "phi": f.ravel(), "y": y.ravel()}
 
 
-def reference_values(cfg: dict, surface: dict, data_dir: Path, bins: dict,
-                     device: str, dtype=torch.float64) -> np.ndarray:
-    """The plain reference's spectra at ``bins`` for one surface."""
-    ref = manifest.reference(cfg["reference"])
-    prep = ref.prepare(surface, data_dir, cfg, device)
-    return ref.spectra_bins(prep, ref.read_species(data_dir)["chosen"],
-                            ref.read_grids(data_dir), bins, cfg, dtype)
+def dndx_bins(cfg: dict, species: dict, grids: dict, seed: int) -> dict:
+    """Operation 0's bins compared: the species drawn from the seed as
+    for operation 1, every bin of the three axes (``axis`` 0, 1, 2: tau,
+    r, phi_s; ``col`` the result's column)."""
+    rng = np.random.default_rng([seed, 7])
+    chosen = np.array(sorted(_sample_species(cfg["check"], species, rng)))
+    axis = np.repeat(np.arange(3), _axis_bins(cfg))
+    s, a = np.meshgrid(chosen, axis, indexing="ij")
+    return {"s": s.ravel(), "axis": a.ravel(),
+            "col": np.tile(np.arange(len(axis)), len(chosen))}
+
+
+def _axis_bins(cfg: dict) -> list[int]:
+    p = cfg["params"]
+    return [p["tau_bins"], p["r_bins"], p["phip_bins"]]
 
 
 def bin_error(pv: np.ndarray, rv: np.ndarray, bins: dict, floor: float) -> float:
@@ -178,24 +195,101 @@ def bin_error(pv: np.ndarray, rv: np.ndarray, bins: dict, floor: float) -> float
     return float(np.max(np.abs(pv - rv) / den))
 
 
+def _spectra_reference(ref, prep, data_dir, bins, cfg, dtype):
+    return ref.spectra_bins(prep, ref.read_species(data_dir)["chosen"],
+                            ref.read_grids(data_dir), bins, cfg, dtype)
+
+
+def _dndx_reference(ref, prep, data_dir, bins, cfg, dtype):
+    chosen = ref.read_species(data_dir)["chosen"]
+    s = np.unique(bins["s"])
+    species = {k: v[s] for k, v in chosen.items()}
+    return spacetime.dN_dX(prep, species, ref.read_grids(data_dir), cfg,
+                           dtype).ravel()
+
+
+def _dndx_result(program) -> np.ndarray | None:
+    d = program.dN_dX
+    return None if d is None else np.concatenate(d.normalized(program.cfg),
+                                                 axis=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Operation:
+    """What a cell of one operation holds and checks: the program's result
+    after a surface, its shape, the bins compared (drawn from the seed),
+    the plain reference there, the program's values there, and the error
+    between the two (bin_error's floor applied per ``group``)."""
+    result: Callable      # (program) -> np.ndarray | None
+    shape: Callable       # (cfg, n_species) -> tuple
+    bins: Callable        # (cfg, species, grids, seed) -> dict
+    reference: Callable   # (ref, prep, data_dir, bins, cfg, dtype) -> array
+    at: Callable          # (result, bins) -> array
+    group: Callable       # (bins) -> the bins' group of the floor
+
+
+OPERATIONS = {
+    0: Operation(
+        result=_dndx_result,
+        shape=lambda cfg, n_species: (n_species, sum(_axis_bins(cfg))),
+        bins=dndx_bins, reference=_dndx_reference,
+        at=lambda out, bins: out[bins["s"], bins["col"]],
+        # the three axes have different units: a floor per species and axis
+        group=lambda bins: 3 * bins["s"] + bins["axis"]),
+    1: Operation(
+        result=lambda program: program.spectra,
+        shape=lambda cfg, n_species: (n_species, cfg["inputs"]["n_pT"],
+                                      cfg["inputs"]["n_phi"],
+                                      cfg["inputs"]["n_y"]),
+        bins=sample_bins, reference=_spectra_reference,
+        at=lambda out, bins: out[bins["s"], bins["pT"], bins["phi"],
+                                 bins["y"]],
+        group=lambda bins: bins["s"]),
+}
+
+
+def operation(cfg: dict) -> Operation:
+    """The Operation of ``cfg``'s ``params["operation"]``; one with no
+    comparison raises, so that its cell cannot pass unchecked."""
+    op = cfg["params"]["operation"]
+    if op not in OPERATIONS:
+        raise ValueError(f"portbench: operation {op} has no check against "
+                         f"a reference (operations {sorted(OPERATIONS)} do)")
+    return OPERATIONS[op]
+
+
 def check_bins(cfg: dict, data_dir: Path, seed: int) -> dict:
     ref = manifest.reference(cfg["reference"])
-    return sample_bins(cfg, ref.read_species(data_dir)["chosen"],
-                       ref.read_grids(data_dir), seed)
+    return operation(cfg).bins(cfg, ref.read_species(data_dir)["chosen"],
+                               ref.read_grids(data_dir), seed)
 
 
-def result_shape(cfg: dict, n_species: int) -> tuple:
-    inp = cfg["inputs"]
-    return (n_species, inp["n_pT"], inp["n_phi"], inp["n_y"])
+def reference_values(cfg: dict, surface: dict, data_dir: Path, bins: dict,
+                     device: str, dtype=torch.float64) -> np.ndarray:
+    """The plain reference's values at ``bins`` for one surface."""
+    ref = manifest.reference(cfg["reference"])
+    prep = ref.prepare(surface, data_dir, cfg, device)
+    return operation(cfg).reference(ref, prep, data_dir, bins, cfg, dtype)
+
+
+def check_error(cfg: dict, pv: np.ndarray, rv: np.ndarray,
+                bins: dict) -> float:
+    """bin_error of the program's values against the reference's, with
+    the floor of ``cfg``'s check per species (and, for operation 0, per
+    axis)."""
+    return bin_error(pv, rv, {"s": operation(cfg).group(bins)},
+                     cfg["check"]["floor"])
 
 
 def compare(cfg: dict, surfaces: list, records: list, data_dir: Path,
             seed: int, device: str, n_species: int) -> dict:
     """The check: the reference at the sampled bins of each distinct
     surface the window ran, against every window result of that surface
-    (bin_error); a result that is missing, misshapen or not finite fails."""
+    (check_error); a result that is missing, misshapen or not finite
+    fails."""
+    op = operation(cfg)
     bins = check_bins(cfg, data_dir, seed)
-    shape = result_shape(cfg, n_species)
+    shape = op.shape(cfg, n_species)
     worst, failed = 0.0, 0
     for k in sorted({r.surface for r in records}):
         rv = reference_values(cfg, surfaces[k], data_dir, bins, device)
@@ -206,8 +300,7 @@ def compare(cfg: dict, surfaces: list, records: list, data_dir: Path,
             if out is None or out.shape != shape or not np.isfinite(out).all():
                 failed += 1
                 continue
-            pv = out[bins["s"], bins["pT"], bins["phi"], bins["y"]]
-            worst = max(worst, bin_error(pv, rv, bins, cfg["check"]["floor"]))
+            worst = max(worst, check_error(cfg, op.at(out, bins), rv, bins))
     return {"max_rel_err": worst, "failed": failed, "bins": len(bins["s"])}
 
 
@@ -222,11 +315,13 @@ def run(cell: str, seed: int, seconds: float, trace: bool, t_start: float,
     """One run of ``cell``; returns the result line's object (with
     ``checks`` last) and, under ``_conditions``, the run's conditions.
     ``cfg`` and ``traffic`` replace the cell's own files (the CPU tests run
-    tiny configurations)."""
+    tiny configurations); the run takes the configuration that the
+    traffic makes of it (manifest.effective)."""
     bench = bench or manifest.load()
     wl = manifest.workload(bench, cell)
-    cfg = cfg or manifest.config(bench, wl["config"])
     traffic = traffic or manifest.traffic(wl["traffic"])
+    cfg = manifest.effective(cfg or manifest.config(bench, wl["config"]),
+                             traffic)
     data_dir = Path(tempfile.mkdtemp(prefix="portbench-"))
     try:
         return _run(cell, seed, seconds, trace, t_start, device, bench, wl,
@@ -238,6 +333,7 @@ def run(cell: str, seed: int, seconds: float, trace: bool, t_start: float,
 def _run(cell, seed, seconds, trace, t_start, device, bench, wl, cfg,
          traffic, data_dir) -> dict:
     cuda = device == "cuda"
+    op = operation(cfg)
     card = _nvidia_smi("name", "power.limit") if cuda else None
     species = inputs.write_data_dir(data_dir, cfg)
     surfaces = inputs.make_surfaces(cfg, seed, traffic["distinct_surfaces"])
@@ -279,7 +375,7 @@ def _run(cell, seed, seconds, trace, t_start, device, bench, wl, cfg,
                 one(k)
             te = time.perf_counter()
             records.append(Record(i, k, ts, te, dict(program.stage_seconds),
-                                  program.spectra))
+                                  op.result(program)))
             if te - t0 >= seconds:
                 break
     finally:
@@ -336,6 +432,9 @@ def _run(cell, seed, seconds, trace, t_start, device, bench, wl, cfg,
         "device_count": torch.cuda.device_count() if cuda else 0,
         **clocks, "surfaces_timed": len(records),
         "window_s": records[-1].end - records[0].start,
+        "surface_s": [r.end - r.start for r in records],
+        "stage_s": {k: [r.stages.get(k) for r in records]
+                    for k in ("setup", "compute")},
         "bins_compared": check["bins"]}
     # last, once the check and every reader have run: whatever they
     # loaded counts too

@@ -1,7 +1,9 @@
 """Find a cell's pieces by name: the workload entry and the metrics of
 BENCHMARK.json, the configuration file it names, the traffic file
 ``traffic/<name>.json``, the reference module ``reference/<name>.py`` and
-one reader ``metrics/<name>.py`` per per-layer metric.  A later change adds
+one reader ``metrics/<name>.py`` per per-layer metric.  A traffic file may
+set parameters of the configuration it runs, the operation among them,
+and its own check and control (``effective``).  A later change adds
 a cell or a metric by adding files and entries; nothing here changes."""
 
 from __future__ import annotations
@@ -37,6 +39,18 @@ def config(bench: dict, name: str, root: Path = ROOT) -> dict:
 
 def traffic(name: str) -> dict:
     return json.loads((BENCH_DIR / "traffic" / f"{name}.json").read_text())
+
+
+def effective(cfg: dict, traffic: dict) -> dict:
+    """The configuration one cell runs: the traffic's ``params`` merged
+    over the configuration's, and its ``check`` and ``control`` in place
+    of the configuration's.  A traffic file with none of these keys gives
+    the configuration as it is."""
+    out = {**cfg, **{k: traffic[k] for k in ("check", "control")
+                     if k in traffic}}
+    if "params" in traffic:
+        out["params"] = {**cfg["params"], **traffic["params"]}
+    return out
 
 
 def reference(name: str):

@@ -46,7 +46,9 @@ def test_short_run_is_correct(card, cell_name):
 @pytest.mark.parametrize("cell_name", CELLS)
 def test_control_fails_the_limit(card, cell_name):
     b = manifest.load()
-    cfg = manifest.config(b, manifest.workload(b, cell_name)["config"])
+    wl = manifest.workload(b, cell_name)
+    cfg = manifest.effective(manifest.config(b, wl["config"]),
+                             manifest.traffic(wl["traffic"]))
     seeds = [7001, 7002, 7003]
     r = calibrate.readings(cell_name, seeds, seeds, [], emit=lambda d: None)
     limit = cfg["check"]["limit"]

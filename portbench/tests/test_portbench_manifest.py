@@ -7,7 +7,7 @@ import re
 
 import pytest
 
-from portbench.harness import manifest
+from portbench.harness import cell, manifest
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -69,7 +69,9 @@ def test_every_cell_finds_its_pieces(bench):
         assert traffic["distinct_surfaces"] >= 1
         ref = manifest.reference(cfg["reference"])
         assert callable(ref.spectra_bins) and callable(ref.prepare)
-        assert 0 < cfg["check"]["limit"] < 1
+        run = manifest.effective(cfg, traffic)
+        assert 0 < run["check"]["limit"] < 1
+        assert cell.operation(run) in cell.OPERATIONS.values()
         e2e = manifest.end_to_end(bench, wl["name"])
         layers = manifest.per_layer(bench, wl["name"])
         assert "setup_s" in {m["name"] for m in e2e} and len(e2e) >= 2
@@ -91,3 +93,30 @@ def test_unknown_names_are_refused(bench):
         manifest.workload(bench, "no-such-cell")
     with pytest.raises(KeyError):
         manifest.config(bench, "no-such-config")
+
+
+@pytest.mark.parametrize("cell_name", ["box2d-grad.spectra",
+                                       "box3d-ptb.spectra"])
+def test_spectra_cells_run_their_files_unchanged(bench, cell_name):
+    """A traffic file with no params, check or control leaves the
+    configuration as its file has it, dict for dict."""
+    wl = manifest.workload(bench, cell_name)
+    cfg = manifest.config(bench, wl["config"])
+    assert manifest.effective(cfg, manifest.traffic(wl["traffic"])) == cfg
+    assert cfg["params"]["operation"] == 1
+
+
+def test_traffic_sets_the_operation_and_its_check(bench):
+    wl = manifest.workload(bench, "box2d-grad.dndx")
+    cfg = manifest.config(bench, wl["config"])
+    traffic = manifest.traffic(wl["traffic"])
+    run = manifest.effective(cfg, traffic)
+    assert run["params"] == {**cfg["params"], **traffic["params"]}
+    assert run["params"]["operation"] == 0
+    assert (run["params"]["tau_bins"], run["params"]["r_bins"],
+            run["params"]["phip_bins"]) == (120, 60, 100)
+    assert run["check"] == traffic["check"] != cfg["check"]
+    assert run["control"] == traffic["control"]
+    assert run["inputs"] == cfg["inputs"]
+    # the configuration itself is left as it was
+    assert cfg == manifest.config(bench, wl["config"])
