@@ -71,7 +71,8 @@ def readings(cell_name: str, seeds, control_seeds, reference_dtypes,
         for seed in dict.fromkeys(list(seeds) + list(control_seeds)):
             bins = cell.check_bins(cfg, data_dir, seed)
             surfaces = inputs.make_surfaces(cfg, seed,
-                                            traffic["distinct_surfaces"])
+                                            traffic["distinct_surfaces"],
+                                            device)
             per = {k: [] for k in out}
             for s in surfaces:
                 fields = inputs.memory_fields(s)

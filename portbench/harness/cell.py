@@ -336,7 +336,8 @@ def _run(cell, seed, seconds, trace, t_start, device, bench, wl, cfg,
     op = operation(cfg)
     card = _nvidia_smi("name", "power.limit") if cuda else None
     species = inputs.write_data_dir(data_dir, cfg)
-    surfaces = inputs.make_surfaces(cfg, seed, traffic["distinct_surfaces"])
+    surfaces = inputs.make_surfaces(cfg, seed, traffic["distinct_surfaces"],
+                                    device)
     fields = [inputs.memory_fields(s) for s in surfaces]
     program = IS3D(data_dir, cfg=Config(**cfg["params"]), device=device)
 

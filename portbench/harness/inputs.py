@@ -3,10 +3,11 @@ the quadrature tables and the delta-f coefficient tables.
 
 Frozen copies of the port's synthetic-workdir builder
 (``is3d2_tpu_torch/tools/synthetic.py``: ``make_surface``,
-``pdg_box_lines``, the quadrature tables) and of its delta-f table
-generator (``is3d2_tpu_torch/tools/generate_deltaf_tables.py``:
-``compute_tables``, ``write_tables``), so that a later change to those
-tools cannot move the yardstick.  The same seed gives the same bits as
+``make_eos_consistent``, ``pdg_box_lines``, the quadrature tables) and
+of its delta-f table generator
+(``is3d2_tpu_torch/tools/generate_deltaf_tables.py``: ``compute_tables``,
+``write_tables``), so that a later change to those tools cannot move the
+yardstick.  The same seed gives the same bits as
 the originals (``tests/test_portbench_inputs.py``).  Nothing here imports
 the port.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 from scipy.special import roots_genlaguerre
 
 HBARC = 0.197327053  # GeV fm
@@ -60,6 +62,46 @@ def make_surface(n_cells: int, seed, dimension: int = 2,
         s["pixn"] = rng.uniform(-1.0, 1.0, n_cells) * scale * 0.1
         s["piyn"] = rng.uniform(-1.0, 1.0, n_cells) * scale * 0.1
     s["bulkPi"] = rng.uniform(-1.0, 1.0, n_cells) * bulk_scale * (s["E"] + s["P"])
+    return s
+
+
+def _w1(p, t, sign):
+    """exp(p) / (exp(t) + sign), overflow-safe (the port's thermal._w1)."""
+    return torch.exp(p - t) / (1.0 + sign * torch.exp(-t))
+
+
+def make_eos_consistent(s: dict, species: dict, device="cpu") -> dict:
+    """Overwrite E and P of surface ``s`` with the equilibrium energy
+    density and pressure of the hadron gas ``species`` (every species of
+    mass > 0; species_of_lines) at each cell's T, in place: the a = 2
+    Gauss-Laguerre integrals of the port's ``thermal.E_mod_integral`` and
+    ``P_mod_integral`` at lambda = 0, summed over the species with their
+    degeneracies.  Torch f64 on ``device``, 4,096 cells at a time; on the
+    CPU the bits of the port's ``synthetic.make_eos_consistent``."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    mask = species["mass"] > 0
+    m_sp = t(species["mass"][mask])
+    g = t(species["gspin"][mask])[None, :]
+    sign = t(species["sign"][mask])[None, :, None]
+    # family a = 2 of the table write_quadrature_tables writes: its %.16e
+    # (17 digits) reads back as these doubles
+    p, w = (t(a) for a in roots_genlaguerre(32, 2))
+    E_out, P_out = [], []
+    for i in range(0, s["T"].shape[0], 4096):
+        T = t(s["T"][i:i + 4096])
+        mbar = (m_sp[None, :] / T[:, None])[..., None]
+        Ebar = torch.sqrt(p * p + mbar * mbar)
+        w1 = _w1(p, Ebar, sign)
+        E_int = torch.sum(w * (Ebar * w1), dim=-1)
+        P_int = torch.sum(w * (p * p / Ebar * w1), dim=-1)
+        fact = T ** 4 / TWO_PI2_HBARC3
+        E_out.append((fact * (g * E_int).sum(dim=1)).cpu().numpy())
+        P_out.append((fact * (g * P_int).sum(dim=1)).cpu().numpy())
+    s["E"] = np.concatenate(E_out)
+    s["P"] = np.concatenate(P_out) / 3.0
     return s
 
 
@@ -390,12 +432,22 @@ def write_data_dir(root: Path, cfg: dict) -> dict:
     return species
 
 
-def make_surfaces(cfg: dict, seed: int, count: int) -> list[dict]:
+def make_surfaces(cfg: dict, seed: int, count: int,
+                  device="cpu") -> list[dict]:
     """``count`` distinct surfaces of configuration ``cfg``, surface k
     drawn from the seed sequence (seed, k): every seed gives the same cell
-    count and the same distributions."""
+    count and the same distributions.  Where ``cfg["inputs"]`` sets
+    ``eos_consistent``, each surface's E and P then become those of the
+    configuration's hadron list at the cell's T (make_eos_consistent on
+    ``device``), as a df-5 reconstruction needs."""
     inp = cfg["inputs"]
-    return [make_surface(inp["n_cells"], [seed, k], dimension=inp["dimension"],
-                         shear_scale=inp["shear_scale"],
-                         bulk_scale=inp["bulk_scale"])
-            for k in range(count)]
+    surfaces = [make_surface(inp["n_cells"], [seed, k],
+                             dimension=inp["dimension"],
+                             shear_scale=inp["shear_scale"],
+                             bulk_scale=inp["bulk_scale"])
+                for k in range(count)]
+    if inp.get("eos_consistent"):
+        species = species_of_lines(pdg_box_lines(inp["n_species"]))
+        for s in surfaces:
+            make_eos_consistent(s, species, device)
+    return surfaces
