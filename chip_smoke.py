@@ -100,12 +100,18 @@ Phases (any failure raises; nothing is caught):
      share (mass, sign, baryon) with their representative, <= GROUP_BAR
      (the grouping's own error, measured with the JAX package) on all;
  18. operation 0 (dN/dX), df 1, f32c, on phase 5's surface through the
-     CLI: B1 once per non-empty (tau, r, phi_s) bin, the launches timed one
-     by one by CUDA events and summed; the files finite, the tau bins
-     summed back to phase 5's dN/dy of pi+, K+ and p (<= 1e-5); B1 on the
-     fullest bin's cells at the full M against its plain version
-     (<= 1e-6); and at 2,048 cells the whole route against its plain
-     version and the f64 engine (<= 1e-6 both);
+     CLI: only B1's per-cell mode may launch; the files finite, the tau
+     bins summed back to phase 5's dN/dy of pi+, K+ and p (<= 1e-5); the
+     per-cell route (spacetime.comp_cell_bins) timed whole and its kernel
+     alone at full size (two launches, equal bits) against its bound, and
+     the kernel held to its plain version on the first 8,192 of its cells
+     (<= 1e-6 of each cell's sum of |terms|); at 2,048 cells the route
+     against its plain version, the per-bin route (<= 1e-12) and the f64
+     engine (<= 1e-6), twice for the same bits.  Then the per-bin route
+     that the meshed twin keeps: B1 once per non-empty (tau, r, phi_s) bin,
+     the launches timed one by one by CUDA events and summed, B1 on the
+     fullest bin's cells against its plain version (<= 1e-6), and at 2,048
+     cells that route against its plain version and the f64 engine;
  19. operation 0, df 4, f32, on a mode-6 surface with dsigma_eta / tau in
      +-0.05 (not folded: 24 eta nodes), shear 0.2, bulk 0.1: B3 in its
      dan-weighted variant once per bin, timed as in 18; B3 on the fullest
@@ -392,10 +398,15 @@ KERNELS = ("cooper_frye_comp", "cooper_frye_feqmod", "cooper_frye_f32",
            "polarization_f32")
 # kernels that live in another kernel's source (name -> source)
 SOURCE_OF = {"cooper_frye_comp_3d": "cooper_frye_comp",
+             "cooper_frye_comp_cells": "cooper_frye_comp",
              "cooper_frye_feqmod_3d": "cooper_frye_feqmod",
              "cooper_frye_feqmod_3d_clean": "cooper_frye_feqmod",
              "polarization_f32_3d": "polarization_f32"}
+# a kernel's name where it is not "<name>_kernel"
+KERNEL_NAME = {"cooper_frye_comp_cells": "cooper_frye_comp_kernel_cells"}
 B1_COMPARE_CELLS = 16_384
+# phase 18: B1's per-cell mode against its plain version
+B1_CELLS_COMPARE_CELLS = 8_192
 B2_COMPARE_CELLS = 8_192
 B3_COMPARE_CELLS = 8_192
 P1_COMPARE_CELLS = 4_096
@@ -567,8 +578,8 @@ def cuda_ms(fn, warmup=None):
 
 
 def launch_counters():
-    from is3d2_tpu_torch.ops.cooper_frye_comp import (cooper_frye_comp,
-                                                      cooper_frye_comp_3d)
+    from is3d2_tpu_torch.ops.cooper_frye_comp import (
+        cooper_frye_comp, cooper_frye_comp_3d, cooper_frye_comp_cells)
     from is3d2_tpu_torch.ops.cooper_frye_f32 import cooper_frye_f32
     from is3d2_tpu_torch.ops.cooper_frye_feqmod import cooper_frye_feqmod
     from is3d2_tpu_torch.ops.polarization_f32 import (polarization_f32,
@@ -579,6 +590,7 @@ def launch_counters():
             "cooper_frye_f32": cooper_frye_f32,
             "polarization_f32": polarization_f32,
             "cooper_frye_comp_3d": cooper_frye_comp_3d,
+            "cooper_frye_comp_cells": cooper_frye_comp_cells,
             "cooper_frye_feqmod_3d": cooper_frye_feqmod_3d,
             "polarization_f32_3d": polarization_f32_3d}
 
@@ -648,7 +660,9 @@ def phase_build() -> dict:
                 continue
             if key in SOURCE_OF.values() or key in SOURCE_OF:
                 # a source of two kernels: each one's own worst
-                own = [u for k, u in kernels.items() if f"{key}_kernel" in k]
+                stem = KERNEL_NAME.get(key, f"{key}_kernel")
+                own = [u for k, u in kernels.items()
+                       if re.search(rf"{stem}(?!_)", k)]
                 print(f"  {key}: {len(own)} instantiation(s); the most over "
                       f"them: " + json.dumps(
                           {field: max(u.get(field, 0) for u in own)
@@ -1645,16 +1659,111 @@ def check_dX_files(wd: Path, wd_op1: Path | None) -> None:
             raise AssertionError(f"{m}: the tau bins do not sum to dN/dy")
 
 
+def dX_cells_timing(wd: Path) -> dict:
+    """B1's per-cell route (spacetime.comp_cell_bins) on the df-1 main
+    path's state as the driver runs it: the whole route timed by CUDA
+    events and the host's clock, its launches; the per-cell kernel alone
+    on the route's operands (the cells some axis binned), twice for equal
+    bits, against its bound (B1's operations an evaluation; bytes: the
+    operands and the (C, S) f64 result); and the wrapper held to its plain
+    version on the first B1_CELLS_COMPARE_CELLS of those cells (per (cell,
+    species), in units of the cell's sum of |terms|), both timed there."""
+    from is3d2_tpu_torch.core import spacetime
+    from is3d2_tpu_torch.ops import cooper_frye_comp as ck
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cfg, state = main_path_state(wd, kc.engine_state)
+
+    def route():
+        return spacetime.comp_cell_bins(*state, cfg)
+    route()
+    before = ck.cooper_frye_comp_cells.launches
+    t0 = time.perf_counter()
+    route_ms, _ = cuda_ms(route, warmup=lambda: None)
+    wall = time.perf_counter() - t0
+    launches = ck.cooper_frye_comp_cells.launches - before
+
+    kept, args = kc.cells_operands(
+        state, spacetime.kernel_operands(*state, cfg), cfg)
+    kernel = functools.partial(ck.cooper_frye_comp_cells,
+                               row_len=kept.row_len)
+    first = kernel(*args)
+    ms, second = cuda_ms(lambda: kernel(*args), warmup=lambda: None)
+    if not torch.equal(first, second):
+        raise AssertionError("two launches of B1's per-cell mode on the main "
+                             "path's operands gave different bits")
+    C, S = first.shape
+    del first, second
+    # bound()'s output is n_mom f64 values: here the (C, S) result
+    main_bound = bound(BOUND_OPS_PER_EVALUATION["cooper_frye_comp"]
+                       * kept.evaluations, args, C * S)
+    print(f"per-cell route: {launches} launch(es), {ms:.1f} ms in the kernel "
+          f"of {route_ms:.1f} ms on the device, host wall {wall * 1e3:.1f} "
+          f"ms; {C} cells x {kept.eta.shape[0]} eta x {kept.mom.shape[1]} "
+          f"momenta = {kept.evaluations:.4g} evaluations "
+          f"({kept.evaluations / ms * 1e3:.4g} evaluations/s); two launches "
+          f"gave equal bits; bound {main_bound['bound_ms']:.1f} ms "
+          f"({100 * main_bound['bound_ms'] / ms:.1f} %) "
+          f"{ck.cooper_frye_comp_cells.last_geometry}")
+
+    n = min(B1_CELLS_COMPARE_CELLS, C)
+
+    def cut(k):
+        return (kept.cell[:k].contiguous(), kept.qm[:k].contiguous(),
+                *args[2:])
+    cut_ms, out = cuda_ms(lambda: kernel(*cut(n)))
+    plain_ms, ref = cuda_ms(
+        lambda: ck.cooper_frye_comp_cells_plain(*cut(n)),
+        warmup=lambda: ck.cooper_frye_comp_cells_plain(*cut(64)))
+    out = out.cpu().numpy()
+    err = kc.max_scaled_err(out, ref.cpu().numpy(), kc.cells_scale(*cut(n)))
+    print(f"first {n} cells: kernel {cut_ms:.1f} ms, plain version "
+          f"{plain_ms:.1f} ms; kernel vs plain {err:.3e} of the cells' "
+          f"|terms| (bar {kc.TOL:g})")
+    if not (np.isfinite(out).all() and err <= kc.TOL):
+        raise AssertionError("B1's per-cell mode disagrees with its plain "
+                             f"version on the main path's cells ({err:.3e})")
+    return {"route_ms": route_ms, "route_wall_ms": wall * 1e3,
+            "main_path_launches": launches, "main_path_ms": ms,
+            "main_path_evaluations": kept.evaluations,
+            "main_path_bound_ms": main_bound["bound_ms"],
+            "main_path_share_of_bound": main_bound["bound_ms"] / ms,
+            "main_path_evaluations_per_s": kept.evaluations / ms * 1e3,
+            "ms": cut_ms, "plain_ms": plain_ms, "vs_plain": err,
+            "cells_compared": n}
+
+
+def dX_cells_check(wd_parity: Path, cfg_fields: dict) -> dict:
+    """check_dX_cells_case at 2,048 cells (the parity workdir's 16
+    species)."""
+    from is3d2_tpu_torch.config import Config
+    from is3d2_tpu_torch.tools import kernel_check as kc
+    cfg = Config(operation=0, cell_block=512, **cfg_fields)
+    r = kc.check_dX_cells_case(wd_parity, cfg, 2048, 7, "cuda")
+    print(f"2048 cells {json.dumps(cfg_fields)}, per-cell route: "
+          f"{r.launches} launch(es); kernel vs plain {r.vs_plain:.3e} of the "
+          f"cells' |terms| (bar {kc.TOL:g}), bins vs the per-bin route "
+          f"{r.vs_per_bin:.3e} (bar {kc.CELLS_TOL_PER_BIN:g}), vs f64 "
+          f"{r.vs_f64:.3e} (bar {kc.TOL:g}), repeats {r.repeats}")
+    if not (r.ok and r.launches == 1):
+        raise AssertionError(f"operation 0 {cfg_fields}: the per-cell route "
+                             "is off its plain version, the per-bin route "
+                             "or the f64 engine, or moved between runs")
+    return {"vs_plain": r.vs_plain, "vs_per_bin": r.vs_per_bin,
+            "vs_f64": r.vs_f64}
+
+
 def phase_op0_b1(tmp: Path, wd1: Path, wd_parity: Path) -> dict:
     print(f"== 18. operation 0, df 1, f32c: phase 5's {MAIN_CELLS} cells, all "
-          "species, 51 x 48 x 24, through B1 on every bin")
+          "species, 51 x 48 x 24, through B1's per-cell mode (and B1 on "
+          "every bin, the meshed route's)")
     from is3d2_tpu_torch.ops import cooper_frye_comp as ck
     from is3d2_tpu_torch.tools import kernel_check as kc
     wd = derived_workdir(tmp, wd1, "op0_df1", {"operation": 0})
-    launches, stages, _ = run_cli(wd, "cooper_frye_comp")
-    launches = launches["cooper_frye_comp"]
+    launches, stages, _ = run_cli(wd, "cooper_frye_comp_cells")
+    launches = launches["cooper_frye_comp_cells"]
     print(f"stage seconds: {json.dumps(stages)}")
     check_dX_files(wd, wd1)
+    cells = dX_cells_timing(wd)
     per_eval = BOUND_OPS_PER_EVALUATION["cooper_frye_comp"]
 
     def b1_ops(o):
@@ -1663,9 +1772,13 @@ def phase_op0_b1(tmp: Path, wd1: Path, wd_parity: Path) -> dict:
     t = dX_main_path_timing(wd, kc.engine_state, ck.cooper_frye_comp, b1_ops)
     cfg, state, ops = t.pop("state")
     cmp = dX_bin_vs_plain("B1", cfg, state, ops, kc.TOL, b1_ops)
-    small = dX_check(wd_parity, {"df_mode": 1, "compute_dtype": "f32c"}, {})
-    return {"launches": launches, "stage_seconds": stages, **t, **cmp,
-            "library_ms": None, "at_2048_cells": small}
+    fields = {"df_mode": 1, "compute_dtype": "f32c"}
+    return {"launches": launches, "stage_seconds": stages, **cells,
+            "library_ms": None,
+            "at_2048_cells": dX_cells_check(wd_parity, fields),
+            "per_bin_route": {**t, **cmp,
+                              "at_2048_cells": dX_check(wd_parity, fields,
+                                                        {})}}
 
 
 def phase_op0_b3(tmp: Path, wd_parity: Path) -> dict:
@@ -2190,8 +2303,8 @@ ENSEMBLE_SAMPLER_SEED = 5
 
 @contextlib.contextmanager
 def timed_launches():
-    """A CUDA event before and after every launch of B1 (both modes), B2
-    and B3 while the block runs: yields the list of (kernel, start, end)
+    """A CUDA event before and after every launch of B1 (its three modes),
+    B2 and B3 while the block runs: yields the list of (kernel, start, end)
     it fills.  The wrappers call their module's launch functions by name,
     so wrapping those times each launch and nothing else."""
     from is3d2_tpu_torch.ops import cooper_frye_comp as ck
@@ -2200,6 +2313,7 @@ def timed_launches():
     spans = []
     targets = [(ck, "launch", "cooper_frye_comp"),
                (ck, "launch_3d", "cooper_frye_comp_3d"),
+               (ck, "launch_cells", "cooper_frye_comp_cells"),
                (b2, "launch", "cooper_frye_f32"),
                (fk, "launch", "cooper_frye_feqmod"),
                (fk, "launch_3d_split", "cooper_frye_feqmod_3d")]
@@ -3853,7 +3967,8 @@ def main() -> int:
          "replaces": "is3d2_tpu/ops/cooper_frye_pallas.py:241",
          "launches": b1_launches, **b1,
          # phase 17: the grouped mode-6 main path; phase 18: operation 0,
-         # one launch per non-empty bin
+         # one launch of the per-cell mode (the per-bin route under
+         # "per_bin_route")
          "grouped_mode6": grouped, "operation0": op0_b1,
          # phase 27: the 64-surface ensemble, one launch a surface
          "ensemble": {"launches": ens_spectra["launches"],

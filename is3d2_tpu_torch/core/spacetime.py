@@ -13,13 +13,21 @@ Routes (the JAX package's operation 0 ignores use_pallas):
   * f64: the torch f64 engines (df12_weighted_value; feqmod_weighted_value
     with the spacetime distributions' p.dsigma, whose dan term carries the
     eta weight), dN/dy per cell, then binned;
-  * f32/f32c in 2+1d: kernel B1 (df 1/2) or kernel B3 in its dan-weighted
-    convention (df 3/4).  A kernel sums over the cells it is handed for
-    every momentum point, so the cells of each axis are sorted by bin once
-    (one gather of the packed operands) and the kernel runs on each
-    non-empty bin's run of cells; its (S, pT, phi) result contracted with
-    the (pT, phi) weights is the bin.  The JAX package runs its XLA fast
-    paths there (ROADMAP C7).
+  * f32/f32c in 2+1d, df 1/2: kernel B1's per-cell mode
+    (``comp_cell_bins``).  The live cells that some axis bins are gathered
+    from the packed operands once, one launch gives each one's dN/dy per
+    species (the (pT, phi) weights applied in the kernel), and the three
+    axes bin it in f64 on the device by contractions with blocks of the
+    cells' one-hot bins (``bin_cells``: a fixed order, the same bits every
+    run);
+  * f32/f32c in 2+1d, df 3/4: kernel B3 in its dan-weighted convention.
+    B3 sums over the cells it is handed for every momentum point, so the
+    cells of each axis are sorted by bin once (one gather of the packed
+    operands) and the kernel runs on each non-empty bin's run of cells;
+    its (S, pT, phi) result contracted with the (pT, phi) weights is the
+    bin (``kernel_bins``, which also takes B1 per bin: the meshed route's
+    and the tools').
+The JAX package runs its XLA fast paths there (ROADMAP C7).
 
 In 3+1d every dtype runs the f64 engines (df 3/4: the dan-weighted feqmod
 integrand, with the narrow window), as the JAX package does
@@ -40,6 +48,7 @@ from ..config import Config
 from ..io.pdg import SpeciesTable
 from ..io.tables import GaussLaguerre, MomentumGrids
 from ..physics.deltaf import DeltafData
+from ..tracing import span
 from .cells import CellArrays
 from .spectra import (_F64_BLOCK_ELEMENTS, PREFACTOR, MomentumGridDevice,
                       SpeciesArrays, df12_state, df12_weighted_value)
@@ -220,12 +229,74 @@ def kernel_bins(cells: CellArrays, ops, species: SpeciesArrays,
     return out
 
 
+def cell_bin_columns(bins, mask: np.ndarray):
+    """The cells that some axis bins (ascending), and for the three axes
+    together (the axes' bins side by side) the (cell position among them,
+    bin) of every cell an axis bins: the drops of ``_scatter``, out of range
+    or mask <= 0."""
+    ok = [(idx >= 0) & (idx < n) & (mask > 0.0) for idx, n in bins]
+    keep = np.nonzero(np.logical_or.reduce(ok))[0]
+    rows, cols, offset = [], [], 0
+    for (idx, n), axis_ok in zip(bins, ok):
+        at = np.nonzero(axis_ok[keep])[0]
+        rows.append(at)
+        cols.append(idx[keep[at]] + offset)
+        offset += n
+    return keep, np.concatenate(rows), np.concatenate(cols)
+
+
+def bin_cells(dN: torch.Tensor, rows: np.ndarray, cols: np.ndarray,
+              n_bins: list[int]) -> list[torch.Tensor]:
+    """The per-cell sums ``dN`` (C, S) f64 binned on the axes of
+    ``cell_bin_columns``, on dN's device: block by block of cells, an f64
+    contraction with the block's one-hot bins (cells, sum(n_bins)), the
+    blocks added in order, so that no one-hot matrix outgrows
+    _F64_BLOCK_ELEMENTS.  No atomics (cuBLAS allows none by default):
+    every run adds in the same order and gives the same bits."""
+    dev = dN.device
+    C, total = dN.shape[0], sum(n_bins)
+    step = max(1, _F64_BLOCK_ELEMENTS // total)
+    order = np.argsort(rows, kind="stable")
+    rows, cols = rows[order], cols[order]
+    at = np.searchsorted(rows, np.arange(0, C + step, step))
+    rows_d = torch.as_tensor(rows, device=dev)
+    cols_d = torch.as_tensor(cols, device=dev)
+    acc = torch.zeros((dN.shape[1], total), dtype=f64, device=dev)
+    for k, c0 in enumerate(range(0, C, step)):
+        hot = torch.zeros((min(step, C - c0), total), dtype=f64, device=dev)
+        hot[rows_d[at[k]:at[k + 1]] - c0, cols_d[at[k]:at[k + 1]]] = 1.0
+        acc += dN[c0:c0 + step].T @ hot
+    return list(torch.split(acc, n_bins, dim=1))
+
+
+def comp_cell_bins(cells: CellArrays, aux: dict, species: SpeciesArrays,
+                   grid: MomentumGridDevice, cfg: Config) -> list[torch.Tensor]:
+    """Kernel B1's per-cell route (2+1d df 1/2): the (S, n_bins) f64 bin
+    sums of the three axes from one launch on the cells some axis bins."""
+    from ..ops import cooper_frye_comp as ck
+    with span("bin"):
+        bins, mask = bin_indices(cells, cfg), cells.mask.cpu().numpy()
+        keep, rows, cols = cell_bin_columns(bins, mask)
+    with span("pack"):
+        ops = cell_rows(kernel_operands(cells, aux, species, grid, cfg),
+                        torch.as_tensor(keep, device=cells.tau.device))
+    w = (grid.pT_weight[:, None] * grid.phi_weight[None, :]).reshape(-1)
+    with span("launch"):
+        dN = ck.cooper_frye_comp_cells(*ops.args(), w.contiguous(), cfg,
+                                       row_len=ops.row_len)
+    with span("bin"):
+        scale = PREFACTOR * species.degeneracy[:, None]
+        return [scale * a
+                for a in bin_cells(dN, rows, cols, [n for _, n in bins])]
+
+
 def compute_dN_dX(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
                   grids: MomentumGrids, df_data: DeltafData, cfg: Config,
                   device, laguerre: GaussLaguerre | None = None,
                   report=None, mesh=None) -> SpacetimeDistributions:
     """Operation 0 on ``device``: the f64 engines for compute_dtype f64
-    and in 3+1d, kernel B1 (df 1/2) or B3 (df 3/4) for f32/f32c in 2+1d;
+    and in 3+1d, kernel B1's per-cell mode (df 1/2) or B3 per bin (df 3/4)
+    for f32/f32c in 2+1d;
     under ``mesh`` (the driver's, parallel/sharding.py::auto_mesh of
     cfg.use_mesh) the same routes with the cells cut over every device of
     the mesh.
@@ -250,6 +321,8 @@ def compute_dN_dX(surf, species_table: SpeciesTable, chosen_idx: np.ndarray,
         acc = meshed(cells, aux, species, grid, cfg, mesh)
     elif f64_route:
         acc = f64_bins(cells, aux, species, grid, cfg)
+    elif cfg.df_mode in (1, 2):
+        acc = comp_cell_bins(cells, aux, species, grid, cfg)
     else:
         acc = kernel_bins(cells, kernel_operands(cells, aux, species, grid,
                                                  cfg), species, grid, cfg)

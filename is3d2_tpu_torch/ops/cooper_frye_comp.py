@@ -6,7 +6,8 @@ of the JAX package's XLA programs _block_fast_3d_comp / _block_fast_3d
 (is3d2_tpu/core/spectra_fast.py:461-582, 3+1d; no Pallas kernel there):
 the CUDA C++ kernels of csrc/cooper_frye_comp.cu (built for sm_90a by
 ops/_build.py, bound with ctypes), and their plain torch versions with the
-same f32c arithmetic.  The 3+1d mode is ``cooper_frye_comp_3d`` (below).
+same f32c arithmetic.  The 3+1d mode is ``cooper_frye_comp_3d``, operation
+0's per-cell mode ``cooper_frye_comp_cells`` (below).
 
 ``cooper_frye_comp`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; ``cooper_frye_comp.launches`` counts kernel
@@ -38,9 +39,10 @@ import dataclasses
 import torch
 
 from ..config import Config
-from .launch_geometry import (H100_SMS, Geometry, Geometry3d, df12_flags,
-                              has_diffusion, launch_geometry_3d,
-                              operand_geometry, over_eta_chunks, row_length)
+from .launch_geometry import (H100_SMS, CellsGeometry, Geometry, Geometry3d,
+                              df12_flags, has_diffusion, launch_geometry_3d,
+                              launch_geometry_cells, operand_geometry,
+                              over_eta_chunks, row_length)
 
 CELL_COLS = ("qx1", "qx2", "qy1", "qy2", "abf", "abl", "Tf",
              "shear", "bulk0", "bulk1", "bulk2", "diff0", "diff1",
@@ -81,6 +83,15 @@ def cooper_frye_comp_plain(cell, qm, eta, eta_w, mom, cfg: Config):
 
 
 def _plain_chunk(cell, qm, eta, eta_w, mom, cfg: Config):
+    out = torch.zeros(mom.shape[1], dtype=torch.float64, device=mom.device)
+    for part in plain_parts(cell, qm, eta, eta_w, mom, cfg):
+        out += part.to(torch.float64).sum(dim=0)
+    return out
+
+
+def plain_parts(cell, qm, eta, eta_w, mom, cfg: Config):
+    """The (cell block, M) f32 eta sums of the kernel's evaluation, cell
+    block by cell block in order."""
     C = cell.shape[0]
     M = mom.shape[1]
     p = dict(zip(MOM_ROWS, mom))
@@ -90,7 +101,6 @@ def _plain_chunk(cell, qm, eta, eta_w, mom, cfg: Config):
     diffusion = has_diffusion(cfg)
     df2 = cfg.df_mode == 2
     w32 = eta_w.to(torch.float32)
-    out = torch.zeros(M, dtype=torch.float64, device=mom.device)
     blk = max(1, min(C, _PLAIN_BLOCK_ELEMENTS // M))
     for c0 in range(0, C, blk):
         q = {name: cell[c0:c0 + blk, i:i + 1]
@@ -163,8 +173,7 @@ def _plain_chunk(cell, qm, eta, eta_w, mom, cfg: Config):
             if cfg.outflow:
                 pdd = torch.where(pdd > 0.0, pdd, 0.0)
             part = part + w32[e] * (pdd * (feq * (1.0 + df)))
-        out += part.to(torch.float64).sum(dim=0)
-    return out
+        yield part
 
 
 def _check(cell, qm, eta, eta_w, mom) -> None:
@@ -242,6 +251,134 @@ def cooper_frye_comp(cell, qm, eta, eta_w, mom, cfg: Config,
 
 cooper_frye_comp.launches = 0
 cooper_frye_comp.last_geometry = None   # of the latest launch
+
+
+# ----------------------------------------------------------------------
+# operation 0's per-cell mode
+# ----------------------------------------------------------------------
+#
+# Op 1's operands (as above, any rows of cells) and the (pT, phi) weights
+#
+#   w     (P,) f64   w_pT w_phi of one species' P momenta (pT, phi)
+#
+# give each cell's dN/dy per species, the (C, S) f64 sums
+# sum_m w[m] sum_eta w_eta (p.dsigma) f over a species' momenta, S = M / P.
+
+@dataclasses.dataclass(frozen=True)
+class CellsTile:
+    """Threads a block and blocks an SM (its __launch_bounds__) of the
+    per-cell mode."""
+
+    threads: int
+    blocks_per_sm: int
+
+    @classmethod
+    def of(cls, lib) -> "CellsTile":
+        """The shape a built library launches (its extern "C" getters)."""
+        return cls(lib.is3d2_cooper_frye_comp_cells_threads(),
+                   lib.is3d2_cooper_frye_comp_cells_blocks_per_sm())
+
+
+# kThreadsC, kMinBlocksC of csrc/cooper_frye_comp.cu: the geometry of a
+# tensor that lies off the card
+TILE_CELLS_MODE = CellsTile(threads=128, blocks_per_sm=4)
+
+
+def cooper_frye_comp_cells_plain(cell, qm, eta, eta_w, mom, w, cfg: Config):
+    """Plain torch version of the per-cell mode: the kernel's f32 eta sums
+    (``plain_parts``, the arithmetic of the op-1 plain version) contracted
+    with the f64 weights in f64, cell block by cell block; eta chunk by
+    chunk, as the wrapper launches.  (C, S) f64; runs on any device."""
+    S = mom.shape[1] // w.shape[0]
+
+    def chunk(e0, e1):
+        parts = [part.to(torch.float64).reshape(part.shape[0], S, -1) @ w
+                 for part in plain_parts(cell, qm[:, e0:e1], eta[e0:e1],
+                                          eta_w[e0:e1], mom, cfg)]
+        return torch.cat(parts) if parts else torch.zeros(
+            (0, S), dtype=torch.float64, device=mom.device)
+    return over_eta_chunks(eta.shape[0], ETA_CHUNK, chunk)
+
+
+def _check_cells(mom, w) -> None:
+    if w.device != mom.device:
+        raise ValueError(f"w is on {w.device}, mom on {mom.device}")
+    if w.dtype != torch.float64 or w.dim() != 1 or not w.is_contiguous():
+        raise ValueError(f"w: expected contiguous float64 (P,), got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    if w.shape[0] < 1 or mom.shape[1] % w.shape[0]:
+        raise ValueError(f"{mom.shape[1]} momenta are no whole number of "
+                         f"species of {w.shape[0]}")
+
+
+def geometry_cells(mom: torch.Tensor, n_cells: int, per_species: int,
+                   tile: CellsTile = TILE_CELLS_MODE,
+                   row_len: int | None = None) -> CellsGeometry:
+    """The per-cell mode's launch geometry; ``row_len`` as in
+    ``geometry`` (read off the rows, a divisor of ``per_species``, where
+    the caller leaves it out)."""
+    if row_len is None:
+        row_len = row_length(mom[_ROW_KEYS], per_species)
+    sms = (torch.cuda.get_device_properties(mom.device).multi_processor_count
+           if mom.device.type == "cuda" else H100_SMS)
+    return launch_geometry_cells(mom.shape[1], per_species, row_len, n_cells,
+                                 TILE_CELLS, tile.blocks_per_sm, sms)
+
+
+def launch_cells(cell, qm, eta, eta_w, mom, w, cfg: Config, g: CellsGeometry,
+                 lib=None) -> torch.Tensor:
+    """Launch the per-cell mode of ``lib`` (default: this package's build)
+    on checked CUDA operands of at most ETA_CHUNK eta nodes with the
+    geometry ``g``: (C, S) f64, a view of the kernel's (S, C) result."""
+    if lib is None:
+        from . import _build
+        lib = _build.load("cooper_frye_comp")
+    fn = lib.is3d2_cooper_frye_comp_cells
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    C = cell.shape[0]
+    out = torch.empty((g.n_species, C), dtype=torch.float64,
+                      device=cell.device)
+    with torch.cuda.device(cell.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cell.data_ptr(), qm.data_ptr(), eta.data_ptr(),
+                 eta_w.data_ptr(), mom.data_ptr(), w.data_ptr(),
+                 out.data_ptr(), C, eta.shape[0], mom.shape[1], g.row_len,
+                 g.per_species, g.n_split, g.cells_per_split,
+                 df12_flags(cfg), stream)
+    if err != 0:
+        raise RuntimeError(f"cooper_frye_comp_cells launch failed: "
+                           f"cudaError {err}")
+    cooper_frye_comp_cells.launches += 1
+    cooper_frye_comp_cells.last_geometry = g
+    return out.T
+
+
+def cooper_frye_comp_cells(cell, qm, eta, eta_w, mom, w, cfg: Config,
+                           row_len: int | None = None) -> torch.Tensor:
+    """Run the per-cell mode on CUDA tensors (its plain version on CPU
+    tensors): each cell's dN/dy per species before PREFACTOR and the
+    degeneracy, (C, S) f64.  ``row_len``: the phi count of the momentum
+    grid, see ``geometry_cells``."""
+    _check(cell, qm, eta, eta_w, mom)
+    _check_cells(mom, w)
+    if cell.device.type == "cpu":
+        return cooper_frye_comp_cells_plain(cell, qm, eta, eta_w, mom, w, cfg)
+    if cell.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cell.device}")
+    from . import _build
+    lib = _build.load("cooper_frye_comp")
+    g = geometry_cells(mom, cell.shape[0], w.shape[0], CellsTile.of(lib),
+                       row_len)
+    return over_eta_chunks(
+        eta.shape[0], ETA_CHUNK,
+        lambda e0, e1: launch_cells(cell, qm[:, e0:e1].contiguous(),
+                                    eta[e0:e1], eta_w[e0:e1], mom, w, cfg, g,
+                                    lib))
+
+
+cooper_frye_comp_cells.launches = 0
+cooper_frye_comp_cells.last_geometry = None   # of the latest launch
 
 
 # ----------------------------------------------------------------------

@@ -19,6 +19,8 @@ give the same bits.
   * ``launch_geometry_3d`` and ``momentum_index_3d``: the same for B1's
     3+1d mode, whose thread owns a tile of phi x y of one (species, pT)
     group, launched with its own threads a block and blocks an SM;
+  * ``launch_geometry_cells``: B1's per-cell mode (operation 0), a block
+    a species on a run of cells;
   * ``over_eta_chunks``: a table of more eta nodes than one launch takes,
     run chunk by chunk;
   * ``df12_flags``: the flag bits that pick the template instantiation of
@@ -144,6 +146,32 @@ def launch_geometry_3d(n_mom: int, row_len: int, n_y: int, n_cells: int,
                                            blocks_per_sm * sm_count)
     return Geometry3d(n_mom, row_len, r, tiles_per_row, blocks, n_split,
                       cells_per_split, tile_cells, n_y, ty, y_tiles, threads)
+
+
+@dataclasses.dataclass(frozen=True)
+class CellsGeometry:
+    """B1's per-cell mode (operation 0): block (s, k) is species s on the
+    k-th run of ``cells_per_split`` cells; the kernel walks the species'
+    register tiles (of ``r`` phi in rows of ``row_len``) in passes of its
+    own block size."""
+
+    n_species: int         # gridDim.x
+    per_species: int       # momenta of one species: whole rows
+    row_len: int
+    n_split: int           # gridDim.y
+    cells_per_split: int
+
+
+def launch_geometry_cells(n_mom: int, per_species: int, row_len: int,
+                          n_cells: int, tile_cells: int, blocks_per_sm: int,
+                          sm_count: int = H100_SMS) -> CellsGeometry:
+    """B1's per-cell mode: one block a species and run of cells, the runs
+    chosen as the op-1 kernels' cell split is, to fill whole waves."""
+    n_species = n_mom // per_species
+    n_split, cells_per_split = split_cells(n_species, n_cells, tile_cells,
+                                           blocks_per_sm * sm_count)
+    return CellsGeometry(n_species, per_species, row_len, n_split,
+                         cells_per_split)
 
 
 def operand_geometry(mom: torch.Tensor, keys: list[int], n_cells: int,

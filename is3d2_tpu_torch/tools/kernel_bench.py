@@ -2,8 +2,9 @@
 call, and count what was compiled.
 
     python -m is3d2_tpu_torch.tools.kernel_bench [--tree NAME=DIR ...]
-        [--only b1,b3,b2,b1_3d,b3_3d,p1,p1_3d,prep] [--tile3d PxYxTxB ...]
-        [--tile3d-b3 PxYxTxB ...] [--tile3d-p1 PxYxTxB ...] [--branches]
+        [--only b1,b3,b2,b1_3d,b3_3d,p1,p1_3d,b1_cells,prep]
+        [--tile3d PxYxTxB ...] [--tile3d-b3 PxYxTxB ...]
+        [--tile3d-p1 PxYxTxB ...] [--tile-cells TxB ...] [--branches]
         [--cells 100000] [--compare-cells 8192] [--f64-species 4]
         [--few-species 3,16] [--out build/kernel_bench.json]
 
@@ -63,6 +64,17 @@ script
     each tree's bits against this tree's printed; ``--tile3d-p1 PxYxTxB``
     (repeatable; TILES_3D_P1) adds a copy of this tree whose 3+1d mode
     launches that tile;
+  * ``b1_cells`` (listed in ``--only``): B1's per-cell mode (operation 0)
+    of every tree that has one on the df-1 f32c operands of a surface of
+    ``--cells`` cells (every live cell, eta folded, as the op-0 route hands
+    it), timed in the order trees, trees reversed, beside this tree's
+    op-1 kernel on the same operands, each with its share of B1's bound
+    and held to this tree's plain version on the first
+    ``--compare-cells`` cells (per (cell, species) in units of the cell's
+    sum of |terms|, kernel_check.cells_scale) and to this tree's result
+    (``race_cells``);
+    ``--tile-cells TxB`` (repeatable; TILES_CELLS) adds a copy of this
+    tree whose per-cell mode launches T threads a block, B blocks an SM;
   * ``prep`` (listed in ``--only``): the df-5 famod prep, whose VAH
     reconstruction is the df-5 path's first cost, of every tree on one
     EOS-consistent surface of ``--cells`` cells (kernel_check.famod_surface),
@@ -346,24 +358,30 @@ TILE_LINE_3D = (r"constexpr int kP3 = \d+, kY3 = \d+, kThreads3 = \d+, "
                 r"kMinBlocks3 = \d+;")
 
 
+def _tree_copy(dst: Path, source: str, pattern: str, line: str) -> Path:
+    """A copy of this tree in ``dst`` whose csrc/``source``.cu has its one
+    line matching ``pattern`` replaced by ``line``."""
+    here = Path(__file__).resolve().parent.parent
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(here, dst / here.name,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = dst / here.name / "csrc" / f"{source}.cu"
+    text, n = re.subn(pattern, line, src.read_text())
+    if n != 1:
+        raise RuntimeError(f"{src}: no single line {pattern!r}")
+    src.write_text(text)
+    return dst
+
+
 def tile_tree(spec: str, root: Path,
               source: str = "cooper_frye_comp") -> Path:
     """A copy of this tree under ``root`` whose 3+1d mode in ``source``
     (B3's: its clean kernel) launches the tile ``spec`` = "PxYxTxB" (see
     TILES_3D); returns the copy's directory."""
     p, y, t, b = (int(v) for v in spec.split("x"))
-    here = Path(__file__).resolve().parent.parent
-    dst = root / f"tile3d_{source}_{spec}"
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(here, dst / here.name,
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    src = dst / here.name / "csrc" / f"{source}.cu"
-    text, n = re.subn(TILE_LINE_3D, f"constexpr int kP3 = {p}, kY3 = {y}, "
-                      f"kThreads3 = {t}, kMinBlocks3 = {b};", src.read_text())
-    if n != 1:
-        raise RuntimeError(f"{src}: no single line {TILE_LINE_3D!r}")
-    src.write_text(text)
-    return dst
+    return _tree_copy(root / f"tile3d_{source}_{spec}", source, TILE_LINE_3D,
+                      f"constexpr int kP3 = {p}, kY3 = {y}, "
+                      f"kThreads3 = {t}, kMinBlocks3 = {b};")
 
 
 def operands(kernel: Kernel, wd: Path):
@@ -828,6 +846,105 @@ def race_prep(packages: dict, wd: Path, n_cells: int) -> dict:
     return record
 
 
+# B1's per-cell mode (operation 0): threads a block x blocks an SM
+# (--tile-cells).  A species of the full grid has 612 register tiles: 640x1
+# pads it to 20 warps in one pass, 128x4, 320x2, 160x3 and 64x8 walk it in
+# passes over the same 640 lanes, 256x2 over 768
+TILES_CELLS = ("128x4", "640x1", "320x2", "160x3", "64x8", "256x2")
+TILE_LINE_CELLS = r"constexpr int kThreadsC = \d+, kMinBlocksC = \d+;"
+# B1's bound: FP32 operations an evaluation (chip_smoke.py's
+# BOUND_OPS_PER_EVALUATION) at the H100's 67e12 FP32 operations a second;
+# its operands' bytes are far below the operations
+B1_BOUND_OPS = 48.75
+PEAK_FP32_OPS = 67e12
+
+
+def cells_tile_tree(spec: str, root: Path) -> Path:
+    """A copy of this tree under ``root`` whose per-cell mode launches
+    ``spec`` = "TxB" (threads a block, blocks an SM; see TILES_CELLS)."""
+    t, b = (int(v) for v in spec.split("x"))
+    return _tree_copy(root / f"cells_{spec}", "cooper_frye_comp",
+                      TILE_LINE_CELLS,
+                      f"constexpr int kThreadsC = {t}, kMinBlocksC = {b};")
+
+
+def race_cells(packages: dict, wd: Path, n_compare: int) -> dict:
+    """Every tree's per-cell mode on the df-1 f32c operands of the
+    workdir's surface (the op-0 route's: every live cell, eta folded),
+    timed twice in mirrored order beside this tree's op-1 kernel on the
+    same operands; each held to this tree's plain version on the first
+    ``n_compare`` cells (per (cell, species)) and to this tree's result
+    at full size; its time against B1's bound."""
+    cfg = Config.from_file(wd / "iS3D_parameters.dat")
+    surf = read_surface(wd / "input/surface.dat", 1, cfg.dimension, False)
+    state = kc.engine_state(wd, cfg, surf, "cuda")
+    ops = comp_operands(*state, cfg)
+    live = torch.nonzero(state[0].mask > 0.0)[:, 0]
+    cell, qm = ops.cell[live].contiguous(), ops.qm[live].contiguous()
+    grid = state[3]
+    w = (grid.pT_weight[:, None] * grid.phi_weight[None, :]).reshape(-1)
+    args = (cell, qm, ops.eta, ops.eta_w, ops.mom, w.contiguous(), cfg)
+    cut = (cell[:n_compare].contiguous(), qm[:n_compare].contiguous(),
+           *args[2:])
+    evaluations = cell.shape[0] * ops.eta.shape[0] * ops.mom.shape[1]
+    bound_ms = B1_BOUND_OPS * evaluations / PEAK_FP32_OPS * 1e3
+    print(f"b1_cells: {cell.shape[0]} live cells x {ops.eta.shape[0]} eta x "
+          f"{ops.mom.shape[1]} momenta = {evaluations:.4g} evaluations; "
+          f"bound {bound_ms:.1f} ms")
+    calls = {}
+    for label, package in packages.items():
+        mod = importlib.import_module(f"{package}.ops.cooper_frye_comp")
+        if not hasattr(mod, "cooper_frye_comp_cells"):
+            print(f"b1_cells {label}: no per-cell mode")
+            continue
+        calls[label] = (functools.partial(mod.cooper_frye_comp_cells,
+                                          row_len=ops.row_len), mod)
+    mine = calls[THIS_TREE][1]
+    ref = mine.cooper_frye_comp_cells_plain(*cut).cpu().numpy()
+    scale = kc.cells_scale(*cut)
+    full = calls[THIS_TREE][0](*args)
+    results = {}
+    for label, (call, mod) in calls.items():
+        out = call(*cut)
+        results[label] = {
+            "geometry": str(mod.cooper_frye_comp_cells.last_geometry),
+            "vs_plain": kc.max_scaled_err(out.cpu().numpy(), ref, scale),
+            "vs_plain_relative": kc.max_rel_err(out.T.cpu().numpy(), ref.T),
+            "repeats": bool(torch.equal(out, call(*cut))),
+            "finite": bool(torch.isfinite(out).all()),
+            "vs_this_tree": kc.max_rel_err(call(*args).T.cpu().numpy(),
+                                           full.T.cpu().numpy()),
+            "ms": []}
+    del full
+    timed = {label: functools.partial(call, *args)
+             for label, (call, _) in calls.items()}
+    timed["op-1 kernel"] = functools.partial(
+        mine.cooper_frye_comp, *args[:5], cfg, row_len=ops.row_len)
+    results["op-1 kernel"] = {"ms": []}
+    timed["op-1 kernel"]()
+    for label in list(timed) + list(reversed(timed)):
+        results[label]["ms"].append(cuda_ms(timed[label]))
+    op1 = min(results["op-1 kernel"]["ms"])
+    for label, r in results.items():
+        ms = min(r["ms"])
+        r.update(bound_ms=bound_ms, bound_pct=100.0 * bound_ms / ms,
+                 evaluations_per_s=evaluations / ms * 1e3)
+        line = (f"b1_cells {label:20s} {r['ms'][0]:9.1f} {r['ms'][1]:9.1f} ms"
+                f"  {ms / op1:.3f}x the op-1 kernel's  bound "
+                f"{r['bound_pct']:.2f} %")
+        if "vs_plain" in r:
+            ok = (r["finite"] and r["repeats"] and r["vs_plain"] <= kc.TOL
+                  and r["vs_this_tree"] <= kc.TOL)
+            line += (f"  vs this tree's plain version {r['vs_plain']:.3e} "
+                     f"of the cells' |terms| ({r['vs_plain_relative']:.3e} "
+                     f"relative), "
+                     f"vs this tree {r['vs_this_tree']:.3e}  repeats "
+                     f"{r['repeats']}  {'ok' if ok else 'MISSES ITS BAR'}  "
+                     f"{r['geometry']}")
+        print(line)
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
@@ -844,6 +961,11 @@ def main(argv=None) -> int:
     ap.add_argument("--tile3d-p1", action="append", default=[],
                     metavar="PxYxTxB",
                     help="the same for P1's 3+1d mode (TILES_3D_P1)")
+    ap.add_argument("--tile-cells", action="append", default=[],
+                    metavar="TxB",
+                    help="a copy of this tree whose per-cell mode (b1_cells)"
+                         " launches T threads a block, B blocks an SM "
+                         "(repeatable; TILES_CELLS lists the raced ones)")
     ap.add_argument("--branches", action="store_true",
                     help="with b3_3d: time its mixed kernel with every cell "
                          "on one branch (race_branches)")
@@ -870,6 +992,8 @@ def main(argv=None) -> int:
     trees += [(f"p1 tile {spec}", tile_tree(spec, Path("build/tile3d"),
                                             "polarization_f32"))
               for spec in a.tile3d_p1]
+    trees += [(f"cells {spec}", cells_tile_tree(spec, Path("build/tile3d")))
+              for spec in a.tile_cells]
     for i, (label, directory) in enumerate(trees):
         packages[label] = load_tree(i, Path(directory)).__name__
     only = a.only.split(",")
@@ -881,6 +1005,9 @@ def main(argv=None) -> int:
               for package in packages.values()}
     if {"p1", "p1_3d"} & set(only):
         builds |= {("polarization_f32", package)
+                   for package in packages.values()}
+    if "b1_cells" in only:
+        builds |= {("cooper_frye_comp", package)
                    for package in packages.values()}
     with concurrent.futures.ThreadPoolExecutor(len(builds) or 1) as pool:
         list(pool.map(lambda mp: importlib.import_module(
@@ -895,14 +1022,16 @@ def main(argv=None) -> int:
                 record["builds"][f"{k.key} clean {label}"] = report_build(
                     f"{k.key} clean [{label}]", k.name + "_clean",
                     k.library(package))
-    for key, name in (("p1", "polarization_f32"),
-                      ("p1_3d", "polarization_f32_3d")):
+    for key, name, source in (
+            ("p1", "polarization_f32", "polarization_f32"),
+            ("p1_3d", "polarization_f32_3d", "polarization_f32"),
+            ("b1_cells", "cooper_frye_comp_cells", "cooper_frye_comp")):
         if key not in only:
             continue
         for label, package in packages.items():
             build = importlib.import_module(f"{package}.ops._build")
             record["builds"][f"{key} {label}"] = report_build(
-                f"{key} [{label}]", name, build.build("polarization_f32")[0],
+                f"{key} [{label}]", name, build.build(source)[0],
                 P1_3D_UNIT if key == "p1_3d" else "MUFU.EX2")
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -976,6 +1105,16 @@ def main(argv=None) -> int:
                        for label, r in record["p1_3d"].items()
                        if not (r["finite"] and r["repeats"] and
                                max(r["vs_plain"]) <= kc.POLZN_TOL_PLAIN)]
+        if "b1_cells" in only:
+            wd = write_workdir(Path(tmp) / "b1_cells", n_cells=a.cells,
+                               params={"df_mode": 1, "compute_dtype": "f32c"})
+            record["b1_cells"] = race_cells(packages, wd, a.compare_cells)
+            failed += [f"b1_cells {label}: misses its bar"
+                       for label, r in record["b1_cells"].items()
+                       if "vs_plain" in r and not (
+                           r["finite"] and r["repeats"]
+                           and r["vs_plain"] <= kc.TOL
+                           and r["vs_this_tree"] <= kc.TOL)]
         if "prep" in only:
             wd = write_workdir(Path(tmp) / "prep", n_cells=16)
             record["prep"] = race_prep(packages, wd, a.cells)

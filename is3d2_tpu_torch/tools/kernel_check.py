@@ -16,10 +16,16 @@ One harness for ``chip_smoke.py`` and ``tests/test_torch_gpu.py``:
     bars against its plain version and the f64 famod engine.
 
 Operation 0 (dN/dX) runs B1 and B3 (its dan-weighted convention) once per
-non-empty bin of each axis: ``check_dX_case`` holds the kernel route to
-the plain versions on the same bins and to the f64 engines' binned
-per-cell sums, normalized, with the same bars; DX_DAN draws the 2+1d
-surface's dsigma_eta, which the spacetime convention weights.
+non-empty bin of each axis: ``check_dX_case`` holds that per-bin kernel
+route to the plain versions on the same bins and to the f64 engines'
+binned per-cell sums, normalized, with the same bars; DX_DAN draws the
+2+1d surface's dsigma_eta, which the spacetime convention weights.  The
+driver's df-1/2 route runs B1's per-cell mode once instead:
+``check_dX_cells_case`` holds its per-cell sums to its plain version
+(TOL per (cell, species) in units of the cell's sum of |terms|,
+``cells_scale``: a cell's terms of either sign cancel), its bins to the
+per-bin kernel route (CELLS_TOL_PER_BIN: the same f32 terms) and to the
+f64 engines (TOL), and runs it twice for the same bits.
 
 Kernel B1's 3+1d mode (df 1/2 on a 3+1d surface): ``check_3d_case`` runs
 the CASES on a make_surface(dimension=3) surface against its plain version
@@ -84,6 +90,7 @@ from ..ops import cooper_frye_comp as ck
 from ..ops import cooper_frye_f32 as b2
 from ..ops import cooper_frye_feqmod as fk
 from ..ops import polarization_f32 as pz
+from ..ops.launch_geometry import over_eta_chunks
 from ..ops.spectra_fast_common import (comp_operands, comp_operands_3d,
                                        f32_operands)
 from .synthetic import add_dsigma_eta, make_eos_consistent, make_surface
@@ -99,6 +106,9 @@ F32_TOL_F64 = 2e-5        # kernel B2 vs the f64 engine (JAX's f32 paths: ~5e-6)
 # and bulk; df 4; df 2; P1 folded), as a pattern of its mangled name
 MAIN_PATH_KERNEL = {
     "cooper_frye_comp": r"cooper_frye_comp_kernelILb1ELb0ELb0ELb0ELb0EE",
+    # op 0's per-cell mode
+    "cooper_frye_comp_cells":
+        r"cooper_frye_comp_kernel_cellsILb1ELb0ELb0ELb0ELb0EE",
     "cooper_frye_feqmod": r"cooper_frye_feqmod_kernelILi4ELb0ELb0ELb0EE",
     "cooper_frye_f32": r"cooper_frye_f32_kernelILb1ELb0ELb0ELb0ELb1EE",
     "polarization_f32": r"polarization_f32_kernelILb1EE",
@@ -773,6 +783,120 @@ def check_dX_case(workdir: str | Path, cfg: Config, n_cells: int, seed: int,
         breakdown_cells(state) if feqmod else 0,
         FEQMOD_TOL_PLAIN if feqmod else TOL,
         FEQMOD_TOL_F64 if feqmod else TOL)
+
+
+# B1's per-cell route against its per-bin route: the same f32 terms (the
+# kernels share their evaluation), added in f64 in another order
+CELLS_TOL_PER_BIN = 1e-12
+
+
+def cells_scale(cell, qm, eta, eta_w, mom, w, cfg: Config) -> np.ndarray:
+    """(C, S): each cell's sum over a species' momenta of w |eta sum of
+    its terms| (the plain version's parts), the scale of a per-cell
+    comparison: a cell's dN/dy adds terms of either sign (p.dsigma), so
+    where they cancel a last place of each term moves the sum by more than
+    its own last places."""
+    S = mom.shape[1] // w.shape[0]
+
+    def chunk(e0, e1):
+        parts = [p.abs().to(torch.float64).reshape(p.shape[0], S, -1) @ w
+                 for p in ck.plain_parts(cell, qm[:, e0:e1], eta[e0:e1],
+                                          eta_w[e0:e1], mom, cfg)]
+        return torch.cat(parts)
+    return over_eta_chunks(eta.shape[0], ck.ETA_CHUNK, chunk).cpu().numpy()
+
+
+def max_scaled_err(out: np.ndarray, ref: np.ndarray,
+                   scale: np.ndarray) -> float:
+    """Max |out - ref| / scale over the (cell, species) entries whose scale
+    is >= FLOOR of the species' largest."""
+    sig = scale >= FLOOR * scale.max(axis=0, keepdims=True)
+    return float((np.abs(out - ref)[sig] / scale[sig]).max())
+
+
+@dataclasses.dataclass
+class DXCellsResult:
+    """Operation 0 through B1's per-cell mode: the (C, S) per-cell sums of
+    the kernel and of its plain version and their scale (cells_scale), and
+    the three axes' normalized bins of the per-cell route, of the per-bin
+    kernel route and of the f64 engines."""
+
+    cells: np.ndarray        # (C, S) kernel
+    cells_plain: np.ndarray  # (C, S) plain version
+    scale: np.ndarray        # (C, S) cells_scale
+    binned: list
+    per_bin: list
+    f64: list
+    launches: int            # per-cell launches of the route
+    repeats: bool            # a second run gave the same bits, per cell
+                             # and binned
+
+    @property
+    def vs_plain(self) -> float:
+        """Per (cell, species), in units of the cell's scale."""
+        return max_scaled_err(self.cells, self.cells_plain, self.scale)
+
+    @property
+    def vs_per_bin(self) -> float:
+        return _axes_err(self.binned, self.per_bin)
+
+    @property
+    def vs_f64(self) -> float:
+        return _axes_err(self.binned, self.f64)
+
+    @property
+    def ok(self) -> bool:
+        return bool(np.isfinite(self.cells).all() and self.repeats
+                    and self.vs_plain <= TOL
+                    and self.vs_per_bin <= CELLS_TOL_PER_BIN
+                    and self.vs_f64 <= TOL)
+
+
+def cells_operands(state, ops, cfg: Config):
+    """(operands, arguments) of B1's per-cell mode as the op-0 route
+    (spacetime.comp_cell_bins) launches it: the rows of ``ops``
+    (spacetime.kernel_operands of ``state``) of the cells that some axis
+    bins, and the wrapper's arguments with the (pT, phi) weights."""
+    cells, grid = state[0], state[3]
+    bins = spacetime.bin_indices(cells, cfg)
+    keep = spacetime.cell_bin_columns(bins, cells.mask.cpu().numpy())[0]
+    kept = spacetime.cell_rows(ops, torch.as_tensor(keep,
+                                                    device=ops.cell.device))
+    w = (grid.pT_weight[:, None] * grid.phi_weight[None, :]).reshape(-1)
+    return kept, (*kept.args(), w.contiguous(), cfg)
+
+
+def check_dX_cells_case(workdir: str | Path, cfg: Config, n_cells: int,
+                        seed: int, device, **surface_kw) -> DXCellsResult:
+    """Operation 0 (df 1/2) on make_surface(n_cells, seed, **surface_kw)
+    with a dsigma_eta (DX_DAN) through B1's per-cell route
+    (spacetime.comp_cell_bins, twice), its per-cell sums against the plain
+    version's, its bins against the per-bin kernel route's and the f64
+    engines'."""
+    surf = add_dsigma_eta(make_surface(n_cells, seed=seed, **surface_kw),
+                          seed, DX_DAN)
+    state = dX_state(workdir, cfg, surf, device)
+    cells = state[0]
+    ops = spacetime.kernel_operands(*state, cfg)
+    kept, args = cells_operands(state, ops, cfg)
+    dN = ck.cooper_frye_comp_cells(*args, row_len=kept.row_len)
+    plain = ck.cooper_frye_comp_cells_plain(*args)
+    before = ck.cooper_frye_comp_cells.launches
+    binned = spacetime.comp_cell_bins(*state, cfg)
+    launches = ck.cooper_frye_comp_cells.launches - before
+    repeats = (torch.equal(dN, ck.cooper_frye_comp_cells(
+                   *args, row_len=kept.row_len))
+               and all(torch.equal(a, b) for a, b in zip(
+                   binned, spacetime.comp_cell_bins(*state, cfg))))
+
+    def norm(acc):
+        return spacetime.distributions(acc, cfg).normalized(cfg)
+
+    return DXCellsResult(
+        dN.cpu().numpy(), plain.cpu().numpy(), cells_scale(*args),
+        norm(binned),
+        norm(spacetime.kernel_bins(cells, ops, *state[2:], cfg)),
+        norm(spacetime.f64_bins(*state, cfg)), launches, repeats)
 
 
 # ----------------------------------------------------------------------

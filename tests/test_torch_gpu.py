@@ -12,6 +12,7 @@ plain version.
 """
 
 import dataclasses
+import hashlib
 import math
 import types
 
@@ -1134,6 +1135,148 @@ def test_b1_on_a_300_cell_bin_slice(workdir):
     S = 8
     assert kc.max_rel_err(out.reshape(S, -1).cpu().numpy(),
                           plain.reshape(S, -1).cpu().numpy()) <= kc.TOL
+
+
+# ----------------------------------------------------------------------
+# operation 0: B1's per-cell mode
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def wide_workdir(tmp_path_factory):
+    """40 pT x 30 phi, 3 species: 320 register tiles a species (rows of 30
+    phi under a tile of 4), more than one block's threads, so that the
+    per-cell mode's block walks them in passes, the last one short."""
+    return write_workdir(tmp_path_factory.mktemp("torch_gpu_wide"),
+                         n_cells=16, chosen_mcids=CHOSEN[:3], n_pT=40,
+                         n_phi=30, n_eta=24, include_baryon=True, n_T=21,
+                         n_muB=9)
+
+
+def _cells_weights(ops, n_species):
+    """f64 weights of one species' momenta (any positive ones serve a
+    comparison with the plain version)."""
+    per = ops.mom.shape[1] // n_species
+    return torch.linspace(0.5, 1.5, per, dtype=torch.float64,
+                          device=ops.mom.device)
+
+
+def _cells_agree(args, n_species):
+    out = ck.cooper_frye_comp_cells(*args)
+    assert out.shape == (args[0].shape[0], n_species)
+    assert torch.equal(out, ck.cooper_frye_comp_cells(*args))   # no atomics
+    plain = ck.cooper_frye_comp_cells_plain(*args)
+    out = out.cpu().numpy()
+    assert np.isfinite(out).all()
+    assert kc.max_scaled_err(out, plain.cpu().numpy(),
+                             kc.cells_scale(*args)) <= kc.TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(kc.CASES))
+def test_dX_per_cell_mode_vs_plain_per_bin_and_f64(workdir, case):
+    """Operation 0 at 2,048 cells with dsigma_eta != 0 through the per-cell
+    route: one launch; per (cell, species) within 1e-6 of the plain
+    version in units of the cell's sum of |terms|; the bins <= 1e-12 of
+    the per-bin kernel route (the same f32 terms) and <= 1e-6 of the f64
+    engines; two runs give the same bits, per cell and binned."""
+    _needs_cuda()
+    fields, surface_kw = kc.CASES[case]
+    cfg = Config(operation=0, compute_dtype="f32c", cell_block=512, **fields)
+    r = kc.check_dX_cells_case(workdir, cfg, 2048, 3, "cuda", **surface_kw)
+    assert r.launches == 1
+    assert r.repeats
+    assert r.ok, (r.vs_plain, r.vs_per_bin, r.vs_f64)
+
+
+@pytest.mark.parametrize("case", ["df1", "df2-clip-outflow",
+                                  "df1-baryon-diffusion"])
+def test_dX_cells_check_plain_on_cpu(workdir, case):
+    """The per-cell check on the CPU: the wrapper takes the plain version
+    (no launch), and its bins meet the per-bin route's and the f64
+    engines' within TOL."""
+    fields, surface_kw = kc.CASES[case]
+    cfg = Config(operation=0, compute_dtype="f32c", cell_block=512, **fields)
+    r = kc.check_dX_cells_case(workdir, cfg, 512, 3, "cpu", **surface_kw)
+    assert r.launches == 0 and r.repeats
+    assert r.vs_plain == 0.0
+    assert r.ok, (r.vs_per_bin, r.vs_f64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", range(32))
+def test_per_cell_mode_every_template_combination(workdir, flags):
+    """Each of the per-cell mode's 32 instantiations launches and agrees
+    with its plain version."""
+    _needs_cuda()
+    shear, diffusion, regulate, outflow, df2 = ((flags >> i) & 1
+                                                for i in range(5))
+    ops, cfg = _b1_operands(
+        workdir, 200, df_mode=2 if df2 else 1, include_shear_deltaf=shear,
+        include_baryon=1, include_baryondiff_deltaf=diffusion,
+        regulate_deltaf=regulate, outflow=outflow)
+    assert df12_flags(cfg) == flags
+    _cells_agree((*ops.args(), _cells_weights(ops, len(CHOSEN)), cfg),
+                 len(CHOSEN))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which,n_pT,n_phi,n_species", [
+    ("ragged", 3, 7, len(CHOSEN)), ("wide", 40, 30, 3)])
+@pytest.mark.parametrize("n_cells", [1, 100, 333])
+def test_per_cell_mode_ragged_rows_and_passes(ragged_workdir, wide_workdir,
+                                              which, n_pT, n_phi, n_species,
+                                              n_cells):
+    """Rows of 7 or 30 phi under a register tile of 4; 6 tiles a species
+    (one pass, most lanes idle) or 320 (passes, the last short); cell
+    counts that fill neither the last 64-cell tile nor the last run."""
+    _needs_cuda()
+    wd = ragged_workdir if which == "ragged" else wide_workdir
+    ops, cfg = _b1_operands(wd)
+    w = _cells_weights(ops, n_species)
+    assert w.shape[0] == n_pT * n_phi
+    g = ck.geometry_cells(ops.mom, n_cells, w.shape[0],
+                          ck.CellsTile.of(_build.load("cooper_frye_comp")))
+    assert (g.row_len, g.per_species) == (n_phi, n_pT * n_phi)
+    _cells_agree((ops.cell[:n_cells].contiguous(),
+                  ops.qm[:n_cells].contiguous(), ops.eta, ops.eta_w, ops.mom,
+                  w, cfg), n_species)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_eta", [1, 33, 80])
+def test_per_cell_mode_eta_counts(workdir, n_eta):
+    """One launch per chunk of at most 32 eta nodes, the chunks added."""
+    _needs_cuda()
+    ops, cfg = _b1_operands(workdir)
+    cell, qm, eta, eta_w, mom, _ = _b1_eta_args(ops, cfg, n_eta)
+    before = ck.cooper_frye_comp_cells.launches
+    _cells_agree((cell, qm, eta, eta_w, mom,
+                  _cells_weights(ops, len(CHOSEN)), cfg), len(CHOSEN))
+    assert ck.cooper_frye_comp_cells.launches - before == 2 * -(-n_eta // 32)
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:24]
+
+
+# The op-1 kernel's (M,) result on _b1_operands(workdir) (df 1 f32c, 512
+# cells), bit for bit: recorded on an NVIDIA H100 80GB HBM3 from the op-1
+# kernel as it was before it shared its evaluation (cell_terms) with the
+# per-cell mode.  The operands' own digest pins down what was run.
+B1_OP1_OPERANDS = "bcb0a0edcc81e8b5ad0efbb8"
+B1_OP1_RESULT = "6556016496545a29a75e6a88"
+
+
+@pytest.mark.gpu
+def test_op1_kernel_bits_unchanged(workdir):
+    _needs_cuda()
+    ops, cfg = _b1_operands(workdir)
+    assert _digest(*ops.args()) == B1_OP1_OPERANDS, \
+        "the operands differ from the recorded set"
+    assert _digest(ck.cooper_frye_comp(*ops.args(), cfg)) == B1_OP1_RESULT
 
 
 @pytest.mark.gpu

@@ -10,7 +10,8 @@ normalized bins of all three axes match the JAX driver's f64 route on bins
     the port's energy is the f64 one, the JAX f32c paths drop part of
     alphaB; held to the JAX f64 route all the same);
   * kernel B3's route (f32) <= 1e-4.
-On the CPU each kernel runs its plain version, one call per non-empty bin.
+On the CPU each kernel runs its plain version: B1's per-cell mode once,
+B3 once per non-empty bin.
 Also: the binning against the JAX package's at bin edges, the writer's
 bytes, df 5's ValueError, the report lines, the mass-sorted order of
 group_particles, and the dan convention (it decides the number only where
